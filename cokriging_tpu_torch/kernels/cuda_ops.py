@@ -1,0 +1,299 @@
+"""Hand-written CUDA kernels of the port and their plain torch versions.
+
+Counterpart of ``cokriging_tpu/kernels/pallas_ops.py``:
+
+- ``variogram_minmax`` and ``variogram_bin`` (``csrc/variogram.cu``) replace
+  ``variogram_bin_pallas``, built to the two-pass contract of
+  ``estimate/empirical.py::_all_pairs_program`` on the distance surrogate h;
+- ``matern_correlation_block`` (``csrc/matern.cu`` + ``csrc/kv.cuh``)
+  replaces ``matern_correlation_pallas``.
+
+Each wrapper runs the plain torch version only for tensors on the CPU. For
+a CUDA tensor it launches its kernel or raises; there is no fallback. Each
+wrapper adds one to its entry of ``LAUNCHES`` per kernel launch, so a run
+can show that its main path went through the kernels.
+"""
+
+import ctypes
+
+import torch
+
+from cokriging_tpu_torch.kernels import _build
+from cokriging_tpu_torch.kernels.bessel import _gam12
+
+#: Kernel launches per wrapper since the last ``reset_launch_counts()``.
+LAUNCHES = {"variogram_minmax": 0, "variogram_bin": 0, "matern_correlation": 0}
+
+_FLOATS = (torch.float32, torch.float64)
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_CT = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+# rows per block of the plain pair pass (bounds its (rows, m) temporaries)
+_PLAIN_PAIR_ELEMS = 1 << 22
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launch_counts() -> dict:
+    return dict(LAUNCHES)
+
+
+def _fn(src, name, argtypes):
+    f = getattr(_build.load(src), name)
+    f.argtypes = argtypes
+    f.restype = ctypes.c_int
+    return f
+
+
+def _check_rc(src, rc, what):
+    if rc != 0:
+        lib = _build.load(src)
+        err = lib.vario_error_string if src == "variogram.cu" else lib.matern_error_string
+        err.argtypes = [_I]
+        err.restype = ctypes.c_char_p
+        raise RuntimeError(f"{what}: CUDA error {rc} ({err(rc).decode()})")
+
+
+def _ptr(t):
+    return _P(t.data_ptr())
+
+
+def _stream(device):
+    return _P(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _check_cuda(name, *tensors):
+    dev = tensors[0].device
+    for t in tensors:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{name}: all tensors must be on one CUDA device")
+        if t.dtype != tensors[0].dtype or t.dtype not in _FLOATS:
+            raise ValueError(f"{name}: tensors must share one float32/float64 dtype")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def _check_features(fa, fb, geodesic, marginal):
+    width = 5 if geodesic else 2
+    if fa.ndim != 2 or fb.ndim != 2 or fa.shape[1] != width or fb.shape[1] != width:
+        raise ValueError(f"point features must be (n, {width}) for geodesic={geodesic}")
+    if marginal and fa.shape[0] != fb.shape[0]:
+        raise ValueError("a marginal pass needs one point set on both sides")
+    if fa.device.type != fb.device.type:
+        raise ValueError("point features must lie on one device")
+
+
+# ---------------------------------------------------------------------------
+# Variogram pair pass
+# ---------------------------------------------------------------------------
+
+
+def h_block(fa, fb, geodesic):
+    """Distance surrogate h for all (row, col) pairs of two feature sets:
+    the same operations, in the same order, as the kernel's ``h_pair``."""
+    if geodesic:
+        x = fa[:, 0:1] * fb[:, 1] - fa[:, 1:2] * fb[:, 0]
+        y = fa[:, 2:3] * fb[:, 3] - fa[:, 3:4] * fb[:, 2]
+        return x * x + (fa[:, 4:5] * fb[:, 4]) * (y * y)
+    dx = fa[:, 0:1] - fb[:, 0]
+    dy = fa[:, 1:2] - fb[:, 1]
+    return dx * dx + dy * dy
+
+
+def _plain_blocks(fa, fb, marginal):
+    """Row blocks of the plain pair pass: (first row, end row, first column,
+    row < col mask or None). Marginal blocks skip the columns left of their
+    first row."""
+    n, m = fa.shape[0], fb.shape[0]
+    rows = max(1, _PLAIN_PAIR_ELEMS // max(m, 1))
+    for r0 in range(0, n, rows):
+        r1 = min(n, r0 + rows)
+        c0 = r0 if marginal else 0
+        ri = torch.arange(r0, r1, device=fa.device)[:, None]
+        ci = torch.arange(c0, m, device=fa.device)[None, :]
+        yield r0, r1, c0, (ri < ci) if marginal else None
+
+
+def variogram_minmax_plain(fa, fb, marginal, geodesic, h_max, h_snap):
+    """Plain torch pass 1: tensor [min of h over valid pairs with h > h_snap,
+    max of h over valid pairs] (inf / -inf when there is none)."""
+    _check_features(fa, fb, geodesic, marginal)
+    hmin = torch.tensor(torch.inf, dtype=fa.dtype, device=fa.device)
+    hmax = torch.tensor(-torch.inf, dtype=fa.dtype, device=fa.device)
+    for r0, r1, c0, tri in _plain_blocks(fa, fb, marginal):
+        h = h_block(fa[r0:r1], fb[c0:], geodesic)
+        valid = h <= h_max
+        if tri is not None:
+            valid = valid & tri
+        hmin = torch.minimum(hmin, torch.where(valid & (h > h_snap), h, torch.inf).min())
+        hmax = torch.maximum(hmax, torch.where(valid, h, -torch.inf).max())
+    return torch.stack([hmin, hmax])
+
+
+def variogram_bin_plain(fa, fb, va, vb, h_edges, marginal, geodesic, covariogram, h_max):
+    """Plain torch pass 2: per-bin cloud sums (float64) and pair counts
+    (int64), bin = #(h_edges < h) - 1 clipped."""
+    _check_features(fa, fb, geodesic, marginal)
+    n_bins = h_edges.shape[0] - 1
+    sums = torch.zeros(n_bins + 1, dtype=torch.float64, device=fa.device)
+    counts = torch.zeros(n_bins + 1, dtype=torch.int64, device=fa.device)
+    for r0, r1, c0, tri in _plain_blocks(fa, fb, marginal):
+        h = h_block(fa[r0:r1], fb[c0:], geodesic)
+        a, b = va[r0:r1, None], vb[None, c0:]
+        if covariogram:
+            cloud = a * b
+        else:
+            diff = a - b
+            cloud = 0.5 * diff * diff
+        valid = h <= h_max
+        if tri is not None:
+            valid = valid & tri
+        idx = torch.clamp(torch.searchsorted(h_edges, h, side="left") - 1, 0, n_bins - 1)
+        idx = torch.where(valid, idx, n_bins).reshape(-1)  # slot n_bins: dropped
+        sums += torch.bincount(idx, weights=cloud.reshape(-1).double(), minlength=n_bins + 1)
+        counts += torch.bincount(idx, minlength=n_bins + 1)
+    return sums[:n_bins], counts[:n_bins]
+
+
+def variogram_minmax(fa, fb, marginal, geodesic, h_max, h_snap):
+    """Pass 1 of the pair stream over point features ``fa`` (n, F) and
+    ``fb`` (m, F): tensor [hmin, hmax] (see ``variogram_minmax_plain``).
+    CUDA tensors run ``csrc/variogram.cu``; CPU tensors the plain version."""
+    if fa.device.type == "cpu":
+        return variogram_minmax_plain(fa, fb, marginal, geodesic, h_max, h_snap)
+    _check_cuda("variogram_minmax", fa, fb)
+    _check_features(fa, fb, geodesic, marginal)
+    n, m = fa.shape[0], fb.shape[0]
+    out = torch.full((2,), torch.inf, dtype=fa.dtype, device=fa.device)
+    out[1] = -torch.inf
+    if n == 0 or m == 0:
+        return out
+    T = _CT[fa.dtype]
+    sfx = _SUFFIX[fa.dtype]
+    n_tiles = _num_tiles(n, m, marginal)
+    part_min = torch.empty(n_tiles, dtype=fa.dtype, device=fa.device)
+    part_max = torch.empty(n_tiles, dtype=fa.dtype, device=fa.device)
+    f = _fn("variogram.cu", f"vario_minmax_{sfx}",
+            [_P, _P, _I, _I, _I, _I, T, T, _P, _P, _P, _P])
+    with torch.cuda.device(fa.device):
+        rc = f(_ptr(fa), _ptr(fb), n, m, int(geodesic), int(marginal),
+               T(float(h_max)), T(float(h_snap)), _ptr(part_min), _ptr(part_max),
+               _ptr(out), _stream(fa.device))
+    _check_rc("variogram.cu", rc, "variogram_minmax")
+    LAUNCHES["variogram_minmax"] += 1
+    return out
+
+
+def variogram_bin(fa, fb, va, vb, h_edges, marginal, geodesic, covariogram, h_max):
+    """Pass 2 of the pair stream: (sums float64, counts int64) per bin over
+    the cloud of values ``va`` (n,) and ``vb`` (m,) (see
+    ``variogram_bin_plain``). CUDA tensors run ``csrc/variogram.cu``; CPU
+    tensors the plain version."""
+    if fa.device.type == "cpu":
+        return variogram_bin_plain(
+            fa, fb, va, vb, h_edges, marginal, geodesic, covariogram, h_max
+        )
+    _check_cuda("variogram_bin", fa, fb, va, vb, h_edges)
+    _check_features(fa, fb, geodesic, marginal)
+    n, m = fa.shape[0], fb.shape[0]
+    n_bins = h_edges.shape[0] - 1
+    if va.shape != (n,) or vb.shape != (m,) or h_edges.ndim != 1:
+        raise ValueError("variogram_bin: values must be (n,), (m,) and edges 1-D")
+    if not 1 <= n_bins <= _max_bins():
+        raise ValueError(f"variogram_bin: 1..{_max_bins()} bins on the card, got {n_bins}")
+    sums = torch.zeros(n_bins, dtype=torch.float64, device=fa.device)
+    counts = torch.zeros(n_bins, dtype=torch.int64, device=fa.device)
+    if n == 0 or m == 0:
+        return sums, counts
+    T = _CT[fa.dtype]
+    sfx = _SUFFIX[fa.dtype]
+    n_tiles = _num_tiles(n, m, marginal)
+    part_sums = torch.empty(n_tiles * n_bins, dtype=torch.float64, device=fa.device)
+    part_counts = torch.empty(n_tiles * n_bins, dtype=torch.int64, device=fa.device)
+    f = _fn("variogram.cu", f"vario_bin_{sfx}",
+            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, T, _P, _P, _P, _P, _P])
+    with torch.cuda.device(fa.device):
+        rc = f(_ptr(fa), _ptr(fb), _ptr(va), _ptr(vb), _ptr(h_edges), n_bins, n, m,
+               int(geodesic), int(marginal), int(covariogram), T(float(h_max)),
+               _ptr(part_sums), _ptr(part_counts), _ptr(sums), _ptr(counts),
+               _stream(fa.device))
+    _check_rc("variogram.cu", rc, "variogram_bin")
+    LAUNCHES["variogram_bin"] += 1
+    return sums, counts
+
+
+def _num_tiles(n, m, marginal) -> int:
+    f = getattr(_build.load("variogram.cu"), "vario_num_tiles")
+    f.argtypes = [_I, _I, _I]
+    f.restype = ctypes.c_longlong
+    return int(f(n, m, int(marginal)))
+
+
+def _max_bins() -> int:
+    f = getattr(_build.load("variogram.cu"), "vario_max_bins")
+    f.argtypes = []
+    f.restype = ctypes.c_int
+    return int(f())
+
+
+# ---------------------------------------------------------------------------
+# Matern correlation
+# ---------------------------------------------------------------------------
+
+
+def matern_constants(nu, len_scale, dtype):
+    """Host scalars of one Matern block in ``dtype``, computed with the same
+    torch functions as the plain path: (nu, ls, sqrt(2 nu), mu, nl, gam1,
+    gam2, 1/Gamma(1+mu), 1/Gamma(1-mu), lgamma(nu))."""
+    nu_t = torch.tensor(float(nu), dtype=dtype)
+    ls_t = torch.tensor(float(len_scale), dtype=dtype)
+    nu_abs = torch.abs(nu_t)
+    nl = torch.floor(nu_abs + 0.5)
+    mu = nu_abs - nl
+    gam = _gam12(mu)
+    return (
+        nu_t.item(), ls_t.item(), torch.sqrt(2.0 * nu_t).item(), mu.item(),
+        int(nl.item()), *(g.item() for g in gam), torch.lgamma(nu_t).item(),
+    )
+
+
+def matern_correlation_block_plain(nu, len_scale, h, symmetric=False):
+    """Plain torch Matern correlation of a distance block: the elementwise
+    ``cov.matern.matern_correlation`` applied to every entry (``symmetric``
+    changes nothing in the result)."""
+    from cokriging_tpu_torch.cov.matern import matern_correlation
+
+    return matern_correlation(nu, len_scale, h)
+
+
+def matern_correlation_block(nu, len_scale, h, symmetric=False):
+    """Matern correlation M(nu, len_scale, h) of a 2-D distance block.
+
+    ``symmetric=True`` (square symmetric h) evaluates the lower triangle and
+    mirrors it. CUDA tensors run ``csrc/matern.cu`` (forward only); CPU
+    tensors the plain version."""
+    if h.device.type == "cpu":
+        return matern_correlation_block_plain(nu, len_scale, h, symmetric)
+    _check_cuda("matern_correlation_block", h)
+    if h.ndim != 2 or (symmetric and h.shape[0] != h.shape[1]):
+        raise ValueError("matern_correlation_block: h must be 2-D (square if symmetric)")
+    n, m = h.shape
+    out = torch.empty_like(h)
+    if n == 0 or m == 0:
+        return out
+    T = _CT[h.dtype]
+    c = matern_constants(nu, len_scale, h.dtype)
+    f = _fn("matern.cu", f"matern_{_SUFFIX[h.dtype]}",
+            [_P, _P, _I, _I, _I, T, T, T, T, _I, T, T, T, T, T, _P])
+    with torch.cuda.device(h.device):
+        rc = f(_ptr(h), _ptr(out), n, m, int(symmetric),
+               T(c[0]), T(c[1]), T(c[2]), T(c[3]), c[4],
+               T(c[5]), T(c[6]), T(c[7]), T(c[8]), T(c[9]), _stream(h.device))
+    _check_rc("matern.cu", rc, "matern_correlation_block")
+    LAUNCHES["matern_correlation"] += 1
+    return out
