@@ -12,11 +12,17 @@ Phases, in order; any failure exits nonzero without the final ok line:
     and print the build time and the ptxas register/spill lines;
 (c) every kernel against its plain torch version on the card, in float32 and
     float64, at the main path's shapes: the variogram passes at 3 pairs x
-    12,500 points x 15 bins (counts and h range exact, means rtol 1e-5 /
-    1e-12) and the Matern kernel at the 256 x 256 joint blocks, a 4096^2
-    symmetric block and nu in {0.5, 1.5, 2.7} (atol 5e-6 / 1e-12); then the
-    whole path at 400 points per process on the card against the same code
-    on the CPU (float64, fitted parameters rtol 1e-6, predictions atol 1e-6);
+    12,500 points x 15 bins and one pair at 40 bins (counts and h range
+    exact, means rtol 1e-5 / 1e-12), the Matern kernel at the 256 x 256
+    joint blocks, a 4096^2 symmetric block and nu in {0.5, 1.5, 2.7} (atol
+    5e-6 / 1e-12), and the Matern block-gradient kernel at a ragged 300 x 517
+    block and a 4096^2 symmetric block with an asymmetric cotangent, nu in
+    {0.3, 0.5, 1.5, 2.7} (each of its four sums within 1e-5 / 1e-12 of the
+    sum of |terms|; symmetric == full). Then the whole paths at 400 points
+    per process on the card against the same code on the CPU in float64:
+    fit + local prediction (fitted parameters rtol 1e-6, predictions atol
+    1e-6), the exact NLL (value rtol 1e-10, gradient rtol 1e-7 / atol 1e-10,
+    analytic against plain-AD branch) and the joint predictor (atol 1e-8);
 (d) the main path at the benchmark's size (bench.py's workload: 2 x 12,500
     synthetic CONUS observations, variograms, a 600-step Adam WLS fit from
     the moment initializer, local cokriging at every 0.5-degree land cell),
@@ -27,8 +33,25 @@ Phases, in order; any failure exits nonzero without the final ok line:
     the fitted joint covariance is positive definite; in any case > 99%
     finite for the same month with rho = 0, see ``check_predictions``);
 (e) kernel timing with CUDA events at the path's shapes beside the plain
-    versions (and the Matern kernel at one 12,500^2 symmetric block), printed
-    as one ``{"kernels": [...]}`` line with each kernel's bound.
+    versions (and the Matern kernel at one 12,500^2 symmetric block, held
+    against its plain version there too), printed as one ``{"kernels":
+    [...]}`` line with each kernel's bound, one row per kernel and path;
+(f) the exact-likelihood path at the same size (bench.py's second axis:
+    2 x 12,500 observations, default parameters with all length scales 700
+    km, measurement variances 0, jitter 1e-6), float32 then float64: a
+    warm-up and three timed NLL value+gradient evaluations with the launch
+    counts set to 0 just before and read just after (3 Matern and 3
+    block-gradient launches per evaluation), the penalty semantics where
+    that point is not positive definite, a point with nuggets 0.1 where it
+    is (finite value, nonzero gradient, a central-difference directional
+    check in float64), the stage times, both kernels of the evaluation
+    against their plain versions at its own three 12,500^2 blocks (symmetric,
+    full, symmetric) and cotangent (the bars of phase (c)), timed there for
+    this path's rows of the kernels line, then a maximum-likelihood fit on the
+    stride-5 subsample and joint prediction at every land cell with the
+    fitted parameters; the joint predictor on all 2 x 12,500 observations in
+    float64 runs once, its finite share printed. Phase (f) runs before the
+    kernels line is printed, so its rows carry its counts.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -59,6 +82,12 @@ MATERN_OPS = {"prefactor": 14, "series_setup": 30, "series_trip": 18,
               "cf2_setup": 22, "cf2_trip": 28, "recurrence_step": 4}
 SERIES_TRIPS = {"float32": 12, "float64": 40}
 CF2_TRIPS = {"float32": 18, "float64": 80}
+# The same for the block-gradient kernel (csrc/matern_grad.cu, the Dual<T>
+# operators of csrc/kv.cuh: a dual add is 2 operations, a dual product or
+# quotient 4, a dual-by-scalar product 2): the entry's own arithmetic, the
+# dual series and CF2, the dual recurrence step and the step to K_{nu+-1}.
+MATERN_GRAD_OPS = {"prefactor": 45 + 5, "series_setup": 78, "series_trip": 36,
+                   "cf2_setup": 39, "cf2_trip": 61, "recurrence_step": 9}
 # Operations per pair of the variogram passes (csrc/variogram.cu): the
 # geodesic h is 11, the h_max test 1, row < col 1; the min/max updates 3;
 # a binned pair adds 2 per edge compare, 3 for the cloud and 2 to accumulate.
@@ -178,10 +207,11 @@ def run_pipeline(c1, v1, c2, v2, pred_coords, dtype, device, maxiter=MAXITER,
 # --- phase helpers ---------------------------------------------------------
 
 
-def cuda_time_ms(fn, reps):
+def cuda_time_ms(fn, reps, warm=True):
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -191,6 +221,14 @@ def cuda_time_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def keep(store, key, fn):
+    """``fn`` as a thunk that also leaves its result in ``store[key]``, so a
+    timed call's output can be compared afterwards."""
+    def run():
+        store[key] = fn()
+    return run
 
 
 def variogram_case(c1, v1, c2, v2, dtype, device):
@@ -239,9 +277,21 @@ def phase_c_variogram(c1, v1, c2, v2, dtype, results):
         rel = float(np.max(np.abs(m_k - m_p) / np.maximum(np.abs(m_p), 1e-300)))
         check(rel <= rtol, f"variogram_bin {name} pair {(i, j)} means rel err {rel}")
         err_mean = max(err_mean, float(np.max(np.abs(m_k - m_p))))
+    # more bins than the kernel's histogram holds: two pair passes
+    mm = K.variogram_minmax(feats[0], feats[1], False, True, h_max, h_snap).cpu().numpy()
+    _, h_edges = E._device_bins(mm[0], mm[1], True, np.dtype(dtype).type(snap), 40, np.dtype(dtype))
+    he = torch.as_tensor(h_edges, device="cuda")
+    before = K.launch_counts()["variogram_bin"]
+    s_k, n_k = K.variogram_bin(feats[0], feats[1], vals[0], vals[1], he, False, True, False, h_max)
+    s_p, n_p = K.variogram_bin_plain(feats[0], feats[1], vals[0], vals[1], he, False, True, False, h_max)
+    check(K.launch_counts()["variogram_bin"] == before + 2, "40 bins must take two pair passes")
+    check(n_k.shape == (40,) and torch.equal(n_k, n_p), f"variogram_bin {name} 40 bins: counts differ")
+    rel40 = float(((s_k - s_p).abs() / s_p.abs().clamp_min(1e-300)).max())
+    check(rel40 <= rtol, f"variogram_bin {name} 40 bins: sums rel err {rel40}")
     results[f"variogram_minmax_{name}"] = {"max_abs_err": 0.0}  # checked equal
     results[f"variogram_bin_{name}"] = {"max_abs_err": err_mean}
-    log(f"(c) variogram {name}: minmax exact, counts exact, means max abs err {err_mean:.3e}")
+    log(f"(c) variogram {name}: minmax exact, counts exact, means max abs err {err_mean:.3e}; "
+        f"40 bins: counts exact, sums rel err {rel40:.3e}")
 
 
 def matern_blocks(c1, c2, dtype):
@@ -308,6 +358,108 @@ def phase_c_small_path():
                     np.max(np.abs(o_gpu.pred_err[ok] - o_cpu.pred_err[ok]))))
     check(err <= 1e-6, f"small path: prediction abs err {err}")
     log(f"(c) small path card vs CPU f64: params rel err {rel:.3e}, predictions abs err {err:.3e}")
+
+
+def phase_c_block_grad(c1, c2, dtype, results):
+    """``matern_block_grad`` against its plain version: every one of the four
+    sums within tol * (the same sum over absolute values)."""
+    import torch
+
+    from cokriging_tpu_torch.kernels import cuda_ops as K
+    from cokriging_tpu_torch.kernels.distance import haversine_matrix
+
+    name = np.dtype(dtype).name
+    td = getattr(torch, name)
+    tol = 1e-5 if name == "float32" else 1e-12
+    a = torch.as_tensor(c1[:300], dtype=td, device="cuda")
+    b = torch.as_tensor(np.concatenate([c1[:7], c2[:510]]), dtype=td, device="cuda")
+    ragged = haversine_matrix(a, b)  # 300 x 517 with 7 exact zeros
+    check(int((ragged == 0).sum()) == 7, "ragged block must hold exact zeros")
+    _, big = matern_blocks(c1, c2, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst_abs = worst_rel = 0.0
+    n_cases = 0
+    for nu, ls in ((0.3, 300.0), (0.5, 300.0), (1.5, 800.0), (2.7, 1500.0)):
+        for h, sym in ((ragged, False), (big, True)):
+            x = math.sqrt(2 * nu) * h / ls
+            check(bool((x < 2).any()) and bool((x >= 2).any()), "case must span x = 2")
+            ct = torch.randn(h.shape, dtype=td, device="cuda", generator=gen)  # asymmetric
+            got = K.matern_block_grad(1.7, 0.05, nu, ls, h, ct, symmetric=sym)
+            ref = K.matern_block_grad_plain(1.7, 0.05, nu, ls, h, ct, symmetric=sym)
+            mag = K.matern_block_grad_plain(1.7, 0.05, nu, ls, h, ct, symmetric=sym, absolute=True)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), f"block grad {name} nu={nu}: not finite")
+            pairs = [("plain", ref)]
+            if sym:
+                pairs.append(("full", K.matern_block_grad(1.7, 0.05, nu, ls, h, ct)))
+                check(torch.equal(got, K.matern_block_grad(1.7, 0.05, nu, ls, h, ct, symmetric=True)),
+                      f"block grad {name} nu={nu}: sums differ from run to run")
+            for what, other in pairs:
+                rel = float(((got - other).abs() / mag).max())
+                check(rel <= tol, f"block grad {name} nu={nu} sym={sym} {tuple(h.shape)} vs {what}: "
+                      f"{got.tolist()} vs {other.tolist()}, |terms| {mag.tolist()}")
+                worst_rel = max(worst_rel, rel)
+                worst_abs = max(worst_abs, float((got - other).abs().max()))
+            n_cases += 1
+    results[f"matern_block_grad_{name}"] = {"max_abs_err": worst_abs, "max_err": worst_rel}
+    log(f"(c) block grad {name}: {n_cases} blocks, worst |kernel - plain| / sum|terms| "
+        f"{worst_rel:.3e} (bar {tol}), worst abs {worst_abs:.3e}")
+
+
+def phase_c_small_nll():
+    """The exact-likelihood path at 2 x 400 points on the card against the
+    same code on the CPU, float64: NLL value and gradient (analytic branch
+    both sides), analytic against plain-AD branch on the card, and the joint
+    predictor."""
+    import torch
+
+    from cokriging_tpu_torch.cov.matern import MultivariateMatern
+    from cokriging_tpu_torch.cov.params import MaternParams
+    from cokriging_tpu_torch.data.grids import prediction_coords
+    from cokriging_tpu_torch.estimate.nll import joint_distance_blocks, neg_log_likelihood
+    from cokriging_tpu_torch.fields.field import Field, MultiField
+    from cokriging_tpu_torch.kernels import cuda_ops as K
+    from cokriging_tpu_torch.predict.joint import JointPredictor
+
+    c1, v1, c2, v2 = build_inputs(400, np.float64)
+    flat = np.array([1.0, 1.0, 1.4, 1.3, 1.2, 500.0, 450.0, 550.0, 0.05, 0.04, -0.3])
+    spec = MaternParams.default(2).spec
+
+    def value_and_grad(device, analytic):
+        coords = [torch.as_tensor(c, device=device) for c in (c1, c2)]
+        dists = joint_distance_blocks(coords, geodesic=True)
+        z = torch.as_tensor(np.concatenate([v1, v2]), device=device)
+        x = torch.tensor(flat, device=device, requires_grad=True)
+        v = neg_log_likelihood(x, dists, z, spec, None, 1e-8, analytic_grad=analytic)
+        (g,) = torch.autograd.grad(v, x)
+        return v.item(), g.cpu().numpy()
+
+    K.reset_launch_counts()
+    v_gpu, g_gpu = value_and_grad("cuda", True)
+    counts = K.launch_counts()
+    check(counts["matern_correlation"] == 3 and counts["matern_block_grad"] == 3,
+          f"small NLL: launches {counts}")
+    v_ad, g_ad = value_and_grad("cuda", False)
+    v_cpu, g_cpu = value_and_grad("cpu", True)
+    check(abs(v_gpu - v_cpu) <= 1e-10 * abs(v_cpu), f"small NLL: value {v_gpu} vs CPU {v_cpu}")
+    check(np.allclose(g_gpu, g_cpu, rtol=1e-7, atol=1e-10), f"small NLL: gradient {g_gpu} vs CPU {g_cpu}")
+    check(abs(v_gpu - v_ad) <= 1e-10 * abs(v_ad) and np.allclose(g_gpu, g_ad, rtol=1e-7, atol=1e-10),
+          f"small NLL: analytic {g_gpu} vs plain AD {g_ad} on the card")
+    log(f"(c) small NLL card vs CPU f64: value {v_gpu:.12g}, rel err {abs(v_gpu - v_cpu) / abs(v_cpu):.3e}; "
+        f"gradient max rel err {float(np.max(np.abs(g_gpu - g_cpu) / np.abs(g_cpu))):.3e}; "
+        f"analytic vs plain AD on the card {float(np.max(np.abs(g_gpu - g_ad) / np.abs(g_ad))):.3e}")
+
+    fields = [Field.from_arrays(c1, v1, "Z0"), Field.from_arrays(c2, v2, "Z1")]
+    for f in fields:
+        f.geodesic = True
+    mod = MultivariateMatern(params=MaternParams.from_flat(torch.as_tensor(flat)))
+    pc = prediction_coords()[::10]
+    out = {dev: JointPredictor(mod, MultiField(fields=fields), device=dev)(0, pc)
+           for dev in ("cuda", "cpu")}
+    err = float(max(np.max(np.abs(out["cuda"].pred - out["cpu"].pred)),
+                    np.max(np.abs(out["cuda"].pred_err - out["cpu"].pred_err))))
+    check(np.isfinite(out["cpu"].pred).all() and err <= 1e-8, f"small joint prediction: abs err {err}")
+    log(f"(c) small joint prediction card vs CPU f64: {len(pc)} cells, abs err {err:.3e}")
 
 
 def check_predictions(lp, out, pc, name):
@@ -377,30 +529,48 @@ def cf2_trips(mu, x, dtype):
     return trips
 
 
-def matern_bound(h, nu, ls, symmetric):
-    """Least time for one Matern block: max(bytes / HBM rate, operations /
-    peak rate) over the entries this block's data needs."""
+def matern_bound(h, nu, ls, symmetric, grad=False):
+    """Least times for one Matern block (``grad``: for its block gradient):
+    (bytes / HBM rate, operations / peak rate) in ms over the entries this
+    block's data needs, counted in row chunks; ``bound_of`` combines them."""
     import torch
 
     name = str(h.dtype).replace("torch.", "")
-    mask = h > 0
-    if symmetric:
-        mask &= torch.ones_like(mask).tril()
-    n_entries = h.shape[0] * (h.shape[0] + 1) // 2 if symmetric else h.numel()
-    pos = h[mask]
-    x = math.sqrt(2 * nu) * pos / ls
+    o = MATERN_GRAD_OPS if grad else MATERN_OPS
     nl = math.floor(abs(nu) + 0.5)
     mu = abs(nu) - nl
-    o = MATERN_OPS
-    series = int((x < 2).sum())
-    cf2_x = x[x >= 2]
-    trips = int(cf2_trips(torch.full_like(cf2_x, mu), cf2_x, h.dtype).sum()) if cf2_x.numel() else 0
-    ops = (pos.numel() * (o["prefactor"] + nl * o["recurrence_step"])
-           + series * (o["series_setup"] + SERIES_TRIPS[name] * o["series_trip"])
-           + cf2_x.numel() * o["cf2_setup"] + trips * o["cf2_trip"])
-    nbytes = (n_entries + h.numel()) * h.element_size()
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S[name] * 1e3
+    steps = max(nl - 1, 0) if grad else nl  # the gradient stops one order short
+    n, m = h.shape
+    n_pos = n_series = n_cf2 = trips = 0
+    rows = max(1, (1 << 24) // m)
+    for r0 in range(0, n, rows):
+        hc = h[r0:r0 + rows]
+        mask = hc > 0
+        if symmetric:
+            ri = torch.arange(r0, r0 + hc.shape[0], device=h.device)[:, None]
+            mask &= torch.arange(m, device=h.device)[None, :] <= ri
+        x = math.sqrt(2 * nu) * hc[mask] / ls
+        cf2_x = x[x >= 2]
+        n_pos += x.numel()
+        n_series += x.numel() - cf2_x.numel()
+        n_cf2 += cf2_x.numel()
+        if cf2_x.numel():
+            trips += int(cf2_trips(torch.full_like(cf2_x, mu), cf2_x, h.dtype).sum())
+    ops = (n_pos * (o["prefactor"] + steps * o["recurrence_step"])
+           + n_series * (o["series_setup"] + SERIES_TRIPS[name] * o["series_trip"])
+           + n_cf2 * o["cf2_setup"] + trips * o["cf2_trip"])
+    n_entries = n * (n + 1) // 2 if symmetric else h.numel()
+    # forward: h read where evaluated, the block written; gradient: h read
+    # where evaluated, the cotangent read whole, four doubles written
+    nbytes = (n_entries + h.numel()) * h.element_size() + (32 if grad else 0)
+    return nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[name] * 1e3
+
+
+def bound_of(blocks):
+    """``(bound_ms, bound_by)`` of the blocks launched together: the larger of
+    their summed byte times and their summed operation times."""
+    t_bytes = sum(b[0] for b in blocks)
+    t_ops = sum(b[1] for b in blocks)
     return (t_bytes, "bytes") if t_bytes > t_ops else (t_ops, "operations")
 
 
@@ -463,7 +633,7 @@ def phase_e(c1, v1, c2, v2, dtype, launches, results):
     def jm(fn):
         return lambda: [fn(nu, ls, h, symmetric=s) for h, s in joint]
 
-    bounds = [matern_bound(h, nu, ls, s) for h, s in joint]
+    bound_ms, bound_by = bound_of([matern_bound(h, nu, ls, s) for h, s in joint])
     rows.append(dict(
         name=f"matern_correlation_{name}", route="cuda",
         source="cokriging_tpu_torch/kernels/csrc/matern.cu",
@@ -471,26 +641,259 @@ def phase_e(c1, v1, c2, v2, dtype, launches, results):
         launches=launches["matern_correlation"],
         ms=cuda_time_ms(jm(K.matern_correlation_block), 50),
         plain_ms=cuda_time_ms(jm(K.matern_correlation_block_plain), 5),
-        bound_ms=sum(b[0] for b in bounds), bound_by=bounds[0][1],
-        library_ms=None, shape="joint blocks 256^2 sym + 256^2 + 256^2 sym",
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        path="(d) fit + local prediction", shape="joint blocks 256^2 sym + 256^2 + 256^2 sym",
     ))
     for r in rows:
         r.update(max_abs_err=results[r["name"]]["max_abs_err"])
         r["max_err"] = r["max_abs_err"]
-    # next slice's shape: one 12,500^2 symmetric block
+    # the likelihood path's shape: one 12,500^2 symmetric block
     big_c = torch.as_tensor(c1, dtype=getattr(torch, name), device="cuda")
     from cokriging_tpu_torch.kernels.distance import haversine_matrix
 
     hb = haversine_matrix(big_c, big_c)
+    kept = {}
     big = dict(
         shape="12500^2 symmetric", dtype=name,
-        ms=cuda_time_ms(lambda: K.matern_correlation_block(nu, ls, hb, symmetric=True), 3),
-        plain_ms=cuda_time_ms(lambda: K.matern_correlation_block_plain(nu, ls, hb), 1),
+        ms=cuda_time_ms(keep(kept, "kernel", lambda: K.matern_correlation_block(nu, ls, hb, symmetric=True)), 3),
+        plain_ms=cuda_time_ms(keep(kept, "plain", lambda: K.matern_correlation_block_plain(nu, ls, hb)), 1),
     )
-    big["bound_ms"], big["bound_by"] = matern_bound(hb, nu, ls, True)
-    del hb
+    big["max_abs_err"] = float((kept["kernel"] - kept["plain"]).abs().max())
+    atol = 5e-6 if name == "float32" else 1e-12
+    check(big["max_abs_err"] <= atol and bool(torch.isfinite(kept["kernel"]).all()),
+          f"(e) matern {name} 12,500^2 symmetric: err {big['max_abs_err']} (bar {atol})")
+    big["bound_ms"], big["bound_by"] = bound_of([matern_bound(hb, nu, ls, True)])
+    del hb, kept
     torch.cuda.empty_cache()
     return rows, big
+
+
+def phase_f(dtype, pc, results):
+    """The exact-likelihood path at bench size in one dtype; returns its
+    rows of the kernels line (the Matern forward and the block gradient at
+    this path's blocks)."""
+    import warnings
+
+    import torch
+
+    from cokriging_tpu_torch.cov.matern import MultivariateMatern, block_covariance
+    from cokriging_tpu_torch.cov.params import MaternParams
+    from cokriging_tpu_torch.estimate.nll import (
+        fit_nll_device, joint_distance_blocks, neg_log_likelihood, nll_value_and_grad,
+    )
+    from cokriging_tpu_torch.fields.field import Field, MultiField
+    from cokriging_tpu_torch.kernels import cuda_ops as K
+    from cokriging_tpu_torch.predict.joint import JointPredictor
+
+    name = np.dtype(dtype).name
+    td = getattr(torch, name)
+    c1, v1, c2, v2 = build_inputs(N_PER_PROC, dtype, noise_seed=1)
+    coords = [torch.as_tensor(c, device="cuda") for c in (c1, c2)]
+    z = torch.as_tensor(np.concatenate([v1, v2]), device="cuda")
+    n = z.shape[0]
+    dists = joint_distance_blocks(coords, geodesic=True)
+    spec = MaternParams.default(2).spec
+    x0 = MaternParams.default(2).to_flat().numpy().astype(dtype)
+    x0[5:8] = 700.0  # length scales well inside the data span
+    mvar = torch.zeros_like(z)
+    jitter = 1e-6
+    def penalty_of(n_obs):  # as the NLL rounds it to its dtype
+        return float(np.dtype(dtype).type(1e6 * (1.0 + 0.5 * n_obs)))
+
+    penalty = penalty_of(n)
+
+    def evaluate(x):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v, g = nll_value_and_grad(torch.as_tensor(x, device="cuda"), dists, z, spec, mvar, jitter)
+        torch.cuda.synchronize()
+        return v.item(), g.cpu().numpy().astype(np.float64), time.perf_counter() - t0
+
+    # bench.py:187-220: a warm-up, then three timed evaluations at fresh points
+    evaluate(x0)
+    K.reset_launch_counts()
+    runs = [evaluate(x0 * (1.0 + 0.01 * (i + 1))) for i in range(3)]
+    launches = K.launch_counts()
+    check(launches["matern_correlation"] == 9 and launches["matern_block_grad"] == 9,
+          f"(f) {name}: expected 3 + 3 launches per evaluation, got {launches}")
+    at_penalty = [v == penalty for v, _, _ in runs]
+    secs = [t for _, _, t in runs]
+    log(f"(f) {name}: bench point (nugget 0, l = 700 km, jitter {jitter}): values "
+        f"{[v for v, _, _ in runs]}, at the non-PD penalty: {at_penalty}; "
+        f"seconds {secs}, evals/s {1.0 / min(secs)}; launches {launches}")
+    for (v, g, _), pen in zip(runs, at_penalty):
+        if pen:
+            check(not g.any(), f"(f) {name}: penalty point with a nonzero gradient {g}")
+        else:
+            check(np.isfinite(v) and np.isfinite(g).all() and g.any(),
+                  f"(f) {name}: value {v}, gradient {g}")
+
+    # a point where the factorization succeeds: the same with nuggets 0.1
+    xg = x0.copy()
+    xg[8:10] = 0.1
+    evaluate(xg)
+    vg, gg, tg = evaluate(xg * (1.0 + np.array([0.0] * 5 + [0.01] * 3 + [0.0] * 3, dtype)))
+    check(np.isfinite(vg) and vg != penalty and np.isfinite(gg).all() and gg.any(),
+          f"(f) {name}: genuine point value {vg}, gradient {gg}")
+    log(f"(f) {name}: genuine point (nuggets 0.1, l = 707 km): value {vg}, gradient "
+        f"{np.array2string(gg, precision=6)}, seconds {tg}, evals/s {1.0 / tg}")
+    if name == "float64":
+        xq = xg * (1.0 + np.array([0.0] * 5 + [0.01] * 3 + [0.0] * 3))
+        scale = np.array([1, 1, 1, 1, 1, 100, 100, 100, 0.05, 0.05, 0.3])
+        d = np.where(gg >= 0, 1.0, -1.0) * scale  # no cancellation in g . d
+        eps = 1e-4
+        with torch.no_grad():
+            vp, vm = (neg_log_likelihood(torch.as_tensor(xq + sgn * eps * d, device="cuda"), dists, z,
+                                         spec, mvar, jitter).item() for sgn in (1.0, -1.0))
+        fd, gd = (vp - vm) / (2 * eps), float(gg @ d)
+        log(f"(f) {name}: directional check: central difference {fd}, g.d {gd}, "
+            f"rel err {abs(fd - gd) / abs(gd):.3e}")
+        check(abs(fd - gd) <= 1e-4 * abs(gd), f"(f) {name}: directional check {fd} vs {gd}")
+
+    # stage times of one evaluation at the genuine point (host clock, each
+    # stage ends in a synchronize), on the NLL's own calls
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    params = MaternParams.from_flat(torch.as_tensor(xg, device="cuda"), spec=spec)
+    stages = {}
+    with torch.no_grad():
+        cov, stages["assembly_s"] = timed(lambda: block_covariance(params, dists, h_grad=False))
+        cov.diagonal().add_(jitter)
+        (chol, info), stages["cholesky_s"] = timed(lambda: torch.linalg.cholesky_ex(cov))
+        check(int(info) == 0, f"(f) {name}: genuine point did not factorize")
+        del cov
+
+        def solves():
+            alpha = torch.linalg.solve_triangular(chol, z[:, None], upper=False)
+            beta = torch.linalg.solve_triangular(chol.T, alpha, upper=True)[:, 0]
+            return torch.cholesky_inverse(chol).addr_(beta, beta, alpha=-1.0).mul_(0.5)
+
+        g_cov, stages["solves_inverse_s"] = timed(solves)
+        del chol
+        h = N_PER_PROC
+        # the evaluation's three blocks with their own (nu, l): (1,1), (1,2), (2,2)
+        blocks = [(dists[0][0], g_cov[:h, :h], True, float(xg[2]), float(xg[5])),
+                  (dists[0][1], g_cov[:h, h:], False, float(xg[3]), float(xg[6])),
+                  (dists[1][1], g_cov[h:, h:], True, float(xg[4]), float(xg[7]))]
+
+        def grads(fn, **kw):
+            return lambda: [fn(1.0, 0.1, nu, ls, hb, ct, symmetric=sym, **kw)
+                            for hb, ct, sym, nu, ls in blocks]
+
+        _, stages["block_grad_s"] = timed(grads(K.matern_block_grad))
+        log(f"(f) {name}: stages of one evaluation {json.dumps(stages)} "
+            f"(sum {sum(stages.values())}, whole evaluation {tg})")
+        # (e) the block-gradient kernel's row at these three 12,500^2 blocks
+        # with the evaluation's own cotangent, each block's four sums held
+        # against the plain version at the bar of phase (c)
+        kept = {}
+        ms = cuda_time_ms(keep(kept, "kernel", grads(K.matern_block_grad)), 2)
+        plain_ms = cuda_time_ms(keep(kept, "plain", grads(K.matern_block_grad_plain)), 1, warm=False)
+        mags = grads(K.matern_block_grad_plain, absolute=True)()
+        tol = 1e-5 if name == "float32" else 1e-12
+        grad_res = dict(results[f"matern_block_grad_{name}"])
+        full_rel = 0.0
+        for k, (got, ref, mag) in enumerate(zip(kept["kernel"], kept["plain"], mags)):
+            diff = (got - ref).abs()
+            check(bool(torch.isfinite(got).all()) and bool((diff <= tol * mag).all()),
+                  f"(f) block grad {name} 12,500^2 block {k}: {got.tolist()} vs plain {ref.tolist()}, "
+                  f"|terms| {mag.tolist()}")
+            full_rel = max(full_rel, float((diff / mag.clamp_min(1e-300)).max()))
+            grad_res["max_abs_err"] = max(grad_res["max_abs_err"], float(diff.max()))
+        grad_res["max_err"] = max(grad_res["max_err"], full_rel)
+        log(f"(f) {name}: block gradient at the three 12,500^2 blocks: worst |kernel - plain| / "
+            f"sum|terms| {full_rel:.3e} (bar {tol})")
+        grad_bound = bound_of([matern_bound(hb, nu, ls, sym, grad=True) for hb, _, sym, nu, ls in blocks])
+        # the Matern forward at the same three blocks, one at a time
+        atol = 5e-6 if name == "float32" else 1e-12
+        fwd = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0)
+        for k, (hb, _, sym, nu, ls) in enumerate(blocks):
+            fwd["ms"] += cuda_time_ms(
+                keep(kept, "kernel", lambda: K.matern_correlation_block(nu, ls, hb, symmetric=sym)), 3)
+            fwd["plain_ms"] += cuda_time_ms(
+                keep(kept, "plain", lambda: K.matern_correlation_block_plain(nu, ls, hb, symmetric=sym)), 1)
+            err = float((kept["kernel"] - kept["plain"]).abs().max())
+            check(err <= atol and bool(torch.isfinite(kept["kernel"]).all()),
+                  f"(f) matern {name} 12,500^2 block {k}: err {err} (bar {atol})")
+            fwd["max_abs_err"] = max(fwd["max_abs_err"], err)
+        kept.clear()
+        log(f"(f) {name}: Matern forward at the three 12,500^2 blocks: max abs err {fwd['max_abs_err']:.3e} "
+            f"(bar {atol})")
+        fwd_bound = bound_of([matern_bound(hb, nu, ls, sym) for hb, _, sym, nu, ls in blocks])
+    shape = "NLL blocks 12500^2 sym + 12500^2 + 12500^2 sym"
+    rows = [
+        dict(name=f"matern_correlation_{name}_nll", route="cuda",
+             source="cokriging_tpu_torch/kernels/csrc/matern.cu",
+             replaces="cokriging_tpu/kernels/pallas_ops.py:782",
+             launches=launches["matern_correlation"], launches_per_eval=3,
+             bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=None,
+             path="(f) exact likelihood", shape=shape, max_err=fwd["max_abs_err"], **fwd),
+        dict(name=f"matern_block_grad_{name}", route="cuda",
+             source="cokriging_tpu_torch/kernels/csrc/matern_grad.cu",
+             replaces="cokriging_tpu/kernels/pallas_ops.py:485",
+             launches=launches["matern_block_grad"], launches_per_eval=3, ms=ms, plain_ms=plain_ms,
+             bound_ms=grad_bound[0], bound_by=grad_bound[1], library_ms=None,
+             path="(f) exact likelihood", shape=shape, **grad_res),
+    ]
+    del g_cov, blocks, dists, mags
+    torch.cuda.empty_cache()
+
+    # maximum-likelihood fit on the stride-5 subsample, then joint prediction
+    fields = [Field.from_arrays(c[::5], v[::5], f"Z{k}") for k, (c, v) in enumerate(((c1, v1), (c2, v2)))]
+    for f in fields:
+        f.geodesic = True
+    mf = MultiField(fields=fields)
+    init = MaternParams.default(2, dtype=td)
+    sub = joint_distance_blocks([torch.as_tensor(f.coords_main, device="cuda") for f in fields], True)
+    z_sub = torch.cat([f.values_main for f in fields]).to("cuda")
+    with torch.no_grad():
+        start = neg_log_likelihood(init.to_flat().to("cuda"), sub, z_sub, spec, None, jitter).item()
+    del sub
+    K.reset_launch_counts()
+    (params, info), fit_s = timed(lambda: fit_nll_device(mf, init=init, jitter=jitter, maxiter=60,
+                                                        method="lbfgs"))
+    x = params.to_flat().cpu().numpy().astype(np.float64)
+    lo, hi = spec.bounds()
+    log(f"(f) {name}: ML fit (L-BFGS, 2 x {fields[0].size} points, maxiter 60, jitter {jitter}): "
+        f"start {start}, fitted {info}, seconds {fit_s}, params {np.array2string(x, precision=5)}")
+    check(bool(np.all((x >= lo - 1e-6 * (hi - lo)) & (x <= hi + 1e-6 * (hi - lo)))),
+          f"(f) {name}: ML fit out of bounds")
+    if start == penalty_of(z_sub.shape[0]):
+        # the default start is itself non-PD in this dtype: the gradient is
+        # zero there, so the fitter must stop at once and say so
+        log(f"(f) {name}: the default start is at the non-PD penalty; the fit stays there")
+        check(not info["success"] and info["n_obj_evals"] == 1, f"(f) {name}: {info}")
+    else:
+        check(info["nll"] < start, f"(f) {name}: ML fit did not improve: {info['nll']} vs {start}")
+    jp = JointPredictor(MultivariateMatern(params=params), mf)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out, pred_s = timed(lambda: jp(0, pc.astype(dtype)))
+    valid = not any("not positive definite" in str(w.message) for w in caught)
+    finite = float(np.isfinite(out.pred).mean())
+    log(f"(f) {name}: joint prediction at {len(pc)} cells from 2 x {fields[0].size} points: "
+        f"model valid {valid}, finite {finite:.4%}, seconds {pred_s}, launches {K.launch_counts()}")
+    if valid:
+        check(finite > 0.99 and bool(np.all(out.pred_err[np.isfinite(out.pred_err)] >= 0)),
+              f"(f) {name}: valid model but {finite:.2%} finite predictions")
+    if name == "float64":
+        full = [Field.from_arrays(c, v, f"Z{k}") for k, (c, v) in enumerate(((c1, v1), (c2, v2)))]
+        for f in full:
+            f.geodesic = True
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out, pred_s = timed(lambda: JointPredictor(MultivariateMatern(params=params),
+                                                       MultiField(fields=full))(0, pc))
+        log(f"(f) {name}: joint prediction from all 2 x {N_PER_PROC} points (not gated): finite "
+            f"{float(np.isfinite(out.pred).mean()):.4%}, seconds {pred_s}, "
+            f"warnings {[str(w.message)[:60] for w in caught]}")
+    torch.cuda.empty_cache()
+    return rows
 
 
 def main():
@@ -506,6 +909,7 @@ def main():
         print("cokriging_tpu_torch/ is missing beside chip_smoke.py", file=sys.stderr)
         return 1
     sys.path.insert(0, str(HERE))
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
@@ -517,7 +921,9 @@ def main():
         found = {m: importlib.util.find_spec(m) is not None for m in ("pandas", "matplotlib", "jax")}
         log(f"(a) installed: {found}")
         import cokriging_tpu_torch.estimate.empirical  # noqa: F401
+        import cokriging_tpu_torch.estimate.nll  # noqa: F401
         import cokriging_tpu_torch.estimate.wls  # noqa: F401
+        import cokriging_tpu_torch.predict.joint  # noqa: F401
         import cokriging_tpu_torch.predict.local  # noqa: F401
         from cokriging_tpu_torch.data.grids import prediction_coords
         from cokriging_tpu_torch.kernels import _build
@@ -539,7 +945,9 @@ def main():
             c1, v1, c2, v2 = build_inputs(N_PER_PROC, dtype)
             phase_c_variogram(c1, v1, c2, v2, dtype, kres)
             phase_c_matern(c1, c2, dtype, kres)
+            phase_c_block_grad(c1, c2, dtype, kres)
         phase_c_small_path()
+        phase_c_small_nll()
 
         # (d) the main path at bench size, float32 then float64
         pc = prediction_coords()
@@ -559,7 +967,8 @@ def main():
             log(f"(d) {name}: stages {json.dumps(times)}")
             log(f"(d) {name}: launches {launches}, finite predictions {finite:.4%} of {len(out.pred)}, "
                 f"fit cost {result.cost:.6g}, params {np.array2string(x, precision=5)}")
-            check(all(v > 0 for v in launches.values()), f"(d) {name}: a kernel never ran: {launches}")
+            check(all(launches[k] > 0 for k in ("variogram_minmax", "variogram_bin", "matern_correlation")),
+                  f"(d) {name}: a kernel of this path never ran: {launches}")
             check_predictions(lp, out, pc, name)
             check(bool(np.all((x >= lo - tol) & (x <= hi + tol))), f"(d) {name}: params out of bounds")
             # (e) kernel timing at the path's shapes
@@ -568,7 +977,13 @@ def main():
             bigs.append(big)
         for big in bigs:
             log(f"(e) matern 12,500^2 symmetric {big['dtype']}: {big['ms']:.3f} ms, "
-                f"plain {big['plain_ms']:.3f} ms, bound {big['bound_ms']:.4f} ms ({big['bound_by']})")
+                f"plain {big['plain_ms']:.3f} ms, bound {big['bound_ms']:.4f} ms ({big['bound_by']}), "
+                f"max abs err against the plain version {big['max_abs_err']:.3e}")
+
+        # (f) the exact-likelihood path at bench size, float32 then float64
+        for dtype in (np.float32, np.float64):
+            rows += phase_f(dtype, pc, kres)
+        log(f"(f) elapsed since start {time.perf_counter() - t_start:.1f} s")
     except SmokeFailure as e:
         print(f"FAILED: {e}", file=sys.stderr)
         return 1

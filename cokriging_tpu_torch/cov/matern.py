@@ -14,7 +14,8 @@ conventions (src/model.py:173-247):
 The elementwise functions are plain, differentiable torch on every device
 (the WLS cost and the prediction vector use them). ``block_covariance``
 assembles whole distance blocks: on a CUDA tensor through the hand-written
-Matern kernel (``kernels.cuda_ops.matern_correlation_block``), forward only.
+kernels, ``kernels.cuda_ops.matern_correlation_block`` forward and
+``kernels.cuda_ops.matern_block_grad`` backward.
 """
 
 import math
@@ -94,42 +95,84 @@ def cross_semivariance(params: MaternParams, i: int, j: int, h):
     return sill - cross_covariance(params, i, j, h)
 
 
-def block_covariance(params: MaternParams, dists):
+class _ScaledMaternBlock(torch.autograd.Function):
+    """One covariance block C = scale * M(nu, ls, h) + nugget * [h == 0]
+    with scalar-only cotangents (the reference's ``_make_scaled_cvjp``,
+    cokriging_tpu/cov/matern.py:180-293): the backward returns the four
+    scalar gradients and none for ``h``, which is data. On a CUDA tensor the
+    forward is the Matern kernel and the backward the block-gradient kernel;
+    on the CPU both are their plain versions. ``symmetric`` (marginal
+    self-distance blocks) lets both evaluate the lower triangle only."""
+
+    @staticmethod
+    def forward(ctx, scale, nugget, nu, ls, h, symmetric):
+        from cokriging_tpu_torch.kernels.cuda_ops import matern_correlation_block
+
+        ctx.save_for_backward(scale, nugget, nu, ls, h)
+        ctx.symmetric = symmetric
+        out = matern_correlation_block(nu.detach(), ls.detach(), h, symmetric=symmetric)
+        out.mul_(scale)
+        return out.add_(torch.where(h == 0.0, nugget.to(out.dtype), 0.0))
+
+    @staticmethod
+    def backward(ctx, ct):
+        from cokriging_tpu_torch.kernels.cuda_ops import matern_block_grad
+
+        scale, nugget, nu, ls, h = ctx.saved_tensors
+        g = matern_block_grad(scale, nugget, nu, ls, h, ct.to(h.dtype), ctx.symmetric)
+        return (g[0].to(scale.dtype), g[1].to(nugget.dtype), g[2].to(nu.dtype),
+                g[3].to(ls.dtype), None, None)
+
+
+def block_covariance(params: MaternParams, dists, h_grad: bool = True):
     """Assemble the joint block covariance for p processes.
 
     ``dists[i][j]`` is the (n_i, n_j) distance matrix between the
     observation sets of processes i and j; only i <= j entries are read
-    (lower blocks are transposes, src/joint_prediction.py:124-153). Each
-    block's correlation goes through ``matern_correlation_block``: the CUDA
-    kernel for a tensor on the card (marginal blocks in its symmetric mode),
-    the plain elementwise function on the CPU. The kernel is forward-only:
-    on the card, a parameter that requires grad raises (the block backward
-    comes with the exact likelihood).
+    (lower blocks are transposes, src/joint_prediction.py:124-153). Marginal
+    blocks are self-distance matrices, symmetric by construction, so the
+    kernels evaluate their lower triangle only.
+
+    On a CUDA tensor every block, float32 or float64, goes through the
+    hand-written kernels: ``matern_correlation_block`` forward and, when a
+    parameter requires grad, ``matern_block_grad`` backward
+    (``_ScaledMaternBlock``); the distances get no gradient there. On the
+    CPU, ``h_grad=True`` differentiates the plain elementwise model (in the
+    distances too), and ``h_grad=False`` (distances are data) takes the
+    same block Function with the kernels' plain versions.
     """
     from cokriging_tpu_torch.kernels.cuda_ops import matern_correlation_block
 
     p = params.n_procs
     on_card = torch.as_tensor(dists[0][0]).is_cuda
-    if on_card and torch.is_grad_enabled() and any(
+    needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad
         for t in (params.sigma, params.nu, params.len_scale, params.nugget, params.rho)
-    ):
-        raise NotImplementedError("slice 2")
+    )
     blocks = {}
     for i in range(p):
         for j in range(i, p):
             h = torch.as_tensor(dists[i][j])
+            if on_card and h_grad and torch.is_grad_enabled() and h.requires_grad:
+                raise ValueError(
+                    "block_covariance: the kernels on the card give the distances no gradient"
+                )
+            if i == j:
+                scale, nugget = params.sigma[i] ** 2, params.nugget[i]
+            else:
+                scale = params.rho[i, j] * params.sigma[i] * params.sigma[j]
+                nugget = torch.zeros((), dtype=scale.dtype, device=scale.device)
+            if needs_grad and (on_card or not h_grad):
+                blocks[(i, j)] = _ScaledMaternBlock.apply(
+                    scale, nugget, params.nu[i, j], params.len_scale[i, j], h, i == j
+                )
+                continue
             m = matern_correlation_block(
                 params.nu[i, j], params.len_scale[i, j], h, symmetric=(i == j)
             )
+            blocks[(i, j)] = scale * m
             if i == j:
-                blocks[(i, j)] = params.sigma[i] ** 2 * m + torch.where(
-                    h == 0.0, params.nugget[i], 0.0
-                )
-            else:
-                blocks[(i, j)] = (
-                    params.rho[i, j] * params.sigma[i] * params.sigma[j] * m
-                )
+                blocks[(i, j)] = blocks[(i, j)] + torch.where(h == 0.0, nugget, 0.0)
     return torch.cat(
         [
             torch.cat(

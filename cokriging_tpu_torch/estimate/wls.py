@@ -7,13 +7,15 @@ groups (reference: src/model.py:266-283, 388-391):
     cost = sum over bins with fit != 0 of count * ((emp - fit) / fit)^2
 
 with ``fit`` the semivariogram model at the bin centers. Gradients come
-from torch autograd through the Matern/K_nu functions. Two drivers:
+from torch autograd through the Matern/K_nu functions. Three methods:
 
 - ``method='scipy'``: scipy L-BFGS-B under the spec's box bounds;
 - ``method='adam'``: Adam with a cosine-decayed learning rate under a
   sigmoid box transform, step for step the reference's
   ``optax.adam(optax.cosine_decay_schedule(lr, maxiter))``. It runs eagerly
-  on the fit's device, one objective and one gradient per step.
+  on the fit's device, one objective and one gradient per step;
+- ``method='lbfgs'``: ``estimate.nll.sigmoid_box_lbfgs`` on the fit's device
+  from three deterministic starts (the reference's ``method='jax'``).
 """
 
 import math
@@ -140,9 +142,12 @@ def _box_inverse(x, lo, hi):
     return torch.log(z) - torch.log1p(-z)
 
 
-def adam_cosine(objective, u0, maxiter, lr=0.3, b1=0.9, b2=0.999, eps=1e-8):
+def adam_cosine(objective, u0, maxiter, lr=0.3, b1=0.9, b2=0.999, eps=1e-8,
+                callback=None):
     """``maxiter`` steps of optax's ``adam(cosine_decay_schedule(lr,
     maxiter))`` on ``objective`` from ``u0``; returns the final u.
+    ``callback(u, value)`` sees every iterate with its objective value
+    before the step that leaves it.
 
     As in optax: the moments are EMAs in u's dtype, the bias corrections use
     the incremented count (1 - b^(k+1), formed in float64 and cast), the
@@ -157,6 +162,8 @@ def adam_cosine(objective, u0, maxiter, lr=0.3, b1=0.9, b2=0.999, eps=1e-8):
         value = objective(u_req)
         (g,) = torch.autograd.grad(value, u_req)
         u = u_req.detach()
+        if callback is not None:
+            callback(u, value.detach())
         m = (1 - b1) * g + b1 * m
         v = (1 - b2) * (g**2) + b2 * v
         m_hat = m / (1 - b1 ** (count + 1))
@@ -232,6 +239,23 @@ def fit_wls(
         params = MaternParams.from_flat(x, spec=spec)
         n_iter = maxiter
         success = bool(np.isfinite(cost))
+    elif method == "lbfgs":
+        from cokriging_tpu_torch.estimate.nll import sigmoid_box_lbfgs
+
+        lo_np, hi_np = spec.bounds()
+        # 3 deterministic starts: WLS cost surfaces are multimodal (a
+        # secondary basin ~100x above the optimum catches default and
+        # moment inits on oracle problems)
+        x, cost, n_iter, success = sigmoid_box_lbfgs(
+            lambda x: composite_wls_cost(x, centers, means, counts, pairs, spec),
+            torch.as_tensor(x0, dtype=dt, device=dev),
+            torch.as_tensor(lo_np, dtype=dt, device=dev),
+            torch.as_tensor(hi_np, dtype=dt, device=dev),
+            maxiter=maxiter, n_starts=3,
+        )
+        params = MaternParams.from_flat(x.detach(), spec=spec)
+        cost = float(cost)
+        success = bool(success) and bool(np.isfinite(cost))
     else:
         raise ValueError(f"Unknown method {method!r}")
 

@@ -5,7 +5,8 @@ interface, compiled by ``nvcc`` for Hopper (``sm_90a``) at first use and
 loaded with ``ctypes``. All sources are compiled at once, one ``nvcc``
 process each. Libraries go to ``build/cokriging_tpu_torch/<digest>/`` at
 the repository root, keyed by a hash of every file in ``csrc/`` and of the
-flags, so an edited source rebuilds and an unchanged one loads directly.
+flags, so an edited source (or the shared header ``kv.cuh``) rebuilds every
+library and an unchanged tree loads directly.
 Nothing here runs at import time.
 """
 
@@ -19,7 +20,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("variogram.cu", "matern.cu")
+SOURCES = ("variogram.cu", "matern.cu", "matern_grad.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -57,6 +57,43 @@ def inv_gamma1p(z):
     return acc
 
 
+def dinv_gamma1p(z):
+    """d/dz of ``inv_gamma1p``'s Taylor polynomial (exact within it)."""
+    n = len(_INV_GAMMA1P_COEF)
+    acc = torch.full_like(z, (n - 1) * _INV_GAMMA1P_COEF[-1])
+    for k in range(n - 2, 0, -1):
+        acc = acc * z + k * _INV_GAMMA1P_COEF[k]
+    return acc
+
+
+def gam12_tangent(mu):
+    """d/dmu of ``_gam12``: (dgam1, dgam2, dinv_gp, dinv_gm).
+
+    Feeds the exact forward tangent of dK/dnu through the Temme series in
+    the block-gradient kernel. f32 differentiates the Taylor polynomial; f64
+    uses d(1/Gamma(1+mu)) = -psi(1+mu)/Gamma(1+mu) and
+    d(1/Gamma(1-mu)) = +psi(1-mu)/Gamma(1-mu), as the reference does.
+    """
+    gam1, _, inv_gp, inv_gm = _gam12(mu)
+    if mu.dtype == torch.float32:
+        d_gp = dinv_gamma1p(mu)
+        d_gm = -dinv_gamma1p(-mu)
+    else:
+        d_gp = -torch.digamma(1.0 + mu) * inv_gp
+        d_gm = torch.digamma(1.0 - mu) * inv_gm
+    d_gam2 = 0.5 * (d_gm + d_gp)
+    # quotient rule away from 0; at the removable singularity the odd
+    # series d(-(A1 + A3 mu^2)) = -2 A3 mu
+    small = torch.abs(mu) < 1e-3
+    mu_safe = torch.where(small, 1.0, mu)
+    d_gam1 = torch.where(
+        small,
+        -2.0 * _A3 * mu,
+        ((d_gm - d_gp) - 2.0 * gam1) / (2.0 * mu_safe),
+    )
+    return d_gam1, d_gam2, d_gp, d_gm
+
+
 def _gam12(mu):
     """(gam1, gam2, 1/Gamma(1+mu), 1/Gamma(1-mu)) for |mu| <= 1/2.
 

@@ -9,6 +9,14 @@
 // reference. A CF2 lane that converges stops after the converging step,
 // which is what the reference's per-lane freeze computes; half-integer
 // orders (a1 = 0.25 - mu^2 == 0) run every trip.
+//
+// Every function is written once over a number type V that is either the
+// scalar T (values only, the forward kernel) or Dual<T> (value and d/dmu,
+// the gradient kernel): the dual pass is the exact forward tangent in mu of
+// the same operations, with nl pinned, which is how the reference takes
+// dK/dnu (pallas_ops.py::_kv_triple_dnu_tile). Branches and the CF2
+// convergence test read the value part only, so a dual lane leaves its loop
+// at the same trip as the value lane and its tangent stops there too.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -37,32 +45,89 @@ template <> struct Eps<double> {
 constexpr double kPi = 3.141592653589793238462643383279502884;
 constexpr double kLn2 = 0.6931471805599453;
 
-// (gam1, gam2, 1/Gamma(1+mu), 1/Gamma(1-mu)): host-computed per call.
-template <typename T> struct GamConsts {
-  T gam1, gam2, inv_gp, inv_gm;
+// ---- dual numbers: (value, d/dmu) ----------------------------------------
+
+template <typename T> struct Dual {
+  T v, d;
+  __host__ __device__ __forceinline__ Dual() : v(T(0)), d(T(0)) {}
+  __host__ __device__ __forceinline__ Dual(T value) : v(value), d(T(0)) {}
+  __host__ __device__ __forceinline__ Dual(T value, T tangent) : v(value), d(tangent) {}
 };
 
-template <typename T>
-__device__ __forceinline__ void temme_series(T mu, T x, const GamConsts<T>& g,
-                                             T& k_mu, T& k_mu1) {
+#define CKT_FN template <typename T> __host__ __device__ __forceinline__
+
+CKT_FN Dual<T> operator-(Dual<T> a) { return Dual<T>(-a.v, -a.d); }
+CKT_FN Dual<T> operator+(Dual<T> a, Dual<T> b) { return Dual<T>(a.v + b.v, a.d + b.d); }
+CKT_FN Dual<T> operator+(Dual<T> a, T b) { return Dual<T>(a.v + b, a.d); }
+CKT_FN Dual<T> operator+(T a, Dual<T> b) { return Dual<T>(a + b.v, b.d); }
+CKT_FN Dual<T> operator-(Dual<T> a, Dual<T> b) { return Dual<T>(a.v - b.v, a.d - b.d); }
+CKT_FN Dual<T> operator-(Dual<T> a, T b) { return Dual<T>(a.v - b, a.d); }
+CKT_FN Dual<T> operator-(T a, Dual<T> b) { return Dual<T>(a - b.v, -b.d); }
+CKT_FN Dual<T> operator*(Dual<T> a, Dual<T> b) {
+  return Dual<T>(a.v * b.v, a.d * b.v + a.v * b.d);
+}
+CKT_FN Dual<T> operator*(Dual<T> a, T b) { return Dual<T>(a.v * b, a.d * b); }
+CKT_FN Dual<T> operator*(T a, Dual<T> b) { return Dual<T>(a * b.v, a * b.d); }
+CKT_FN Dual<T> operator/(Dual<T> a, Dual<T> b) {
+  const T q = a.v / b.v;
+  return Dual<T>(q, (a.d - q * b.d) / b.v);
+}
+CKT_FN Dual<T> operator/(Dual<T> a, T b) { return Dual<T>(a.v / b, a.d / b); }
+CKT_FN Dual<T> operator/(T a, Dual<T> b) {
+  const T q = a / b.v;
+  return Dual<T>(q, -q * b.d / b.v);
+}
+
+// exp and sin over either number type (named apart from ::exp and ::sin,
+// which a same-named overload in this namespace would hide)
+__host__ __device__ __forceinline__ float vexp(float a) { return ::expf(a); }
+__host__ __device__ __forceinline__ double vexp(double a) { return ::exp(a); }
+__host__ __device__ __forceinline__ float vsin(float a) { return ::sinf(a); }
+__host__ __device__ __forceinline__ double vsin(double a) { return ::sin(a); }
+__host__ __device__ __forceinline__ float vcos(float a) { return ::cosf(a); }
+__host__ __device__ __forceinline__ double vcos(double a) { return ::cos(a); }
+CKT_FN Dual<T> vexp(Dual<T> a) {
+  const T e = vexp(a.v);
+  return Dual<T>(e, e * a.d);
+}
+CKT_FN Dual<T> vsin(Dual<T> a) { return Dual<T>(vsin(a.v), vcos(a.v) * a.d); }
+
+#undef CKT_FN
+
+// the value part, which every branch and convergence test reads
+__host__ __device__ __forceinline__ float val(float a) { return a; }
+__host__ __device__ __forceinline__ double val(double a) { return a; }
+template <typename T> __host__ __device__ __forceinline__ T val(Dual<T> a) { return a.v; }
+
+// (gam1, gam2, 1/Gamma(1+mu), 1/Gamma(1-mu)): host-computed per call (as
+// Dual<T>, with their host-computed d/dmu).
+template <typename V> struct GamConsts {
+  V gam1, gam2, inv_gp, inv_gm;
+};
+
+// ---- K_mu, K_{mu+1} ---------------------------------------------------------
+
+template <typename T, typename V>
+__host__ __device__ __forceinline__ void temme_series(V mu, T x, const GamConsts<V>& g,
+                                                      V& k_mu, V& k_mu1) {
   const T x2 = T(0.5) * x;
-  const T mu2 = mu * mu;
+  const V mu2 = mu * mu;
   const T d = -log(x2);
-  const T e = mu * d;
-  const T pimu = T(kPi) * mu;
-  const T fact =
-      (fabs(pimu) < T(1e-4)) ? T(1) + pimu * pimu / T(6) : pimu / sin(pimu);
-  const T e_exp = exp(e);
-  const T sinh_e = T(0.5) * (e_exp - T(1) / e_exp);
-  const T cosh_e = T(0.5) * (e_exp + T(1) / e_exp);
-  const T fact2 = (fabs(e) < T(1e-4)) ? T(1) + e * e / T(6) : sinh_e / e;
-  T ff = fact * (g.gam1 * cosh_e + g.gam2 * fact2 * d);
-  T p = T(0.5) * e_exp / g.inv_gp;
-  T q = T(0.5) / (e_exp * g.inv_gm);
+  const V e = mu * d;
+  const V pimu = T(kPi) * mu;
+  const V fact =
+      (fabs(val(pimu)) < T(1e-4)) ? T(1) + pimu * pimu / T(6) : pimu / vsin(pimu);
+  const V e_exp = vexp(e);
+  const V sinh_e = T(0.5) * (e_exp - T(1) / e_exp);
+  const V cosh_e = T(0.5) * (e_exp + T(1) / e_exp);
+  const V fact2 = (fabs(val(e)) < T(1e-4)) ? T(1) + e * e / T(6) : sinh_e / e;
+  V ff = fact * (g.gam1 * cosh_e + g.gam2 * fact2 * d);
+  V p = T(0.5) * e_exp / g.inv_gp;
+  V q = T(0.5) / (e_exp * g.inv_gm);
   T c = T(1);
   const T dd = x2 * x2;
-  T ksum = ff;
-  T ksum1 = p;
+  V ksum = ff;
+  V ksum1 = p;
 #pragma unroll 4
   for (int i = 1; i <= KvIters<T>::series; ++i) {
     const T fi = T(i);
@@ -77,35 +142,37 @@ __device__ __forceinline__ void temme_series(T mu, T x, const GamConsts<T>& g,
   k_mu1 = ksum1 * (T(2) / x);
 }
 
-template <typename T>
-__device__ __forceinline__ void steed_cf2(T mu, T x, T& k_mu, T& k_mu1) {
-  const T a1 = T(0.25) - mu * mu;
+template <typename T, typename V>
+__host__ __device__ __forceinline__ void steed_cf2(V mu, T x, V& k_mu, V& k_mu1) {
+  const V a1 = T(0.25) - mu * mu;
   T b = T(2) * (T(1) + x);
-  T d = T(1) / b;
-  T h = d;
-  T delh = d;
-  T q1 = T(0);
-  T q2 = T(1);
-  T q = a1;
-  T c = a1;
-  T a = -a1;
-  T s = T(1) + q * delh;
-  const bool not_degenerate = a1 != T(0);
+  V d = V(T(1) / b);
+  V h = d;
+  V delh = d;
+  V q1 = V(T(0));
+  V q2 = V(T(1));
+  V q = a1;
+  V c = a1;
+  V a = -a1;
+  V s = T(1) + q * delh;
+  const bool not_degenerate = val(a1) != T(0);
   for (int i = 2; i < KvIters<T>::cf2 + 2; ++i) {
     const T fi = T(i);
-    const T a_n = a - T(2) * (fi - T(1));
-    const T c_n = -a_n * c / fi;
-    const T qnew = (q1 - b * q2) / a_n;
-    const T q_n = q + c_n * qnew;
+    const V a_n = a - T(2) * (fi - T(1));
+    const V c_n = -a_n * c / fi;
+    const V qnew = (q1 - b * q2) / a_n;
+    const V q_n = q + c_n * qnew;
     const T b_n = b + T(2);
-    const T d_n = T(1) / (b_n + a_n * d);
-    const T delh_n = (b_n * d_n - T(1)) * delh;
-    const T h_n = h + delh_n;
-    const T dels = q_n * delh_n;
-    const T s_n = s + dels;
-    const bool converged = not_degenerate && fabs(dels / s_n) < Eps<T>::value;
-    // renormalize (q1, q2, c): only c*qnew and q1:q2 enter the result
-    const T aq = fabs(qnew);
+    const V d_n = T(1) / (b_n + a_n * d);
+    const V delh_n = (b_n * d_n - T(1)) * delh;
+    const V h_n = h + delh_n;
+    const V dels = q_n * delh_n;
+    const V s_n = s + dels;
+    const bool converged =
+        not_degenerate && fabs(val(dels) / val(s_n)) < Eps<T>::value;
+    // renormalize (q1, q2, c): only c*qnew and q1:q2 enter the result, so
+    // the scale is a plain number (its tangent would cancel)
+    const T aq = fabs(val(qnew));
     const T scale = aq > T(1e-30) ? aq : T(1e-30);
     q1 = q2 / scale;
     q2 = qnew / scale;
@@ -120,33 +187,66 @@ __device__ __forceinline__ void steed_cf2(T mu, T x, T& k_mu, T& k_mu1) {
     if (converged) break;
   }
   h = a1 * h;
-  k_mu = sqrt(T(kPi) / (T(2) * x)) * exp(-x) / s;
+  k_mu = (sqrt(T(kPi) / (T(2) * x)) * vexp(-x)) / s;
   k_mu1 = k_mu * (mu + x + T(0.5) - h) / x;
 }
 
-template <typename T>
-__device__ __forceinline__ void order_recurrence(T mu, int nl, T x, T& k_mu,
-                                                 T& k_mu1) {
+template <typename T, typename V>
+__host__ __device__ __forceinline__ void order_recurrence(V mu, int nl, T x, V& k_mu,
+                                                          V& k_mu1) {
   const T two_over_x = T(2) / x;
   for (int i = 1; i <= nl; ++i) {
-    const T k_next = (mu + T(i)) * two_over_x * k_mu1 + k_mu;
+    const V k_next = (mu + T(i)) * two_over_x * k_mu1 + k_mu;
     k_mu = k_mu1;
     k_mu1 = k_next;
   }
 }
 
-// K_{mu+nl}(x) for x > 0: the branch is chosen per thread.
-template <typename T>
-__device__ __forceinline__ T kv_from_munl(T mu, int nl, const GamConsts<T>& g,
-                                          T x) {
-  T k_mu, k_mu1;
+// (K_mu, K_{mu+1}) for x > 0: the branch is chosen per thread.
+template <typename T, typename V>
+__host__ __device__ __forceinline__ void kv_pair(V mu, const GamConsts<V>& g, T x,
+                                                 V& k_mu, V& k_mu1) {
   if (x < T(2)) {
     temme_series(mu, x, g, k_mu, k_mu1);
   } else {
     steed_cf2(mu, x, k_mu, k_mu1);
   }
+}
+
+// K_{mu+nl}(x) for x > 0.
+template <typename T>
+__host__ __device__ __forceinline__ T kv_from_munl(T mu, int nl, const GamConsts<T>& g,
+                                                   T x) {
+  T k_mu, k_mu1;
+  kv_pair(mu, g, x, k_mu, k_mu1);
   order_recurrence(mu, nl, x, k_mu, k_mu1);
   return k_mu;
+}
+
+// (K_{nu-1}, K_nu, K_{nu+1}) and dK_nu/dnu at nu = mu + nl for x > 0, from
+// one dual (K_mu, K_{mu+1}) pair: the upward recurrence to order nl - 1,
+// then one step up, or one step down when nl == 0
+// (kernels/bessel.py::kv_triple_from_pair).
+template <typename T>
+__host__ __device__ __forceinline__ void kv_triple_dnu(T mu, int nl,
+                                                       const GamConsts<Dual<T>>& g, T x,
+                                                       T& k_prev, T& k_mid, T& k_next,
+                                                       T& dk_dnu) {
+  const Dual<T> m(mu, T(1));
+  Dual<T> km, km1;
+  kv_pair(m, g, x, km, km1);
+  order_recurrence(m, nl > 0 ? nl - 1 : 0, x, km, km1);
+  if (nl == 0) {
+    k_prev = km1.v - (T(2) * mu / x) * km.v;
+    k_mid = km.v;
+    k_next = km1.v;
+    dk_dnu = km.d;
+  } else {
+    k_prev = km.v;
+    k_mid = km1.v;
+    k_next = (T(2) * (mu + T(nl)) / x) * km1.v + km.v;
+    dk_dnu = km1.d;
+  }
 }
 
 }  // namespace ckt

@@ -26,6 +26,9 @@
 // TPU kernel carried its sum across a sequential grid; blocks here run in
 // no order, so a second launch adds the per-tile partials in a fixed order:
 // the result is the same from run to run, and so is the fit built on it.
+// The histogram holds at most MAX_BINS bins; a call bins one window of at
+// most that many consecutive bins (its n_win + 1 sorted edges place every
+// pair below, inside or above the window), and the caller walks the windows.
 // h is formed with explicitly rounded operations (no fused multiply-add) so
 // it equals, bit for bit, the plain torch version's h: the pair counts of
 // the two agree exactly.
@@ -184,10 +187,14 @@ __global__ void minmax_reduce_kernel(const T* __restrict__ part_min,
 template <typename T, bool GEO, int F>
 __global__ void bin_kernel(const T* __restrict__ fa, const T* __restrict__ fb,
                            const T* __restrict__ va, const T* __restrict__ vb,
-                           const T* __restrict__ h_edges, int n_bins, int n,
-                           int m, int nr, int nc, int marginal, int covariogram,
-                           T h_max, double* __restrict__ part_sums,
+                           const T* __restrict__ h_edges, int n_bins, int first,
+                           int last, int n, int m, int nr, int nc, int marginal,
+                           int covariogram, T h_max,
+                           double* __restrict__ part_sums,
                            long long* __restrict__ part_counts) {
+  // n_bins, h_edges: this window's bins and its n_bins + 1 edges; first /
+  // last: the window holds the first / last bin of all, which take the
+  // pairs clipped from below / above
   extern __shared__ __align__(16) unsigned char smem_raw[];
   double* hist_sum = reinterpret_cast<double*>(smem_raw);     // [n_bins][VT]
   int* hist_cnt = reinterpret_cast<int*>(hist_sum + n_bins * VT);  // [n_bins][VT]
@@ -222,7 +229,13 @@ __global__ void bin_kernel(const T* __restrict__ fa, const T* __restrict__ fb,
       if (!(h <= h_max)) continue;
       int idx = -1;
       for (int k = 0; k <= n_bins; ++k) idx += sedge[k] < h ? 1 : 0;
-      idx = idx < 0 ? 0 : (idx > n_bins - 1 ? n_bins - 1 : idx);
+      if (idx < 0) {
+        if (!first) continue;  // a lower window's pair
+        idx = 0;
+      } else if (idx > n_bins - 1) {
+        if (!last) continue;  // a higher window's pair
+        idx = n_bins - 1;
+      }
       T cloud;
       if (covariogram) {
         cloud = mul_rn(sva[r], vbc);
@@ -308,31 +321,39 @@ int minmax(const T* fa, const T* fb, int n, int m, int geodesic, int marginal,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Bins the window of at most MAX_BINS bins that starts at bin0; h_edges,
+// sums and counts are the arrays of all n_bins bins.
 template <typename T>
 int bin(const T* fa, const T* fb, const T* va, const T* vb, const T* h_edges,
-        int n_bins, int n, int m, int geodesic, int marginal, int covariogram,
-        T h_max, double* part_sums, long long* part_counts, double* sums,
-        long long* counts, cudaStream_t stream) {
-  if (n_bins < 1 || n_bins > MAX_BINS) return static_cast<int>(cudaErrorInvalidValue);
+        int n_bins, int bin0, int n, int m, int geodesic, int marginal,
+        int covariogram, T h_max, double* part_sums, long long* part_counts,
+        double* sums, long long* counts, cudaStream_t stream) {
+  if (n_bins < 1 || bin0 < 0 || bin0 >= n_bins) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_win = n_bins - bin0 < MAX_BINS ? n_bins - bin0 : MAX_BINS;
+  const int first = bin0 == 0;
+  const int last = bin0 + n_win == n_bins;
+  h_edges += bin0;
+  sums += bin0;
+  counts += bin0;
   int nr, nc;
   long long n_tiles;
   tile_grid(n, m, marginal, nr, nc, n_tiles);
   const unsigned grid = static_cast<unsigned>(n_tiles);
-  const size_t smem = static_cast<size_t>(n_bins) * VT * (sizeof(double) + sizeof(int));
+  const size_t smem = static_cast<size_t>(n_win) * VT * (sizeof(double) + sizeof(int));
   if (geodesic) {
     bin_kernel<T, true, 5><<<grid, VT, smem, stream>>>(
-        fa, fb, va, vb, h_edges, n_bins, n, m, nr, nc, marginal, covariogram,
-        h_max, part_sums, part_counts);
+        fa, fb, va, vb, h_edges, n_win, first, last, n, m, nr, nc, marginal,
+        covariogram, h_max, part_sums, part_counts);
   } else {
     bin_kernel<T, false, 2><<<grid, VT, smem, stream>>>(
-        fa, fb, va, vb, h_edges, n_bins, n, m, nr, nc, marginal, covariogram,
-        h_max, part_sums, part_counts);
+        fa, fb, va, vb, h_edges, n_win, first, last, n, m, nr, nc, marginal,
+        covariogram, h_max, part_sums, part_counts);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  bin_reduce_kernel<<<n_bins, RED_THREADS, 0, stream>>>(part_sums, part_counts,
-                                                        n_tiles, n_bins, sums,
-                                                        counts);
+  bin_reduce_kernel<<<n_win, RED_THREADS, 0, stream>>>(part_sums, part_counts,
+                                                       n_tiles, n_win, sums,
+                                                       counts);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -368,21 +389,21 @@ int vario_minmax_f64(const double* fa, const double* fb, int n, int m,
 }
 
 int vario_bin_f32(const float* fa, const float* fb, const float* va,
-                  const float* vb, const float* h_edges, int n_bins, int n,
-                  int m, int geodesic, int marginal, int covariogram,
+                  const float* vb, const float* h_edges, int n_bins, int bin0,
+                  int n, int m, int geodesic, int marginal, int covariogram,
                   float h_max, double* part_sums, long long* part_counts,
                   double* sums, long long* counts, void* stream) {
-  return bin<float>(fa, fb, va, vb, h_edges, n_bins, n, m, geodesic, marginal,
-                    covariogram, h_max, part_sums, part_counts, sums, counts,
-                    static_cast<cudaStream_t>(stream));
+  return bin<float>(fa, fb, va, vb, h_edges, n_bins, bin0, n, m, geodesic,
+                    marginal, covariogram, h_max, part_sums, part_counts, sums,
+                    counts, static_cast<cudaStream_t>(stream));
 }
 
 int vario_bin_f64(const double* fa, const double* fb, const double* va,
-                  const double* vb, const double* h_edges, int n_bins, int n,
-                  int m, int geodesic, int marginal, int covariogram,
+                  const double* vb, const double* h_edges, int n_bins, int bin0,
+                  int n, int m, int geodesic, int marginal, int covariogram,
                   double h_max, double* part_sums, long long* part_counts,
                   double* sums, long long* counts, void* stream) {
-  return bin<double>(fa, fb, va, vb, h_edges, n_bins, n, m, geodesic,
+  return bin<double>(fa, fb, va, vb, h_edges, n_bins, bin0, n, m, geodesic,
                      marginal, covariogram, h_max, part_sums, part_counts,
                      sums, counts, static_cast<cudaStream_t>(stream));
 }

@@ -6,7 +6,9 @@ Counterpart of ``cokriging_tpu/kernels/pallas_ops.py``:
   ``variogram_bin_pallas``, built to the two-pass contract of
   ``estimate/empirical.py::_all_pairs_program`` on the distance surrogate h;
 - ``matern_correlation_block`` (``csrc/matern.cu`` + ``csrc/kv.cuh``)
-  replaces ``matern_correlation_pallas``.
+  replaces ``matern_correlation_pallas``;
+- ``matern_block_grad`` (``csrc/matern_grad.cu`` + ``csrc/kv.cuh``) replaces
+  ``matern_block_grad_pallas``.
 
 Each wrapper runs the plain torch version only for tensors on the CPU. For
 a CUDA tensor it launches its kernel or raises; there is no fallback. Each
@@ -15,23 +17,37 @@ can show that its main path went through the kernels.
 """
 
 import ctypes
+import math
 
 import torch
 
 from cokriging_tpu_torch.kernels import _build
-from cokriging_tpu_torch.kernels.bessel import _gam12
+from cokriging_tpu_torch.kernels.bessel import _gam12, _kv_value, gam12_tangent
 
 #: Kernel launches per wrapper since the last ``reset_launch_counts()``.
-LAUNCHES = {"variogram_minmax": 0, "variogram_bin": 0, "matern_correlation": 0}
+LAUNCHES = {
+    "variogram_minmax": 0, "variogram_bin": 0, "matern_correlation": 0,
+    "matern_block_grad": 0,
+}
 
 _FLOATS = (torch.float32, torch.float64)
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _CT = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
+_ERROR_STRING = {
+    "variogram.cu": "vario_error_string",
+    "matern.cu": "matern_error_string",
+    "matern_grad.cu": "matern_grad_error_string",
+}
 
 # rows per block of the plain pair pass (bounds its (rows, m) temporaries)
 _PLAIN_PAIR_ELEMS = 1 << 22
+# entries per row chunk of the plain block gradient (the reference's
+# BWD_CHUNK_ELEMS idea: the dual K_nu pass holds ~60 chunk-sized temporaries)
+_PLAIN_GRAD_ELEMS = 1 << 20
+_LN2 = math.log(2.0)
 
 
 def reset_launch_counts():
@@ -50,10 +66,16 @@ def _fn(src, name, argtypes):
     return f
 
 
+def _fn_ll(src, name, argtypes):
+    f = getattr(_build.load(src), name)
+    f.argtypes = argtypes
+    f.restype = _LL
+    return f
+
+
 def _check_rc(src, rc, what):
     if rc != 0:
-        lib = _build.load(src)
-        err = lib.vario_error_string if src == "variogram.cu" else lib.matern_error_string
+        err = getattr(_build.load(src), _ERROR_STRING[src])
         err.argtypes = [_I]
         err.restype = ctypes.c_char_p
         raise RuntimeError(f"{what}: CUDA error {rc} ({err(rc).decode()})")
@@ -204,8 +226,8 @@ def variogram_bin(fa, fb, va, vb, h_edges, marginal, geodesic, covariogram, h_ma
     n_bins = h_edges.shape[0] - 1
     if va.shape != (n,) or vb.shape != (m,) or h_edges.ndim != 1:
         raise ValueError("variogram_bin: values must be (n,), (m,) and edges 1-D")
-    if not 1 <= n_bins <= _max_bins():
-        raise ValueError(f"variogram_bin: 1..{_max_bins()} bins on the card, got {n_bins}")
+    if n_bins < 1:
+        raise ValueError("variogram_bin: needs at least one bin")
     sums = torch.zeros(n_bins, dtype=torch.float64, device=fa.device)
     counts = torch.zeros(n_bins, dtype=torch.int64, device=fa.device)
     if n == 0 or m == 0:
@@ -213,25 +235,27 @@ def variogram_bin(fa, fb, va, vb, h_edges, marginal, geodesic, covariogram, h_ma
     T = _CT[fa.dtype]
     sfx = _SUFFIX[fa.dtype]
     n_tiles = _num_tiles(n, m, marginal)
-    part_sums = torch.empty(n_tiles * n_bins, dtype=torch.float64, device=fa.device)
-    part_counts = torch.empty(n_tiles * n_bins, dtype=torch.int64, device=fa.device)
+    window = min(n_bins, _max_bins())
+    part_sums = torch.empty(n_tiles * window, dtype=torch.float64, device=fa.device)
+    part_counts = torch.empty(n_tiles * window, dtype=torch.int64, device=fa.device)
     f = _fn("variogram.cu", f"vario_bin_{sfx}",
-            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, T, _P, _P, _P, _P, _P])
-    with torch.cuda.device(fa.device):
-        rc = f(_ptr(fa), _ptr(fb), _ptr(va), _ptr(vb), _ptr(h_edges), n_bins, n, m,
-               int(geodesic), int(marginal), int(covariogram), T(float(h_max)),
-               _ptr(part_sums), _ptr(part_counts), _ptr(sums), _ptr(counts),
-               _stream(fa.device))
-    _check_rc("variogram.cu", rc, "variogram_bin")
-    LAUNCHES["variogram_bin"] += 1
+            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, T, _P, _P, _P, _P, _P])
+    # the kernel's shared-memory histogram holds `window` bins: one pair pass
+    # per window of consecutive bins (the edges are sorted, so each pass
+    # knows its own pairs)
+    for bin0 in range(0, n_bins, window):
+        with torch.cuda.device(fa.device):
+            rc = f(_ptr(fa), _ptr(fb), _ptr(va), _ptr(vb), _ptr(h_edges), n_bins, bin0,
+                   n, m, int(geodesic), int(marginal), int(covariogram), T(float(h_max)),
+                   _ptr(part_sums), _ptr(part_counts), _ptr(sums), _ptr(counts),
+                   _stream(fa.device))
+        _check_rc("variogram.cu", rc, "variogram_bin")
+        LAUNCHES["variogram_bin"] += 1
     return sums, counts
 
 
 def _num_tiles(n, m, marginal) -> int:
-    f = getattr(_build.load("variogram.cu"), "vario_num_tiles")
-    f.argtypes = [_I, _I, _I]
-    f.restype = ctypes.c_longlong
-    return int(f(n, m, int(marginal)))
+    return int(_fn_ll("variogram.cu", "vario_num_tiles", [_I, _I, _I])(n, m, int(marginal)))
 
 
 def _max_bins() -> int:
@@ -296,4 +320,121 @@ def matern_correlation_block(nu, len_scale, h, symmetric=False):
                T(c[5]), T(c[6]), T(c[7]), T(c[8]), T(c[9]), _stream(h.device))
     _check_rc("matern.cu", rc, "matern_correlation_block")
     LAUNCHES["matern_correlation"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Matern block gradient
+# ---------------------------------------------------------------------------
+
+
+def matern_grad_constants(nu, len_scale, dtype):
+    """Host scalars of one block backward in ``dtype``: ``([nu, ls,
+    sqrt(2 nu), mu, gam1, gam2, 1/Gamma(1+mu), 1/Gamma(1-mu), their four
+    d/dmu, lgamma(nu), digamma(nu)], nl)``, from the same torch functions as
+    the plain path."""
+    nu_t = torch.abs(torch.tensor(float(nu), dtype=dtype))
+    ls_t = torch.tensor(float(len_scale), dtype=dtype)
+    nl = torch.floor(nu_t + 0.5)
+    mu = nu_t - nl
+    vals = [nu_t, ls_t, torch.sqrt(2.0 * nu_t), mu, *_gam12(mu), *gam12_tangent(mu),
+            torch.lgamma(nu_t), torch.digamma(nu_t)]
+    return [v.item() for v in vals], int(nl.item())
+
+
+def matern_block_grad_plain(scale, nugget, nu, ls, h, ct, symmetric=False,
+                            absolute=False):
+    """Plain torch backward of the block C = scale * M(nu, ls, h) + nugget *
+    [h == 0] against the cotangent ``ct``: the float64 tensor [sum ct M,
+    sum ct [h == 0], scale sum ct dM/dnu, scale sum ct dM/dls].
+
+    The value triple and the exact dK/dnu come from ``_kv_value(...,
+    with_grads=True)``, in row chunks that bound the temporaries, each
+    chunk's terms summed in float64. ``symmetric=True`` (square symmetric h)
+    reads the lower triangle only, with ct[i, j] + ct[j, i] below the
+    diagonal and ct[i, i] on it. ``nugget`` does not enter its own
+    cotangent. ``absolute=True`` sums |ct * term| instead: the scale of the
+    sums' rounding error, which comparisons of two evaluations are stated
+    against."""
+    if h.ndim != 2 or h.shape != ct.shape or (symmetric and h.shape[0] != h.shape[1]):
+        raise ValueError("matern_block_grad: h and ct must be one 2-D shape (square if symmetric)")
+    dt, dev = h.dtype, h.device
+    scale = torch.as_tensor(scale, dtype=torch.float64, device=dev).detach()
+    nu = torch.abs(torch.as_tensor(nu, dtype=dt, device=dev).detach())
+    ls = torch.as_tensor(ls, dtype=dt, device=dev).detach()
+    lgam, digam = torch.lgamma(nu), torch.digamma(nu)
+    n, m = h.shape
+    out = torch.zeros(4, dtype=torch.float64, device=dev)
+    rows = max(1, _PLAIN_GRAD_ELEMS // max(m, 1))
+    for r0 in range(0, n, rows):
+        r1 = min(n, r0 + rows)
+        c1 = r1 if symmetric else m
+        hc = torch.abs(h[r0:r1, :c1])
+        w = ct[r0:r1, :c1]
+        if symmetric:
+            ri = torch.arange(r0, r1, device=dev)[:, None]
+            ci = torch.arange(c1, device=dev)[None, :]
+            w = torch.where(ci < ri, w + ct[:c1, r0:r1].T, torch.where(ci == ri, w, 0.0))
+        pos = hc > 0.0
+        a = torch.sqrt(2.0 * nu) * (torch.where(pos, hc, 1.0) / ls)
+        k_mid, dk_dnu, dk_dx = _kv_value(nu, a, True)
+        log_a = torch.log(a)
+        elp = torch.exp((1.0 - nu) * _LN2 - lgam + nu * log_a)
+        mat = elp * k_mid
+        ok = torch.isfinite(mat) & (mat > 0.0) & pos
+        m_val = torch.where(pos, torch.where(ok, mat, 0.0), 1.0)
+        dm_dnu = mat * (-_LN2 - digam + log_a + 0.5) + elp * (dk_dnu + dk_dx * (a / (2.0 * nu)))
+        dm_dls = mat * (-nu / ls) + elp * dk_dx * (-a / ls)
+        terms = (
+            m_val,
+            (hc == 0.0).to(dt),
+            torch.where(ok & torch.isfinite(dm_dnu), dm_dnu, 0.0),
+            torch.where(ok & torch.isfinite(dm_dls), dm_dls, 0.0),
+        )
+        for k, term in enumerate(terms):
+            prod = w * term
+            out[k] += (prod.abs() if absolute else prod).sum(dtype=torch.float64)
+    out[2:] *= scale.abs() if absolute else scale
+    return out
+
+
+def matern_block_grad(scale, nugget, nu, ls, h, ct, symmetric=False):
+    """The four scalar cotangents of one covariance block C = scale *
+    M(nu, ls, h) + nugget * [h == 0] against ``ct``: float64 tensor
+    [g_scale, g_nugget, g_nu, g_ls] (see ``matern_block_grad_plain``).
+
+    ``symmetric=True`` (square symmetric h, any ct) evaluates the lower
+    triangle only. ``h`` and ``ct`` may be row-strided views (unit column
+    stride). CUDA tensors run ``csrc/matern_grad.cu``; CPU tensors the plain
+    version."""
+    if h.device.type == "cpu":
+        return matern_block_grad_plain(scale, nugget, nu, ls, h, ct, symmetric)
+    for t in (h, ct):
+        if not t.is_cuda or t.device != h.device or t.dtype != h.dtype or t.dtype not in _FLOATS:
+            raise ValueError("matern_block_grad: h and ct must share one CUDA device and "
+                             "one float32/float64 dtype")
+    if h.ndim != 2 or h.shape != ct.shape or (symmetric and h.shape[0] != h.shape[1]):
+        raise ValueError("matern_block_grad: h and ct must be one 2-D shape (square if symmetric)")
+    n, m = h.shape
+    out = torch.zeros(4, dtype=torch.float64, device=h.device)
+    if n == 0 or m == 0:
+        return out
+    if h.stride(1) != 1 or h.stride(0) < m:
+        raise ValueError("matern_block_grad: h needs unit column stride")
+    if ct.stride(1) != 1 or ct.stride(0) < m:
+        ct = ct.contiguous()
+    T = _CT[h.dtype]
+    sfx = _SUFFIX[h.dtype]
+    consts, nl = matern_grad_constants(nu, ls, h.dtype)
+    tiles = _fn_ll("matern_grad.cu", "matern_grad_num_tiles", [_I, _I, _I])(n, m, int(symmetric))
+    part = torch.empty(4 * tiles, dtype=torch.float64, device=h.device)
+    f = _fn("matern_grad.cu", f"matern_grad_{sfx}",
+            [_P, _P, _I, _I, _LL, _LL, _I, ctypes.POINTER(T), _I, ctypes.c_double,
+             _P, _P, _P])
+    with torch.cuda.device(h.device):
+        rc = f(_ptr(h), _ptr(ct), n, m, h.stride(0), ct.stride(0), int(symmetric),
+               (T * len(consts))(*consts), nl, float(scale), _ptr(part), _ptr(out),
+               _stream(h.device))
+    _check_rc("matern_grad.cu", rc, "matern_block_grad")
+    LAUNCHES["matern_block_grad"] += 1
     return out

@@ -83,16 +83,93 @@ def test_matern_kernel_matches_plain(cuda, dtype, atol, nu, ls):
             assert torch.equal(got, got.T)
 
 
+def test_variogram_bin_takes_40_bins(cuda):
+    """More bins than the kernel's shared-memory histogram holds: one pair
+    pass per window of bins, exact counts, two launches."""
+    rng = np.random.default_rng(8)
+    dtype = torch.float64
+    ca, cb = _points(rng, 700, dtype, cuda), _points(rng, 513, dtype, cuda)
+    va = torch.as_tensor(rng.normal(size=700), dtype=dtype, device=cuda)
+    vb = torch.as_tensor(rng.normal(size=513), dtype=dtype, device=cuda)
+    fa, fb = E.point_features(ca, True), E.point_features(cb, True)
+    h_max = float(E._h_of_d(np.float64(2500.0), True))
+    h_snap = float(E._h_of_d(np.float64(1e-6), True))
+    for marginal, (fb_, vb_) in ((True, (fa, va)), (False, (fb, vb))):
+        mm = K.variogram_minmax(fa, fb_, marginal, True, h_max, h_snap)
+        _, h_edges = E._device_bins(*mm.cpu().numpy(), True, np.float64(1e-6), 40, np.dtype("f8"))
+        he = torch.as_tensor(h_edges, device=cuda)
+        before = K.launch_counts()["variogram_bin"]
+        s_k, n_k = K.variogram_bin(fa, fb_, va, vb_, he, marginal, True, False, h_max)
+        s_p, n_p = K.variogram_bin_plain(fa, fb_, va, vb_, he, marginal, True, False, h_max)
+        torch.cuda.synchronize()
+        assert n_k.shape == (40,) and torch.equal(n_k, n_p)
+        torch.testing.assert_close(s_k, s_p, rtol=1e-12, atol=1e-12)
+        assert K.launch_counts()["variogram_bin"] == before + 2
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("nu,ls", [(0.3, 300.0), (0.5, 300.0), (1.5, 800.0), (2.7, 1500.0)])
+def test_block_grad_kernel_matches_plain(cuda, dtype, tol, nu, ls):
+    """The four sums against the plain version, each within tol * sum of
+    |terms| (the sums cancel, so their own size is no yardstick): a ragged
+    full block with exact zeros read through a row stride, and a symmetric
+    block with an asymmetric cotangent, which also equals the full
+    evaluation."""
+    rng = np.random.default_rng(4)
+    a = _points(rng, 300, dtype, cuda)
+    b = torch.cat([a[:7], _points(rng, 510, dtype, cuda)])
+    wide = haversine_matrix(a, torch.cat([b, b]))
+    h = wide[:, :517]  # row stride 1034
+    assert int((h == 0).sum()) == 7
+    hs = haversine_matrix(a, a)
+    for hh, sym in ((h, False), (hs, True), (hs, False)):
+        ct = torch.as_tensor(rng.normal(size=tuple(hh.shape)), dtype=dtype, device=cuda)
+        before = K.launch_counts()["matern_block_grad"]
+        got = K.matern_block_grad(1.7, 0.05, nu, ls, hh, ct, symmetric=sym)
+        torch.cuda.synchronize()
+        assert K.launch_counts()["matern_block_grad"] == before + 1
+        ref = K.matern_block_grad_plain(1.7, 0.05, nu, ls, hh, ct, symmetric=sym)
+        mag = K.matern_block_grad_plain(1.7, 0.05, nu, ls, hh, ct, symmetric=sym, absolute=True)
+        assert got.dtype == torch.float64 and torch.isfinite(got).all()
+        assert bool(((got - ref).abs() <= tol * mag).all()), (got, ref, mag)
+        if sym:
+            full = K.matern_block_grad(1.7, 0.05, nu, ls, hh, ct)
+            assert bool(((got - full).abs() <= tol * mag).all()), (got, full, mag)
+            again = K.matern_block_grad(1.7, 0.05, nu, ls, hh, ct, symmetric=True)
+            assert torch.equal(got, again)  # fixed-order sums
+
+
 def test_block_covariance_on_card_is_forward_only(cuda):
+    """Despite its name (kept from when the card had no backward):
+    ``block_covariance`` is differentiable on the card, forward through the
+    Matern kernel and backward through the block-gradient kernel, and its
+    value and flat gradient agree with the CPU in both dtypes."""
+    for dtype, rtol in ((torch.float32, 2e-3), (torch.float64, 1e-9)):
+        _block_covariance_card_vs_cpu(cuda, dtype, rtol)
+
+
+def _block_covariance_card_vs_cpu(cuda, dtype, rtol):
     from cokriging_tpu_torch.cov.matern import block_covariance
     from cokriging_tpu_torch.cov.params import MaternParams
 
-    p = MaternParams.default(2, device=cuda)
-    flat = p.to_flat().clone().requires_grad_(True)
-    c = _points(np.random.default_rng(1), 40, torch.float64, cuda)
+    rng = np.random.default_rng(1)
+    c = _points(rng, 40, dtype, cuda)
     d = haversine_matrix(c, c)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        block_covariance(p.with_flat(flat), [[d, d], [None, d]])
-    out = block_covariance(p, [[d, d], [None, d]])
-    ref = block_covariance(p.to("cpu"), [[d.cpu(), d.cpu()], [None, d.cpu()]])
-    torch.testing.assert_close(out.cpu(), ref, rtol=0.0, atol=1e-12)
+    w = torch.as_tensor(rng.normal(size=(80, 80)), dtype=dtype, device=cuda)
+    x = torch.tensor([1.2, 0.8, 1.4, 1.1, 2.0, 300, 250, 350, 0.04, 0.02, -0.5], dtype=dtype)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        flat = x.to(dev).requires_grad_(True)
+        dd = d.to(dev)
+        before = K.launch_counts()
+        cov = block_covariance(MaternParams.from_flat(flat), [[dd, dd], [None, dd]])
+        (g,) = torch.autograd.grad((cov * w.to(dev)).sum(), flat)
+        after = K.launch_counts()
+        grew = {k: after[k] - before[k] for k in ("matern_correlation", "matern_block_grad")}
+        assert grew == ({"matern_correlation": 3, "matern_block_grad": 3} if dev == "cuda"
+                        else {"matern_correlation": 0, "matern_block_grad": 0})
+        out[dev] = (cov.detach().cpu(), g.cpu())
+    atol = 1e-12 if dtype == torch.float64 else 5e-6
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0.0, atol=atol)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=rtol,
+                               atol=1e-10 if dtype == torch.float64 else 1e-3)
