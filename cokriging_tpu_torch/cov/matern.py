@@ -15,7 +15,12 @@ The elementwise functions are plain, differentiable torch on every device
 (the WLS cost and the prediction vector use them). ``block_covariance``
 assembles whole distance blocks: on a CUDA tensor through the hand-written
 kernels, ``kernels.cuda_ops.matern_correlation_block`` forward and
-``kernels.cuda_ops.matern_block_grad`` backward.
+``kernels.cuda_ops.matern_block_grad`` backward. ``gathered_covariance`` and
+``windows_covariance`` assemble mixed-process entries from gathered process
+ids (the matrix-free CG rows, the direct local systems, the Vecchia
+windows); their correlations go through ``matern_corr_pairs``, on a CUDA
+tensor the gathered-pairs kernels ``kernels.cuda_ops.matern_corr_pairs``
+forward and ``matern_corr_pairs_grad`` backward.
 """
 
 import math
@@ -183,6 +188,152 @@ def block_covariance(params: MaternParams, dists, h_grad: bool = True):
         ],
         dim=0,
     )
+
+
+def _pair_inputs(params: MaternParams):
+    """(table, nu_pairs, ls_pairs): the (p, p) numpy table of pair numbers k
+    of the process pairs i <= j in row order (symmetric), and the (n_pairs,)
+    stacks of their nu and len_scale."""
+    p = params.n_procs
+    pair_list = [(i, j) for i in range(p) for j in range(i, p)]
+    table = np.zeros((p, p), np.int64)
+    for k, (i, j) in enumerate(pair_list):
+        table[i, j] = table[j, i] = k
+    nu_pairs = torch.stack([params.nu[i, j] for i, j in pair_list])
+    ls_pairs = torch.stack([params.len_scale[i, j] for i, j in pair_list])
+    return table, nu_pairs, ls_pairs
+
+
+class _MaternCorrPairs(torch.autograd.Function):
+    """Matern correlation over gathered entries with per-pair cotangents
+    only (the reference's ``_matern_corr_pairs_cvjp``,
+    cokriging_tpu/cov/matern.py:479-505): the forward is the gathered-pairs
+    kernel, the backward its gradient kernel, which sums ct dM/dnu and
+    ct dM/dls per pair; ``idx_f`` and ``h`` are data and get none. On the
+    CPU both are their plain versions."""
+
+    @staticmethod
+    def forward(ctx, nu_pairs, ls_pairs, idx_f, h):
+        from cokriging_tpu_torch.kernels import cuda_ops
+
+        ctx.save_for_backward(nu_pairs, ls_pairs, idx_f, h)
+        return cuda_ops.matern_corr_pairs(nu_pairs.detach(), ls_pairs.detach(), idx_f, h)
+
+    @staticmethod
+    def backward(ctx, ct):
+        from cokriging_tpu_torch.kernels import cuda_ops
+
+        nu_pairs, ls_pairs, idx_f, h = ctx.saved_tensors
+        g = cuda_ops.matern_corr_pairs_grad(nu_pairs, ls_pairs, idx_f, h, ct)
+        return g[:, 0].to(nu_pairs.dtype), g[:, 1].to(ls_pairs.dtype), None, None
+
+
+def matern_corr_pairs(nu_pairs, ls_pairs, idx_f, h):
+    """Matern correlation over gathered entries whose (nu, len_scale) take
+    one of ``n_pairs`` values, selected per entry by the float index plane
+    ``idx_f`` (0.0 .. n_pairs - 1.0; any other value selects pair 0).
+
+    On a CUDA tensor this is ``_MaternCorrPairs``: the gathered-pairs kernel
+    forward and, when ``nu_pairs`` or ``ls_pairs`` require grad, its
+    gradient kernel backward (h gets no gradient there). On the CPU it is
+    the plain per-entry select through the elementwise
+    ``matern_correlation`` under ordinary autograd, which is what the
+    reference runs off the TPU.
+    """
+    from cokriging_tpu_torch.kernels.cuda_ops import matern_corr_pairs_plain
+
+    h = torch.as_tensor(h)
+    nu_pairs = torch.as_tensor(nu_pairs, device=h.device)
+    ls_pairs = torch.as_tensor(ls_pairs, device=h.device)
+    if not h.is_cuda:
+        return matern_corr_pairs_plain(nu_pairs, ls_pairs, idx_f, h)
+    if torch.is_grad_enabled() and h.requires_grad:
+        raise ValueError("matern_corr_pairs: the kernels on the card give h no gradient")
+    return _MaternCorrPairs.apply(nu_pairs, ls_pairs, idx_f, h)
+
+
+def _pair_terms(params, pa, pb):
+    """(amplitude, nugget) of every entry's process pair (pa, pb):
+    sigma_a^2 and tau_a^2 on same-process entries, rho_ab sigma_a sigma_b
+    and 0 across. One ``torch.where`` per process pair, so the backward sums
+    each pair's cotangent; gathering the (p,)-sized parameters by per-entry
+    index would scatter every entry's cotangent into p slots instead."""
+    p = params.n_procs
+    sig = params.sigma
+    amp = nug = 0.0
+    for i in range(p):
+        for j in range(p):
+            sel = (pa == i) & (pb == j)
+            if i == j:
+                amp = torch.where(sel, sig[i] ** 2, amp)
+                nug = torch.where(sel, params.nugget[i], nug)
+            else:
+                amp = torch.where(sel, params.rho[i, j] * sig[i] * sig[j], amp)
+    return amp, nug
+
+
+def gathered_covariance(params: MaternParams, d, procs_a, procs_b=None):
+    """Pointwise mixed-process covariance from gathered process ids.
+
+    Entry (a, b) applies the reference's conventions to the process pair
+    (procs_a[a], procs_b[b]) at distance d[a, b]: sigma_i^2 M_ii for same-
+    process pairs with the nugget on exact-zero distances, and
+    rho_ij sigma_i sigma_j M_ij across processes (src/model.py:193-207).
+    Shared by the matrix-free CG matvec (``predict.iterative``) and the
+    direct-assembly local predictor (``predict.local``,
+    ``materialize_cov=False``); broadcasts over leading batch dimensions.
+    The correlations go through ``matern_corr_pairs``.
+    """
+    d = torch.as_tensor(d)
+    if procs_b is None:
+        procs_b = procs_a
+    pa = torch.as_tensor(procs_a, device=d.device).long()[..., :, None]
+    pb = torch.as_tensor(procs_b, device=d.device).long()[..., None, :]
+    table, nu_pairs, ls_pairs = _pair_inputs(params)
+    idx = torch.as_tensor(table, device=d.device)[pa, pb]
+    idx = torch.broadcast_to(idx, d.shape).to(d.dtype).contiguous()
+    corr = matern_corr_pairs(nu_pairs, ls_pairs, idx, d)
+    amp, nugget = _pair_terms(params, pa, pb)
+    return amp * corr + torch.where(d == 0.0, nugget, 0.0)
+
+
+def windows_covariance(params: MaternParams, d, procs, mvar=None):
+    """Batched mixed-process covariance over symmetric gathered windows.
+
+    The per-entry conventions of ``gathered_covariance``, specialized to a
+    batch of square symmetric distance windows (..., w, w), the Vecchia
+    term layout (``estimate.vecchia``): only the lower triangle of each
+    window (``np.tril_indices``) goes through ``matern_corr_pairs``, and is
+    mirrored as low + low^T - low * I.
+
+    Args:
+        params: MaternParams for p processes.
+        d: (..., w, w) symmetric per-window distance matrices.
+        procs: (..., w) int process ids of each window slot.
+        mvar: optional (..., w) per-slot measurement-error variances added
+            to the window diagonals.
+
+    Returns:
+        (..., w, w) covariance windows.
+    """
+    d = torch.as_tensor(d)
+    w = d.shape[-1]
+    table, nu_pairs, ls_pairs = _pair_inputs(params)
+    procs = torch.as_tensor(procs, device=d.device).long()
+    pa = procs[..., :, None]
+    pb = procs[..., None, :]
+    idx = torch.as_tensor(table, device=d.device)[pa, pb]
+    ti, tj = (torch.as_tensor(t, device=d.device) for t in np.tril_indices(w))
+    corr_t = matern_corr_pairs(nu_pairs, ls_pairs, idx[..., ti, tj].to(d.dtype), d[..., ti, tj])
+    low = torch.zeros(d.shape, dtype=corr_t.dtype, device=d.device)
+    low[..., ti, tj] = corr_t  # its backward gathers, where a mirroring gather would scatter
+    eye = torch.eye(w, dtype=d.dtype, device=d.device)
+    corr = low + low.transpose(-1, -2) - low * eye
+    amp, nugget = _pair_terms(params, pa, pb)
+    cov = amp * corr + torch.where(d == 0.0, nugget, 0.0)
+    if mvar is not None:
+        cov = cov + mvar[..., None] * eye
+    return cov
 
 
 class MultivariateMatern:

@@ -249,4 +249,48 @@ __host__ __device__ __forceinline__ void kv_triple_dnu(T mu, int nl,
   }
 }
 
+// ---- the Matern correlation of one entry -----------------------------------
+
+// M = 2^{1-nu} / Gamma(nu) * a^nu * K_nu(a), a = sqrt(2 nu) h / ls;
+// h == 0 -> 1, non-finite -> 0, clamped >= 0 (cov/matern.py::matern_correlation).
+// mu, nl, g and lgamma_nu are the caller's per-(nu, ls) constants.
+template <typename T>
+__host__ __device__ __forceinline__ T matern_value(T h, T nu, T ls, T sqrt2nu, T mu, int nl,
+                                                   const GamConsts<T>& g, T lgamma_nu) {
+  h = fabs(h);
+  if (!(h > T(0))) return T(1);
+  const T arg = sqrt2nu * (h / ls);
+  const T kv = kv_from_munl(mu, nl, g, arg);
+  const T log_pref = (T(1) - nu) * T(kLn2) - lgamma_nu + nu * log(arg);
+  T corr = vexp(log_pref) * kv;
+  if (!isfinite(corr)) corr = T(0);
+  return corr > T(0) ? corr : T(0);
+}
+
+// M and its partials dM/dnu, dM/dls at one entry with h > 0, from one dual
+// series/CF2 pass (kv_triple_dnu): dK/dx = -(K_{nu-1} + K_{nu+1}) / 2 and the
+// exact dK/dnu with nl pinned. Returns false where M is not finite and > 0:
+// M counts as 0 there and the entry has no nu or ls term.
+template <typename T>
+__host__ __device__ __forceinline__ bool matern_partials(T h, T nu, T ls, T sqrt2nu, T mu,
+                                                         int nl, const GamConsts<Dual<T>>& g,
+                                                         T lgamma_nu, T digamma_nu, T& m,
+                                                         T& dm_dnu, T& dm_dls) {
+  const T a = sqrt2nu * (h / ls);
+  T k_prev, k_mid, k_next, dk_dnu;
+  kv_triple_dnu(mu, nl, g, a, k_prev, k_mid, k_next, dk_dnu);
+  const T log_a = log(a);
+  const T lp = (T(1) - nu) * T(kLn2) - lgamma_nu + nu * log_a;
+  const T elp = vexp(lp);
+  m = elp * k_mid;
+  if (!(isfinite(m) && m > T(0))) return false;
+  const T dk_dx = T(-0.5) * (k_prev + k_next);
+  const T da_dnu = a / (T(2) * nu);
+  const T da_dls = -a / ls;
+  const T dlp_dnu = -T(kLn2) - digamma_nu + log_a + T(0.5);
+  dm_dnu = m * dlp_dnu + elp * (dk_dnu + dk_dx * da_dnu);
+  dm_dls = m * (-nu / ls) + elp * dk_dx * da_dls;
+  return true;
+}
+
 }  // namespace ckt

@@ -38,15 +38,7 @@ template <typename T> struct MaternConsts {
 
 template <typename T>
 __device__ __forceinline__ T matern_entry(T h, const MaternConsts<T>& k) {
-  h = fabs(h);
-  if (!(h > T(0))) return T(1);
-  const T arg = k.sqrt2nu * (h / k.ls);
-  const T kv = ckt::kv_from_munl(k.mu, k.nl, k.gam, arg);
-  const T log_pref =
-      (T(1) - k.nu) * T(ckt::kLn2) - k.lgamma_nu + k.nu * log(arg);
-  T corr = exp(log_pref) * kv;
-  if (!isfinite(corr)) corr = T(0);
-  return corr > T(0) ? corr : T(0);
+  return ckt::matern_value(h, k.nu, k.ls, k.sqrt2nu, k.mu, k.nl, k.gam, k.lgamma_nu);
 }
 
 template <typename T>

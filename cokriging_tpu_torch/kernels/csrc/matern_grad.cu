@@ -63,21 +63,12 @@ __host__ __device__ __forceinline__ void grad_entry(T h, T w, const GradConsts<T
     if (h == T(0)) acc[1] += w;
     return;
   }
-  const T a = k.sqrt2nu * (h / k.ls);
-  T k_prev, k_mid, k_next, dk_dnu;
-  ckt::kv_triple_dnu(k.mu, k.nl, k.gam, a, k_prev, k_mid, k_next, dk_dnu);
-  const T log_a = log(a);
-  const T lp = (T(1) - k.nu) * T(ckt::kLn2) - k.lgamma_nu + k.nu * log_a;
-  const T elp = ckt::vexp(lp);
-  const T m = elp * k_mid;
-  if (!(isfinite(m) && m > T(0))) return;  // M counts as 0; no nu, ls terms
+  T m, dm_dnu, dm_dls;
+  if (!ckt::matern_partials(h, k.nu, k.ls, k.sqrt2nu, k.mu, k.nl, k.gam, k.lgamma_nu,
+                            k.digamma_nu, m, dm_dnu, dm_dls)) {
+    return;  // M counts as 0; no nu, ls terms
+  }
   acc[0] += w * m;
-  const T dk_dx = T(-0.5) * (k_prev + k_next);
-  const T da_dnu = a / (T(2) * k.nu);
-  const T da_dls = -a / k.ls;
-  const T dlp_dnu = -T(ckt::kLn2) - k.digamma_nu + log_a + T(0.5);
-  const T dm_dnu = m * dlp_dnu + elp * (dk_dnu + dk_dx * da_dnu);
-  const T dm_dls = m * (-k.nu / k.ls) + elp * dk_dx * da_dls;
   if (isfinite(dm_dnu)) acc[2] += w * dm_dnu;
   if (isfinite(dm_dls)) acc[3] += w * dm_dls;
 }

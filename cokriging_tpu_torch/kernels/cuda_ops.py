@@ -8,7 +8,10 @@ Counterpart of ``cokriging_tpu/kernels/pallas_ops.py``:
 - ``matern_correlation_block`` (``csrc/matern.cu`` + ``csrc/kv.cuh``)
   replaces ``matern_correlation_pallas``;
 - ``matern_block_grad`` (``csrc/matern_grad.cu`` + ``csrc/kv.cuh``) replaces
-  ``matern_block_grad_pallas``.
+  ``matern_block_grad_pallas``;
+- ``matern_corr_pairs`` and ``matern_corr_pairs_grad`` (``csrc/matern_pairs.cu``
+  + ``csrc/kv.cuh``) replace ``matern_corr_pairs_pallas`` and
+  ``matern_corr_pairs_grad_pallas``.
 
 Each wrapper runs the plain torch version only for tensors on the CPU. For
 a CUDA tensor it launches its kernel or raises; there is no fallback. Each
@@ -27,7 +30,7 @@ from cokriging_tpu_torch.kernels.bessel import _gam12, _kv_value, gam12_tangent
 #: Kernel launches per wrapper since the last ``reset_launch_counts()``.
 LAUNCHES = {
     "variogram_minmax": 0, "variogram_bin": 0, "matern_correlation": 0,
-    "matern_block_grad": 0,
+    "matern_block_grad": 0, "matern_corr_pairs": 0, "matern_corr_pairs_grad": 0,
 }
 
 _FLOATS = (torch.float32, torch.float64)
@@ -40,6 +43,7 @@ _ERROR_STRING = {
     "variogram.cu": "vario_error_string",
     "matern.cu": "matern_error_string",
     "matern_grad.cu": "matern_grad_error_string",
+    "matern_pairs.cu": "pairs_error_string",
 }
 
 # rows per block of the plain pair pass (bounds its (rows, m) temporaries)
@@ -437,4 +441,167 @@ def matern_block_grad(scale, nugget, nu, ls, h, ct, symmetric=False):
                _stream(h.device))
     _check_rc("matern_grad.cu", rc, "matern_block_grad")
     LAUNCHES["matern_block_grad"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Matern correlation over gathered pairs
+# ---------------------------------------------------------------------------
+
+#: Most (nu, ls) pairs one call of the pairs kernels takes (p <= 4 processes).
+MAX_PAIRS = 10
+# entries per chunk of the plain pairs forward (bounds the K_nu temporaries)
+_PLAIN_PAIRS_ELEMS = 1 << 22
+
+
+def pair_index(idx_f, n_pairs):
+    """The pair of each entry of the float index plane ``idx_f``: k where the
+    value equals k (1 <= k < n_pairs), else 0 (the reference's ``_sel_pairs``
+    rule), as int64."""
+    valid = (idx_f >= 1.0) & (idx_f <= n_pairs - 1.0) & (idx_f == torch.floor(idx_f))
+    return torch.where(valid, idx_f, 0.0).long()
+
+
+def pairs_constants(nu_pairs, ls_pairs, dtype, grad=False):
+    """Host table of per-pair constants in ``dtype``, one row per pair, from
+    the same torch functions as ``matern_constants`` (``grad=False``: nu, ls,
+    sqrt(2 nu), mu, nl, gam1, gam2, 1/Gamma(1+mu), 1/Gamma(1-mu), lgamma(nu))
+    and ``matern_grad_constants`` (``grad=True``: its 14 scalars, then nl)."""
+    nu = torch.as_tensor(nu_pairs).detach().to("cpu", dtype).reshape(-1)
+    ls = torch.as_tensor(ls_pairs).detach().to("cpu", dtype).reshape(-1)
+    nu_abs = torch.abs(nu)
+    nl = torch.floor(nu_abs + 0.5)
+    mu = nu_abs - nl
+    if grad:
+        cols = [nu_abs, ls, torch.sqrt(2.0 * nu_abs), mu, *_gam12(mu), *gam12_tangent(mu),
+                torch.lgamma(nu_abs), torch.digamma(nu_abs), nl]
+    else:
+        cols = [nu, ls, torch.sqrt(2.0 * nu), mu, nl, *_gam12(mu), torch.lgamma(nu)]
+    return torch.stack(cols, dim=1)
+
+
+def _check_pairs(name, nu_pairs, ls_pairs, idx_f, h):
+    n_pairs = int(nu_pairs.shape[0]) if nu_pairs.ndim else 0
+    if nu_pairs.ndim != 1 or ls_pairs.shape != nu_pairs.shape or not 1 <= n_pairs <= MAX_PAIRS:
+        raise ValueError(f"{name}: nu_pairs and ls_pairs must be (n_pairs,), "
+                         f"1 <= n_pairs <= {MAX_PAIRS}")
+    if idx_f.shape != h.shape:
+        raise ValueError(f"{name}: idx_f and h must have one shape")
+    return n_pairs
+
+
+def matern_corr_pairs_plain(nu_pairs, ls_pairs, idx_f, h):
+    """Plain torch Matern correlation over gathered entries: each entry
+    selects its pair's (nu, ls) by ``pair_index`` and goes through the
+    elementwise ``cov.matern.matern_correlation`` (differentiable in
+    ``nu_pairs``, ``ls_pairs`` and ``h``), in flat chunks."""
+    from cokriging_tpu_torch.cov.matern import matern_correlation
+
+    h = torch.as_tensor(h)
+    nu_pairs = torch.as_tensor(nu_pairs, device=h.device)
+    ls_pairs = torch.as_tensor(ls_pairs, device=h.device)
+    n_pairs = _check_pairs("matern_corr_pairs", nu_pairs, ls_pairs, idx_f, h)
+    k = pair_index(idx_f.reshape(-1), n_pairs)
+    hf = h.reshape(-1)
+    parts = [
+        matern_correlation(nu_pairs[k[s:s + _PLAIN_PAIRS_ELEMS]],
+                           ls_pairs[k[s:s + _PLAIN_PAIRS_ELEMS]],
+                           hf[s:s + _PLAIN_PAIRS_ELEMS])
+        for s in range(0, hf.shape[0], _PLAIN_PAIRS_ELEMS)
+    ]
+    if not parts:
+        return torch.empty_like(h)
+    return torch.cat(parts).reshape(h.shape)
+
+
+def matern_corr_pairs_grad_plain(nu_pairs, ls_pairs, idx_f, h, ct, absolute=False):
+    """Plain torch backward of ``matern_corr_pairs_plain`` against ``ct``:
+    the float64 (n_pairs, 2) tensor of per-pair sums [sum ct dM/dnu, sum ct
+    dM/dls]. Per flat chunk, autograd of sum(ct * M) through the per-entry
+    select and ``matern_correlation`` gives each entry's two terms, which are
+    zeroed where not finite and summed per pair in float64. ``absolute=True``
+    sums |terms| instead: the scale of the sums' rounding error, which
+    comparisons of two evaluations are stated against."""
+    from cokriging_tpu_torch.cov.matern import matern_correlation
+
+    h = torch.as_tensor(h)
+    dt, dev = h.dtype, h.device
+    nu = torch.as_tensor(nu_pairs, device=dev).detach().to(dt)
+    ls = torch.as_tensor(ls_pairs, device=dev).detach().to(dt)
+    n_pairs = _check_pairs("matern_corr_pairs_grad", nu, ls, idx_f, h)
+    if ct.shape != h.shape:
+        raise ValueError("matern_corr_pairs_grad: ct and h must have one shape")
+    k_all = pair_index(idx_f.reshape(-1), n_pairs)
+    hf, cf = h.reshape(-1), ct.reshape(-1).to(dt)
+    out = torch.zeros(n_pairs, 2, dtype=torch.float64, device=dev)
+    for s in range(0, hf.shape[0], _PLAIN_GRAD_ELEMS):
+        k = k_all[s:s + _PLAIN_GRAD_ELEMS]
+        with torch.enable_grad():
+            nu_e = nu[k].requires_grad_(True)
+            ls_e = ls[k].requires_grad_(True)
+            m = matern_correlation(nu_e, ls_e, hf[s:s + _PLAIN_GRAD_ELEMS])
+            terms = torch.autograd.grad((cf[s:s + _PLAIN_GRAD_ELEMS] * m).sum(), (nu_e, ls_e))
+        for c, t in enumerate(terms):
+            t = torch.where(torch.isfinite(t), t, 0.0).double()
+            out[:, c] += torch.bincount(k, weights=t.abs() if absolute else t,
+                                        minlength=n_pairs)
+    return out
+
+
+def matern_corr_pairs(nu_pairs, ls_pairs, idx_f, h):
+    """Matern correlation over gathered entries of any shape: entry e takes
+    pair ``pair_index(idx_f)[e]`` of ``nu_pairs``/``ls_pairs`` (see
+    ``matern_corr_pairs_plain``). Forward only. CUDA tensors run
+    ``csrc/matern_pairs.cu`` on the flat arrays (``h`` contiguous; ``idx_f``
+    in h's dtype is read as it is); CPU tensors the plain version."""
+    if h.device.type == "cpu":
+        return matern_corr_pairs_plain(nu_pairs, ls_pairs, idx_f, h)
+    nu_pairs, ls_pairs = torch.as_tensor(nu_pairs), torch.as_tensor(ls_pairs)
+    n_pairs = _check_pairs("matern_corr_pairs", nu_pairs, ls_pairs, idx_f, h)
+    h = h.contiguous()
+    idx = idx_f.to(h.dtype).contiguous()
+    _check_cuda("matern_corr_pairs", h, idx)
+    out = torch.empty_like(h)
+    if h.numel() == 0:
+        return out
+    table = pairs_constants(nu_pairs, ls_pairs, h.dtype).to(h.device)
+    f = _fn("matern_pairs.cu", f"pairs_fwd_{_SUFFIX[h.dtype]}", [_P, _P, _LL, _P, _I, _P, _P])
+    with torch.cuda.device(h.device):
+        rc = f(_ptr(h), _ptr(idx), h.numel(), _ptr(table), n_pairs, _ptr(out),
+               _stream(h.device))
+    _check_rc("matern_pairs.cu", rc, "matern_corr_pairs")
+    LAUNCHES["matern_corr_pairs"] += 1
+    return out
+
+
+def matern_corr_pairs_grad(nu_pairs, ls_pairs, idx_f, h, ct):
+    """Backward of ``matern_corr_pairs`` against the cotangent ``ct``: the
+    float64 (n_pairs, 2) tensor [g_nu, g_ls] of per-pair sums (see
+    ``matern_corr_pairs_grad_plain``); ``h`` and ``idx_f`` get none. CUDA
+    tensors run ``csrc/matern_pairs.cu`` (a fixed-order reduction, the same
+    sums from run to run); CPU tensors the plain version."""
+    if h.device.type == "cpu":
+        return matern_corr_pairs_grad_plain(nu_pairs, ls_pairs, idx_f, h, ct)
+    nu_pairs, ls_pairs = torch.as_tensor(nu_pairs), torch.as_tensor(ls_pairs)
+    n_pairs = _check_pairs("matern_corr_pairs_grad", nu_pairs, ls_pairs, idx_f, h)
+    if ct.shape != h.shape:
+        raise ValueError("matern_corr_pairs_grad: ct and h must have one shape")
+    h = h.contiguous()
+    idx = idx_f.to(h.dtype).contiguous()
+    ct = ct.to(h.dtype).contiguous()
+    _check_cuda("matern_corr_pairs_grad", h, idx, ct)
+    out = torch.zeros(n_pairs, 2, dtype=torch.float64, device=h.device)
+    n = h.numel()
+    if n == 0:
+        return out
+    table = pairs_constants(nu_pairs, ls_pairs, h.dtype, grad=True).to(h.device)
+    blocks = int(_fn_ll("matern_pairs.cu", "pairs_grad_blocks", [_LL])(n))
+    part = torch.empty(2 * n_pairs * blocks, dtype=torch.float64, device=h.device)
+    f = _fn("matern_pairs.cu", f"pairs_grad_{_SUFFIX[h.dtype]}",
+            [_P, _P, _P, _LL, _P, _I, _P, _P, _P])
+    with torch.cuda.device(h.device):
+        rc = f(_ptr(h), _ptr(idx), _ptr(ct), n, _ptr(table), n_pairs, _ptr(part), _ptr(out),
+               _stream(h.device))
+    _check_rc("matern_pairs.cu", rc, "matern_corr_pairs_grad")
+    LAUNCHES["matern_corr_pairs_grad"] += 1
     return out

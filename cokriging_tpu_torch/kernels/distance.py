@@ -29,19 +29,20 @@ def _snap(d, tol):
 
 def _rows(coords):
     c = torch.as_tensor(coords)
-    return c if c.ndim == 2 else c.reshape(1, -1)
+    return c if c.ndim >= 2 else c.reshape(1, -1)
 
 
 def haversine_matrix(coords1, coords2, radius=EARTH_RADIUS_KM, zero_tol=None):
     """(n, m) great-circle distances in kilometers between (n, 2) and (m, 2)
     [lat, lon] degree rows; matches sklearn ``haversine_distances * R``.
-    ``zero_tol=None`` selects the dtype-aware snap."""
+    Leading batch dimensions broadcast: (..., n, 2) and (..., m, 2) give
+    (..., n, m). ``zero_tol=None`` selects the dtype-aware snap."""
     c1 = torch.deg2rad(_rows(coords1))
     c2 = torch.deg2rad(_rows(coords2))
-    lat1 = c1[:, 0:1]
-    lat2 = c2[:, 0:1].T
+    lat1 = c1[..., :, 0:1]
+    lat2 = c2[..., :, 0:1].transpose(-1, -2)
     dlat = lat1 - lat2
-    dlon = c1[:, 1:2] - c2[:, 1:2].T
+    dlon = c1[..., :, 1:2] - c2[..., :, 1:2].transpose(-1, -2)
     s = (
         torch.sin(0.5 * dlat) ** 2
         + torch.cos(lat1) * torch.cos(lat2) * torch.sin(0.5 * dlon) ** 2
@@ -52,10 +53,11 @@ def haversine_matrix(coords1, coords2, radius=EARTH_RADIUS_KM, zero_tol=None):
 
 def euclidean_matrix(coords1, coords2, zero_tol=ZERO_SNAP):
     """(n, m) Euclidean distances from direct coordinate differences
-    (exact zeros for identical points)."""
+    (exact zeros for identical points); leading batch dimensions broadcast
+    as in ``haversine_matrix``."""
     c1 = _rows(coords1)
     c2 = _rows(coords2)
-    diff = c1[:, None, :] - c2[None, :, :]
+    diff = c1[..., :, None, :] - c2[..., None, :, :]
     d2 = torch.sum(diff * diff, dim=-1)
     return _snap(torch.sqrt(d2), zero_tol)
 

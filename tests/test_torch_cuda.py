@@ -173,3 +173,76 @@ def _block_covariance_card_vs_cpu(cuda, dtype, rtol):
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0.0, atol=atol)
     torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=rtol,
                                atol=1e-10 if dtype == torch.float64 else 1e-3)
+
+
+def _pairs_case(rng, n_pairs, dtype, cuda, n=70_001):
+    """A ragged flat set of entries with exact zeros, spanning x = 2 at
+    every pair, nu in {0.3, 0.5, 1.5, 2.7, ...}."""
+    nu = [0.3, 0.5, 1.5, 2.7, 1.2, 0.8][:n_pairs]
+    ls = [300.0, 300.0, 800.0, 1500.0, 450.0, 600.0][:n_pairs]
+    h = np.abs(rng.normal(size=n)) * 1500.0
+    h[::53] = 0.0
+    idx = rng.integers(0, n_pairs, size=n).astype(np.float64)
+    t = {k: torch.as_tensor(v, dtype=dtype, device=cuda)
+         for k, v in (("h", h), ("idx", idx), ("ct", rng.normal(size=n)))}
+    return (torch.tensor(nu, dtype=dtype), torch.tensor(ls, dtype=dtype)), t
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 5e-6), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("n_pairs", [1, 3, 6])
+def test_pairs_kernel_matches_plain(cuda, dtype, atol, n_pairs):
+    rng = np.random.default_rng(9)
+    (nu, ls), t = _pairs_case(rng, n_pairs, dtype, cuda)
+    before = K.launch_counts()["matern_corr_pairs"]
+    got = K.matern_corr_pairs(nu, ls, t["idx"], t["h"])
+    torch.cuda.synchronize()
+    assert K.launch_counts()["matern_corr_pairs"] == before + 1
+    ref = K.matern_corr_pairs_plain(nu, ls, t["idx"], t["h"])
+    assert torch.isfinite(got).all() and got.shape == t["h"].shape
+    torch.testing.assert_close(got, ref, rtol=0.0, atol=atol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("n_pairs", [1, 3, 6])
+def test_pairs_grad_kernel_matches_plain(cuda, dtype, tol, n_pairs):
+    """Each per-pair sum within tol * sum of |terms| of the plain version,
+    and the same sums bit for bit on a second launch."""
+    rng = np.random.default_rng(10)
+    (nu, ls), t = _pairs_case(rng, n_pairs, dtype, cuda)
+    args = (nu, ls, t["idx"], t["h"], t["ct"])
+    before = K.launch_counts()["matern_corr_pairs_grad"]
+    got = K.matern_corr_pairs_grad(*args)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["matern_corr_pairs_grad"] == before + 1
+    ref = K.matern_corr_pairs_grad_plain(*args)
+    mag = K.matern_corr_pairs_grad_plain(*args, absolute=True)
+    assert got.shape == (n_pairs, 2) and got.dtype == torch.float64 and torch.isfinite(got).all()
+    assert bool(((got - ref).abs() <= tol * mag).all()), (got, ref, mag)
+    assert torch.equal(got, K.matern_corr_pairs_grad(*args))
+
+
+def test_gathered_covariances_on_card_match_cpu(cuda):
+    """``windows_covariance`` differentiated on the card (pairs forward and
+    gradient kernels, one launch each) against the CPU's plain autograd."""
+    from cokriging_tpu_torch.cov.matern import windows_covariance
+    from cokriging_tpu_torch.cov.params import MaternParams
+
+    rng = np.random.default_rng(11)
+    coords = torch.as_tensor(rng.uniform(0, 1500, size=(40, 11, 2)))
+    dists = torch.cdist(coords, coords)  # on the host, the same on both sides
+    procs = torch.as_tensor(rng.integers(0, 2, size=(40, 11)))
+    w = torch.as_tensor(rng.normal(size=(40, 11, 11)))
+    x = torch.tensor([1.2, 0.8, 1.4, 1.1, 2.0, 300, 250, 350, 0.04, 0.02, -0.5],
+                     dtype=torch.float64)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        flat = x.to(dev).requires_grad_(True)
+        before = K.launch_counts()
+        cov = windows_covariance(MaternParams.from_flat(flat), dists.to(dev), procs.to(dev))
+        (g,) = torch.autograd.grad((cov * w.to(dev)).sum(), flat)
+        after = K.launch_counts()
+        grew = [after[k] - before[k] for k in ("matern_corr_pairs", "matern_corr_pairs_grad")]
+        assert grew == ([1, 1] if dev == "cuda" else [0, 0])
+        out[dev] = (cov.detach().cpu(), g.cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0.0, atol=1e-12)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-9, atol=1e-10)

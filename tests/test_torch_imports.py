@@ -11,12 +11,15 @@ _PROBE = """
 import sys
 import cokriging_tpu_torch
 import cokriging_tpu_torch.cov.matern
+import cokriging_tpu_torch.cov.spectral
 import cokriging_tpu_torch.data.grids
 import cokriging_tpu_torch.estimate.empirical
 import cokriging_tpu_torch.estimate.nll
+import cokriging_tpu_torch.estimate.vecchia
 import cokriging_tpu_torch.estimate.wls
 import cokriging_tpu_torch.fields.field
 import cokriging_tpu_torch.kernels.cuda_ops
+import cokriging_tpu_torch.predict.iterative
 import cokriging_tpu_torch.predict.joint
 import cokriging_tpu_torch.predict.local
 import cokriging_tpu_torch.utils.convert
