@@ -22,7 +22,12 @@ Phases, in order; any failure exits nonzero without the final ok line:
     ragged flat lengths with 1, 3 and 6 pairs, nu in {0.3, 0.5, 1.5, 2.7,
     1.2, 0.8} and exact zeros (forward atol 5e-6 / 1e-12; each per-pair
     gradient sum within 1e-5 / 1e-12 of its sum of |terms|, bit-equal on a
-    second launch). Then the whole paths at 400 points per process on the
+    second launch), and the partition stress cases of the two redesigned
+    kernels (``phase_c_partition``: one branch only, a shuffled 50/50 mix,
+    ten pairs, lengths around the tile, nu in {0.5, 1.5, 2.5} and 1.5 -+
+    ulp; the forward bit-equal under a permutation and without its early
+    CF2 exit; the block gradient bit-equal again and symmetric == full).
+    Then the whole paths at 400 points per process on the
     card against the same code on the CPU in float64: fit + local prediction
     (fitted parameters rtol 1e-6, predictions atol 1e-6), the exact NLL
     (value rtol 1e-10, gradient rtol 1e-7 / atol 1e-10, analytic against
@@ -73,7 +78,10 @@ Phases, in order; any failure exits nonzero without the final ok line:
     120 km (> 95% finite) and CG joint prediction on the first 2 x 12,500
     observations at 256 cells (block 512, tol 1e-3, maxiter 40; all finite),
     the pairs kernel held against its plain version at one batch and one row
-    tile of each. Its rows of the kernels line follow.
+    tile of each; the row tile's forward bit-equal under a permutation of its
+    entries, and one pairs call and one CG matvec over all 49 row tiles run
+    under ``torch.cuda.set_sync_debug_mode("error")`` (``cg_sync_free``). Its
+    rows of the kernels line follow.
 
 ``python3 chip_smoke.py abcg`` runs only the phases named (a and b always)
 and prints no result line.
@@ -995,15 +1003,17 @@ def geo_fields(pairs):
 @contextlib.contextmanager
 def captured(name, limit=None):
     """The arguments of the calls of ``cuda_ops.<name>`` made inside the
-    block (the first ``limit`` of them), as the path hands them over."""
+    block (the first ``limit`` of them), as the path hands them over: the
+    positional ones, then the keyword ones' values in order (the pairs
+    forward's prebuilt ``table``)."""
     from cokriging_tpu_torch.kernels import cuda_ops as K
 
     store, orig = [], getattr(K, name)
 
-    def spy(*args):
+    def spy(*args, **kwargs):
         if limit is None or len(store) < limit:
-            store.append(args)
-        return orig(*args)
+            store.append(args + tuple(kwargs.values()))
+        return orig(*args, **kwargs)
 
     setattr(K, name, spy)
     try:
@@ -1014,24 +1024,28 @@ def captured(name, limit=None):
 
 def pairs_forward_check(calls, atol, what):
     """Kernel against plain version over the path's own forward launches
-    (``calls``: their argument tuples): (max abs error, kernel ms, plain ms)."""
+    (``calls``: their argument tuples, the path's table included where it
+    passed one): (max abs error, kernel ms, plain ms)."""
     import torch
 
     from cokriging_tpu_torch.kernels import cuda_ops as K
 
     kept = {}
     ms = cuda_time_ms(keep(kept, "kernel", lambda: [K.matern_corr_pairs(*a) for a in calls]), 3)
-    plain_ms = cuda_time_ms(keep(kept, "plain", lambda: [K.matern_corr_pairs_plain(*a) for a in calls]),
+    plain_ms = cuda_time_ms(keep(kept, "plain", lambda: [K.matern_corr_pairs_plain(*a[:4]) for a in calls]),
                             1, warm=False)
     err = max(float((k - p).abs().max()) for k, p in zip(kept["kernel"], kept["plain"]))
     finite = all(bool(torch.isfinite(k).all()) for k in kept["kernel"])
     check(finite and err <= atol, f"pairs forward at {what}: err {err} (bar {atol}), finite {finite}")
+    tables = sum(len(a) > 4 and a[4] is not None for a in calls)
+    log(f"pairs forward at {what}: {tables} of {len(calls)} launches were handed the path's table")
     return err, ms, plain_ms
 
 
 def pairs_grad_check(calls, tol, what, timed_reps=0):
     """Gradient kernel against plain version over ``calls`` (argument tuples
-    with their cotangents): every per-pair sum within tol * sum |terms|, the
+    with their cotangents, then the path's table where it passed one): every
+    per-pair sum within tol * sum |terms|, the
     same sums on a second launch. Returns (max rel, max abs, kernel ms, plain
     ms); the times only when ``timed_reps``."""
     import torch
@@ -1040,7 +1054,7 @@ def pairs_grad_check(calls, tol, what, timed_reps=0):
 
     kept = {}
     run_k = keep(kept, "kernel", lambda: [K.matern_corr_pairs_grad(*a) for a in calls])
-    run_p = keep(kept, "plain", lambda: [K.matern_corr_pairs_grad_plain(*a) for a in calls])
+    run_p = keep(kept, "plain", lambda: [K.matern_corr_pairs_grad_plain(*a[:5]) for a in calls])
     ms = plain_ms = None
     if timed_reps:
         ms = cuda_time_ms(run_k, timed_reps)
@@ -1051,7 +1065,7 @@ def pairs_grad_check(calls, tol, what, timed_reps=0):
     again = [K.matern_corr_pairs_grad(*a) for a in calls]
     rel = err = 0.0
     for a, got, ref, rep in zip(calls, kept["kernel"], kept["plain"], again):
-        mag = K.matern_corr_pairs_grad_plain(*a, absolute=True)
+        mag = K.matern_corr_pairs_grad_plain(*a[:5], absolute=True)
         diff = (got - ref).abs()
         check(bool(torch.isfinite(got).all()) and bool((diff <= tol * mag).all()),
               f"pairs gradient at {what}: {got.tolist()} vs plain {ref.tolist()}, |terms| {mag.tolist()}")
@@ -1091,6 +1105,101 @@ def phase_c_pairs(dtype, results):
     log(f"(c) pairs {name}: 3 cases (1, 3, 6 pairs; 0.8-2 M entries), forward max abs err {err_f:.3e} "
         f"(bar {atol}); gradient worst |kernel - plain| / sum|terms| {rel_g:.3e} (bar {tol}), "
         f"bit-equal on a second launch")
+
+
+def ulp_nus(name):
+    """Half-integer orders (degenerate CF2 lanes, which the forward lets
+    leave CF2 early) and 1.5 -+ one ulp of the dtype (the reference's
+    truncated CF2 tangent, ROADMAP Queue 3)."""
+    ft = np.float32 if name == "float32" else np.float64
+    return [0.5, 1.5, 2.5, float(np.nextafter(ft(1.5), ft(0))), float(np.nextafter(ft(1.5), ft(2)))]
+
+
+def phase_c_partition(dtype, results):
+    """Stress cases of the two partitioned kernels against their plain
+    versions. The pairs forward: one branch only (x < 2; x >= 2), a
+    shuffled 50/50 mix over ten pairs, ten pairs unshuffled, lengths around
+    its 2,048-entry tile; nu holds 0.5, 1.5, 2.5 and 1.5 -+ ulp; each output
+    also bit-equal under a random permutation of its entries (permuted
+    back) and with the degenerate lanes' CF2 trips run in full. The block
+    gradient: 650^2 symmetric blocks (and a ragged 650 x 411 full one)
+    all series, all CF2 or mixed at nu in 0.5, 1.5, 2.5, 1.5 -+ ulp: each
+    sum within tol * sum |terms|, bit-equal on a second launch, symmetric
+    == full."""
+    import torch
+
+    from cokriging_tpu_torch.kernels import cuda_ops as K
+
+    name = np.dtype(dtype).name
+    td = getattr(torch, name)
+    atol, tol = (5e-6, 1e-5) if name == "float32" else (1e-12, 1e-12)
+    rng = np.random.default_rng(8)
+    nus = [0.3, 1.2] + ulp_nus(name) + [0.8, 2.2, 3.1]
+    lss = [300.0, 450.0, 800.0, 1500.0, 600.0, 350.0, 900.0, 1200.0, 700.0, 500.0]
+    x_lo = rng.uniform(1e-3, 1.99, 400_000)
+    x_hi = rng.uniform(2.0, 40.0, 400_000)
+    err_f = 0.0
+    n_cases = 0
+    for what, x, n_pairs in (("series only", x_lo, 7), ("CF2 only", x_hi, 7),
+                             ("50/50 shuffled", rng.permutation(np.concatenate([x_lo, x_hi])), 10),
+                             ("ten pairs in runs", np.concatenate([x_lo, x_hi]), 10),
+                             ("1 entry", x_hi[:1], 1), ("2,047", x_lo[:2047], 3),
+                             ("2,049", x_hi[:2049], 3), ("100,001 mixed", np.concatenate(
+                                 [x_lo[:50_000], x_hi[:50_001]]), 10)):
+        idx = rng.integers(0, n_pairs, size=x.shape[0])
+        nu, ls = np.array(nus[:n_pairs]), np.array(lss[:n_pairs])
+        h = x * ls[idx] / np.sqrt(2.0 * nu[idx])
+        h[::97] = 0.0
+        nu_t, ls_t = (torch.tensor(v, dtype=td, device="cuda") for v in (nu, ls))
+        idx_t, h_t = (torch.as_tensor(v, dtype=td, device="cuda") for v in (idx, h))
+        got = K.matern_corr_pairs(nu_t, ls_t, idx_t, h_t)
+        ref = K.matern_corr_pairs_plain(nu_t, ls_t, idx_t, h_t)
+        err = float((got - ref).abs().max())
+        check(bool(torch.isfinite(got).all()) and err <= atol,
+              f"(c) pairs forward {name} {what}: err {err} (bar {atol})")
+        perm = torch.randperm(h_t.numel(), device="cuda")
+        back = torch.empty_like(got)
+        back[perm] = K.matern_corr_pairs(nu_t, ls_t, idx_t[perm], h_t[perm])
+        check(torch.equal(back, got), f"(c) pairs forward {name} {what}: not bit-equal under permutation")
+        full = K.matern_corr_pairs(nu_t, ls_t, idx_t, h_t, early_exit=False)
+        check(torch.equal(full, got), f"(c) pairs forward {name} {what}: the degenerate lanes' early "
+              f"CF2 exit changed a bit")
+        err_f = max(err_f, err)
+        n_cases += 1
+    results[f"matern_corr_pairs_{name}"]["max_abs_err"] = max(
+        results[f"matern_corr_pairs_{name}"]["max_abs_err"], err_f)
+    worst = 0.0
+    n = 650
+    for nu in ulp_nus(name):
+        ls = 800.0
+        for what, lo, hi in (("series only", 1e-3, 1.99), ("CF2 only", 2.0, 40.0),
+                             ("mixed", 1e-3, 40.0)):
+            x = rng.uniform(lo, hi, size=(n, n))
+            x = np.tril(x, -1) + np.tril(x, -1).T
+            h = torch.as_tensor(x * ls / np.sqrt(2.0 * nu), dtype=td, device="cuda")
+            ct = torch.as_tensor(rng.normal(size=(n, n)), dtype=td, device="cuda")
+            for hh, cc, sym in ((h, ct, True), (h[:, :411], ct[:, :411].contiguous(), False)):
+                got = K.matern_block_grad(1.3, 0.02, nu, ls, hh, cc, symmetric=sym)
+                ref = K.matern_block_grad_plain(1.3, 0.02, nu, ls, hh, cc, symmetric=sym)
+                mag = K.matern_block_grad_plain(1.3, 0.02, nu, ls, hh, cc, symmetric=sym, absolute=True)
+                rel = float(((got - ref).abs() / mag.clamp_min(1e-300)).max())
+                check(bool(torch.isfinite(got).all()) and bool(((got - ref).abs() <= tol * mag).all()),
+                      f"(c) block grad {name} nu={nu} {what} sym={sym}: {got.tolist()} vs plain "
+                      f"{ref.tolist()}, |terms| {mag.tolist()}")
+                check(torch.equal(got, K.matern_block_grad(1.3, 0.02, nu, ls, hh, cc, symmetric=sym)),
+                      f"(c) block grad {name} nu={nu} {what}: sums differ from run to run")
+                if sym:
+                    full = K.matern_block_grad(1.3, 0.02, nu, ls, hh, cc)
+                    check(bool(((got - full).abs() <= tol * mag).all()),
+                          f"(c) block grad {name} nu={nu} {what}: symmetric {got.tolist()} vs full "
+                          f"{full.tolist()}")
+                worst = max(worst, rel)
+    grad_res = results[f"matern_block_grad_{name}"]
+    grad_res["max_err"] = max(grad_res["max_err"], worst)
+    log(f"(c) partition stress {name}: pairs forward {n_cases} cases, max abs err {err_f:.3e} (bar {atol}), "
+        f"bit-equal under permutation and without the early CF2 exit at nu {ulp_nus(name)}; block grad "
+        f"30 blocks, worst |kernel - plain| / sum|terms| {worst:.3e} (bar {tol}), bit-equal again, "
+        f"symmetric == full")
 
 
 def phase_c_small_large_n():
@@ -1177,6 +1286,47 @@ def phase_c_small_large_n():
         f"{float(np.max(np.abs(got.pred - want.pred))):.3e}")
 
 
+def cg_sync_free(ijp, call, name):
+    """The CG row tile's forward on a random permutation of its entries,
+    permuted back, bit-equal to the tile's own output; then one
+    ``matern_corr_pairs`` call (its table built on the card) and one CG
+    matvec over all row tiles (the pair table built beforehand, as the
+    predictor does once per solve) under
+    ``torch.cuda.set_sync_debug_mode("error")``: neither may synchronize."""
+    import torch
+
+    from cokriging_tpu_torch.cov.matern import pair_table
+    from cokriging_tpu_torch.kernels import cuda_ops as K
+    from cokriging_tpu_torch.predict.iterative import _tiled_rows_matvec
+
+    nu, ls, idx, h = call[:4]
+    got = K.matern_corr_pairs(*call)
+    perm = torch.randperm(h.numel(), device="cuda")
+    back = torch.empty_like(got.reshape(-1))
+    back[perm] = K.matern_corr_pairs(nu, ls, idx.reshape(-1)[perm], h.reshape(-1)[perm])
+    check(torch.equal(back.reshape(got.shape), got),
+          f"(g) {name}: the CG row tile's forward is not bit-equal under a permutation")
+    coords, procs, _ = ijp._stacked()
+    table = pair_table(ijp.params, coords.device, coords.dtype)
+    v = torch.randn(coords.shape[0], 1, dtype=ijp.params.sigma.dtype, device="cuda")
+    before = K.launch_counts()["matern_corr_pairs"]
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            one = K.matern_corr_pairs(nu, ls, idx, h)
+            y = _tiled_rows_matvec(ijp.params, coords, procs, coords, procs, v, True, ijp.block, table)
+        except RuntimeError as e:
+            raise SmokeFailure(f"(g) {name}: a pairs call or CG matvec synchronized: {e}") from e
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    tiles = K.launch_counts()["matern_corr_pairs"] - before - 1
+    check(torch.equal(one, got) and bool(torch.isfinite(y).all()),
+          f"(g) {name}: the sync-free pairs call or matvec is wrong")
+    log(f"(g) {name}: CG row tile bit-equal under a permutation; one pairs call and one matvec over "
+        f"{tiles} row tiles ran under set_sync_debug_mode('error')")
+
+
 def phase_g(dtype, results):
     """The large-n path at the JAX example's size in one dtype; returns its
     rows of the kernels line."""
@@ -1258,16 +1408,17 @@ def phase_g(dtype, results):
     f_err, f_ms, f_plain = pairs_forward_check(fwd_calls, atol, f"the {name} window set")
     r_real, e_real, _, _ = pairs_grad_check(grad_calls, tol, f"one {name} chunk, its cotangent")
     gen = torch.Generator(device="cuda").manual_seed(7)
-    rand_calls = [a + (torch.randn(a[3].shape, dtype=td, device="cuda", generator=gen),)
-                  for a in fwd_calls]
+    grad_table = grad_calls[0][5:]  # the path's gradient table, where it passed one
+    rand_calls = [a[:4] + (torch.randn(a[3].shape, dtype=td, device="cuda", generator=gen),)
+                  + grad_table for a in fwd_calls]
     r_rand, e_rand, g_ms, g_plain = pairs_grad_check(rand_calls, tol, f"the {name} window set", 2)
     log(f"(g) {name}: pairs at the window set ({len(fwd_calls)} launches, {n_entries} entries, "
         f"pairs nu {np.round(nus, 4).tolist()}, ls {np.round(lss, 2).tolist()}): forward max abs err "
         f"{f_err:.3e} (bar {atol}), {f_ms:.3f} ms, plain {f_plain:.1f} ms; gradient |kernel - plain| / "
         f"sum|terms| {r_real:.3e} at one chunk's own cotangent, {r_rand:.3e} at a random one (bar {tol}), "
         f"{g_ms:.3f} ms, plain {g_plain:.1f} ms")
-    # the same work in one launch each: the wrappers' host work (the constant
-    # table, which reads nu and ls from the card) once instead of per chunk
+    # the same work in one launch each: the wrappers' host work once instead
+    # of per chunk
     h_all, i_all = (torch.cat([a[k].reshape(-1) for a in fwd_calls]) for k in (3, 2))
     c_all = torch.cat([a[4].reshape(-1) for a in rand_calls])
     one_f = cuda_time_ms(lambda: K.matern_corr_pairs(nus_t, lss_t, i_all, h_all), 3)
@@ -1343,6 +1494,7 @@ def phase_g(dtype, results):
         f"finite {float(np.isfinite(jout.pred).mean()):.4%}, warnings {[str(w.message)[:70] for w in caught]}")
     check(bool(np.isfinite(jout.pred).all()), f"(g) {name}: CG predictions not all finite")
     c_err, c_ms, c_plain = pairs_forward_check(cg_calls, atol, f"one {name} CG row tile")
+    cg_sync_free(ijp, cg_calls[0], name)
     cb = bound_of([pairs_bound([(cg_calls[0][3], cg_calls[0][2])], cg_calls[0][0].tolist(),
                                cg_calls[0][1].tolist())])
     rows.append(dict(
@@ -1414,6 +1566,7 @@ def main(phases="abcdefg"):
                 phase_c_matern(c1, c2, dtype, kres)
                 phase_c_block_grad(c1, c2, dtype, kres)
                 phase_c_pairs(dtype, kres)
+                phase_c_partition(dtype, kres)
             for small in (phase_c_small_path, phase_c_small_nll, phase_c_small_large_n):
                 log(f"(c) elapsed since start {time.perf_counter() - t_start:.1f} s")
                 small()

@@ -20,10 +20,13 @@ kernels, ``kernels.cuda_ops.matern_correlation_block`` forward and
 ids (the matrix-free CG rows, the direct local systems, the Vecchia
 windows); their correlations go through ``matern_corr_pairs``, on a CUDA
 tensor the gathered-pairs kernels ``kernels.cuda_ops.matern_corr_pairs``
-forward and ``matern_corr_pairs_grad`` backward.
+forward and ``matern_corr_pairs_grad`` backward. A caller that assembles many
+tiles with one parameter set builds their ``PairTable`` once (``pair_table``)
+and passes it down, so the tiles copy nothing from the host.
 """
 
 import math
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -190,18 +193,48 @@ def block_covariance(params: MaternParams, dists, h_grad: bool = True):
     )
 
 
-def _pair_inputs(params: MaternParams):
-    """(table, nu_pairs, ls_pairs): the (p, p) numpy table of pair numbers k
-    of the process pairs i <= j in row order (symmetric), and the (n_pairs,)
-    stacks of their nu and len_scale."""
+def _pairs(p):
+    """The process pairs i <= j in row order; pair number k is the k-th."""
+    return [(i, j) for i in range(p) for j in range(i, p)]
+
+
+def _pair_stacks(params: MaternParams):
+    """The (n_pairs,) stacks of nu and len_scale of the process pairs."""
+    pairs = _pairs(params.n_procs)
+    return (torch.stack([params.nu[i, j] for i, j in pairs]),
+            torch.stack([params.len_scale[i, j] for i, j in pairs]))
+
+
+class PairTable(NamedTuple):
+    """What the gathered covariances need beyond the parameters' autograd
+    values, built once per parameter set by ``pair_table``: ``index``, the
+    (p, p) pair number k of each process pair (symmetric, i <= j in row
+    order), and on a CUDA device the gathered-pairs kernels' constant tables
+    (``kernels.cuda_ops.pairs_constants``): ``consts`` for the forward,
+    ``grad_consts`` for the gradient (both None elsewhere)."""
+
+    index: torch.Tensor
+    consts: Optional[torch.Tensor]
+    grad_consts: Optional[torch.Tensor]
+
+
+def pair_table(params: MaternParams, device, dtype) -> PairTable:
+    """The ``PairTable`` of ``params`` for distances of ``dtype`` on
+    ``device``: one host-to-device copy of the pair numbers and, on a card,
+    the kernels' constants built there from the parameters' values."""
+    from cokriging_tpu_torch.kernels.cuda_ops import pairs_constants
+
     p = params.n_procs
-    pair_list = [(i, j) for i in range(p) for j in range(i, p)]
-    table = np.zeros((p, p), np.int64)
-    for k, (i, j) in enumerate(pair_list):
-        table[i, j] = table[j, i] = k
-    nu_pairs = torch.stack([params.nu[i, j] for i, j in pair_list])
-    ls_pairs = torch.stack([params.len_scale[i, j] for i, j in pair_list])
-    return table, nu_pairs, ls_pairs
+    index = np.zeros((p, p), np.int64)
+    for k, (i, j) in enumerate(_pairs(p)):
+        index[i, j] = index[j, i] = k
+    device = torch.device(device)
+    consts = grad_consts = None
+    if device.type == "cuda":
+        nu_pairs, ls_pairs = (t.detach().to(device) for t in _pair_stacks(params))
+        consts = pairs_constants(nu_pairs, ls_pairs, dtype)
+        grad_consts = pairs_constants(nu_pairs, ls_pairs, dtype, grad=True)
+    return PairTable(torch.as_tensor(index, device=device), consts, grad_consts)
 
 
 class _MaternCorrPairs(torch.autograd.Function):
@@ -213,22 +246,25 @@ class _MaternCorrPairs(torch.autograd.Function):
     CPU both are their plain versions."""
 
     @staticmethod
-    def forward(ctx, nu_pairs, ls_pairs, idx_f, h):
+    def forward(ctx, nu_pairs, ls_pairs, idx_f, h, consts=None, grad_consts=None):
         from cokriging_tpu_torch.kernels import cuda_ops
 
         ctx.save_for_backward(nu_pairs, ls_pairs, idx_f, h)
-        return cuda_ops.matern_corr_pairs(nu_pairs.detach(), ls_pairs.detach(), idx_f, h)
+        ctx.grad_consts = grad_consts
+        return cuda_ops.matern_corr_pairs(nu_pairs.detach(), ls_pairs.detach(), idx_f, h,
+                                          table=consts)
 
     @staticmethod
     def backward(ctx, ct):
         from cokriging_tpu_torch.kernels import cuda_ops
 
         nu_pairs, ls_pairs, idx_f, h = ctx.saved_tensors
-        g = cuda_ops.matern_corr_pairs_grad(nu_pairs, ls_pairs, idx_f, h, ct)
-        return g[:, 0].to(nu_pairs.dtype), g[:, 1].to(ls_pairs.dtype), None, None
+        g = cuda_ops.matern_corr_pairs_grad(nu_pairs, ls_pairs, idx_f, h, ct,
+                                            table=ctx.grad_consts)
+        return g[:, 0].to(nu_pairs.dtype), g[:, 1].to(ls_pairs.dtype), None, None, None, None
 
 
-def matern_corr_pairs(nu_pairs, ls_pairs, idx_f, h):
+def matern_corr_pairs(nu_pairs, ls_pairs, idx_f, h, table=None):
     """Matern correlation over gathered entries whose (nu, len_scale) take
     one of ``n_pairs`` values, selected per entry by the float index plane
     ``idx_f`` (0.0 .. n_pairs - 1.0; any other value selects pair 0).
@@ -238,7 +274,9 @@ def matern_corr_pairs(nu_pairs, ls_pairs, idx_f, h):
     gradient kernel backward (h gets no gradient there). On the CPU it is
     the plain per-entry select through the elementwise
     ``matern_correlation`` under ordinary autograd, which is what the
-    reference runs off the TPU.
+    reference runs off the TPU. ``table``: a ``PairTable`` holding the
+    kernels' constant tables of these pairs, or None to build them per
+    launch.
     """
     from cokriging_tpu_torch.kernels.cuda_ops import matern_corr_pairs_plain
 
@@ -249,7 +287,8 @@ def matern_corr_pairs(nu_pairs, ls_pairs, idx_f, h):
         return matern_corr_pairs_plain(nu_pairs, ls_pairs, idx_f, h)
     if torch.is_grad_enabled() and h.requires_grad:
         raise ValueError("matern_corr_pairs: the kernels on the card give h no gradient")
-    return _MaternCorrPairs.apply(nu_pairs, ls_pairs, idx_f, h)
+    consts = (None, None) if table is None else (table.consts, table.grad_consts)
+    return _MaternCorrPairs.apply(nu_pairs, ls_pairs, idx_f, h, *consts)
 
 
 def _pair_terms(params, pa, pb):
@@ -272,7 +311,7 @@ def _pair_terms(params, pa, pb):
     return amp, nug
 
 
-def gathered_covariance(params: MaternParams, d, procs_a, procs_b=None):
+def gathered_covariance(params: MaternParams, d, procs_a, procs_b=None, table=None):
     """Pointwise mixed-process covariance from gathered process ids.
 
     Entry (a, b) applies the reference's conventions to the process pair
@@ -282,29 +321,32 @@ def gathered_covariance(params: MaternParams, d, procs_a, procs_b=None):
     Shared by the matrix-free CG matvec (``predict.iterative``) and the
     direct-assembly local predictor (``predict.local``,
     ``materialize_cov=False``); broadcasts over leading batch dimensions.
-    The correlations go through ``matern_corr_pairs``.
+    The correlations go through ``matern_corr_pairs``. ``table``: the
+    ``pair_table(params, d.device, d.dtype)`` of these parameters' values,
+    or None to build it here.
     """
     d = torch.as_tensor(d)
     if procs_b is None:
         procs_b = procs_a
+    if table is None:
+        table = pair_table(params, d.device, d.dtype)
     pa = torch.as_tensor(procs_a, device=d.device).long()[..., :, None]
     pb = torch.as_tensor(procs_b, device=d.device).long()[..., None, :]
-    table, nu_pairs, ls_pairs = _pair_inputs(params)
-    idx = torch.as_tensor(table, device=d.device)[pa, pb]
-    idx = torch.broadcast_to(idx, d.shape).to(d.dtype).contiguous()
-    corr = matern_corr_pairs(nu_pairs, ls_pairs, idx, d)
+    nu_pairs, ls_pairs = _pair_stacks(params)
+    idx = torch.broadcast_to(table.index[pa, pb], d.shape).to(d.dtype).contiguous()
+    corr = matern_corr_pairs(nu_pairs, ls_pairs, idx, d, table)
     amp, nugget = _pair_terms(params, pa, pb)
     return amp * corr + torch.where(d == 0.0, nugget, 0.0)
 
 
-def windows_covariance(params: MaternParams, d, procs, mvar=None):
+def windows_covariance(params: MaternParams, d, procs, mvar=None, table=None):
     """Batched mixed-process covariance over symmetric gathered windows.
 
     The per-entry conventions of ``gathered_covariance``, specialized to a
     batch of square symmetric distance windows (..., w, w), the Vecchia
     term layout (``estimate.vecchia``): only the lower triangle of each
-    window (``np.tril_indices``) goes through ``matern_corr_pairs``, and is
-    mirrored as low + low^T - low * I.
+    window (``torch.tril_indices``, made on the device) goes through
+    ``matern_corr_pairs``, and is mirrored as low + low^T - low * I.
 
     Args:
         params: MaternParams for p processes.
@@ -312,19 +354,24 @@ def windows_covariance(params: MaternParams, d, procs, mvar=None):
         procs: (..., w) int process ids of each window slot.
         mvar: optional (..., w) per-slot measurement-error variances added
             to the window diagonals.
+        table: the ``pair_table(params, d.device, d.dtype)`` of these
+            parameters' values, or None to build it here.
 
     Returns:
         (..., w, w) covariance windows.
     """
     d = torch.as_tensor(d)
     w = d.shape[-1]
-    table, nu_pairs, ls_pairs = _pair_inputs(params)
+    if table is None:
+        table = pair_table(params, d.device, d.dtype)
+    nu_pairs, ls_pairs = _pair_stacks(params)
     procs = torch.as_tensor(procs, device=d.device).long()
     pa = procs[..., :, None]
     pb = procs[..., None, :]
-    idx = torch.as_tensor(table, device=d.device)[pa, pb]
-    ti, tj = (torch.as_tensor(t, device=d.device) for t in np.tril_indices(w))
-    corr_t = matern_corr_pairs(nu_pairs, ls_pairs, idx[..., ti, tj].to(d.dtype), d[..., ti, tj])
+    idx = table.index[pa, pb]
+    ti, tj = torch.tril_indices(w, w, device=d.device)
+    corr_t = matern_corr_pairs(nu_pairs, ls_pairs, idx[..., ti, tj].to(d.dtype), d[..., ti, tj],
+                               table)
     low = torch.zeros(d.shape, dtype=corr_t.dtype, device=d.device)
     low[..., ti, tj] = corr_t  # its backward gathers, where a mirroring gather would scatter
     eye = torch.eye(w, dtype=d.dtype, device=d.device)

@@ -38,7 +38,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from cokriging_tpu_torch.cov.matern import windows_covariance
+from cokriging_tpu_torch.cov.matern import pair_table, windows_covariance
 from cokriging_tpu_torch.cov.params import MaternParams, ParamSpec
 from cokriging_tpu_torch.estimate.nll import _bounds, _value_and_grad, sigmoid_box_lbfgs
 from cokriging_tpu_torch.estimate.wls import _box_forward
@@ -254,17 +254,18 @@ def _term_windows(coords_ord, values_ord, procs_ord, mvar_ord, nbr, nbr_mask, de
     return tuple(torch.as_tensor(a, device=device) for a in arrays)
 
 
-def _chunk_nll(flat, spec, win, geodesic):
+def _chunk_nll(flat, spec, win, geodesic, table=None):
     """Sum of -2 log p(z_i | nbrs) over one chunk of terms, batched over the
     chunk. A window that does not factorize (found on a no-grad
     ``cholesky_ex`` probe) is replaced by the identity before the
     differentiable factorization, so no failed factor enters autograd, and
-    its term is the penalty 2e6 with an exactly zero gradient."""
+    its term is the penalty 2e6 with an exactly zero gradient. ``table``:
+    the ``pair_table`` of ``flat``'s values, or None to build it."""
     params = MaternParams.from_flat(flat, spec=spec)
     coords, z, procs, mvar, mask = win
     m1 = z.shape[-1]
     d = distance_matrix(coords, coords, geodesic)
-    cov = windows_covariance(params, d, procs, mvar)
+    cov = windows_covariance(params, d, procs, mvar, table=table)
     m2 = mask[..., :, None] & mask[..., None, :]
     eye = torch.eye(m1, dtype=cov.dtype, device=cov.device)
     cov = torch.where(m2, cov, eye)
@@ -283,23 +284,25 @@ class _WindowsNllSum(torch.autograd.Function):
     and gradient at once (its graph freed before the next chunk) and keeps
     the summed gradient; the backward scales it. Memory is one chunk's
     graph whatever N, as under the reference's checkpointed chunk scan.
-    Runs on the windows' device and in their dtype."""
+    Runs on the windows' device and in their dtype; the parameters'
+    ``pair_table`` is built once per evaluation and serves every chunk."""
 
     @staticmethod
     def forward(ctx, flat, windows, spec, geodesic, chunk):
         x = flat.detach().to(device=windows[0].device, dtype=windows[0].dtype)
         total = torch.zeros((), dtype=x.dtype, device=x.device)
         grad = torch.zeros_like(x)
+        table = pair_table(MaternParams.from_flat(x, spec=spec), x.device, x.dtype)
         for s in range(0, windows[0].shape[0], chunk):
             win = tuple(a[s:s + chunk] for a in windows)
             if ctx.needs_input_grad[0]:
                 with torch.enable_grad():
                     xc = x.clone().requires_grad_(True)
-                    v = _chunk_nll(xc, spec, win, geodesic)
+                    v = _chunk_nll(xc, spec, win, geodesic, table)
                     (g,) = torch.autograd.grad(v, xc)
                 grad += g
             else:
-                v = _chunk_nll(x, spec, win, geodesic)
+                v = _chunk_nll(x, spec, win, geodesic, table)
             total += v.detach()
         ctx.save_for_backward(grad)
         ctx.flat_like = (flat.device, flat.dtype)

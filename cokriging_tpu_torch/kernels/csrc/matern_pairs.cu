@@ -7,7 +7,7 @@
 // :735; _make_pairs_grad_kernel :646, _pairs_table_bwd :751). Entry e of a
 // flat array h takes pair k = idx[e] (idx a float plane of values
 // 0 .. n_pairs - 1; any other value selects pair 0, as _sel_pairs does):
-//   forward:  out[e] = M(nu_k, ls_k, h[e])   (kv.cuh::matern_value)
+//   forward:  out[e] = M(nu_k, ls_k, h[e])   (kv.cuh::matern_value_tab)
 //   gradient: for every pair k, sum over its entries of ct[e] dM/dnu and
 //             ct[e] dM/dls (kv.cuh::matern_partials), the (n_pairs, 2)
 //             cotangents of nu_pairs and ls_pairs; h and idx are data.
@@ -20,17 +20,22 @@
 // the order recurrence: hundreds of dependent operations, far above the
 // card's operations-per-byte line.
 //
-// Design. The TPU kernels padded the entries into (PM, PN) tiles, selected
-// each of nine or fourteen per-pair constants by an unrolled compare over
-// the pairs (n_pairs selects per constant per entry) and carried the
-// gradient sums across a sequential grid. Here the arrays are read flat and
-// contiguous, at any length, with a bounds check and no padding or copies.
-// The per-pair constants (n_pairs <= MAX_PAIRS, computed on the host by the
-// wrapper) arrive as a small device table that each block copies into
-// shared memory; an entry reads its pair's row there directly. One thread
-// per entry in the forward. Entries of different pairs (different orders,
-// so different recurrence lengths) and of both K_nu branches mix in a warp
-// and diverge; that is accepted in this first form.
+// Forward design. The arrays are read flat and contiguous, at any length,
+// with no padding or copies. The per-pair recurrence tables (n_pairs <=
+// MAX_PAIRS rows of kv.cuh's TabLayout, built on the card by the wrapper)
+// go to shared memory, so no series or CF2 trip divides by a function of mu.
+// One block of 256 threads takes a tile of 2,048 contiguous entries: it
+// loads h and idx with coalesced reads, writes M = 1 at once where h is not
+// > 0, keeps x = sqrt(2 nu) h / ls of the rest in shared memory and keys
+// each by (pair, series or CF2 half-octave of x); partition.cuh sorts the
+// tile's local indices by key, stably; thread t then evaluates sorted slots
+// t, t + 256, ..., so each warp runs 32 entries of one pair and one branch
+// with like CF2 trip counts (the TPU kernels padded (PM, PN) tiles and
+// selected the constants per entry by an unrolled compare; unsorted points
+// left every warp with both branches). Each value goes back to its entry's
+// slot in shared memory and leaves with one coalesced store. An entry's
+// value depends only on its own h and pair, so the output is the same bit
+// for bit under any permutation of the entries.
 // The gradient gives each thread ITEMS entries, strided by the block width so
 // the loads coalesce; each thread adds its terms per pair in the working type
 // into its own column of a shared-memory table (no races, no atomics, no
@@ -41,6 +46,7 @@
 #include <cuda_runtime.h>
 
 #include "kv.cuh"
+#include "partition.cuh"
 
 namespace {
 
@@ -49,9 +55,12 @@ constexpr int THREADS = 256;
 constexpr int ITEMS = 4;
 constexpr int WARPS = THREADS / 32;
 constexpr int RED_THREADS = 256;
-// forward table row: nu, ls, sqrt(2 nu), mu, nl, gam1, gam2, 1/Gamma(1+mu),
-// 1/Gamma(1-mu), lgamma(nu)
-constexpr int FWD_COLS = 10;
+// the forward's tile: FWD_ITEMS entries per thread
+constexpr int FWD_ITEMS = 8;
+constexpr int FWD_TILE = THREADS * FWD_ITEMS;
+// sort buckets per pair: the series and CF2_BINS half-octaves of CF2
+constexpr int CF2_BINS = 8;
+constexpr int BUCKETS = 1 + CF2_BINS;
 // gradient table row: |nu|, ls, sqrt(2|nu|), mu, gam1, gam2, 1/Gamma(1+mu),
 // 1/Gamma(1-mu), their four d/dmu, lgamma(|nu|), digamma(|nu|), nl
 constexpr int BWD_COLS = 15;
@@ -65,12 +74,6 @@ __device__ __forceinline__ int pair_of(T v, int n_pairs) {
     if (T(k) == v) return k;
   }
   return 0;
-}
-
-template <typename T>
-__device__ __forceinline__ T fwd_entry(T h, const T* c) {
-  const ckt::GamConsts<T> g{c[5], c[6], c[7], c[8]};
-  return ckt::matern_value(h, c[0], c[1], c[2], c[3], static_cast<int>(c[4]), g, c[9]);
 }
 
 // this entry's (ct dM/dnu, ct dM/dls); false where it has no terms
@@ -90,15 +93,56 @@ __device__ __forceinline__ bool grad_entry(T h, T w, const T* c, T& g_nu, T& g_l
   return true;
 }
 
+// Dynamic shared memory of a forward block: the tables, x (then M) per
+// entry, the partition's counts and total, the sorted indices, the keys.
+template <typename T> size_t fwd_smem(int n_pairs) {
+  return sizeof(T) * (n_pairs * ckt::TabLayout<T>::width + FWD_TILE) +
+         sizeof(int) * (WARPS * n_pairs * BUCKETS + 4) + sizeof(unsigned short) * FWD_TILE +
+         FWD_TILE;
+}
+
 template <typename T>
-__global__ void pairs_fwd_kernel(const T* __restrict__ h, const T* __restrict__ idx,
-                                 long long n, const T* __restrict__ table, int n_pairs,
-                                 T* __restrict__ out) {
-  __shared__ T s_table[MAX_PAIRS * FWD_COLS];
-  for (int t = threadIdx.x; t < n_pairs * FWD_COLS; t += blockDim.x) s_table[t] = table[t];
+__global__ void __launch_bounds__(THREADS)
+    pairs_fwd_kernel(const T* __restrict__ h, const T* __restrict__ idx, long long n,
+                     const T* __restrict__ table, int n_pairs, int early_exit,
+                     T* __restrict__ out) {
+  constexpr int W = ckt::TabLayout<T>::width;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* s_tab = reinterpret_cast<T*>(smem);
+  T* s_val = s_tab + n_pairs * W;
+  int* s_cnt = reinterpret_cast<int*>(s_val + FWD_TILE);
+  int* s_total = s_cnt + WARPS * n_pairs * BUCKETS;
+  unsigned short* s_perm = reinterpret_cast<unsigned short*>(s_total + 4);
+  unsigned char* s_key = reinterpret_cast<unsigned char*>(s_perm + FWD_TILE);
+  for (int t = threadIdx.x; t < n_pairs * W; t += THREADS) s_tab[t] = table[t];
   __syncthreads();
-  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e < n) out[e] = fwd_entry(h[e], s_table + pair_of(idx[e], n_pairs) * FWD_COLS);
+  const long long base = static_cast<long long>(blockIdx.x) * FWD_TILE;
+  const int n_tile = static_cast<int>(n - base < FWD_TILE ? n - base : FWD_TILE);
+  for (int e = threadIdx.x; e < FWD_TILE; e += THREADS) {
+    unsigned char key = ckt::kNoKey;
+    if (e < n_tile) {
+      const T hv = fabs(h[base + e]);
+      if (hv > T(0)) {
+        const int k = pair_of(idx[base + e], n_pairs);
+        const T* row = s_tab + k * W;
+        const T x = row[ckt::tab::kSqrt2Nu] * (hv / row[ckt::tab::kLs]);
+        s_val[e] = x;
+        key = static_cast<unsigned char>(k * BUCKETS + ckt::x_bucket<CF2_BINS>(x));
+      } else {
+        s_val[e] = T(1);
+      }
+    }
+    s_key[e] = key;
+  }
+  const int n_sorted = ckt::stable_partition<WARPS, FWD_ITEMS>(
+      s_key, n_tile, n_pairs * BUCKETS, s_perm, s_cnt, s_total);
+  for (int slot = threadIdx.x; slot < n_sorted; slot += THREADS) {
+    const int e = s_perm[slot];
+    const ckt::ValueRow<T> row{s_tab + (s_key[e] / BUCKETS) * W};
+    s_val[e] = ckt::matern_value_tab(s_val[e], row, early_exit != 0);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < n_tile; e += THREADS) out[base + e] = s_val[e];
 }
 
 template <typename T>
@@ -162,12 +206,15 @@ __global__ void pairs_reduce_kernel(const double* __restrict__ part, long long n
 long long grad_blocks(long long n) { return (n + THREADS * ITEMS - 1) / (THREADS * ITEMS); }
 
 template <typename T>
-int launch_fwd(const T* h, const T* idx, long long n, const T* table, int n_pairs, T* out,
-               cudaStream_t stream) {
+int launch_fwd(const T* h, const T* idx, long long n, const T* table, int n_pairs,
+               int early_exit, T* out, cudaStream_t stream) {
   if (n_pairs < 1 || n_pairs > MAX_PAIRS) return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = (n + THREADS - 1) / THREADS;
-  pairs_fwd_kernel<T><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
-      h, idx, n, table, n_pairs, out);
+  const size_t smem = fwd_smem<T>(n_pairs);
+  cudaError_t err = ckt::allow_smem<pairs_fwd_kernel<T>>(fwd_smem<T>(MAX_PAIRS));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = (n + FWD_TILE - 1) / FWD_TILE;
+  pairs_fwd_kernel<T><<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
+      h, idx, n, table, n_pairs, early_exit, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -190,16 +237,23 @@ extern "C" {
 
 long long pairs_grad_blocks(long long n) { return grad_blocks(n); }
 
-// h, idx, out: n contiguous device values; table: n_pairs x 10 device values
-// (see FWD_COLS).
+int pairs_table_width(int f64) {
+  return f64 ? ckt::TabLayout<double>::width : ckt::TabLayout<float>::width;
+}
+
+// h, idx, out: n contiguous device values; table: n_pairs rows of
+// pairs_table_width device values (kv.cuh's TabLayout); early_exit = 0 runs
+// a degenerate lane's CF2 trips all the same (checks that it changes no bit).
 int pairs_fwd_f32(const float* h, const float* idx, long long n, const float* table,
-                  int n_pairs, float* out, void* stream) {
-  return launch_fwd<float>(h, idx, n, table, n_pairs, out, static_cast<cudaStream_t>(stream));
+                  int n_pairs, int early_exit, float* out, void* stream) {
+  return launch_fwd<float>(h, idx, n, table, n_pairs, early_exit, out,
+                           static_cast<cudaStream_t>(stream));
 }
 
 int pairs_fwd_f64(const double* h, const double* idx, long long n, const double* table,
-                  int n_pairs, double* out, void* stream) {
-  return launch_fwd<double>(h, idx, n, table, n_pairs, out, static_cast<cudaStream_t>(stream));
+                  int n_pairs, int early_exit, double* out, void* stream) {
+  return launch_fwd<double>(h, idx, n, table, n_pairs, early_exit, out,
+                            static_cast<cudaStream_t>(stream));
 }
 
 // h, idx, ct: n contiguous device values; table: n_pairs x 15 device values

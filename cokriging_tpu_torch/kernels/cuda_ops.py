@@ -7,11 +7,15 @@ Counterpart of ``cokriging_tpu/kernels/pallas_ops.py``:
   ``estimate/empirical.py::_all_pairs_program`` on the distance surrogate h;
 - ``matern_correlation_block`` (``csrc/matern.cu`` + ``csrc/kv.cuh``)
   replaces ``matern_correlation_pallas``;
-- ``matern_block_grad`` (``csrc/matern_grad.cu`` + ``csrc/kv.cuh``) replaces
-  ``matern_block_grad_pallas``;
+- ``matern_block_grad`` (``csrc/matern_grad.cu`` + ``csrc/kv.cuh`` +
+  ``csrc/partition.cuh``) replaces ``matern_block_grad_pallas``;
 - ``matern_corr_pairs`` and ``matern_corr_pairs_grad`` (``csrc/matern_pairs.cu``
-  + ``csrc/kv.cuh``) replace ``matern_corr_pairs_pallas`` and
-  ``matern_corr_pairs_grad_pallas``.
+  + ``csrc/kv.cuh``, the forward also ``csrc/partition.cuh``) replace
+  ``matern_corr_pairs_pallas`` and ``matern_corr_pairs_grad_pallas``.
+
+The block gradient and the pairs forward read their per-(nu, ls) constants
+from ``recurrence_table``, built with torch on the device of nu and ls: no
+host read, no synchronization.
 
 Each wrapper runs the plain torch version only for tensors on the CPU. For
 a CUDA tensor it launches its kernel or raises; there is no fallback. Each
@@ -25,7 +29,9 @@ import math
 import torch
 
 from cokriging_tpu_torch.kernels import _build
-from cokriging_tpu_torch.kernels.bessel import _gam12, _kv_value, gam12_tangent
+from cokriging_tpu_torch.kernels.bessel import (
+    CF2_ITERS, SERIES_ITERS, _gam12, _kv_value, gam12_tangent,
+)
 
 #: Kernel launches per wrapper since the last ``reset_launch_counts()``.
 LAUNCHES = {
@@ -332,18 +338,65 @@ def matern_correlation_block(nu, len_scale, h, symmetric=False):
 # ---------------------------------------------------------------------------
 
 
-def matern_grad_constants(nu, len_scale, dtype):
-    """Host scalars of one block backward in ``dtype``: ``([nu, ls,
-    sqrt(2 nu), mu, gam1, gam2, 1/Gamma(1+mu), 1/Gamma(1-mu), their four
-    d/dmu, lgamma(nu), digamma(nu)], nl)``, from the same torch functions as
-    the plain path."""
-    nu_t = torch.abs(torch.tensor(float(nu), dtype=dtype))
-    ls_t = torch.tensor(float(len_scale), dtype=dtype)
-    nl = torch.floor(nu_t + 0.5)
-    mu = nu_t - nl
-    vals = [nu_t, ls_t, torch.sqrt(2.0 * nu_t), mu, *_gam12(mu), *gam12_tangent(mu),
-            torch.lgamma(nu_t), torch.digamma(nu_t)]
-    return [v.item() for v in vals], int(nl.item())
+# columns of a recurrence-table row (csrc/kv.cuh, namespace tab): the head,
+# then 3 per series trip and 3 per CF2 trip
+_TAB_HEAD = 13
+
+
+def recurrence_table(nu_pairs, ls_pairs, dtype, dual=False):
+    """Per-(nu, ls) table of ``csrc/kv.cuh``'s table-driven recurrences, one
+    row per pair, in ``dtype`` on the device of ``nu_pairs``, with no host
+    read. Columns (kv.cuh ``TabLayout``): nu, ls, sqrt(2 nu), mu, nl, gam1,
+    gam2, 0.5 Gamma(1+mu), 0.5 Gamma(1-mu), lgamma(nu), digamma(nu),
+    pi mu / sin(pi mu), a1 = 0.25 - mu^2; per series trip i = 1 .. S
+    1/(i^2 - mu^2), 1/(i - mu), 1/(i + mu); per CF2 trip i = 2 .. C + 1
+    a_n = -a1 - i (i - 1), 1/a_n, -a_n / i. mu, nl, the gamma constants and
+    a1 come from the same torch functions, in ``dtype``, as the plain path;
+    the trip columns are formed in float64 from that mu and a1.
+
+    ``dual=False`` (the pairs forward) keeps nu's sign as the plain path
+    does; ``dual=True`` (the block gradient) takes |nu| and stores each
+    column with its d/dmu beside it (mu's own is 1; the gamma tangents from
+    ``gam12_tangent``), so a row holds twice the values."""
+    nu = torch.as_tensor(nu_pairs, dtype=dtype).detach().reshape(-1)
+    ls = torch.as_tensor(ls_pairs, dtype=dtype, device=nu.device).detach().reshape(-1)
+    nu_abs = torch.abs(nu)
+    nl = torch.floor(nu_abs + 0.5)
+    mu = nu_abs - nl
+    gam1, gam2, inv_gp, inv_gm = _gam12(mu)
+    nu_c = nu_abs if dual else nu
+    a1 = 0.25 - mu * mu
+    m = mu.double()
+    pimu = math.pi * m
+    small = pimu.abs() < 1e-4
+    sin_p = torch.sin(torch.where(small, 1.0, pimu))
+    fact = torch.where(small, 1.0 + pimu * pimu / 6.0, pimu / sin_p)
+    i_s = torch.arange(1, SERIES_ITERS[dtype] + 1, dtype=torch.float64, device=nu.device)
+    i_c = torch.arange(2, CF2_ITERS[dtype] + 2, dtype=torch.float64, device=nu.device)
+    r2 = 1.0 / (i_s * i_s - (m * m)[:, None])
+    rm = 1.0 / (i_s - m[:, None])
+    rp = 1.0 / (i_s + m[:, None])
+    a_n = -a1.double()[:, None] - i_c * (i_c - 1.0)
+    head = [nu_c, ls, torch.sqrt(2.0 * nu_c), mu, nl, gam1, gam2, 0.5 / inv_gp, 0.5 / inv_gm,
+            torch.lgamma(nu_c), torch.digamma(nu_c), fact.to(dtype), a1]
+    series = torch.stack([r2, rm, rp], dim=2).flatten(1)
+    cf2 = torch.stack([a_n, 1.0 / a_n, -a_n / i_c], dim=2).flatten(1)
+    val = torch.cat([torch.stack(head, dim=1), series.to(dtype), cf2.to(dtype)], dim=1)
+    if not dual:
+        return val
+    zero = torch.zeros_like(mu)
+    d_gam1, d_gam2, d_gp, d_gm = gam12_tangent(mu)
+    d_fact = torch.where(small, pimu * math.pi / 3.0,
+                         math.pi * (sin_p - pimu * torch.cos(pimu)) / (sin_p * sin_p))
+    d_head = [zero, zero, zero, torch.ones_like(mu), zero, d_gam1, d_gam2,
+              -0.5 * d_gp / (inv_gp * inv_gp), -0.5 * d_gm / (inv_gm * inv_gm), zero, zero,
+              d_fact.to(dtype), -2.0 * mu]
+    two_mu = 2.0 * m[:, None]
+    d_series = torch.stack([two_mu * r2 * r2, rm * rm, -rp * rp], dim=2).flatten(1)
+    d_cf2 = torch.stack([two_mu.expand_as(a_n), -two_mu / (a_n * a_n),
+                         -two_mu / i_c], dim=2).flatten(1)
+    tan = torch.cat([torch.stack(d_head, dim=1), d_series.to(dtype), d_cf2.to(dtype)], dim=1)
+    return torch.stack([val, tan], dim=2).flatten(1)
 
 
 def matern_block_grad_plain(scale, nugget, nu, ls, h, ct, symmetric=False,
@@ -409,8 +462,9 @@ def matern_block_grad(scale, nugget, nu, ls, h, ct, symmetric=False):
 
     ``symmetric=True`` (square symmetric h, any ct) evaluates the lower
     triangle only. ``h`` and ``ct`` may be row-strided views (unit column
-    stride). CUDA tensors run ``csrc/matern_grad.cu``; CPU tensors the plain
-    version."""
+    stride). CUDA tensors run ``csrc/matern_grad.cu`` (its dual table from
+    ``recurrence_table`` on the card; ``scale`` is read on the host); CPU
+    tensors the plain version."""
     if h.device.type == "cpu":
         return matern_block_grad_plain(scale, nugget, nu, ls, h, ct, symmetric)
     for t in (h, ct):
@@ -427,18 +481,16 @@ def matern_block_grad(scale, nugget, nu, ls, h, ct, symmetric=False):
         raise ValueError("matern_block_grad: h needs unit column stride")
     if ct.stride(1) != 1 or ct.stride(0) < m:
         ct = ct.contiguous()
-    T = _CT[h.dtype]
-    sfx = _SUFFIX[h.dtype]
-    consts, nl = matern_grad_constants(nu, ls, h.dtype)
+    table = recurrence_table(torch.as_tensor(nu, dtype=h.dtype, device=h.device),
+                             torch.as_tensor(ls, dtype=h.dtype, device=h.device), h.dtype,
+                             dual=True)
     tiles = _fn_ll("matern_grad.cu", "matern_grad_num_tiles", [_I, _I, _I])(n, m, int(symmetric))
     part = torch.empty(4 * tiles, dtype=torch.float64, device=h.device)
-    f = _fn("matern_grad.cu", f"matern_grad_{sfx}",
-            [_P, _P, _I, _I, _LL, _LL, _I, ctypes.POINTER(T), _I, ctypes.c_double,
-             _P, _P, _P])
+    f = _fn("matern_grad.cu", f"matern_grad_{_SUFFIX[h.dtype]}",
+            [_P, _P, _I, _I, _LL, _LL, _I, _P, ctypes.c_double, _P, _P, _P])
     with torch.cuda.device(h.device):
         rc = f(_ptr(h), _ptr(ct), n, m, h.stride(0), ct.stride(0), int(symmetric),
-               (T * len(consts))(*consts), nl, float(scale), _ptr(part), _ptr(out),
-               _stream(h.device))
+               _ptr(table), float(scale), _ptr(part), _ptr(out), _stream(h.device))
     _check_rc("matern_grad.cu", rc, "matern_block_grad")
     LAUNCHES["matern_block_grad"] += 1
     return out
@@ -463,20 +515,20 @@ def pair_index(idx_f, n_pairs):
 
 
 def pairs_constants(nu_pairs, ls_pairs, dtype, grad=False):
-    """Host table of per-pair constants in ``dtype``, one row per pair, from
-    the same torch functions as ``matern_constants`` (``grad=False``: nu, ls,
-    sqrt(2 nu), mu, nl, gam1, gam2, 1/Gamma(1+mu), 1/Gamma(1-mu), lgamma(nu))
-    and ``matern_grad_constants`` (``grad=True``: its 14 scalars, then nl)."""
-    nu = torch.as_tensor(nu_pairs).detach().to("cpu", dtype).reshape(-1)
-    ls = torch.as_tensor(ls_pairs).detach().to("cpu", dtype).reshape(-1)
+    """Per-pair constant table in ``dtype`` on the device of ``nu_pairs``,
+    with no host read: ``grad=False`` the forward kernel's
+    ``recurrence_table``; ``grad=True`` the gradient kernel's 15 columns,
+    |nu|, ls, sqrt(2|nu|), mu, gam1, gam2, 1/Gamma(1+mu), 1/Gamma(1-mu),
+    their four d/dmu, lgamma(|nu|), digamma(|nu|), nl."""
+    if not grad:
+        return recurrence_table(nu_pairs, ls_pairs, dtype)
+    nu = torch.as_tensor(nu_pairs, dtype=dtype).detach().reshape(-1)
+    ls = torch.as_tensor(ls_pairs, dtype=dtype, device=nu.device).detach().reshape(-1)
     nu_abs = torch.abs(nu)
     nl = torch.floor(nu_abs + 0.5)
     mu = nu_abs - nl
-    if grad:
-        cols = [nu_abs, ls, torch.sqrt(2.0 * nu_abs), mu, *_gam12(mu), *gam12_tangent(mu),
-                torch.lgamma(nu_abs), torch.digamma(nu_abs), nl]
-    else:
-        cols = [nu, ls, torch.sqrt(2.0 * nu), mu, nl, *_gam12(mu), torch.lgamma(nu)]
+    cols = [nu_abs, ls, torch.sqrt(2.0 * nu_abs), mu, *_gam12(mu), *gam12_tangent(mu),
+            torch.lgamma(nu_abs), torch.digamma(nu_abs), nl]
     return torch.stack(cols, dim=1)
 
 
@@ -548,12 +600,19 @@ def matern_corr_pairs_grad_plain(nu_pairs, ls_pairs, idx_f, h, ct, absolute=Fals
     return out
 
 
-def matern_corr_pairs(nu_pairs, ls_pairs, idx_f, h):
+def matern_corr_pairs(nu_pairs, ls_pairs, idx_f, h, table=None, early_exit=True):
     """Matern correlation over gathered entries of any shape: entry e takes
     pair ``pair_index(idx_f)[e]`` of ``nu_pairs``/``ls_pairs`` (see
     ``matern_corr_pairs_plain``). Forward only. CUDA tensors run
     ``csrc/matern_pairs.cu`` on the flat arrays (``h`` contiguous; ``idx_f``
-    in h's dtype is read as it is); CPU tensors the plain version."""
+    in h's dtype is read as it is); CPU tensors the plain version.
+
+    ``table``: the kernel's ``pairs_constants(nu_pairs, ls_pairs, h.dtype)``
+    on h's device, built once by a caller that launches many times with one
+    parameter set; by default it is built here, on the card. Neither way
+    reads the card from the host. ``early_exit=False`` runs the CF2 trips of
+    half-integer orders that the kernel skips (they change no bit), for
+    checks."""
     if h.device.type == "cpu":
         return matern_corr_pairs_plain(nu_pairs, ls_pairs, idx_f, h)
     nu_pairs, ls_pairs = torch.as_tensor(nu_pairs), torch.as_tensor(ls_pairs)
@@ -564,22 +623,31 @@ def matern_corr_pairs(nu_pairs, ls_pairs, idx_f, h):
     out = torch.empty_like(h)
     if h.numel() == 0:
         return out
-    table = pairs_constants(nu_pairs, ls_pairs, h.dtype).to(h.device)
-    f = _fn("matern_pairs.cu", f"pairs_fwd_{_SUFFIX[h.dtype]}", [_P, _P, _LL, _P, _I, _P, _P])
+    if table is None:
+        table = pairs_constants(nu_pairs, ls_pairs, h.dtype).to(h.device)
+    width = _TAB_HEAD + 3 * (SERIES_ITERS[h.dtype] + CF2_ITERS[h.dtype])
+    if (table.shape != (n_pairs, width) or table.dtype != h.dtype or table.device != h.device
+            or not table.is_contiguous()):
+        raise ValueError(f"matern_corr_pairs: table must be ({n_pairs}, {width}) contiguous "
+                         f"{h.dtype} on {h.device}")
+    f = _fn("matern_pairs.cu", f"pairs_fwd_{_SUFFIX[h.dtype]}", [_P, _P, _LL, _P, _I, _I, _P, _P])
     with torch.cuda.device(h.device):
-        rc = f(_ptr(h), _ptr(idx), h.numel(), _ptr(table), n_pairs, _ptr(out),
+        rc = f(_ptr(h), _ptr(idx), h.numel(), _ptr(table), n_pairs, int(early_exit), _ptr(out),
                _stream(h.device))
     _check_rc("matern_pairs.cu", rc, "matern_corr_pairs")
     LAUNCHES["matern_corr_pairs"] += 1
     return out
 
 
-def matern_corr_pairs_grad(nu_pairs, ls_pairs, idx_f, h, ct):
+def matern_corr_pairs_grad(nu_pairs, ls_pairs, idx_f, h, ct, table=None):
     """Backward of ``matern_corr_pairs`` against the cotangent ``ct``: the
     float64 (n_pairs, 2) tensor [g_nu, g_ls] of per-pair sums (see
     ``matern_corr_pairs_grad_plain``); ``h`` and ``idx_f`` get none. CUDA
     tensors run ``csrc/matern_pairs.cu`` (a fixed-order reduction, the same
-    sums from run to run); CPU tensors the plain version."""
+    sums from run to run); CPU tensors the plain version. ``table``: the
+    kernel's ``pairs_constants(nu_pairs, ls_pairs, h.dtype, grad=True)`` on
+    h's device, built once by a caller that launches many times with one
+    parameter set; by default it is built here, on the card."""
     if h.device.type == "cpu":
         return matern_corr_pairs_grad_plain(nu_pairs, ls_pairs, idx_f, h, ct)
     nu_pairs, ls_pairs = torch.as_tensor(nu_pairs), torch.as_tensor(ls_pairs)
@@ -594,7 +662,12 @@ def matern_corr_pairs_grad(nu_pairs, ls_pairs, idx_f, h, ct):
     n = h.numel()
     if n == 0:
         return out
-    table = pairs_constants(nu_pairs, ls_pairs, h.dtype, grad=True).to(h.device)
+    if table is None:
+        table = pairs_constants(nu_pairs, ls_pairs, h.dtype, grad=True).to(h.device)
+    if (table.shape != (n_pairs, 15) or table.dtype != h.dtype or table.device != h.device
+            or not table.is_contiguous()):
+        raise ValueError(f"matern_corr_pairs_grad: table must be ({n_pairs}, 15) contiguous "
+                         f"{h.dtype} on {h.device}")
     blocks = int(_fn_ll("matern_pairs.cu", "pairs_grad_blocks", [_LL])(n))
     part = torch.empty(2 * n_pairs * blocks, dtype=torch.float64, device=h.device)
     f = _fn("matern_pairs.cu", f"pairs_grad_{_SUFFIX[h.dtype]}",

@@ -29,32 +29,37 @@ import warnings
 import numpy as np
 import torch
 
-from cokriging_tpu_torch.cov.matern import gathered_covariance
+from cokriging_tpu_torch.cov.matern import gathered_covariance, pair_table
 from cokriging_tpu_torch.kernels.distance import distance_matrix
 from cokriging_tpu_torch.predict.local import LocalPrediction
 from cokriging_tpu_torch.utils.config import resolve_device
 
 
 def _tiled_rows_matvec(params, row_coords, row_procs, col_coords, col_procs, V,
-                       geodesic, block):
+                       geodesic, block, table=None):
     """y = C[rows, cols] @ V, assembling C one (block, n_cols) row tile at a
-    time so the rows' covariance never materializes."""
+    time so the rows' covariance never materializes. ``table``: the
+    parameters' ``pair_table`` for the coordinates' dtype and device, built
+    here when None; with it the tiles read nothing back from the card."""
+    if table is None:
+        table = pair_table(params, row_coords.device, row_coords.dtype)
     out = torch.empty((row_coords.shape[0], V.shape[1]), dtype=V.dtype, device=V.device)
     for r0 in range(0, row_coords.shape[0], block):
         tile = gathered_covariance(
             params, distance_matrix(row_coords[r0:r0 + block], col_coords, geodesic),
-            row_procs[r0:r0 + block], col_procs,
+            row_procs[r0:r0 + block], col_procs, table=table,
         )
         torch.matmul(tile.to(V.dtype), V, out=out[r0:r0 + block])
     return out
 
 
-def _pcg(params, coords, procs, B, tol, maxiter, geodesic, block):
+def _pcg(params, coords, procs, B, tol, maxiter, geodesic, block, table):
     """X = C^-1 B by Jacobi-preconditioned CG over every column of B at
-    once: (X, iterations, largest relative residual)."""
+    once: (X, iterations, largest relative residual). ``table``, the
+    parameters' ``pair_table``, serves every matvec."""
 
     def matvec(v):
-        return _tiled_rows_matvec(params, coords, procs, coords, procs, v, geodesic, block)
+        return _tiled_rows_matvec(params, coords, procs, coords, procs, v, geodesic, block, table)
 
     diag = (params.sigma[procs] ** 2 + params.nugget[procs]).to(B.dtype)[:, None]
     bnorm = torch.clamp_min(torch.linalg.vector_norm(B, dim=0), torch.finfo(B.dtype).tiny)
@@ -86,18 +91,18 @@ def _pcg(params, coords, procs, B, tol, maxiter, geodesic, block):
 
 
 def _predict_chunk(params, coords, procs, a, pchunk, i, tol, maxiter, geodesic, block,
-                   compute_err):
+                   compute_err, table):
     """(pred, pred_err, cg_iters, cg_resid) for one chunk of prediction
     locations. K follows src/joint_prediction.py:104-122: marginal rows
     carry the nugget at exact-zero distance, cross rows do not, both from
     ``gathered_covariance`` with the prediction side's process ids all i."""
     pprocs = torch.full((pchunk.shape[0],), i, dtype=procs.dtype, device=procs.device)
     K = gathered_covariance(params, distance_matrix(coords, pchunk, geodesic), procs,
-                            pprocs).to(a.dtype)
+                            pprocs, table=table).to(a.dtype)
     pred = K.T @ a[:, 0]
     if not compute_err:
         return pred, torch.full_like(pred, torch.nan), 0, 0.0
-    X, iters, resid = _pcg(params, coords, procs, K, tol, maxiter, geodesic, block)
+    X, iters, resid = _pcg(params, coords, procs, K, tol, maxiter, geodesic, block, table)
     # diag(K*) = sigma_i^2 M(0) + nugget_i (src/joint_prediction.py:94-102)
     sill0 = params.sigma[i] ** 2 + params.nugget[i]
     var = sill0 - torch.sum(K * X, dim=0)
@@ -166,14 +171,15 @@ class IterativeJointPredictor:
         with torch.no_grad():
             coords, procs, z = self._stacked()
             pc = torch.as_tensor(p_arr, dtype=coords.dtype, device=self.device)
+            table = pair_table(params, self.device, coords.dtype)
             a, it0, res0 = _pcg(params, coords, procs, z[:, None], self.tol, self.maxiter,
-                                geo, self.block)
+                                geo, self.block, table)
             diags = [(it0, res0)]
             preds, errs = [], []
             for lo in range(0, pc.shape[0], self.rhs_batch):
                 pred, err, it, res = _predict_chunk(
                     params, coords, procs, a, pc[lo:lo + self.rhs_batch], i, self.tol,
-                    self.maxiter, geo, self.block, compute_err,
+                    self.maxiter, geo, self.block, compute_err, table,
                 )
                 diags.append((it, res))
                 preds.append(pred)

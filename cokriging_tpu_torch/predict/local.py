@@ -33,6 +33,7 @@ from cokriging_tpu_torch.cov.matern import (
     covariance,
     cross_covariance,
     gathered_covariance,
+    pair_table,
 )
 from cokriging_tpu_torch.kernels.distance import distance_matrix
 from cokriging_tpu_torch.kernels.linalg import spd_solve
@@ -122,11 +123,11 @@ def _solve_local(params, a, cvec, z, mask, i, dtype):
 
 
 def _local_predict_batch(params, coords, values, joint_cov, pcoords, max_dist,
-                         i, geodesic, k_each, n_valid, dtype):
+                         i, geodesic, k_each, n_valid, dtype, table=None):
     """Local prediction at every row of ``pcoords``: (pred, err, n_nb).
     ``joint_cov=None`` assembles each local system from the gathered
     neighborhood coordinates instead of gathering it from the joint
-    covariance."""
+    covariance (``table``: the parameters' ``pair_table`` for it)."""
     p = len(coords)
     offsets = np.concatenate([[0], np.cumsum([c.shape[0] for c in coords])])[:-1]
     dev = pcoords.device
@@ -151,7 +152,7 @@ def _local_predict_batch(params, coords, values, joint_cov, pcoords, max_dist,
         # the same conventions as the joint matrix, from gathered coordinates
         gc = torch.cat([coords[j][idx_local[j]] for j in range(p)], dim=1)
         a = gathered_covariance(
-            params, distance_matrix(gc, gc, geodesic), _lane_procs(k_each, dev)
+            params, distance_matrix(gc, gc, geodesic), _lane_procs(k_each, dev), table=table
         ).to(dtype)
     else:
         idx = torch.cat([idx_local[j] + int(offsets[j]) for j in range(p)], dim=1)
@@ -171,18 +172,19 @@ def _local_predict_batch(params, coords, values, joint_cov, pcoords, max_dist,
     return _solve_local(params, a, cvec, z, mask, i, dtype)
 
 
-def _local_predict_gathered(params, gc, gz, pid, mask, s0, i, geodesic, dtype):
+def _local_predict_gathered(params, gc, gz, pid, mask, s0, i, geodesic, dtype, table):
     """Local prediction from host-gathered neighborhoods (the kd path):
     ``gc`` (B, K, 2) neighbor coordinates, ``gz`` (B, K) values, ``pid``
     (K,) lane process ids, ``mask`` (B, K) true-neighbor lanes, ``s0``
     (B, 2) locations. True distances, the local covariance
-    (``gathered_covariance``) and the masked solve as on the device-search
-    path."""
+    (``gathered_covariance``, ``table`` the parameters' ``pair_table``) and
+    the masked solve as on the device-search path."""
     dvec = distance_matrix(s0[:, None, :], gc, geodesic)[:, 0, :]
     eye = torch.eye(gc.shape[1], dtype=dtype, device=gc.device)
     m2 = mask[:, :, None] & mask[:, None, :]
     a = torch.where(
-        m2, gathered_covariance(params, distance_matrix(gc, gc, geodesic), pid).to(dtype), eye
+        m2, gathered_covariance(params, distance_matrix(gc, gc, geodesic), pid,
+                                table=table).to(dtype), eye
     )
     cvec = torch.zeros_like(dvec)
     for j in range(params.n_procs):
@@ -323,6 +325,7 @@ class LocalPredictor:
         dev_chunk = min(dev_chunk, _bucket_pow2(max(n_pred, 1)))
         host_chunk = dev_chunk * max(1, 65536 // dev_chunk)
         dt = vals_np[0].dtype
+        table = pair_table(self.params, self.device, getattr(torch, np.dtype(dt).name))
         parts = []
         for s in range(0, n_pred, host_chunk):
             q = q_all[s:s + host_chunk]
@@ -342,7 +345,7 @@ class LocalPredictor:
                 gc, gz, mask, s0 = (torch.as_tensor(a[t:t + dev_chunk], device=self.device)
                                     for a in host)
                 parts.append(_local_predict_gathered(
-                    self.params, gc, gz, pid, mask, s0, i, self.mf.geodesic, self.dtype
+                    self.params, gc, gz, pid, mask, s0, i, self.mf.geodesic, self.dtype, table
                 ))
         return parts
 
@@ -366,11 +369,14 @@ class LocalPredictor:
                 pc = torch.as_tensor(p_arr, dtype=self.dtype, device=self.device)
                 k_each = self._neighborhood_widths(pc, max_dist)
                 chunk = self._batch_size(k_each, pc.shape[0])
+                table = None
+                if self.joint_cov is None:
+                    table = pair_table(self.params, self.device, self._coords[0].dtype)
                 parts = [
                     _local_predict_batch(
                         self.params, self._coords, self._values, self.joint_cov,
                         pc[s : s + chunk], max_dist, i, self.mf.geodesic, k_each,
-                        self._n_valid, self.dtype,
+                        self._n_valid, self.dtype, table,
                     )
                     for s in range(0, pc.shape[0], chunk)
                 ]

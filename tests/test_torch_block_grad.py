@@ -112,16 +112,24 @@ def test_gam12_tangent_matches_jax(dtype, tol):
 
 
 def test_host_constants_of_the_kernel():
-    """The 14 scalars and nl the CUDA wrapper hands its kernel, against the
-    reference's parameter vector (pallas_ops.py:519-525)."""
+    """The constants the CUDA wrapper hands its kernel, the head of the dual
+    recurrence table (values and d/dmu), against the reference's parameter
+    vector (pallas_ops.py:519-525): nu, ls, sqrt(2 nu), mu, nl, gam1, gam2,
+    0.5 Gamma(1 + mu), 0.5 Gamma(1 - mu), lgamma, digamma."""
     nu, ls = 2.3, 450.0
-    c, nl = K.matern_grad_constants(nu, ls, torch.float64)
+    row = K.recurrence_table(torch.tensor([nu], dtype=torch.float64),
+                             torch.tensor([ls], dtype=torch.float64), torch.float64,
+                             dual=True)[0].numpy()
+    val, tan = row[0::2], row[1::2]
     nl0 = np.floor(nu + 0.5)
     mu0 = jnp.asarray(nu - nl0)
-    want = [nu, ls, np.sqrt(2 * nu), float(mu0), *JB._gam12(mu0), *JB.gam12_tangent(mu0),
-            float(jax.lax.lgamma(nu)), float(jax.lax.digamma(nu))]
-    assert nl == int(nl0)
-    np.testing.assert_allclose(c, np.asarray([float(w) for w in want]), rtol=1e-12)
+    g1, g2, igp, igm = (float(v) for v in JB._gam12(mu0))
+    d1, d2, dgp, dgm = (float(v) for v in JB.gam12_tangent(mu0))
+    want_val = [nu, ls, np.sqrt(2 * nu), float(mu0), nl0, g1, g2, 0.5 / igp, 0.5 / igm,
+                float(jax.lax.lgamma(nu)), float(jax.lax.digamma(nu))]
+    want_tan = [0.0, 0.0, 0.0, 1.0, 0.0, d1, d2, -0.5 * dgp / igp**2, -0.5 * dgm / igm**2, 0.0, 0.0]
+    np.testing.assert_allclose(val[:11], want_val, rtol=1e-12)
+    np.testing.assert_allclose(tan[:11], want_tan, rtol=1e-12, atol=1e-15)
 
 
 @pytest.mark.parametrize("symmetric", [True, False])

@@ -246,3 +246,120 @@ def test_gathered_covariances_on_card_match_cpu(cuda):
         out[dev] = (cov.detach().cpu(), g.cpu())
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0.0, atol=1e-12)
     torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-9, atol=1e-10)
+
+
+def _ulp_nus(dtype):
+    """Half-integer orders (degenerate CF2 lanes) and 1.5 -+ one ulp of the
+    dtype (the reference's truncated CF2 tangent)."""
+    ft = np.float32 if dtype == torch.float32 else np.float64
+    return [0.5, 1.5, 2.5, float(np.nextafter(ft(1.5), ft(0))), float(np.nextafter(ft(1.5), ft(2)))]
+
+
+def _partition_cases(rng, dtype):
+    """Flat entry sets that stress the forward's tile partition: one branch
+    only (x < 2, x >= 2), a shuffled 50/50 mix, ten pairs, lengths around
+    the 2,048-entry tile; each (name, nu list, ls list, idx, h)."""
+    nus = [0.3, 0.5, 1.5, 2.5, 1.2] + _ulp_nus(dtype)
+    lss = [300.0, 450.0, 800.0, 1500.0, 600.0, 350.0, 900.0, 1200.0, 700.0, 500.0]
+    x_lo = rng.uniform(1e-3, 1.99, 40_000)
+    x_hi = rng.uniform(2.0, 40.0, 40_000)
+    cases = []
+    for name, x, n_pairs in (("series only", x_lo, 5), ("CF2 only", x_hi, 5),
+                             ("50/50 shuffled", rng.permutation(np.concatenate([x_lo, x_hi])), 10),
+                             ("ten pairs", np.concatenate([x_lo, x_hi]), 10),
+                             ("one entry", x_hi[:1], 1), ("2,047", x_lo[:2047], 3),
+                             ("2,049", x_hi[:2049], 3), ("6,145 mixed", np.concatenate(
+                                 [x_lo[:3000], x_hi[:3145]]), 10)):
+        idx = rng.integers(0, n_pairs, size=x.shape[0])
+        nu, ls = np.array(nus[:n_pairs]), np.array(lss[:n_pairs])
+        h = x * ls[idx] / np.sqrt(2.0 * nu[idx])
+        h[::97] = 0.0
+        cases.append((name, nus[:n_pairs], lss[:n_pairs], idx.astype(np.float64), h))
+    return cases
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 5e-6), (torch.float64, 1e-12)])
+def test_pairs_forward_partition_stress(cuda, dtype, atol):
+    """The partitioned forward against its plain version where the tile's
+    buckets are one, few or many, at half-integer nu and 1.5 -+ ulp; its
+    output bit-equal under a random permutation of the entries, and with
+    the degenerate lanes' CF2 trips run in full."""
+    rng = np.random.default_rng(21)
+    for name, nu, ls, idx, h in _partition_cases(rng, dtype):
+        nu_t, ls_t = (torch.tensor(v, dtype=dtype, device=cuda) for v in (nu, ls))
+        idx_t, h_t = (torch.as_tensor(v, dtype=dtype, device=cuda) for v in (idx, h))
+        got = K.matern_corr_pairs(nu_t, ls_t, idx_t, h_t)
+        ref = K.matern_corr_pairs_plain(nu_t, ls_t, idx_t, h_t)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all(), name
+        assert float((got - ref).abs().max()) <= atol, name
+        perm = torch.randperm(h_t.numel(), device=cuda)
+        back = torch.empty_like(got)
+        back[perm] = K.matern_corr_pairs(nu_t, ls_t, idx_t[perm], h_t[perm])
+        assert torch.equal(back, got), name
+        full = K.matern_corr_pairs(nu_t, ls_t, idx_t, h_t, early_exit=False)
+        assert torch.equal(full, got), name
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_block_grad_partition_stress(cuda, dtype, tol):
+    """The partitioned block gradient against its plain version on blocks
+    whose tiles are all series, all CF2 or a shuffled mix, ragged against
+    the 64 x 64 tile, at half-integer nu and 1.5 -+ ulp: each sum within
+    tol * sum |terms|, bit-equal on a second launch, symmetric == full."""
+    rng = np.random.default_rng(22)
+    for nu in _ulp_nus(dtype):
+        ls = 800.0
+        for name, lo, hi in (("series only", 1e-3, 1.99), ("CF2 only", 2.0, 40.0),
+                             ("mixed", 1e-3, 40.0)):
+            n = 197
+            x = rng.uniform(lo, hi, size=(n, n))
+            x = np.tril(x, -1) + np.tril(x, -1).T  # symmetric, zero diagonal
+            h = torch.as_tensor(x * ls / np.sqrt(2.0 * nu), dtype=dtype, device=cuda)
+            ct = torch.as_tensor(rng.normal(size=(n, n)), dtype=dtype, device=cuda)
+            for hh, cc, sym in ((h, ct, True), (h[:, :131], ct[:, :131].contiguous(), False)):
+                got = K.matern_block_grad(1.3, 0.02, nu, ls, hh, cc, symmetric=sym)
+                ref = K.matern_block_grad_plain(1.3, 0.02, nu, ls, hh, cc, symmetric=sym)
+                mag = K.matern_block_grad_plain(1.3, 0.02, nu, ls, hh, cc, symmetric=sym,
+                                                absolute=True)
+                torch.cuda.synchronize()
+                assert torch.isfinite(got).all(), (nu, name)
+                assert bool(((got - ref).abs() <= tol * mag).all()), (nu, name, got, ref, mag)
+                assert torch.equal(got, K.matern_block_grad(1.3, 0.02, nu, ls, hh, cc,
+                                                            symmetric=sym)), (nu, name)
+                if sym:
+                    full = K.matern_block_grad(1.3, 0.02, nu, ls, hh, cc)
+                    assert bool(((got - full).abs() <= tol * mag).all()), (nu, name)
+
+
+def test_pairs_call_and_cg_matvec_do_not_synchronize(cuda):
+    """One ``matern_corr_pairs`` call (table built on the card) and one CG
+    matvec over its row tiles with the pair table built beforehand run
+    under ``torch.cuda.set_sync_debug_mode("error")``."""
+    from cokriging_tpu_torch.cov.matern import pair_table
+    from cokriging_tpu_torch.cov.params import MaternParams
+    from cokriging_tpu_torch.predict.iterative import _tiled_rows_matvec
+
+    rng = np.random.default_rng(23)
+    coords = _points(rng, 1200, torch.float64, cuda)
+    procs = torch.as_tensor(rng.integers(0, 2, 1200), device=cuda)
+    params = MaternParams.from_flat(torch.tensor(
+        [1.2, 0.8, 1.4, 1.1, 2.0, 300, 250, 350, 0.04, 0.02, -0.5], dtype=torch.float64,
+        device=cuda))
+    table = pair_table(params, cuda, torch.float64)
+    V = torch.as_tensor(rng.normal(size=(1200, 4)), device=cuda)
+    nu = torch.tensor([0.7, 1.5], dtype=torch.float64, device=cuda)
+    ls = torch.tensor([300.0, 800.0], dtype=torch.float64, device=cuda)
+    h = torch.as_tensor(np.abs(rng.normal(size=50_000)) * 900.0, device=cuda)
+    idx = torch.as_tensor(rng.integers(0, 2, 50_000).astype(np.float64), device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = K.matern_corr_pairs(nu, ls, idx, h)
+        y = _tiled_rows_matvec(params, coords, procs, coords, procs, V, True, 512, table)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.testing.assert_close(out, K.matern_corr_pairs_plain(nu, ls, idx, h), rtol=0.0, atol=1e-12)
+    want = _tiled_rows_matvec(params.to(device="cpu"), coords.cpu(), procs.cpu(), coords.cpu(),
+                              procs.cpu(), V.cpu(), True, 512)
+    torch.testing.assert_close(y.cpu(), want, rtol=1e-10, atol=1e-10)
