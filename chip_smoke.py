@@ -22,11 +22,15 @@ Phases, in order; any failure exits nonzero without the final ok line:
     ragged flat lengths with 1, 3 and 6 pairs, nu in {0.3, 0.5, 1.5, 2.7,
     1.2, 0.8} and exact zeros (forward atol 5e-6 / 1e-12; each per-pair
     gradient sum within 1e-5 / 1e-12 of its sum of |terms|, bit-equal on a
-    second launch), and the partition stress cases of the two redesigned
+    second launch), and the partition stress cases of the four sorting
     kernels (``phase_c_partition``: one branch only, a shuffled 50/50 mix,
     ten pairs, lengths around the tile, nu in {0.5, 1.5, 2.5} and 1.5 -+
-    ulp; the forward bit-equal under a permutation and without its early
-    CF2 exit; the block gradient bit-equal again and symmetric == full).
+    ulp; the pairs forward bit-equal under a permutation and without its
+    early CF2 exit, its gradient bit-equal again; the block forward at n in
+    {1, 63, 65, 650} and 650 x 411, its symmetric output exactly symmetric
+    and bit-equal to the full one's lower triangle, both bit-equal under a
+    joint permutation of rows and columns and without the early CF2 exit;
+    the block gradient bit-equal again and symmetric == full).
     Then the whole paths at 400 points per process on the
     card against the same code on the CPU in float64: fit + local prediction
     (fitted parameters rtol 1e-6, predictions atol 1e-6), the exact NLL
@@ -57,10 +61,14 @@ Phases, in order; any failure exits nonzero without the final ok line:
     block-gradient launches per evaluation), the penalty semantics where
     that point is not positive definite, a point with nuggets 0.1 where it
     is (finite value, nonzero gradient, a central-difference directional
-    check in float64), the stage times, both kernels of the evaluation
+    check in float64), the stage times, ``block_covariance`` forward and
+    backward under ``torch.cuda.set_sync_debug_mode("error")``
+    (``block_covariance_sync_free``), both kernels of the evaluation
     against their plain versions at its own three 12,500^2 blocks (symmetric,
     full, symmetric) and cotangent (the bars of phase (c)), timed there for
-    this path's rows of the kernels line, then a maximum-likelihood fit on the
+    this path's rows of the kernels line, the Matern forward timed and held
+    there once more at nu = 1.37, where no CF2 lane leaves early (its own
+    row), then a maximum-likelihood fit on the
     stride-5 subsample and joint prediction at every land cell with the
     fitted parameters; the joint predictor on all 2 x 12,500 observations in
     float64 runs once, its finite share printed. Phase (f) runs before the
@@ -84,7 +92,11 @@ Phases, in order; any failure exits nonzero without the final ok line:
     rows of the kernels line follow.
 
 ``python3 chip_smoke.py abcg`` runs only the phases named (a and b always)
-and prints no result line.
+and prints no result line. The kernels line's rows of the kernels
+redesigned last (the block forward and the pairs gradient) carry their ptxas
+registers and spills from this run's build; a log line beside each gives the
+time recorded for the kernel before the redesign, which is not part of the
+kernels line.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -134,6 +146,28 @@ VARIO_PAIR_OPS = 13
 VARIO_MINMAX_OPS = 3
 VARIO_BIN_OPS_PER_EDGE = 2
 VARIO_BIN_OPS = 5
+
+# The rows of the kernels redesigned last: the kernel's entry in the ptxas
+# report, and its time recorded before the redesign (chip_smoke on one NVIDIA
+# H100 80GB HBM3 at 700 W, the unsorted kernels without tables), which is
+# logged beside this run's and kept out of the kernels line.
+REDESIGNED = {
+    "matern_correlation_float32": ("matern.cu", "matern_kernelIf", 0.709),
+    "matern_correlation_float64": ("matern.cu", "matern_kernelId", 0.655),
+    "matern_correlation_float32_nll": ("matern.cu", "matern_kernelIf", 31.92),
+    "matern_correlation_float64_nll": ("matern.cu", "matern_kernelId", 241.64),
+    "matern_correlation_float32_nll_nu1.37": ("matern.cu", "matern_kernelIf", None),
+    "matern_correlation_float64_nll_nu1.37": ("matern.cu", "matern_kernelId", None),
+    "matern_corr_pairs_grad_float32_vecchia": ("matern_pairs.cu", "pairs_grad_kernelIf", 2.857),
+    "matern_corr_pairs_grad_float64_vecchia": ("matern_pairs.cu", "pairs_grad_kernelId", 12.276),
+}
+# the same record for one 12,500^2 symmetric block, and for the Vecchia window
+# set in one gradient launch (that one built its table in the call)
+RECORDED_BIG_MS = {"float32": 8.22, "float64": 60.46}
+RECORDED_ONE_LAUNCH_MS = {"float32": 3.238, "float64": 11.243}
+# a non-half-integer order, where every CF2 lane of the block forward runs to
+# convergence (at the NLL's nu = 1.5 they leave after their setup)
+NU_GENERAL = 1.37
 
 
 class SmokeFailure(Exception):
@@ -571,7 +605,9 @@ def cf2_trips(mu, x, dtype):
 def entry_ops(x, nu, dtype, grad=False):
     """Operations of the Matern kernel (``grad``: of the block-gradient
     kernel) over entries at x = sqrt(2 nu) h / ls > 0 of one nu, CF2 counted
-    per actual trip."""
+    per trip the result needs: up to convergence, none past the setup for a
+    forward at half-integer nu (a1 = 0: every trip adds exactly 0), all of
+    them for a gradient there (the tangent needs them)."""
     import torch
 
     name = str(dtype).replace("torch.", "")
@@ -581,7 +617,10 @@ def entry_ops(x, nu, dtype, grad=False):
     steps = max(nl - 1, 0) if grad else nl  # the gradient stops one order short
     cf2_x = x[x >= 2]
     n_series = x.numel() - cf2_x.numel()
-    trips = int(cf2_trips(torch.full_like(cf2_x, mu), cf2_x, dtype).sum()) if cf2_x.numel() else 0
+    degenerate = float(torch.tensor(0.25, dtype=dtype) - torch.tensor(mu, dtype=dtype) ** 2) == 0.0
+    trips = 0
+    if cf2_x.numel() and (grad or not degenerate):
+        trips = int(cf2_trips(torch.full_like(cf2_x, mu), cf2_x, dtype).sum())
     return (x.numel() * (o["prefactor"] + steps * o["recurrence_step"])
             + n_series * (o["series_setup"] + SERIES_TRIPS[name] * o["series_trip"])
             + cf2_x.numel() * o["cf2_setup"] + trips * o["cf2_trip"])
@@ -633,6 +672,25 @@ def pairs_bound(chunks, nus, lss, grad=False):
     return nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[name] * 1e3
 
 
+def ptxas_of(lines, src, kernel):
+    """"R registers, S bytes stack, spills stores/loads" of the entry of
+    ``src``'s ptxas report whose name holds ``kernel``, from the build's
+    report lines (``_build.build()["ptxas"]``)."""
+    section = entry = None
+    found = {}
+    for line in lines:
+        if line.startswith("== "):
+            section = line[3:].strip()
+        elif "Compiling entry function" in line:
+            entry = line if section == src and kernel in line else None
+        elif entry is not None and "spill" in line:
+            found["spill"] = line.strip()
+        elif entry is not None and "registers" in line:
+            found["registers"] = line.split("Used", 1)[-1].split(",")[0].strip()
+            break
+    return f"{found.get('registers', 'not found')}; {found.get('spill', 'spills not found')}"
+
+
 def bound_of(blocks):
     """``(bound_ms, bound_by)`` of the blocks launched together: the larger of
     their summed byte times and their summed operation times."""
@@ -657,6 +715,7 @@ def phase_e(c1, v1, c2, v2, dtype, launches, results):
     from cokriging_tpu_torch.kernels import cuda_ops as K
 
     name = np.dtype(dtype).name
+    td = getattr(torch, name)
     feats, vals, h_max, h_snap, snap = variogram_case(c1, v1, c2, v2, dtype, "cuda")
     pairs = ((0, 0), (0, 1), (1, 1))
     edges, n_pairs, n_valid = {}, 0, 0
@@ -696,9 +755,13 @@ def phase_e(c1, v1, c2, v2, dtype, launches, results):
 
     joint, _ = matern_blocks(c1, c2, dtype)
     nu, ls = 1.5, 800.0
+    # the value row, built once on the card, as the path's block_covariance
+    # builds its pair_table once per call
+    row = K.recurrence_table(torch.full((1,), nu, dtype=td, device="cuda"),
+                             torch.full((1,), ls, dtype=td, device="cuda"), td)[0]
 
-    def jm(fn):
-        return lambda: [fn(nu, ls, h, symmetric=s) for h, s in joint]
+    def jm(fn, **kw):
+        return lambda: [fn(nu, ls, h, symmetric=s, **kw) for h, s in joint]
 
     bound_ms, bound_by = bound_of([matern_bound(h, nu, ls, s) for h, s in joint])
     rows.append(dict(
@@ -706,7 +769,7 @@ def phase_e(c1, v1, c2, v2, dtype, launches, results):
         source="cokriging_tpu_torch/kernels/csrc/matern.cu",
         replaces="cokriging_tpu/kernels/pallas_ops.py:782",
         launches=launches["matern_correlation"],
-        ms=cuda_time_ms(jm(K.matern_correlation_block), 50),
+        ms=cuda_time_ms(jm(K.matern_correlation_block, table=row), 50),
         plain_ms=cuda_time_ms(jm(K.matern_correlation_block_plain), 5),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
         path="(d) fit + local prediction", shape="joint blocks 256^2 sym + 256^2 + 256^2 sym",
@@ -722,7 +785,8 @@ def phase_e(c1, v1, c2, v2, dtype, launches, results):
     kept = {}
     big = dict(
         shape="12500^2 symmetric", dtype=name,
-        ms=cuda_time_ms(keep(kept, "kernel", lambda: K.matern_correlation_block(nu, ls, hb, symmetric=True)), 3),
+        ms=cuda_time_ms(keep(kept, "kernel", lambda: K.matern_correlation_block(
+            nu, ls, hb, symmetric=True, table=row)), 3),
         plain_ms=cuda_time_ms(keep(kept, "plain", lambda: K.matern_correlation_block_plain(nu, ls, hb)), 1),
     )
     big["max_abs_err"] = float((kept["kernel"] - kept["plain"]).abs().max())
@@ -735,6 +799,47 @@ def phase_e(c1, v1, c2, v2, dtype, launches, results):
     return rows, big
 
 
+def block_covariance_sync_free(flat, dists, spec, name):
+    """``block_covariance`` forward and backward at the NLL's three blocks,
+    the parameters on the card and its ``pair_table`` built inside, under
+    ``torch.cuda.set_sync_debug_mode("error")``: 3 + 3 launches, a finite
+    gradient, and the same covariance and gradient bit for bit as outside
+    that mode."""
+    import torch
+
+    from cokriging_tpu_torch.cov.matern import block_covariance
+    from cokriging_tpu_torch.cov.params import MaternParams
+    from cokriging_tpu_torch.kernels import cuda_ops as K
+
+    flat = flat.detach().clone().requires_grad_(True)
+    with torch.enable_grad():
+        params = MaternParams.from_flat(flat, spec=spec)
+
+    def run():
+        with torch.enable_grad():
+            cov = block_covariance(params, dists, h_grad=False)
+            (g,) = torch.autograd.grad(cov.diagonal().sum() + cov[0].sum(), flat, retain_graph=True)
+        return cov.detach(), g
+
+    want = run()
+    before = K.launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = run()
+    except RuntimeError as e:
+        raise SmokeFailure(f"(f) {name}: block_covariance synchronized: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    after = K.launch_counts()
+    grew = {k: after[k] - before[k] for k in ("matern_correlation", "matern_block_grad")}
+    check(grew == {"matern_correlation": 3, "matern_block_grad": 3}, f"(f) {name}: launches {grew}")
+    check(bool(torch.isfinite(got[1]).all()) and torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"(f) {name}: block_covariance under sync debug mode differs or is not finite")
+    log(f"(f) {name}: block_covariance forward + backward at the three 12,500^2 blocks ran under "
+        f"set_sync_debug_mode('error') ({grew}), bit-equal to the same outside it")
+
+
 def phase_f(dtype, pc, results):
     """The exact-likelihood path at bench size in one dtype; returns its
     rows of the kernels line (the Matern forward and the block gradient at
@@ -743,7 +848,7 @@ def phase_f(dtype, pc, results):
 
     import torch
 
-    from cokriging_tpu_torch.cov.matern import MultivariateMatern, block_covariance
+    from cokriging_tpu_torch.cov.matern import MultivariateMatern, block_covariance, pair_table
     from cokriging_tpu_torch.cov.params import MaternParams
     from cokriging_tpu_torch.estimate.nll import (
         fit_nll_device, joint_distance_blocks, neg_log_likelihood, nll_value_and_grad,
@@ -842,24 +947,31 @@ def phase_f(dtype, pc, results):
 
         g_cov, stages["solves_inverse_s"] = timed(solves)
         del chol
+        block_covariance_sync_free(torch.as_tensor(xg, device="cuda"), dists, spec, name)
         h = N_PER_PROC
-        # the evaluation's three blocks with their own (nu, l): (1,1), (1,2), (2,2)
-        blocks = [(dists[0][0], g_cov[:h, :h], True, float(xg[2]), float(xg[5])),
-                  (dists[0][1], g_cov[:h, h:], False, float(xg[3]), float(xg[6])),
-                  (dists[1][1], g_cov[h:, h:], True, float(xg[4]), float(xg[7]))]
+        # the evaluation's three blocks with their own (nu, l): (1,1), (1,2),
+        # (2,2), and their rows of the pair table the evaluation builds
+        table = pair_table(params, "cuda", td, grad=True)
+        blocks = [(dists[0][0], g_cov[:h, :h], True, float(xg[2]), float(xg[5]), table.rows(0, 0)),
+                  (dists[0][1], g_cov[:h, h:], False, float(xg[3]), float(xg[6]), table.rows(0, 1)),
+                  (dists[1][1], g_cov[h:, h:], True, float(xg[4]), float(xg[7]), table.rows(1, 1))]
 
         def grads(fn, **kw):
             return lambda: [fn(1.0, 0.1, nu, ls, hb, ct, symmetric=sym, **kw)
-                            for hb, ct, sym, nu, ls in blocks]
+                            for hb, ct, sym, nu, ls, _ in blocks]
 
-        _, stages["block_grad_s"] = timed(grads(K.matern_block_grad))
+        def grads_k():
+            return [K.matern_block_grad(1.0, 0.1, nu, ls, hb, ct, symmetric=sym, table=rows[1])
+                    for hb, ct, sym, nu, ls, rows in blocks]
+
+        _, stages["block_grad_s"] = timed(grads_k)
         log(f"(f) {name}: stages of one evaluation {json.dumps(stages)} "
             f"(sum {sum(stages.values())}, whole evaluation {tg})")
         # (e) the block-gradient kernel's row at these three 12,500^2 blocks
         # with the evaluation's own cotangent, each block's four sums held
         # against the plain version at the bar of phase (c)
         kept = {}
-        ms = cuda_time_ms(keep(kept, "kernel", grads(K.matern_block_grad)), 2)
+        ms = cuda_time_ms(keep(kept, "kernel", grads_k), 2)
         plain_ms = cuda_time_ms(keep(kept, "plain", grads(K.matern_block_grad_plain)), 1, warm=False)
         mags = grads(K.matern_block_grad_plain, absolute=True)()
         tol = 1e-5 if name == "float32" else 1e-12
@@ -875,13 +987,13 @@ def phase_f(dtype, pc, results):
         grad_res["max_err"] = max(grad_res["max_err"], full_rel)
         log(f"(f) {name}: block gradient at the three 12,500^2 blocks: worst |kernel - plain| / "
             f"sum|terms| {full_rel:.3e} (bar {tol})")
-        grad_bound = bound_of([matern_bound(hb, nu, ls, sym, grad=True) for hb, _, sym, nu, ls in blocks])
+        grad_bound = bound_of([matern_bound(hb, nu, ls, sym, grad=True) for hb, _, sym, nu, ls, _ in blocks])
         # the Matern forward at the same three blocks, one at a time
         atol = 5e-6 if name == "float32" else 1e-12
         fwd = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0)
-        for k, (hb, _, sym, nu, ls) in enumerate(blocks):
-            fwd["ms"] += cuda_time_ms(
-                keep(kept, "kernel", lambda: K.matern_correlation_block(nu, ls, hb, symmetric=sym)), 3)
+        for k, (hb, _, sym, nu, ls, rows) in enumerate(blocks):
+            fwd["ms"] += cuda_time_ms(keep(kept, "kernel", lambda: K.matern_correlation_block(
+                nu, ls, hb, symmetric=sym, table=rows[0])), 3)
             fwd["plain_ms"] += cuda_time_ms(
                 keep(kept, "plain", lambda: K.matern_correlation_block_plain(nu, ls, hb, symmetric=sym)), 1)
             err = float((kept["kernel"] - kept["plain"]).abs().max())
@@ -891,7 +1003,25 @@ def phase_f(dtype, pc, results):
         kept.clear()
         log(f"(f) {name}: Matern forward at the three 12,500^2 blocks: max abs err {fwd['max_abs_err']:.3e} "
             f"(bar {atol})")
-        fwd_bound = bound_of([matern_bound(hb, nu, ls, sym) for hb, _, sym, nu, ls in blocks])
+        fwd_bound = bound_of([matern_bound(hb, nu, ls, sym) for hb, _, sym, nu, ls, _ in blocks])
+        # the same blocks at NU_GENERAL, each with its own length scale and
+        # the value row a pair table would hold there
+        gen = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0)
+        for k, (hb, _, sym, _, ls, _) in enumerate(blocks):
+            row = K.recurrence_table(torch.full((1,), NU_GENERAL, dtype=td, device="cuda"),
+                                     torch.full((1,), ls, dtype=td, device="cuda"), td)[0]
+            gen["ms"] += cuda_time_ms(keep(kept, "kernel", lambda: K.matern_correlation_block(
+                NU_GENERAL, ls, hb, symmetric=sym, table=row)), 3)
+            gen["plain_ms"] += cuda_time_ms(keep(kept, "plain", lambda: K.matern_correlation_block_plain(
+                NU_GENERAL, ls, hb, symmetric=sym)), 1, warm=False)
+            err = float((kept["kernel"] - kept["plain"]).abs().max())
+            check(err <= atol and bool(torch.isfinite(kept["kernel"]).all()),
+                  f"(f) matern {name} 12,500^2 block {k} at nu {NU_GENERAL}: err {err} (bar {atol})")
+            gen["max_abs_err"] = max(gen["max_abs_err"], err)
+        kept.clear()
+        log(f"(f) {name}: Matern forward at the three 12,500^2 blocks at nu {NU_GENERAL}: {gen['ms']:.3f} ms, "
+            f"plain {gen['plain_ms']:.3f} ms, max abs err {gen['max_abs_err']:.3e} (bar {atol})")
+        gen_bound = bound_of([matern_bound(hb, NU_GENERAL, ls, sym) for hb, _, sym, _, ls, _ in blocks])
     shape = "NLL blocks 12500^2 sym + 12500^2 + 12500^2 sym"
     rows = [
         dict(name=f"matern_correlation_{name}_nll", route="cuda",
@@ -900,6 +1030,13 @@ def phase_f(dtype, pc, results):
              launches=launches["matern_correlation"], launches_per_eval=3,
              bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=None,
              path="(f) exact likelihood", shape=shape, max_err=fwd["max_abs_err"], **fwd),
+        dict(name=f"matern_correlation_{name}_nll_nu{NU_GENERAL}", route="cuda",
+             source="cokriging_tpu_torch/kernels/csrc/matern.cu",
+             replaces="cokriging_tpu/kernels/pallas_ops.py:782",
+             launches=launches["matern_correlation"], launches_per_eval=3,
+             bound_ms=gen_bound[0], bound_by=gen_bound[1], library_ms=None,
+             path=f"(f) exact likelihood, its blocks timed at nu = {NU_GENERAL}", shape=shape,
+             max_err=gen["max_abs_err"], **gen),
         dict(name=f"matern_block_grad_{name}", route="cuda",
              source="cokriging_tpu_torch/kernels/csrc/matern_grad.cu",
              replaces="cokriging_tpu/kernels/pallas_ops.py:485",
@@ -1116,16 +1253,21 @@ def ulp_nus(name):
 
 
 def phase_c_partition(dtype, results):
-    """Stress cases of the two partitioned kernels against their plain
-    versions. The pairs forward: one branch only (x < 2; x >= 2), a
-    shuffled 50/50 mix over ten pairs, ten pairs unshuffled, lengths around
-    its 2,048-entry tile; nu holds 0.5, 1.5, 2.5 and 1.5 -+ ulp; each output
-    also bit-equal under a random permutation of its entries (permuted
-    back) and with the degenerate lanes' CF2 trips run in full. The block
-    gradient: 650^2 symmetric blocks (and a ragged 650 x 411 full one)
-    all series, all CF2 or mixed at nu in 0.5, 1.5, 2.5, 1.5 -+ ulp: each
-    sum within tol * sum |terms|, bit-equal on a second launch, symmetric
-    == full."""
+    """Stress cases of the four partitioned kernels against their plain
+    versions. The pairs forward and gradient: one branch only (x < 2;
+    x >= 2), a shuffled 50/50 mix over ten pairs, ten pairs unshuffled,
+    lengths around their 2,048-entry tile; nu holds 0.5, 1.5, 2.5 and 1.5 -+
+    ulp; each forward output also bit-equal under a random permutation of
+    its entries (permuted back) and with the degenerate lanes' CF2 trips run
+    in full, each gradient sum within tol * sum |terms| and bit-equal on a
+    second launch. The block forward: symmetric blocks of n in {1, 63, 65,
+    650} (and a ragged 650 x 411 one) all series, all CF2 or mixed at the
+    same nu, full and symmetric: the symmetric output exactly symmetric and
+    equal bit for bit to the full one's lower triangle, both bit-equal when
+    rows and columns of h are permuted together and without the early CF2
+    exit. The block gradient: the 650^2 and 650 x 411 blocks: each sum
+    within tol * sum |terms|, bit-equal on a second launch, symmetric ==
+    full."""
     import torch
 
     from cokriging_tpu_torch.kernels import cuda_ops as K
@@ -1138,7 +1280,7 @@ def phase_c_partition(dtype, results):
     lss = [300.0, 450.0, 800.0, 1500.0, 600.0, 350.0, 900.0, 1200.0, 700.0, 500.0]
     x_lo = rng.uniform(1e-3, 1.99, 400_000)
     x_hi = rng.uniform(2.0, 40.0, 400_000)
-    err_f = 0.0
+    err_f = rel_g = err_g = 0.0
     n_cases = 0
     for what, x, n_pairs in (("series only", x_lo, 7), ("CF2 only", x_hi, 7),
                              ("50/50 shuffled", rng.permutation(np.concatenate([x_lo, x_hi])), 10),
@@ -1164,19 +1306,26 @@ def phase_c_partition(dtype, results):
         full = K.matern_corr_pairs(nu_t, ls_t, idx_t, h_t, early_exit=False)
         check(torch.equal(full, got), f"(c) pairs forward {name} {what}: the degenerate lanes' early "
               f"CF2 exit changed a bit")
-        err_f = max(err_f, err)
+        ct = torch.as_tensor(rng.normal(size=x.shape[0]), dtype=td, device="cuda")
+        r, e, _, _ = pairs_grad_check([(nu_t, ls_t, idx_t, h_t, ct)], tol, f"(c) {name} {what}")
+        err_f, rel_g, err_g = max(err_f, err), max(rel_g, r), max(err_g, e)
         n_cases += 1
     results[f"matern_corr_pairs_{name}"]["max_abs_err"] = max(
         results[f"matern_corr_pairs_{name}"]["max_abs_err"], err_f)
-    worst = 0.0
-    n = 650
+    g_res = results[f"matern_corr_pairs_grad_{name}"]
+    g_res["max_abs_err"], g_res["max_err"] = max(g_res["max_abs_err"], err_g), max(g_res["max_err"], rel_g)
+    worst = err_m = 0.0
+    n_blocks = 0
+    ls = 800.0
     for nu in ulp_nus(name):
-        ls = 800.0
         for what, lo, hi in (("series only", 1e-3, 1.99), ("CF2 only", 2.0, 40.0),
                              ("mixed", 1e-3, 40.0)):
-            x = rng.uniform(lo, hi, size=(n, n))
-            x = np.tril(x, -1) + np.tril(x, -1).T
-            h = torch.as_tensor(x * ls / np.sqrt(2.0 * nu), dtype=td, device="cuda")
+            for n in (1, 63, 65, 650):
+                x = rng.uniform(lo, hi, size=(n, n))
+                x = np.tril(x, -1) + np.tril(x, -1).T
+                h = torch.as_tensor(x * ls / np.sqrt(2.0 * nu), dtype=td, device="cuda")
+                err_m = max(err_m, matern_stress_block(h, nu, ls, atol, f"{name} nu={nu} {what} {n}"))
+                n_blocks += 1
             ct = torch.as_tensor(rng.normal(size=(n, n)), dtype=td, device="cuda")
             for hh, cc, sym in ((h, ct, True), (h[:, :411], ct[:, :411].contiguous(), False)):
                 got = K.matern_block_grad(1.3, 0.02, nu, ls, hh, cc, symmetric=sym)
@@ -1196,10 +1345,48 @@ def phase_c_partition(dtype, results):
                 worst = max(worst, rel)
     grad_res = results[f"matern_block_grad_{name}"]
     grad_res["max_err"] = max(grad_res["max_err"], worst)
-    log(f"(c) partition stress {name}: pairs forward {n_cases} cases, max abs err {err_f:.3e} (bar {atol}), "
-        f"bit-equal under permutation and without the early CF2 exit at nu {ulp_nus(name)}; block grad "
-        f"30 blocks, worst |kernel - plain| / sum|terms| {worst:.3e} (bar {tol}), bit-equal again, "
-        f"symmetric == full")
+    m_res = results[f"matern_correlation_{name}"]
+    m_res["max_abs_err"] = max(m_res["max_abs_err"], err_m)
+    log(f"(c) partition stress {name} at nu {ulp_nus(name)}: pairs forward {n_cases} cases, max abs err "
+        f"{err_f:.3e} (bar {atol}), bit-equal under permutation and without the early CF2 exit; pairs "
+        f"gradient the same cases, worst |kernel - plain| / sum|terms| {rel_g:.3e} (bar {tol}), bit-equal "
+        f"again; block forward {n_blocks} blocks full and symmetric (and 650 x 411), max abs err "
+        f"{err_m:.3e} (bar {atol}), symmetric exactly symmetric and bit-equal to full, bit-equal under "
+        f"a joint permutation and without the early CF2 exit; block grad 30 blocks, worst |kernel - "
+        f"plain| / sum|terms| {worst:.3e} (bar {tol}), bit-equal again, symmetric == full")
+
+
+def matern_stress_block(h, nu, ls, atol, what):
+    """One block of the block forward's stress cases (square symmetric h,
+    zero diagonal): full and symmetric outputs within atol of the plain
+    version, the symmetric one exactly symmetric and bit-equal to the full
+    one's lower triangle, both bit-equal when the rows and columns of h are
+    permuted together and with the early CF2 exit off; at n = 650 also the
+    ragged 650 x 411 block. Returns the largest error."""
+    import torch
+
+    from cokriging_tpu_torch.kernels import cuda_ops as K
+
+    n = h.shape[0]
+    full = K.matern_correlation_block(nu, ls, h)
+    sym = K.matern_correlation_block(nu, ls, h, symmetric=True)
+    err = float((full - K.matern_correlation_block_plain(nu, ls, h)).abs().max())
+    check(bool(torch.isfinite(full).all()) and err <= atol, f"(c) matern {what}: err {err} (bar {atol})")
+    low = torch.tril(torch.ones(n, n, dtype=torch.bool, device="cuda"))
+    check(torch.equal(sym, sym.T) and torch.equal(sym[low], full[low]),
+          f"(c) matern {what}: symmetric output not symmetric or not the full one's lower triangle")
+    perm = torch.randperm(n, device="cuda")
+    for s, out in ((False, full), (True, sym)):
+        moved = K.matern_correlation_block(nu, ls, h[perm][:, perm].contiguous(), symmetric=s)
+        check(torch.equal(moved, out[perm][:, perm]), f"(c) matern {what} sym={s}: not bit-equal under a "
+              f"joint permutation of rows and columns")
+        check(torch.equal(K.matern_correlation_block(nu, ls, h, symmetric=s, early_exit=False), out),
+              f"(c) matern {what} sym={s}: the degenerate lanes' early CF2 exit changed a bit")
+    if n == 650:
+        rag = h[:, :411].contiguous()
+        got = K.matern_correlation_block(nu, ls, rag)
+        check(torch.equal(got, full[:, :411]), f"(c) matern {what}: the ragged 650 x 411 block differs")
+    return err
 
 
 def phase_c_small_large_n():
@@ -1417,13 +1604,17 @@ def phase_g(dtype, results):
         f"{f_err:.3e} (bar {atol}), {f_ms:.3f} ms, plain {f_plain:.1f} ms; gradient |kernel - plain| / "
         f"sum|terms| {r_real:.3e} at one chunk's own cotangent, {r_rand:.3e} at a random one (bar {tol}), "
         f"{g_ms:.3f} ms, plain {g_plain:.1f} ms")
-    # the same work in one launch each: the wrappers' host work once instead
-    # of per chunk
+    # the same work in one launch each, with the path's tables: the wrappers'
+    # host work once instead of per chunk
     h_all, i_all = (torch.cat([a[k].reshape(-1) for a in fwd_calls]) for k in (3, 2))
     c_all = torch.cat([a[4].reshape(-1) for a in rand_calls])
-    one_f = cuda_time_ms(lambda: K.matern_corr_pairs(nus_t, lss_t, i_all, h_all), 3)
-    one_g = cuda_time_ms(lambda: K.matern_corr_pairs_grad(nus_t, lss_t, i_all, h_all, c_all), 3)
-    log(f"(g) {name}: the window set in one launch each: forward {one_f:.3f} ms, gradient {one_g:.3f} ms")
+    f_tab = fwd_calls[0][4] if len(fwd_calls[0]) > 4 else None
+    g_tab = grad_table[0] if grad_table else None
+    one_f = cuda_time_ms(lambda: K.matern_corr_pairs(nus_t, lss_t, i_all, h_all, table=f_tab), 3)
+    one_g = cuda_time_ms(lambda: K.matern_corr_pairs_grad(nus_t, lss_t, i_all, h_all, c_all,
+                                                          table=g_tab), 3)
+    log(f"(g) {name}: the window set in one launch each, with the path's tables: forward {one_f:.3f} ms, "
+        f"gradient {one_g:.3f} ms")
     del h_all, i_all, c_all
     shape = f"{n_chunks} launches, {lik.n} windows x {n_entries // lik.n} entries"
     fb, gb = bound_of([pairs_bound(chunks, nus, lss)]), bound_of([pairs_bound(chunks, nus, lss, True)])
@@ -1598,9 +1789,10 @@ def main(phases="abcdefg"):
             rows += r
             bigs.append(big)
         for big in bigs:
-            log(f"(e) matern 12,500^2 symmetric {big['dtype']}: {big['ms']:.3f} ms, "
-                f"plain {big['plain_ms']:.3f} ms, bound {big['bound_ms']:.4f} ms ({big['bound_by']}), "
-                f"max abs err against the plain version {big['max_abs_err']:.3e}")
+            log(f"(e) matern 12,500^2 symmetric {big['dtype']}: {big['ms']:.3f} ms "
+                f"[recorded before the redesign {RECORDED_BIG_MS[big['dtype']]} ms], plain {big['plain_ms']:.3f} ms, bound "
+                f"{big['bound_ms']:.4f} ms ({big['bound_by']}), max abs err against the plain version "
+                f"{big['max_abs_err']:.3e}")
 
         log(f"(d), (e) elapsed since start {time.perf_counter() - t_start:.1f} s")
         # (f) the exact-likelihood path at bench size, float32 then float64
@@ -1614,6 +1806,17 @@ def main(phases="abcdefg"):
     except SmokeFailure as e:
         print(f"FAILED: {e}", file=sys.stderr)
         return 1
+    for r in rows:
+        if r["name"] in REDESIGNED:
+            src, kernel, recorded = REDESIGNED[r["name"]]
+            r["ptxas"] = ptxas_of(info["ptxas"], src, kernel)
+            extra = ""
+            if "one_launch_ms" in r:
+                extra = (f"; one launch {r['one_launch_ms']:.3f} ms [recorded before the redesign "
+                         f"{RECORDED_ONE_LAUNCH_MS[r['name'].split('_')[4]]} ms]")
+            log(f"(e) redesigned {r['name']}: {r['ms']:.3f} ms [recorded before the redesign "
+                f"{recorded if recorded is not None else 'none'} ms]{extra}, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}), launches {r['launches']}; ptxas {r['ptxas']}")
     print(json.dumps({"kernels": rows}))
     if phases != "abcdefg":
         print(f"partial run of phases {phases}: no result")

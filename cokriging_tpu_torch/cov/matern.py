@@ -15,7 +15,8 @@ The elementwise functions are plain, differentiable torch on every device
 (the WLS cost and the prediction vector use them). ``block_covariance``
 assembles whole distance blocks: on a CUDA tensor through the hand-written
 kernels, ``kernels.cuda_ops.matern_correlation_block`` forward and
-``kernels.cuda_ops.matern_block_grad`` backward. ``gathered_covariance`` and
+``kernels.cuda_ops.matern_block_grad`` backward, each block with its pair's
+rows of the ``pair_table`` built once per call. ``gathered_covariance`` and
 ``windows_covariance`` assemble mixed-process entries from gathered process
 ids (the matrix-free CG rows, the direct local systems, the Vecchia
 windows); their correlations go through ``matern_corr_pairs``, on a CUDA
@@ -108,17 +109,21 @@ class _ScaledMaternBlock(torch.autograd.Function):
     with scalar-only cotangents (the reference's ``_make_scaled_cvjp``,
     cokriging_tpu/cov/matern.py:180-293): the backward returns the four
     scalar gradients and none for ``h``, which is data. On a CUDA tensor the
-    forward is the Matern kernel and the backward the block-gradient kernel;
-    on the CPU both are their plain versions. ``symmetric`` (marginal
-    self-distance blocks) lets both evaluate the lower triangle only."""
+    forward is the Matern kernel and the backward the block-gradient kernel
+    (``value_row``, ``dual_row``: the pair's rows of a ``pair_table``, or
+    None to build them per launch); on the CPU both are their plain
+    versions. ``symmetric`` (marginal self-distance blocks) lets both
+    evaluate the lower triangle only."""
 
     @staticmethod
-    def forward(ctx, scale, nugget, nu, ls, h, symmetric):
+    def forward(ctx, scale, nugget, nu, ls, h, symmetric, value_row=None, dual_row=None):
         from cokriging_tpu_torch.kernels.cuda_ops import matern_correlation_block
 
         ctx.save_for_backward(scale, nugget, nu, ls, h)
         ctx.symmetric = symmetric
-        out = matern_correlation_block(nu.detach(), ls.detach(), h, symmetric=symmetric)
+        ctx.dual_row = dual_row
+        out = matern_correlation_block(nu.detach(), ls.detach(), h, symmetric=symmetric,
+                                       table=value_row)
         out.mul_(scale)
         return out.add_(torch.where(h == 0.0, nugget.to(out.dtype), 0.0))
 
@@ -127,12 +132,21 @@ class _ScaledMaternBlock(torch.autograd.Function):
         from cokriging_tpu_torch.kernels.cuda_ops import matern_block_grad
 
         scale, nugget, nu, ls, h = ctx.saved_tensors
-        g = matern_block_grad(scale, nugget, nu, ls, h, ct.to(h.dtype), ctx.symmetric)
+        g = matern_block_grad(scale, nugget, nu, ls, h, ct.to(h.dtype), ctx.symmetric,
+                              table=ctx.dual_row)
         return (g[0].to(scale.dtype), g[1].to(nugget.dtype), g[2].to(nu.dtype),
-                g[3].to(ls.dtype), None, None)
+                g[3].to(ls.dtype), None, None, None, None)
 
 
-def block_covariance(params: MaternParams, dists, h_grad: bool = True):
+def _needs_grad(params: MaternParams) -> bool:
+    """Whether autograd will differentiate a covariance of ``params``."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad
+        for t in (params.sigma, params.nu, params.len_scale, params.nugget, params.rho)
+    )
+
+
+def block_covariance(params: MaternParams, dists, h_grad: bool = True, table=None):
     """Assemble the joint block covariance for p processes.
 
     ``dists[i][j]`` is the (n_i, n_j) distance matrix between the
@@ -144,7 +158,10 @@ def block_covariance(params: MaternParams, dists, h_grad: bool = True):
     On a CUDA tensor every block, float32 or float64, goes through the
     hand-written kernels: ``matern_correlation_block`` forward and, when a
     parameter requires grad, ``matern_block_grad`` backward
-    (``_ScaledMaternBlock``); the distances get no gradient there. On the
+    (``_ScaledMaternBlock``); the distances get no gradient there. Both read
+    the block's rows of ``table``, the parameters' ``pair_table`` (built
+    here once per call when None), so neither reads the card from the
+    host. On the
     CPU, ``h_grad=True`` differentiates the plain elementwise model (in the
     distances too), and ``h_grad=False`` (distances are data) takes the
     same block Function with the kernels' plain versions.
@@ -152,11 +169,11 @@ def block_covariance(params: MaternParams, dists, h_grad: bool = True):
     from cokriging_tpu_torch.kernels.cuda_ops import matern_correlation_block
 
     p = params.n_procs
-    on_card = torch.as_tensor(dists[0][0]).is_cuda
-    needs_grad = torch.is_grad_enabled() and any(
-        t.requires_grad
-        for t in (params.sigma, params.nu, params.len_scale, params.nugget, params.rho)
-    )
+    h00 = torch.as_tensor(dists[0][0])
+    on_card = h00.is_cuda
+    needs_grad = _needs_grad(params)
+    if on_card and table is None:
+        table = pair_table(params, h00.device, h00.dtype)
     blocks = {}
     for i in range(p):
         for j in range(i, p):
@@ -170,13 +187,15 @@ def block_covariance(params: MaternParams, dists, h_grad: bool = True):
             else:
                 scale = params.rho[i, j] * params.sigma[i] * params.sigma[j]
                 nugget = torch.zeros((), dtype=scale.dtype, device=scale.device)
+            value_row, dual_row = table.rows(i, j) if on_card else (None, None)
             if needs_grad and (on_card or not h_grad):
                 blocks[(i, j)] = _ScaledMaternBlock.apply(
-                    scale, nugget, params.nu[i, j], params.len_scale[i, j], h, i == j
+                    scale, nugget, params.nu[i, j], params.len_scale[i, j], h, i == j,
+                    value_row, dual_row,
                 )
                 continue
             m = matern_correlation_block(
-                params.nu[i, j], params.len_scale[i, j], h, symmetric=(i == j)
+                params.nu[i, j], params.len_scale[i, j], h, symmetric=(i == j), table=value_row
             )
             blocks[(i, j)] = scale * m
             if i == j:
@@ -198,6 +217,11 @@ def _pairs(p):
     return [(i, j) for i in range(p) for j in range(i, p)]
 
 
+def _pair_number(i, j, p):
+    """The pair number of processes i <= j (ints or tensors) in row order."""
+    return i * p - i * (i - 1) // 2 + j - i
+
+
 def _pair_stacks(params: MaternParams):
     """The (n_pairs,) stacks of nu and len_scale of the process pairs."""
     pairs = _pairs(params.n_procs)
@@ -206,35 +230,51 @@ def _pair_stacks(params: MaternParams):
 
 
 class PairTable(NamedTuple):
-    """What the gathered covariances need beyond the parameters' autograd
+    """What the covariance kernels need beyond the parameters' autograd
     values, built once per parameter set by ``pair_table``: ``index``, the
     (p, p) pair number k of each process pair (symmetric, i <= j in row
-    order), and on a CUDA device the gathered-pairs kernels' constant tables
-    (``kernels.cuda_ops.pairs_constants``): ``consts`` for the forward,
-    ``grad_consts`` for the gradient (both None elsewhere)."""
+    order), and on a CUDA device the kernels' recurrence tables
+    (``kernels.cuda_ops.recurrence_table``), one row per pair: ``value`` for
+    the forward kernels, ``dual`` for the gradient kernels (None where no
+    gradient was asked for; both None off the card)."""
 
     index: torch.Tensor
-    consts: Optional[torch.Tensor]
-    grad_consts: Optional[torch.Tensor]
+    value: Optional[torch.Tensor]
+    dual: Optional[torch.Tensor]
+
+    def rows(self, i: int, j: int):
+        """(value row, dual row or None) of the process pair (i, j), its
+        number worked out on the host (``index`` stays on the device)."""
+        k = _pair_number(min(i, j), max(i, j), self.index.shape[0])
+        return self.value[k], None if self.dual is None else self.dual[k]
 
 
-def pair_table(params: MaternParams, device, dtype) -> PairTable:
+def pair_table(params: MaternParams, device, dtype, grad: Optional[bool] = None) -> PairTable:
     """The ``PairTable`` of ``params`` for distances of ``dtype`` on
-    ``device``: one host-to-device copy of the pair numbers and, on a card,
-    the kernels' constants built there from the parameters' values."""
-    from cokriging_tpu_torch.kernels.cuda_ops import pairs_constants
-
+    ``device``: the pair numbers and, on a card, the kernels' tables, all
+    made there from the parameters' values with no host copy, the dual
+    one only when ``grad`` (by default: when autograd will differentiate a
+    covariance of ``params``)."""
     p = params.n_procs
-    index = np.zeros((p, p), np.int64)
-    for k, (i, j) in enumerate(_pairs(p)):
-        index[i, j] = index[j, i] = k
     device = torch.device(device)
-    consts = grad_consts = None
+    r = torch.arange(p, device=device)
+    index = _pair_number(torch.minimum(r[:, None], r[None, :]),
+                         torch.maximum(r[:, None], r[None, :]), p)
+    value = dual = None
     if device.type == "cuda":
-        nu_pairs, ls_pairs = (t.detach().to(device) for t in _pair_stacks(params))
-        consts = pairs_constants(nu_pairs, ls_pairs, dtype)
-        grad_consts = pairs_constants(nu_pairs, ls_pairs, dtype, grad=True)
-    return PairTable(torch.as_tensor(index, device=device), consts, grad_consts)
+        value, dual = _kernel_tables(params, device, dtype,
+                                     _needs_grad(params) if grad is None else grad)
+    return PairTable(index, value, dual)
+
+
+def _kernel_tables(params: MaternParams, device, dtype, grad: bool):
+    """(value table, dual table or None) of the process pairs in pair
+    order, built with torch on ``device`` from the parameters' values."""
+    from cokriging_tpu_torch.kernels.cuda_ops import recurrence_table
+
+    nu_pairs, ls_pairs = (t.detach().to(device) for t in _pair_stacks(params))
+    value = recurrence_table(nu_pairs, ls_pairs, dtype)
+    return value, recurrence_table(nu_pairs, ls_pairs, dtype, dual=True) if grad else None
 
 
 class _MaternCorrPairs(torch.autograd.Function):
@@ -246,21 +286,20 @@ class _MaternCorrPairs(torch.autograd.Function):
     CPU both are their plain versions."""
 
     @staticmethod
-    def forward(ctx, nu_pairs, ls_pairs, idx_f, h, consts=None, grad_consts=None):
+    def forward(ctx, nu_pairs, ls_pairs, idx_f, h, value=None, dual=None):
         from cokriging_tpu_torch.kernels import cuda_ops
 
         ctx.save_for_backward(nu_pairs, ls_pairs, idx_f, h)
-        ctx.grad_consts = grad_consts
+        ctx.dual = dual
         return cuda_ops.matern_corr_pairs(nu_pairs.detach(), ls_pairs.detach(), idx_f, h,
-                                          table=consts)
+                                          table=value)
 
     @staticmethod
     def backward(ctx, ct):
         from cokriging_tpu_torch.kernels import cuda_ops
 
         nu_pairs, ls_pairs, idx_f, h = ctx.saved_tensors
-        g = cuda_ops.matern_corr_pairs_grad(nu_pairs, ls_pairs, idx_f, h, ct,
-                                            table=ctx.grad_consts)
+        g = cuda_ops.matern_corr_pairs_grad(nu_pairs, ls_pairs, idx_f, h, ct, table=ctx.dual)
         return g[:, 0].to(nu_pairs.dtype), g[:, 1].to(ls_pairs.dtype), None, None, None, None
 
 
@@ -275,8 +314,8 @@ def matern_corr_pairs(nu_pairs, ls_pairs, idx_f, h, table=None):
     the plain per-entry select through the elementwise
     ``matern_correlation`` under ordinary autograd, which is what the
     reference runs off the TPU. ``table``: a ``PairTable`` holding the
-    kernels' constant tables of these pairs, or None to build them per
-    launch.
+    kernels' tables of these pairs, or None to build them per launch (the
+    dual one also where the ``PairTable`` has none).
     """
     from cokriging_tpu_torch.kernels.cuda_ops import matern_corr_pairs_plain
 
@@ -287,8 +326,8 @@ def matern_corr_pairs(nu_pairs, ls_pairs, idx_f, h, table=None):
         return matern_corr_pairs_plain(nu_pairs, ls_pairs, idx_f, h)
     if torch.is_grad_enabled() and h.requires_grad:
         raise ValueError("matern_corr_pairs: the kernels on the card give h no gradient")
-    consts = (None, None) if table is None else (table.consts, table.grad_consts)
-    return _MaternCorrPairs.apply(nu_pairs, ls_pairs, idx_f, h, *consts)
+    tables = (None, None) if table is None else (table.value, table.dual)
+    return _MaternCorrPairs.apply(nu_pairs, ls_pairs, idx_f, h, *tables)
 
 
 def _pair_terms(params, pa, pb):
@@ -322,8 +361,8 @@ def gathered_covariance(params: MaternParams, d, procs_a, procs_b=None, table=No
     direct-assembly local predictor (``predict.local``,
     ``materialize_cov=False``); broadcasts over leading batch dimensions.
     The correlations go through ``matern_corr_pairs``. ``table``: the
-    ``pair_table(params, d.device, d.dtype)`` of these parameters' values,
-    or None to build it here.
+    ``pair_table`` of these parameters' values for ``d``, or None to build
+    it here.
     """
     d = torch.as_tensor(d)
     if procs_b is None:
@@ -354,8 +393,8 @@ def windows_covariance(params: MaternParams, d, procs, mvar=None, table=None):
         procs: (..., w) int process ids of each window slot.
         mvar: optional (..., w) per-slot measurement-error variances added
             to the window diagonals.
-        table: the ``pair_table(params, d.device, d.dtype)`` of these
-            parameters' values, or None to build it here.
+        table: the ``pair_table`` of these parameters' values for ``d``,
+            or None to build it here.
 
     Returns:
         (..., w, w) covariance windows.

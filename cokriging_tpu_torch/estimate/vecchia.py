@@ -292,7 +292,8 @@ class _WindowsNllSum(torch.autograd.Function):
         x = flat.detach().to(device=windows[0].device, dtype=windows[0].dtype)
         total = torch.zeros((), dtype=x.dtype, device=x.device)
         grad = torch.zeros_like(x)
-        table = pair_table(MaternParams.from_flat(x, spec=spec), x.device, x.dtype)
+        table = pair_table(MaternParams.from_flat(x, spec=spec), x.device, x.dtype,
+                           grad=ctx.needs_input_grad[0])
         for s in range(0, windows[0].shape[0], chunk):
             win = tuple(a[s:s + chunk] for a in windows)
             if ctx.needs_input_grad[0]:

@@ -4,145 +4,170 @@
 // (pallas_call at :310; _matern_kernel :272, _matern_kernel_sym :277,
 // _matern_tile :243):
 //     M = 2^{1-nu} / Gamma(nu) * a^nu * K_nu(a),  a = sqrt(2 nu) h / ls,
-// h == 0 -> 1, non-finite -> 0, clamped >= 0.
+// 1 where |h| is not > 0 (zero or NaN), 0 where non-finite, clamped >= 0.
 //
 // What bounds it: operations. Each entry reads 4 or 8 bytes and writes as
 // many, but runs a serial Temme series (12 / 40 trips) or Steed CF2 (up to
 // 18 / 80 trips) plus the order recurrence: hundreds of dependent
-// multiply-adds, divisions and a few transcendentals per entry. Far above
-// the card's operations-per-byte line, so memory traffic is not the limit.
+// multiply-adds per entry, far above the card's operations-per-byte line.
 //
-// Design: one thread per entry, in 32 x 32 tiles of 32 x 8 threads. A warp
-// runs along one row, so its 32 neighbouring (spatially coherent) entries
-// mostly take the same series/CF2 branch and run in step. The scalar
-// constants (mu, nl, gamma terms, lgamma nu) are computed once by the
-// caller, as the TPU wrapper does. The symmetric mode launches only the
-// lower-triangle tiles and writes each computed entry twice: directly to
-// (i, j), and through a shared-memory transpose to (j, i), so the mirrored
-// writes stay coalesced and no separate mirror pass exists.
+// Design: one block of 256 threads per 64 x 64 tile. The block loads the
+// tile's h with coalesced row reads into a padded shared array; entries
+// whose |h| is not > 0 get M = 1 at once, the rest a key, series or CF2
+// half-octave of their x = sqrt(2 nu) h / ls (kv.cuh::entry_x).
+// partition.cuh sorts the tile's local indices by key, stably, and thread t
+// evaluates sorted slots t, t + 256, ...: a warp runs one branch with like
+// CF2 trip counts, where the spatially unsorted points of a month left most
+// warps with both branches. The arithmetic is kv.cuh's per-entry
+// matern_entry_tab (entry_x, then the table-driven matern_value_tab) over
+// the per-(nu, ls) value row (built on the card by the wrapper,
+// kernels/cuda_ops.py::recurrence_table, read into shared memory), so no
+// series or CF2 trip divides except CF2's 1/(b + a d);
+// half-integer orders leave CF2 after its setup, which changes no bit. Each
+// value goes back to its entry's slot and leaves with one coalesced store.
+// An entry's value depends only on its own h, so the output is the same bit
+// for bit under any permutation of h's rows and columns taken together.
+// The symmetric mode launches only the lower-triangle tiles and stores
+// each value at (i, j) and, through the shared tile read transposed (its
+// padded pitch spares the transposed reads bank conflicts), at (j, i): both
+// stores coalesce, no mirror pass or n^2 temporary exists, and the output is
+// exactly symmetric and equal bit for bit to the full mode's lower triangle
+// (one kernel serves both modes, so both run one compiled entry step).
 #include <cuda_runtime.h>
 
 #include "kv.cuh"
+#include "partition.cuh"
 
 namespace {
 
-constexpr int TILE = 32;
-constexpr int ROWS = 8;
+constexpr int TILE = 64;
+constexpr int PITCH = TILE + 1;
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int ITEMS = TILE * TILE / THREADS;
+constexpr int CF2_BINS = 8;
+constexpr int N_KEYS = 1 + CF2_BINS;
 
-template <typename T> struct MaternConsts {
-  T nu, ls, sqrt2nu, mu;
-  int nl;
-  ckt::GamConsts<T> gam;
-  T lgamma_nu;
-};
-
-template <typename T>
-__device__ __forceinline__ T matern_entry(T h, const MaternConsts<T>& k) {
-  return ckt::matern_value(h, k.nu, k.ls, k.sqrt2nu, k.mu, k.nl, k.gam, k.lgamma_nu);
+// Dynamic shared memory of a block: the value row, h (then M) per entry in
+// the padded tile, the partition's counts and total, the sorted indices,
+// the keys.
+template <typename T> size_t fwd_smem() {
+  return sizeof(T) * (ckt::TabLayout<T>::width + TILE * PITCH) +
+         sizeof(int) * (WARPS * N_KEYS + 4) + sizeof(unsigned short) * TILE * TILE +
+         TILE * TILE;
 }
 
 template <typename T>
-__global__ void matern_full_kernel(const T* __restrict__ h, T* __restrict__ out,
-                                   int n, int m, int tiles_m,
-                                   MaternConsts<T> k) {
-  const long long t = blockIdx.x;
-  const int ti = static_cast<int>(t / tiles_m);
-  const int tj = static_cast<int>(t % tiles_m);
-  const int col = tj * TILE + threadIdx.x;
-  if (col >= m) return;
-  for (int r = threadIdx.y; r < TILE; r += ROWS) {
-    const int row = ti * TILE + r;
-    if (row < n) {
-      const size_t idx = static_cast<size_t>(row) * m + col;
-      out[idx] = matern_entry(h[idx], k);
-    }
-  }
-}
+__global__ void __launch_bounds__(THREADS)
+    matern_kernel(const T* __restrict__ h, int n, int m, int symmetric, int tiles_m,
+                  const T* __restrict__ table, int early_exit, T* __restrict__ out) {
+  constexpr int W = ckt::TabLayout<T>::width;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* s_tab = reinterpret_cast<T*>(smem);
+  T* s_val = s_tab + W;
+  int* s_cnt = reinterpret_cast<int*>(s_val + TILE * PITCH);
+  int* s_total = s_cnt + WARPS * N_KEYS;
+  unsigned short* s_perm = reinterpret_cast<unsigned short*>(s_total + 4);
+  unsigned char* s_key = reinterpret_cast<unsigned char*>(s_perm + TILE * TILE);
+  for (int t = threadIdx.x; t < W; t += THREADS) s_tab[t] = table[t];
 
-template <typename T>
-__global__ void matern_sym_kernel(const T* __restrict__ h, T* __restrict__ out,
-                                  int n, MaternConsts<T> k) {
-  __shared__ T tile[TILE][TILE + 1];
-  // linear index over the lower-triangle tiles (tj <= ti)
   const long long t = blockIdx.x;
-  int ti = static_cast<int>((sqrt(8.0 * static_cast<double>(t) + 1.0) - 1.0) * 0.5);
-  while (static_cast<long long>(ti) * (ti + 1) / 2 > t) --ti;
-  while (static_cast<long long>(ti + 1) * (ti + 2) / 2 <= t) ++ti;
-  const int tj = static_cast<int>(t - static_cast<long long>(ti) * (ti + 1) / 2);
-
-  const int col = tj * TILE + threadIdx.x;
-  for (int r = threadIdx.y; r < TILE; r += ROWS) {
-    const int row = ti * TILE + r;
-    T v = T(0);
-    if (row < n && col < n && col <= row) {
-      const size_t idx = static_cast<size_t>(row) * n + col;
-      v = matern_entry(h[idx], k);
-      out[idx] = v;
-    }
-    tile[r][threadIdx.x] = v;
+  int ti, tj;
+  if (symmetric) {  // linear index over the lower-triangle tiles (tj <= ti)
+    ti = static_cast<int>((sqrt(8.0 * static_cast<double>(t) + 1.0) - 1.0) * 0.5);
+    while (static_cast<long long>(ti) * (ti + 1) / 2 > t) --ti;
+    while (static_cast<long long>(ti + 1) * (ti + 2) / 2 <= t) ++ti;
+    tj = static_cast<int>(t - static_cast<long long>(ti) * (ti + 1) / 2);
+  } else {
+    ti = static_cast<int>(t / tiles_m);
+    tj = static_cast<int>(t % tiles_m);
   }
   __syncthreads();
-  // mirror: entry (row = ti*TILE + x, col = tj*TILE + y) goes to (col, row)
-  const int mcol = ti * TILE + threadIdx.x;
-  for (int y = threadIdx.y; y < TILE; y += ROWS) {
-    const int mrow = tj * TILE + y;
-    if (mcol < n && mrow < mcol) {
-      out[static_cast<size_t>(mrow) * n + mcol] = tile[threadIdx.x][y];
+  const ckt::ValueRow<T> row{s_tab};
+
+  // entry e = (r, c): row ti*TILE + r, column tj*TILE + c, read along rows
+  for (int e = threadIdx.x; e < TILE * TILE; e += THREADS) {
+    const int r = e / TILE, c = e % TILE;
+    const int i = ti * TILE + r, j = tj * TILE + c;
+    unsigned char key = ckt::kNoKey;
+    if (i < n && j < m && (!symmetric || j <= i)) {
+      const T hv = h[static_cast<size_t>(i) * m + j];
+      T x;
+      if (ckt::entry_x(hv, row, x)) {
+        s_val[r * PITCH + c] = hv;
+        key = static_cast<unsigned char>(ckt::x_bucket<CF2_BINS>(x));
+      } else {
+        s_val[r * PITCH + c] = T(1);
+      }
+    }
+    s_key[e] = key;
+  }
+  const int n_sorted =
+      ckt::stable_partition<WARPS, ITEMS>(s_key, TILE * TILE, N_KEYS, s_perm, s_cnt, s_total);
+  for (int slot = threadIdx.x; slot < n_sorted; slot += THREADS) {
+    const int e = s_perm[slot];
+    T& v = s_val[(e / TILE) * PITCH + e % TILE];
+    v = ckt::matern_entry_tab(v, row, early_exit != 0);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < TILE * TILE; e += THREADS) {
+    const int r = e / TILE, c = e % TILE;
+    const int i = ti * TILE + r, j = tj * TILE + c;
+    if (i < n && j < m && (!symmetric || j <= i)) {
+      out[static_cast<size_t>(i) * m + j] = s_val[r * PITCH + c];
+    }
+  }
+  if (symmetric) {
+    // entry (x, y) of the tile, row ti*TILE + x and column tj*TILE + y, also
+    // goes to (tj*TILE + y, ti*TILE + x): consecutive threads take
+    // consecutive x, so the store runs along a row of out
+    for (int e = threadIdx.x; e < TILE * TILE; e += THREADS) {
+      const int x = e % TILE, y = e / TILE;
+      const int i = ti * TILE + x, j = tj * TILE + y;
+      if (i < n && j < i) out[static_cast<size_t>(j) * n + i] = s_val[x * PITCH + y];
     }
   }
 }
 
-template <typename T>
-int launch(const T* h, T* out, int n, int m, int symmetric,
-           const MaternConsts<T>& k, cudaStream_t stream) {
-  const dim3 block(TILE, ROWS);
+long long num_tiles(int n, int m, int symmetric) {
   const long long tn = (n + TILE - 1) / TILE;
   const long long tm = (m + TILE - 1) / TILE;
-  if (symmetric) {
-    matern_sym_kernel<T><<<static_cast<unsigned>(tn * (tn + 1) / 2), block, 0,
-                           stream>>>(h, out, n, k);
-  } else {
-    matern_full_kernel<T><<<static_cast<unsigned>(tn * tm), block, 0, stream>>>(
-        h, out, n, m, static_cast<int>(tm), k);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return symmetric ? tn * (tn + 1) / 2 : tn * tm;
 }
 
 template <typename T>
-MaternConsts<T> consts(T nu, T ls, T sqrt2nu, T mu, int nl, T gam1, T gam2,
-                       T inv_gp, T inv_gm, T lgamma_nu) {
-  MaternConsts<T> k;
-  k.nu = nu;
-  k.ls = ls;
-  k.sqrt2nu = sqrt2nu;
-  k.mu = mu;
-  k.nl = nl;
-  k.gam = ckt::GamConsts<T>{gam1, gam2, inv_gp, inv_gm};
-  k.lgamma_nu = lgamma_nu;
-  return k;
+int launch(const T* h, int n, int m, int symmetric, const T* table, int early_exit, T* out,
+           cudaStream_t stream) {
+  const size_t smem = fwd_smem<T>();
+  cudaError_t err = ckt::allow_smem<matern_kernel<T>>(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  matern_kernel<T><<<static_cast<unsigned>(num_tiles(n, m, symmetric)), THREADS, smem,
+                     stream>>>(h, n, m, symmetric, static_cast<int>((m + TILE - 1) / TILE),
+                               table, early_exit, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-int matern_f32(const float* h, float* out, int n, int m, int symmetric,
-               float nu, float ls, float sqrt2nu, float mu, int nl, float gam1,
-               float gam2, float inv_gp, float inv_gm, float lgamma_nu,
-               void* stream) {
-  return launch<float>(h, out, n, m, symmetric,
-                       consts<float>(nu, ls, sqrt2nu, mu, nl, gam1, gam2,
-                                     inv_gp, inv_gm, lgamma_nu),
+int matern_table_width(int f64) {
+  return f64 ? ckt::TabLayout<double>::width : ckt::TabLayout<float>::width;
+}
+
+// h, out: contiguous (n, m) device arrays (square when symmetric); table: one
+// row of kv.cuh's value table (matern_table_width device values,
+// kernels/cuda_ops.py::recurrence_table); early_exit = 0 runs a degenerate
+// lane's CF2 trips all the same (checks that it changes no bit).
+int matern_f32(const float* h, int n, int m, int symmetric, const float* table, int early_exit,
+               float* out, void* stream) {
+  return launch<float>(h, n, m, symmetric, table, early_exit, out,
                        static_cast<cudaStream_t>(stream));
 }
 
-int matern_f64(const double* h, double* out, int n, int m, int symmetric,
-               double nu, double ls, double sqrt2nu, double mu, int nl,
-               double gam1, double gam2, double inv_gp, double inv_gm,
-               double lgamma_nu, void* stream) {
-  return launch<double>(h, out, n, m, symmetric,
-                        consts<double>(nu, ls, sqrt2nu, mu, nl, gam1, gam2,
-                                       inv_gp, inv_gm, lgamma_nu),
+int matern_f64(const double* h, int n, int m, int symmetric, const double* table,
+               int early_exit, double* out, void* stream) {
+  return launch<double>(h, n, m, symmetric, table, early_exit, out,
                         static_cast<cudaStream_t>(stream));
 }
 

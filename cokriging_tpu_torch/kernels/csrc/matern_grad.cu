@@ -179,9 +179,9 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // One block per output adds the per-tile partials in a fixed order;
-// outputs 2 and 3 are scaled.
+// outputs 2 and 3 are scaled by the device value *scale.
 __global__ void grad_reduce_kernel(const double* __restrict__ part, long long n_parts,
-                                   double scale, double* __restrict__ out) {
+                                   const double* __restrict__ scale, double* __restrict__ out) {
   __shared__ double ss[RED_THREADS];
   const int k = blockIdx.x;
   double s = 0.0;
@@ -192,7 +192,7 @@ __global__ void grad_reduce_kernel(const double* __restrict__ part, long long n_
     if (threadIdx.x < w) ss[threadIdx.x] += ss[threadIdx.x + w];
     __syncthreads();
   }
-  if (threadIdx.x == 0) out[k] = (k >= 2 ? scale : 1.0) * ss[0];
+  if (threadIdx.x == 0) out[k] = (k >= 2 ? *scale : 1.0) * ss[0];
 }
 
 long long num_tiles(int n, int m, int symmetric) {
@@ -203,7 +203,7 @@ long long num_tiles(int n, int m, int symmetric) {
 
 template <typename T>
 int launch(const T* h, const T* ct, int n, int m, long long ld_h, long long ld_ct,
-           int symmetric, const T* table, double scale, double* part, double* out,
+           int symmetric, const T* table, const double* scale, double* part, double* out,
            cudaStream_t stream) {
   const long long n_tiles = num_tiles(n, m, symmetric);
   const size_t smem = grad_smem<T>();
@@ -228,17 +228,18 @@ long long matern_grad_num_tiles(int n, int m, int symmetric) {
 
 // h, ct: (n, m) device arrays with unit column stride and row strides ld_h,
 // ld_ct (in elements); table: one row of kv.cuh's dual table (2 x TabLayout
-// width device values, kernels/cuda_ops.py::recurrence_table); part:
-// 4 * matern_grad_num_tiles doubles of scratch; out: 4 doubles.
+// width device values, kernels/cuda_ops.py::recurrence_table); scale: one
+// device double; part: 4 * matern_grad_num_tiles doubles of scratch; out: 4
+// doubles.
 int matern_grad_f32(const float* h, const float* ct, int n, int m, long long ld_h,
-                    long long ld_ct, int symmetric, const float* table, double scale,
+                    long long ld_ct, int symmetric, const float* table, const double* scale,
                     double* part, double* out, void* stream) {
   return launch<float>(h, ct, n, m, ld_h, ld_ct, symmetric, table, scale, part, out,
                        static_cast<cudaStream_t>(stream));
 }
 
 int matern_grad_f64(const double* h, const double* ct, int n, int m, long long ld_h,
-                    long long ld_ct, int symmetric, const double* table, double scale,
+                    long long ld_ct, int symmetric, const double* table, const double* scale,
                     double* part, double* out, void* stream) {
   return launch<double>(h, ct, n, m, ld_h, ld_ct, symmetric, table, scale, part, out,
                         static_cast<cudaStream_t>(stream));

@@ -5,17 +5,19 @@ Counterpart of ``cokriging_tpu/kernels/pallas_ops.py``:
 - ``variogram_minmax`` and ``variogram_bin`` (``csrc/variogram.cu``) replace
   ``variogram_bin_pallas``, built to the two-pass contract of
   ``estimate/empirical.py::_all_pairs_program`` on the distance surrogate h;
-- ``matern_correlation_block`` (``csrc/matern.cu`` + ``csrc/kv.cuh``)
-  replaces ``matern_correlation_pallas``;
-- ``matern_block_grad`` (``csrc/matern_grad.cu`` + ``csrc/kv.cuh`` +
-  ``csrc/partition.cuh``) replaces ``matern_block_grad_pallas``;
-- ``matern_corr_pairs`` and ``matern_corr_pairs_grad`` (``csrc/matern_pairs.cu``
-  + ``csrc/kv.cuh``, the forward also ``csrc/partition.cuh``) replace
-  ``matern_corr_pairs_pallas`` and ``matern_corr_pairs_grad_pallas``.
+- ``matern_correlation_block`` (``csrc/matern.cu``) replaces
+  ``matern_correlation_pallas``;
+- ``matern_block_grad`` (``csrc/matern_grad.cu``) replaces
+  ``matern_block_grad_pallas``;
+- ``matern_corr_pairs`` and ``matern_corr_pairs_grad`` (``csrc/matern_pairs.cu``)
+  replace ``matern_corr_pairs_pallas`` and ``matern_corr_pairs_grad_pallas``.
 
-The block gradient and the pairs forward read their per-(nu, ls) constants
-from ``recurrence_table``, built with torch on the device of nu and ls: no
-host read, no synchronization.
+The four Matern kernels share ``csrc/kv.cuh`` (the K_nu recurrences and the
+per-entry steps) and ``csrc/partition.cuh`` (the tile sort by pair, branch
+and CF2 half-octave of x), and read their per-(nu, ls) constants from
+``recurrence_table``, built with torch on the device of nu and ls: no host
+read, no synchronization. A caller that launches many times with one
+parameter set passes its table rows in (``cov.matern.pair_table``).
 
 Each wrapper runs the plain torch version only for tensors on the CPU. For
 a CUDA tensor it launches its kernel or raises; there is no fallback. Each
@@ -276,71 +278,21 @@ def _max_bins() -> int:
 
 
 # ---------------------------------------------------------------------------
-# Matern correlation
+# Recurrence tables
 # ---------------------------------------------------------------------------
 
 
-def matern_constants(nu, len_scale, dtype):
-    """Host scalars of one Matern block in ``dtype``, computed with the same
-    torch functions as the plain path: (nu, ls, sqrt(2 nu), mu, nl, gam1,
-    gam2, 1/Gamma(1+mu), 1/Gamma(1-mu), lgamma(nu))."""
-    nu_t = torch.tensor(float(nu), dtype=dtype)
-    ls_t = torch.tensor(float(len_scale), dtype=dtype)
-    nu_abs = torch.abs(nu_t)
-    nl = torch.floor(nu_abs + 0.5)
-    mu = nu_abs - nl
-    gam = _gam12(mu)
-    return (
-        nu_t.item(), ls_t.item(), torch.sqrt(2.0 * nu_t).item(), mu.item(),
-        int(nl.item()), *(g.item() for g in gam), torch.lgamma(nu_t).item(),
-    )
+def _table_width(dtype):
+    """Values in one row of the kernels' value table of ``dtype`` (kv.cuh's
+    ``TabLayout``, asked of the built library; a dual row holds twice as
+    many)."""
+    return _fn("matern.cu", "matern_table_width", [_I])(int(dtype == torch.float64))
 
 
-def matern_correlation_block_plain(nu, len_scale, h, symmetric=False):
-    """Plain torch Matern correlation of a distance block: the elementwise
-    ``cov.matern.matern_correlation`` applied to every entry (``symmetric``
-    changes nothing in the result)."""
-    from cokriging_tpu_torch.cov.matern import matern_correlation
-
-    return matern_correlation(nu, len_scale, h)
-
-
-def matern_correlation_block(nu, len_scale, h, symmetric=False):
-    """Matern correlation M(nu, len_scale, h) of a 2-D distance block.
-
-    ``symmetric=True`` (square symmetric h) evaluates the lower triangle and
-    mirrors it. CUDA tensors run ``csrc/matern.cu`` (forward only); CPU
-    tensors the plain version."""
-    if h.device.type == "cpu":
-        return matern_correlation_block_plain(nu, len_scale, h, symmetric)
-    _check_cuda("matern_correlation_block", h)
-    if h.ndim != 2 or (symmetric and h.shape[0] != h.shape[1]):
-        raise ValueError("matern_correlation_block: h must be 2-D (square if symmetric)")
-    n, m = h.shape
-    out = torch.empty_like(h)
-    if n == 0 or m == 0:
-        return out
-    T = _CT[h.dtype]
-    c = matern_constants(nu, len_scale, h.dtype)
-    f = _fn("matern.cu", f"matern_{_SUFFIX[h.dtype]}",
-            [_P, _P, _I, _I, _I, T, T, T, T, _I, T, T, T, T, T, _P])
-    with torch.cuda.device(h.device):
-        rc = f(_ptr(h), _ptr(out), n, m, int(symmetric),
-               T(c[0]), T(c[1]), T(c[2]), T(c[3]), c[4],
-               T(c[5]), T(c[6]), T(c[7]), T(c[8]), T(c[9]), _stream(h.device))
-    _check_rc("matern.cu", rc, "matern_correlation_block")
-    LAUNCHES["matern_correlation"] += 1
-    return out
-
-
-# ---------------------------------------------------------------------------
-# Matern block gradient
-# ---------------------------------------------------------------------------
-
-
-# columns of a recurrence-table row (csrc/kv.cuh, namespace tab): the head,
-# then 3 per series trip and 3 per CF2 trip
-_TAB_HEAD = 13
+def _check_table(name, table, shape, h):
+    if (tuple(table.shape) != shape or table.dtype != h.dtype or table.device != h.device
+            or not table.is_contiguous()):
+        raise ValueError(f"{name}: table must be {shape} contiguous {h.dtype} on {h.device}")
 
 
 def recurrence_table(nu_pairs, ls_pairs, dtype, dual=False):
@@ -354,8 +306,8 @@ def recurrence_table(nu_pairs, ls_pairs, dtype, dual=False):
     a1 come from the same torch functions, in ``dtype``, as the plain path;
     the trip columns are formed in float64 from that mu and a1.
 
-    ``dual=False`` (the pairs forward) keeps nu's sign as the plain path
-    does; ``dual=True`` (the block gradient) takes |nu| and stores each
+    ``dual=False`` (the forward kernels) keeps nu's sign as the plain path
+    does; ``dual=True`` (the gradient kernels) takes |nu| and stores each
     column with its d/dmu beside it (mu's own is 1; the gamma tangents from
     ``gam12_tangent``), so a row holds twice the values."""
     nu = torch.as_tensor(nu_pairs, dtype=dtype).detach().reshape(-1)
@@ -397,6 +349,60 @@ def recurrence_table(nu_pairs, ls_pairs, dtype, dual=False):
                          -two_mu / i_c], dim=2).flatten(1)
     tan = torch.cat([torch.stack(d_head, dim=1), d_series.to(dtype), d_cf2.to(dtype)], dim=1)
     return torch.stack([val, tan], dim=2).flatten(1)
+
+
+# ---------------------------------------------------------------------------
+# Matern correlation
+# ---------------------------------------------------------------------------
+
+
+def matern_correlation_block_plain(nu, len_scale, h, symmetric=False):
+    """Plain torch Matern correlation of a distance block: the elementwise
+    ``cov.matern.matern_correlation`` applied to every entry (``symmetric``
+    changes nothing in the result)."""
+    from cokriging_tpu_torch.cov.matern import matern_correlation
+
+    return matern_correlation(nu, len_scale, h)
+
+
+def matern_correlation_block(nu, len_scale, h, symmetric=False, table=None, early_exit=True):
+    """Matern correlation M(nu, len_scale, h) of a 2-D distance block.
+
+    ``symmetric=True`` (square symmetric h) evaluates the lower triangle and
+    mirrors it. CUDA tensors run ``csrc/matern.cu`` (forward only; ``h``
+    contiguous); CPU tensors the plain version. ``table``: the kernel's
+    value row ``recurrence_table(nu, len_scale, h.dtype)[0]`` on h's
+    device, built once by a caller that launches many times with one
+    parameter set; by default it is built here, on the card. Neither way
+    reads the card from the host. ``early_exit=False`` runs the CF2 trips of
+    half-integer orders that the kernel skips (they change no bit), for
+    checks."""
+    if h.device.type == "cpu":
+        return matern_correlation_block_plain(nu, len_scale, h, symmetric)
+    _check_cuda("matern_correlation_block", h)
+    if h.ndim != 2 or (symmetric and h.shape[0] != h.shape[1]):
+        raise ValueError("matern_correlation_block: h must be 2-D (square if symmetric)")
+    n, m = h.shape
+    out = torch.empty_like(h)
+    if n == 0 or m == 0:
+        return out
+    if table is None:
+        table = recurrence_table(torch.as_tensor(nu, dtype=h.dtype, device=h.device),
+                                 torch.as_tensor(len_scale, dtype=h.dtype, device=h.device),
+                                 h.dtype)[0]
+    _check_table("matern_correlation_block", table, (_table_width(h.dtype),), h)
+    f = _fn("matern.cu", f"matern_{_SUFFIX[h.dtype]}", [_P, _I, _I, _I, _P, _I, _P, _P])
+    with torch.cuda.device(h.device):
+        rc = f(_ptr(h), n, m, int(symmetric), _ptr(table), int(early_exit), _ptr(out),
+               _stream(h.device))
+    _check_rc("matern.cu", rc, "matern_correlation_block")
+    LAUNCHES["matern_correlation"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Matern block gradient
+# ---------------------------------------------------------------------------
 
 
 def matern_block_grad_plain(scale, nugget, nu, ls, h, ct, symmetric=False,
@@ -455,16 +461,19 @@ def matern_block_grad_plain(scale, nugget, nu, ls, h, ct, symmetric=False,
     return out
 
 
-def matern_block_grad(scale, nugget, nu, ls, h, ct, symmetric=False):
+def matern_block_grad(scale, nugget, nu, ls, h, ct, symmetric=False, table=None):
     """The four scalar cotangents of one covariance block C = scale *
     M(nu, ls, h) + nugget * [h == 0] against ``ct``: float64 tensor
     [g_scale, g_nugget, g_nu, g_ls] (see ``matern_block_grad_plain``).
 
     ``symmetric=True`` (square symmetric h, any ct) evaluates the lower
     triangle only. ``h`` and ``ct`` may be row-strided views (unit column
-    stride). CUDA tensors run ``csrc/matern_grad.cu`` (its dual table from
-    ``recurrence_table`` on the card; ``scale`` is read on the host); CPU
-    tensors the plain version."""
+    stride). CUDA tensors run ``csrc/matern_grad.cu``, with ``scale`` as a
+    device value; CPU tensors the plain version. ``table``: the kernel's
+    dual row ``recurrence_table(nu, ls, h.dtype, dual=True)[0]`` on h's
+    device, built once by a caller that launches many times with one
+    parameter set; by default it is built here, on the card. Neither way
+    reads the card from the host."""
     if h.device.type == "cpu":
         return matern_block_grad_plain(scale, nugget, nu, ls, h, ct, symmetric)
     for t in (h, ct):
@@ -481,16 +490,19 @@ def matern_block_grad(scale, nugget, nu, ls, h, ct, symmetric=False):
         raise ValueError("matern_block_grad: h needs unit column stride")
     if ct.stride(1) != 1 or ct.stride(0) < m:
         ct = ct.contiguous()
-    table = recurrence_table(torch.as_tensor(nu, dtype=h.dtype, device=h.device),
-                             torch.as_tensor(ls, dtype=h.dtype, device=h.device), h.dtype,
-                             dual=True)
+    if table is None:
+        table = recurrence_table(torch.as_tensor(nu, dtype=h.dtype, device=h.device),
+                                 torch.as_tensor(ls, dtype=h.dtype, device=h.device), h.dtype,
+                                 dual=True)[0]
+    _check_table("matern_block_grad", table, (2 * _table_width(h.dtype),), h)
+    scale = torch.as_tensor(scale, dtype=torch.float64, device=h.device).detach().reshape(())
     tiles = _fn_ll("matern_grad.cu", "matern_grad_num_tiles", [_I, _I, _I])(n, m, int(symmetric))
     part = torch.empty(4 * tiles, dtype=torch.float64, device=h.device)
     f = _fn("matern_grad.cu", f"matern_grad_{_SUFFIX[h.dtype]}",
-            [_P, _P, _I, _I, _LL, _LL, _I, _P, ctypes.c_double, _P, _P, _P])
+            [_P, _P, _I, _I, _LL, _LL, _I, _P, _P, _P, _P, _P])
     with torch.cuda.device(h.device):
         rc = f(_ptr(h), _ptr(ct), n, m, h.stride(0), ct.stride(0), int(symmetric),
-               _ptr(table), float(scale), _ptr(part), _ptr(out), _stream(h.device))
+               _ptr(table), _ptr(scale), _ptr(part), _ptr(out), _stream(h.device))
     _check_rc("matern_grad.cu", rc, "matern_block_grad")
     LAUNCHES["matern_block_grad"] += 1
     return out
@@ -512,24 +524,6 @@ def pair_index(idx_f, n_pairs):
     rule), as int64."""
     valid = (idx_f >= 1.0) & (idx_f <= n_pairs - 1.0) & (idx_f == torch.floor(idx_f))
     return torch.where(valid, idx_f, 0.0).long()
-
-
-def pairs_constants(nu_pairs, ls_pairs, dtype, grad=False):
-    """Per-pair constant table in ``dtype`` on the device of ``nu_pairs``,
-    with no host read: ``grad=False`` the forward kernel's
-    ``recurrence_table``; ``grad=True`` the gradient kernel's 15 columns,
-    |nu|, ls, sqrt(2|nu|), mu, gam1, gam2, 1/Gamma(1+mu), 1/Gamma(1-mu),
-    their four d/dmu, lgamma(|nu|), digamma(|nu|), nl."""
-    if not grad:
-        return recurrence_table(nu_pairs, ls_pairs, dtype)
-    nu = torch.as_tensor(nu_pairs, dtype=dtype).detach().reshape(-1)
-    ls = torch.as_tensor(ls_pairs, dtype=dtype, device=nu.device).detach().reshape(-1)
-    nu_abs = torch.abs(nu)
-    nl = torch.floor(nu_abs + 0.5)
-    mu = nu_abs - nl
-    cols = [nu_abs, ls, torch.sqrt(2.0 * nu_abs), mu, *_gam12(mu), *gam12_tangent(mu),
-            torch.lgamma(nu_abs), torch.digamma(nu_abs), nl]
-    return torch.stack(cols, dim=1)
 
 
 def _check_pairs(name, nu_pairs, ls_pairs, idx_f, h):
@@ -607,10 +601,10 @@ def matern_corr_pairs(nu_pairs, ls_pairs, idx_f, h, table=None, early_exit=True)
     ``csrc/matern_pairs.cu`` on the flat arrays (``h`` contiguous; ``idx_f``
     in h's dtype is read as it is); CPU tensors the plain version.
 
-    ``table``: the kernel's ``pairs_constants(nu_pairs, ls_pairs, h.dtype)``
+    ``table``: the kernel's ``recurrence_table(nu_pairs, ls_pairs, h.dtype)``
     on h's device, built once by a caller that launches many times with one
-    parameter set; by default it is built here, on the card. Neither way
-    reads the card from the host. ``early_exit=False`` runs the CF2 trips of
+    parameter set; by default it is built here, on the device of
+    ``nu_pairs``. Neither way reads the card from the host. ``early_exit=False`` runs the CF2 trips of
     half-integer orders that the kernel skips (they change no bit), for
     checks."""
     if h.device.type == "cpu":
@@ -624,12 +618,8 @@ def matern_corr_pairs(nu_pairs, ls_pairs, idx_f, h, table=None, early_exit=True)
     if h.numel() == 0:
         return out
     if table is None:
-        table = pairs_constants(nu_pairs, ls_pairs, h.dtype).to(h.device)
-    width = _TAB_HEAD + 3 * (SERIES_ITERS[h.dtype] + CF2_ITERS[h.dtype])
-    if (table.shape != (n_pairs, width) or table.dtype != h.dtype or table.device != h.device
-            or not table.is_contiguous()):
-        raise ValueError(f"matern_corr_pairs: table must be ({n_pairs}, {width}) contiguous "
-                         f"{h.dtype} on {h.device}")
+        table = recurrence_table(nu_pairs, ls_pairs, h.dtype).to(h.device)
+    _check_table("matern_corr_pairs", table, (n_pairs, _table_width(h.dtype)), h)
     f = _fn("matern_pairs.cu", f"pairs_fwd_{_SUFFIX[h.dtype]}", [_P, _P, _LL, _P, _I, _I, _P, _P])
     with torch.cuda.device(h.device):
         rc = f(_ptr(h), _ptr(idx), h.numel(), _ptr(table), n_pairs, int(early_exit), _ptr(out),
@@ -645,9 +635,11 @@ def matern_corr_pairs_grad(nu_pairs, ls_pairs, idx_f, h, ct, table=None):
     ``matern_corr_pairs_grad_plain``); ``h`` and ``idx_f`` get none. CUDA
     tensors run ``csrc/matern_pairs.cu`` (a fixed-order reduction, the same
     sums from run to run); CPU tensors the plain version. ``table``: the
-    kernel's ``pairs_constants(nu_pairs, ls_pairs, h.dtype, grad=True)`` on
-    h's device, built once by a caller that launches many times with one
-    parameter set; by default it is built here, on the card."""
+    kernel's dual table ``recurrence_table(nu_pairs, ls_pairs, h.dtype,
+    dual=True)`` on h's device (|nu|, as the reference's gradient table
+    takes it), built once by a caller that launches many times with one
+    parameter set; by default it is built here, on the device of
+    ``nu_pairs``."""
     if h.device.type == "cpu":
         return matern_corr_pairs_grad_plain(nu_pairs, ls_pairs, idx_f, h, ct)
     nu_pairs, ls_pairs = torch.as_tensor(nu_pairs), torch.as_tensor(ls_pairs)
@@ -663,11 +655,8 @@ def matern_corr_pairs_grad(nu_pairs, ls_pairs, idx_f, h, ct, table=None):
     if n == 0:
         return out
     if table is None:
-        table = pairs_constants(nu_pairs, ls_pairs, h.dtype, grad=True).to(h.device)
-    if (table.shape != (n_pairs, 15) or table.dtype != h.dtype or table.device != h.device
-            or not table.is_contiguous()):
-        raise ValueError(f"matern_corr_pairs_grad: table must be ({n_pairs}, 15) contiguous "
-                         f"{h.dtype} on {h.device}")
+        table = recurrence_table(nu_pairs, ls_pairs, h.dtype, dual=True).to(h.device)
+    _check_table("matern_corr_pairs_grad", table, (n_pairs, 2 * _table_width(h.dtype)), h)
     blocks = int(_fn_ll("matern_pairs.cu", "pairs_grad_blocks", [_LL])(n))
     part = torch.empty(2 * n_pairs * blocks, dtype=torch.float64, device=h.device)
     f = _fn("matern_pairs.cu", f"pairs_grad_{_SUFFIX[h.dtype]}",

@@ -31,7 +31,7 @@ import warnings
 import numpy as np
 import torch
 
-from cokriging_tpu_torch.cov.matern import block_covariance
+from cokriging_tpu_torch.cov.matern import block_covariance, pair_table
 from cokriging_tpu_torch.estimate.nll import joint_distance_blocks
 from cokriging_tpu_torch.kernels.cuda_ops import matern_correlation_block
 from cokriging_tpu_torch.kernels.distance import distance_matrix
@@ -40,11 +40,14 @@ from cokriging_tpu_torch.predict.local import LocalPrediction
 from cokriging_tpu_torch.utils.config import resolve_device
 
 
-def _cov_block(params, i, j, d):
+def _cov_block(params, i, j, d, table):
     """Covariance block between process i and process j at the 2-D
     distances ``d`` (nugget at exact zeros when i == j): on a CUDA tensor
-    through the Matern kernel, like the blocks of the joint covariance."""
-    m = matern_correlation_block(params.nu[i, j], params.len_scale[i, j], d)
+    through the Matern kernel with the pair's row of ``table`` (the
+    parameters' ``pair_table`` where it is of d's dtype), like the blocks of
+    the joint covariance."""
+    row = table.rows(i, j)[0] if d.is_cuda and d.dtype == table.value.dtype else None
+    m = matern_correlation_block(params.nu[i, j], params.len_scale[i, j], d, table=row)
     if i == j:
         return m.mul_(params.sigma[i] ** 2).add_(torch.where(d == 0.0, params.nugget[i], 0.0))
     return m.mul_(params.rho[i, j] * params.sigma[i] * params.sigma[j])
@@ -58,15 +61,16 @@ def _joint_system(params, coords_tuple, pcoords, i, geodesic):
     - prediction-grid covariance with nugget (:94-102).
     """
     dists = joint_distance_blocks(list(coords_tuple), geodesic=geodesic)
-    joint_cov = block_covariance(params, dists)
+    table = pair_table(params, dists[0][0].device, dists[0][0].dtype)
+    joint_cov = block_covariance(params, dists, table=table)
     pred_cross = torch.cat(
         [
-            _cov_block(params, i, j, distance_matrix(cj, pcoords, geodesic))
+            _cov_block(params, i, j, distance_matrix(cj, pcoords, geodesic), table)
             for j, cj in enumerate(coords_tuple)
         ],
         dim=0,
     )
-    pred_cov = _cov_block(params, i, i, distance_matrix(pcoords, pcoords, geodesic))
+    pred_cov = _cov_block(params, i, i, distance_matrix(pcoords, pcoords, geodesic), table)
     return joint_cov, pred_cross, pred_cov
 
 

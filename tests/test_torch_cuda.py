@@ -255,21 +255,22 @@ def _ulp_nus(dtype):
     return [0.5, 1.5, 2.5, float(np.nextafter(ft(1.5), ft(0))), float(np.nextafter(ft(1.5), ft(2)))]
 
 
-def _partition_cases(rng, dtype):
-    """Flat entry sets that stress the forward's tile partition: one branch
-    only (x < 2, x >= 2), a shuffled 50/50 mix, ten pairs, lengths around
-    the 2,048-entry tile; each (name, nu list, ls list, idx, h)."""
+def _partition_cases(rng, dtype, mixed=6_145):
+    """Flat entry sets that stress the pairs kernels' tile partition: one
+    branch only (x < 2, x >= 2), a shuffled 50/50 mix, ten pairs, lengths
+    around the 2,048-entry tile and ``mixed`` entries of both branches;
+    each (name, nu list, ls list, idx, h)."""
     nus = [0.3, 0.5, 1.5, 2.5, 1.2] + _ulp_nus(dtype)
     lss = [300.0, 450.0, 800.0, 1500.0, 600.0, 350.0, 900.0, 1200.0, 700.0, 500.0]
-    x_lo = rng.uniform(1e-3, 1.99, 40_000)
-    x_hi = rng.uniform(2.0, 40.0, 40_000)
+    x_lo = rng.uniform(1e-3, 1.99, max(40_000, mixed))
+    x_hi = rng.uniform(2.0, 40.0, max(40_000, mixed))
     cases = []
     for name, x, n_pairs in (("series only", x_lo, 5), ("CF2 only", x_hi, 5),
                              ("50/50 shuffled", rng.permutation(np.concatenate([x_lo, x_hi])), 10),
                              ("ten pairs", np.concatenate([x_lo, x_hi]), 10),
                              ("one entry", x_hi[:1], 1), ("2,047", x_lo[:2047], 3),
-                             ("2,049", x_hi[:2049], 3), ("6,145 mixed", np.concatenate(
-                                 [x_lo[:3000], x_hi[:3145]]), 10)):
+                             ("2,049", x_hi[:2049], 3), (f"{mixed:,} mixed", np.concatenate(
+                                 [x_lo[:mixed // 2], x_hi[:mixed - mixed // 2]]), 10)):
         idx = rng.integers(0, n_pairs, size=x.shape[0])
         nu, ls = np.array(nus[:n_pairs]), np.array(lss[:n_pairs])
         h = x * ls[idx] / np.sqrt(2.0 * nu[idx])
@@ -363,3 +364,126 @@ def test_pairs_call_and_cg_matvec_do_not_synchronize(cuda):
     want = _tiled_rows_matvec(params.to(device="cpu"), coords.cpu(), procs.cpu(), coords.cpu(),
                               procs.cpu(), V.cpu(), True, 512)
     torch.testing.assert_close(y.cpu(), want, rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_pairs_grad_partition_stress(cuda, dtype, tol):
+    """The partitioned pairs gradient against its plain version where the
+    tile's buckets are one, few or many (``_partition_cases``, up to 100,001
+    entries over ten pairs), at half-integer nu and 1.5 -+ ulp: each per-pair
+    sum within tol * sum |terms|, bit-equal on a second launch."""
+    rng = np.random.default_rng(24)
+    for name, nu, ls, idx, h in _partition_cases(rng, dtype, mixed=100_001):
+        nu_t, ls_t = (torch.tensor(v, dtype=dtype, device=cuda) for v in (nu, ls))
+        idx_t, h_t = (torch.as_tensor(v, dtype=dtype, device=cuda) for v in (idx, h))
+        ct = torch.as_tensor(rng.normal(size=h.shape[0]), dtype=dtype, device=cuda)
+        args = (nu_t, ls_t, idx_t, h_t, ct)
+        got = K.matern_corr_pairs_grad(*args)
+        ref = K.matern_corr_pairs_grad_plain(*args)
+        mag = K.matern_corr_pairs_grad_plain(*args, absolute=True)
+        torch.cuda.synchronize()
+        assert got.shape == (len(nu), 2) and torch.isfinite(got).all(), name
+        assert bool(((got - ref).abs() <= tol * mag).all()), (name, got, ref, mag)
+        assert torch.equal(got, K.matern_corr_pairs_grad(*args)), name
+
+
+def _matern_stress_blocks(rng, nu, dtype, cuda, ls=800.0):
+    """Symmetric distance blocks (zero diagonal) of n in {1, 63, 65, 650},
+    all series (x < 2), all CF2 (x >= 2) or mixed: (name, h)."""
+    for spread, lo, hi in (("series only", 1e-3, 1.99), ("CF2 only", 2.0, 40.0),
+                           ("mixed", 1e-3, 40.0)):
+        for n in (1, 63, 65, 650):
+            x = rng.uniform(lo, hi, size=(n, n))
+            x = np.tril(x, -1) + np.tril(x, -1).T
+            yield f"{spread} {n}", torch.as_tensor(x * ls / np.sqrt(2.0 * nu), dtype=dtype,
+                                                   device=cuda)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 5e-6), (torch.float64, 1e-12)])
+def test_matern_partition_stress(cuda, dtype, atol):
+    """The partitioned block forward against its plain version on blocks
+    whose tiles are all series, all CF2 or mixed, n around the 64 x 64 tile
+    and a ragged 650 x 411 block, at half-integer nu and 1.5 -+ ulp: the
+    symmetric output exactly symmetric and equal bit for bit to the full
+    mode's lower triangle, every output bit-equal when rows and columns of h
+    are permuted together and without the early CF2 exit."""
+    rng = np.random.default_rng(25)
+    ls = 800.0
+    for nu in _ulp_nus(dtype):
+        for name, h in _matern_stress_blocks(rng, nu, dtype, cuda, ls):
+            n = h.shape[0]
+            full = K.matern_correlation_block(nu, ls, h)
+            sym = K.matern_correlation_block(nu, ls, h, symmetric=True)
+            ref = K.matern_correlation_block_plain(nu, ls, h)
+            torch.cuda.synchronize()
+            assert torch.isfinite(full).all() and float((full - ref).abs().max()) <= atol, (nu, name)
+            assert torch.equal(sym, sym.T), (nu, name)
+            low = torch.tril(torch.ones(n, n, dtype=torch.bool, device=cuda))
+            assert torch.equal(sym[low], full[low]), (nu, name)
+            perm = torch.randperm(n, device=cuda)
+            for s in (False, True):
+                moved = K.matern_correlation_block(nu, ls, h[perm][:, perm].contiguous(), symmetric=s)
+                assert torch.equal(moved, (sym if s else full)[perm][:, perm]), (nu, name, s)
+                assert torch.equal(K.matern_correlation_block(nu, ls, h, symmetric=s, early_exit=False),
+                                   sym if s else full), (nu, name, s)
+            if n == 650:
+                rag = h[:, :411].contiguous()
+                got = K.matern_correlation_block(nu, ls, rag)
+                assert torch.equal(got, full[:, :411]), (nu, name)
+                cols = torch.randperm(411, device=cuda)
+                assert torch.equal(K.matern_correlation_block(nu, ls, rag[perm][:, cols].contiguous()),
+                                   got[perm][:, cols]), (nu, name)
+
+
+def test_block_covariance_does_not_synchronize(cuda):
+    """``block_covariance`` forward and backward, three blocks with the
+    parameters on the card (its ``pair_table`` built inside), under
+    ``torch.cuda.set_sync_debug_mode("error")``; value and gradient as on
+    the CPU."""
+    from cokriging_tpu_torch.cov.matern import block_covariance
+    from cokriging_tpu_torch.cov.params import MaternParams
+
+    rng = np.random.default_rng(26)
+    c1, c2 = _points(rng, 300, torch.float64, cuda), _points(rng, 211, torch.float64, cuda)
+    dists = [[haversine_matrix(c1, c1), haversine_matrix(c1, c2)],
+             [None, haversine_matrix(c2, c2)]]
+    w = torch.as_tensor(rng.normal(size=(511, 511)), device=cuda)
+    x = torch.tensor([1.2, 0.8, 1.4, 1.1, 2.0, 300, 250, 350, 0.04, 0.02, -0.5],
+                     dtype=torch.float64, device=cuda)
+    flat = x.clone().requires_grad_(True)
+    params = MaternParams.from_flat(flat)
+    before = K.launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cov = block_covariance(params, dists, h_grad=False)
+        (g,) = torch.autograd.grad((cov * w).sum(), flat)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    after = K.launch_counts()
+    assert {k: after[k] - before[k] for k in ("matern_correlation", "matern_block_grad")} == {
+        "matern_correlation": 3, "matern_block_grad": 3}
+    flat_c = x.cpu().requires_grad_(True)
+    d_c = [[d.cpu() if d is not None else None for d in row] for row in dists]
+    cov_c = block_covariance(MaternParams.from_flat(flat_c), d_c, h_grad=False)
+    (g_c,) = torch.autograd.grad((cov_c * w.cpu()).sum(), flat_c)
+    torch.testing.assert_close(cov.detach().cpu(), cov_c.detach(), rtol=0.0, atol=1e-12)
+    torch.testing.assert_close(g.cpu(), g_c, rtol=1e-9, atol=1e-10)
+
+
+def test_pair_table_rows_on_card(cuda):
+    """``pair_table`` built on the card: each process pair's value and dual
+    rows equal ``recurrence_table`` of that pair alone, bit for bit."""
+    from cokriging_tpu_torch.cov.matern import _pairs, pair_table
+    from cokriging_tpu_torch.cov.params import MaternParams
+
+    params = MaternParams.from_flat(torch.tensor(
+        [1.2, 0.8, 1.4, 1.1, 2.0, 300, 250, 350, 0.04, 0.02, -0.5], dtype=torch.float64,
+        device=cuda))
+    for dtype in (torch.float32, torch.float64):
+        table = pair_table(params, cuda, dtype, grad=True)
+        for k, (i, j) in enumerate(_pairs(2)):
+            assert int(table.index[i, j]) == int(table.index[j, i]) == k
+            nu, ls = params.nu[i, j].to(dtype), params.len_scale[i, j].to(dtype)
+            assert torch.equal(table.rows(i, j)[0], K.recurrence_table(nu, ls, dtype)[0])
+            assert torch.equal(table.rows(i, j)[1], K.recurrence_table(nu, ls, dtype, dual=True)[0])

@@ -1,8 +1,12 @@
 """The table-driven per-entry functions of ``csrc/kv.cuh`` (the arithmetic
-of the pairs forward and block-gradient kernels), compiled for the host with
-``g++`` and a stub ``cuda_runtime.h``, against the plain torch
-``cov.matern.matern_correlation`` and its autograd partials; and the
-recurrence tables they read against a float64 numpy computation.
+of every Matern kernel), compiled for the host with ``g++`` and a stub
+``cuda_runtime.h``, against the plain torch ``cov.matern.matern_correlation``
+and its autograd partials; the kernels' own per-entry steps (the block
+forward's masked h -> x -> M and the pairs gradient's masked, weighted
+terms) against ``matern_correlation_block_plain`` and
+``matern_corr_pairs_grad_plain``; and the recurrence tables they read
+against a float64 numpy computation and against ``cov.matern``'s
+per-parameter-set tables.
 
     python -m pytest tests/test_torch_kv_host.py
 
@@ -42,7 +46,36 @@ void partials(const T* x, long n, const T* row, T* m, T* dnu, T* dls, int* ok) {
     ok[i] = ckt::matern_partials_tab(x[i], ckt::DualRow<T>{row}, m[i], dnu[i], dls[i]);
 }
 
+template <typename T>
+void entries(const T* h, long n, const T* row, int early_exit, T* out) {
+  for (long i = 0; i < n; ++i)
+    out[i] = ckt::matern_entry_tab(h[i], ckt::ValueRow<T>{row}, early_exit != 0);
+}
+
+template <typename T>
+void grad_terms(const T* h, const T* w, const int* k, long n, const T* rows, T* g_nu, T* g_ls,
+                int* ok) {
+  for (long i = 0; i < n; ++i) {
+    const ckt::DualRow<T> row{rows + k[i] * 2 * ckt::TabLayout<T>::width};
+    T x;
+    g_nu[i] = g_ls[i] = T(0);
+    ok[i] = ckt::entry_x(h[i], row, x) && ckt::pairs_grad_term(x, w[i], row, g_nu[i], g_ls[i]);
+  }
+}
+
 extern "C" {
+void entries_f32(const float* h, long n, const float* r, int e, float* o) { entries(h, n, r, e, o); }
+void entries_f64(const double* h, long n, const double* r, int e, double* o) {
+  entries(h, n, r, e, o);
+}
+void grad_terms_f32(const float* h, const float* w, const int* k, long n, const float* r,
+                    float* a, float* b, int* ok) {
+  grad_terms(h, w, k, n, r, a, b, ok);
+}
+void grad_terms_f64(const double* h, const double* w, const int* k, long n, const double* r,
+                    double* a, double* b, int* ok) {
+  grad_terms(h, w, k, n, r, a, b, ok);
+}
 void values_f32(const float* x, long n, const float* r, int e, float* o) { values(x, n, r, e, o); }
 void values_f64(const double* x, long n, const double* r, int e, double* o) { values(x, n, r, e, o); }
 void partials_f32(const float* x, long n, const float* r, float* m, float* a, float* b, int* ok) {
@@ -132,19 +165,19 @@ def test_table_value_matches_plain_matern(harness, sfx):
         assert torch.isfinite(got).all() and err <= FWD_ATOL[sfx], (nu, err)
 
 
-def _partial_magnitudes(nu, x, dtype):
+def _partial_magnitudes(nu, x, dtype, ls=LS):
     """The size of each partial's rounding error: per entry the sum of the
     absolute values of the parts it adds up, from the plain K_nu, dK/dnu
     and dK/dx (dM/dnu = M dlp/dnu + e^lp (dK/dnu + dK/dx da/dnu), dM/dls =
     -M nu/ls + e^lp dK/dx da/dls), as the kernels' sums are held to
-    sum |terms|."""
-    nu_t = torch.tensor(nu, dtype=dtype)
+    sum |terms|. ``nu`` and ``ls``: numbers or per-entry tensors."""
+    nu_t = torch.as_tensor(nu, dtype=dtype)
     k, dk_dnu, dk_dx = _kv_value(nu_t, x, True)
     elp = torch.exp((1.0 - nu_t) * math.log(2.0) - torch.lgamma(nu_t) + nu_t * torch.log(x))
     m = elp * k
     dlp = -math.log(2.0) - torch.digamma(nu_t) + torch.log(x) + 0.5
     mag_nu = (m * dlp).abs() + (elp * dk_dnu).abs() + (elp * dk_dx * x / (2.0 * nu_t)).abs()
-    mag_ls = (m * nu_t / LS).abs() + (elp * dk_dx * x / LS).abs()
+    mag_ls = (m * nu_t / ls).abs() + (elp * dk_dx * x / ls).abs()
     return mag_nu, mag_ls
 
 
@@ -192,14 +225,14 @@ def test_degenerate_lane_early_exit_changes_no_bit(harness, sfx):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("dual", [False, True])
 def test_recurrence_table_matches_float64_host(dtype, dual):
-    """``pairs_constants`` (the forward's table) and the block gradient's
-    dual table, built with torch on the device of nu (here the CPU), against
-    the same head and reciprocals in float64 numpy."""
+    """``recurrence_table``, the forward kernels' value table and the
+    gradient kernels' dual table, built with torch on the device of nu
+    (here the CPU), against the same head and reciprocals in float64
+    numpy."""
     nus = np.array([0.3, -0.5, 1.2, 1.5, 2.7])
     lss = np.array([250.0, 300.0, 800.0, 700.0, 1500.0])
     nu_t, ls_t = torch.tensor(nus, dtype=dtype), torch.tensor(lss, dtype=dtype)
-    got = (K.recurrence_table(nu_t, ls_t, dtype, dual=True) if dual
-           else K.pairs_constants(nu_t, ls_t, dtype)).double().numpy()
+    got = K.recurrence_table(nu_t, ls_t, dtype, dual=dual).double().numpy()
     S, C = SERIES_ITERS[dtype], CF2_ITERS[dtype]
     width = 13 + 3 * S + 3 * C
     assert got.shape == (len(nus), 2 * width if dual else width)
@@ -241,3 +274,171 @@ def test_recurrence_table_matches_float64_host(dtype, dual):
             tan[:, 13 + 3 * S:],
             np.stack([np.broadcast_to(two_mu, a_n.shape), -two_mu / a_n ** 2, -two_mu / i_c],
                      2).reshape(len(nus), -1), rtol=rtol, atol=1e-30)
+
+
+def _ptr(t, ct):
+    return ctypes.cast(t.data_ptr(), ctypes.POINTER(ct))
+
+
+def _run_entries(lib, sfx, h, row, early_exit=True):
+    ct = ctypes.c_float if sfx == "f32" else ctypes.c_double
+    h, row = h.contiguous(), row.contiguous()
+    out = torch.empty_like(h)
+    f = getattr(lib, f"entries_{sfx}")
+    p = ctypes.POINTER(ct)
+    f.argtypes = [p, ctypes.c_long, p, ctypes.c_int, p]
+    f(_ptr(h, ct), h.numel(), _ptr(row, ct), int(early_exit), _ptr(out, ct))
+    return out
+
+
+def _run_grad_terms(lib, sfx, h, w, k, rows):
+    ct = ctypes.c_float if sfx == "f32" else ctypes.c_double
+    h, w, rows = h.contiguous(), w.contiguous(), rows.contiguous()
+    k = k.to(torch.int32).contiguous()
+    g_nu, g_ls = torch.empty_like(h), torch.empty_like(h)
+    ok = torch.zeros(h.numel(), dtype=torch.int32)
+    f = getattr(lib, f"grad_terms_{sfx}")
+    p, pi = ctypes.POINTER(ct), ctypes.POINTER(ctypes.c_int)
+    f.argtypes = [p, p, pi, ctypes.c_long, p, p, p, pi]
+    f(_ptr(h, ct), _ptr(w, ct), _ptr(k, ctypes.c_int), h.numel(), _ptr(rows, ct), _ptr(g_nu, ct),
+      _ptr(g_ls, ct), _ptr(ok, ctypes.c_int))
+    return g_nu, g_ls, ok.bool()
+
+
+def _masked_entries(nu, dtype):
+    """``_entries``' distances, then the masks: h = 0, h < 0, +-inf, NaN, and
+    x = 60 .. 1000 where M underflows to 0 (f32 first, then f64)."""
+    h, _ = _entries(abs(nu) if nu else 1.0, dtype)
+    far = torch.as_tensor(np.geomspace(60.0, 1000.0, 24) * LS / math.sqrt(2.0 * max(abs(nu), 0.1)),
+                          dtype=dtype)
+    special = torch.tensor([0.0, -0.0, -350.0, -1e-3, math.inf, -math.inf, math.nan], dtype=dtype)
+    return torch.cat([h, -h[::7], far, special])
+
+
+@pytest.mark.parametrize("sfx", ["f32", "f64"])
+def test_block_forward_entry_matches_plain(harness, sfx):
+    """``matern.cu``'s per-entry step, h -> x -> matern_value_tab with its
+    |h| not > 0 and non-finite masks, against ``matern_correlation_block_plain``
+    entry by entry (atol 5e-6 / 1e-12), at nu 0.5, 1.5 -+ ulp, 2.7 and a
+    negative nu (signed, as the plain path keeps it: M = 0 for h != 0), over
+    x from 1e-3 to where M underflows, h = 0, h < 0, +-inf and NaN; and the
+    degenerate lanes' early CF2 exit changes no bit."""
+    dtype = DTYPES[sfx]
+    ft = np.float32 if sfx == "f32" else np.float64
+    nus = [0.5, float(np.nextafter(ft(1.5), ft(0))), float(np.nextafter(ft(1.5), ft(2))), 2.7, -0.7]
+    for nu in nus:
+        h = _masked_entries(nu, dtype)
+        row = K.recurrence_table(torch.tensor([nu], dtype=dtype), torch.tensor([LS], dtype=dtype),
+                                 dtype)[0]
+        got = _run_entries(harness, sfx, h, row)
+        want = K.matern_correlation_block_plain(torch.tensor(nu, dtype=dtype),
+                                                torch.tensor(LS, dtype=dtype), h)
+        assert torch.isfinite(got).all() and torch.isfinite(want).all(), nu
+        err = float((got - want).abs().max())
+        assert err <= FWD_ATOL[sfx], (nu, err)
+        assert bool((got[-7:] == torch.tensor([1, 1, 0, 0, 0, 0, 1], dtype=dtype)).all()
+                    if nu < 0 else (got[-7:-5] == 1).all() and (got[-3:-1] == 0).all()
+                    and got[-1] == 1), (nu, got[-7:])
+        assert torch.equal(_run_entries(harness, sfx, h, row, early_exit=False), got), nu
+
+
+def _grad_case(sfx, rng, spread):
+    """Ten pairs with signed nu (1.5 -+ ulp among them), random cotangents,
+    and per pair the masks of ``_masked_entries`` and entries at x =
+    sqrt(2 |nu|) |h| / ls either ``"uniform"`` over the series and CF2
+    ranges (as the card's stress cases) or ``"geometric"`` over 1e-3 .. 50,
+    a third of them below x = 0.05."""
+    dtype = DTYPES[sfx]
+    ft = np.float32 if sfx == "f32" else np.float64
+    nus = [0.3, -0.5, 1.2, float(np.nextafter(ft(1.5), ft(0))), float(np.nextafter(ft(1.5), ft(2))),
+           2.7, -1.3, 0.8, 2.5, -2.2]
+    lss = [300.0, 450.0, 800.0, 1500.0, 600.0, 350.0, 900.0, 1200.0, LS, 500.0]
+    hs, ks = [], []
+    for k, (nu, ls) in enumerate(zip(nus, lss)):
+        if spread == "uniform":
+            x = np.concatenate([rng.uniform(1e-3, 1.99, 40), rng.uniform(2.0, 40.0, 24)])
+        else:
+            x = np.geomspace(1e-3, 50.0, 64)
+        x = np.concatenate([x, [1.999, 2.0, 2.001]])
+        h = torch.as_tensor(x * ls / math.sqrt(2.0 * abs(nu)), dtype=dtype)
+        far = torch.as_tensor(np.geomspace(60.0, 1000.0, 6) * ls / math.sqrt(2.0 * abs(nu)),
+                              dtype=dtype)
+        special = torch.tensor([0.0, -0.0, -ls, math.inf, math.nan], dtype=dtype)
+        hs.append(torch.cat([h, -h[::9], far, special]))
+        ks.append(torch.full((hs[-1].numel(),), k))
+    h, k = torch.cat(hs), torch.cat(ks)
+    w = torch.as_tensor(rng.normal(size=h.numel()), dtype=dtype)
+    return (torch.tensor(nus, dtype=dtype), torch.tensor(lss, dtype=dtype), h, k, w)
+
+
+@pytest.mark.parametrize("spread", ["uniform", "geometric"])
+@pytest.mark.parametrize("sfx", ["f32", "f64"])
+def test_pairs_grad_entry_matches_plain(harness, sfx, spread):
+    """The pairs gradient's per-entry step (entry_x, then the masked,
+    weighted pairs_grad_term) over a dual table of ten pairs with signed
+    nu, against the plain version at |nu| (the dual table takes |nu|, as
+    the reference's gradient table does). Each entry's terms against the
+    plain version's own (autograd of the elementwise model, non-finite
+    terms zeroed) within tol (1e-5 / 1e-12) times |w| times the size of the
+    parts each partial adds up (``_partial_magnitudes``). At the uniform
+    spread, the terms summed per pair also against
+    ``matern_corr_pairs_grad_plain`` within tol * sum |terms|. (Not at the
+    geometric one: towards x = 0 dM/dnu cancels between its parts, and two
+    float32 evaluations in different operation orders, this and the plain
+    version, differ there by up to 1.6e-5 of sum |terms| when a third of a
+    pair's entries lie below x = 0.05; both are 8e-3 of sum |terms| from
+    the float64 value.) Entries with |h| not > 0, +-inf or NaN, or whose M
+    underflows, have no terms."""
+    dtype = DTYPES[sfx]
+    tol = GRAD_RTOL[sfx]
+    nu, ls, h, k, w = _grad_case(sfx, np.random.default_rng(31), spread)
+    rows = K.recurrence_table(nu, ls, dtype, dual=True)
+    g_nu, g_ls, ok = _run_grad_terms(harness, sfx, h, w, k, rows)
+    nu_abs = nu.abs()
+    if spread == "uniform":
+        idx_f = k.to(dtype)
+        want = K.matern_corr_pairs_grad_plain(nu_abs, ls, idx_f, h, w)
+        mag = K.matern_corr_pairs_grad_plain(nu_abs, ls, idx_f, h, w, absolute=True)
+        got = torch.stack([torch.bincount(k, weights=g.double(), minlength=len(nu))
+                           for g in (g_nu, g_ls)], dim=1)
+        assert torch.isfinite(got).all() and bool(((got - want).abs() <= tol * mag).all()), \
+            (got, want, mag)
+    nu_e = nu_abs[k].clone().requires_grad_(True)
+    ls_e = ls[k].clone().requires_grad_(True)
+    terms = torch.autograd.grad((w * matern_correlation(nu_e, ls_e, h)).sum(), (nu_e, ls_e))
+    x = torch.sqrt(2.0 * nu_abs[k]) * h.abs() / ls[k]
+    live = (x > 0) & torch.isfinite(x)
+    parts = _partial_magnitudes(nu_abs[k][live], x[live], dtype, ls[k][live])
+    for g, t, part in zip((g_nu, g_ls), terms, parts):
+        t = torch.where(torch.isfinite(t), t, 0.0)
+        assert not g[~live].any() and not t[~live].any(), "the masked entries"
+        err = (g[live] - t[live]).abs()
+        bar = tol * w[live].abs() * torch.nan_to_num(part, nan=0.0)  # M's parts overflow: exact
+        assert bool((err <= bar).all()), float((err / bar).max())
+    assert int((~live).sum()) == 4 * len(nu) and not ok[~live].any()  # 0, -0, inf, NaN
+    assert ok[live & (x < 50)].all()  # every entry short of M's underflow has its terms
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pair_table_rows_match_recurrence_table(dtype):
+    """``cov.matern.pair_table``'s kernel tables (built as on the card, here
+    on the CPU): the row of each process pair (i, j), value and dual,
+    equals ``recurrence_table`` of that pair alone, to the last bit or two
+    of the CPU's vectorized against scalar loops."""
+    from cokriging_tpu_torch.cov.matern import _kernel_tables, _pairs
+    from cokriging_tpu_torch.cov.params import MaternParams
+
+    flat = torch.tensor([1.1, 0.9, 1.3, 1.0,  # sigma
+                         0.8, 1.2, 0.4, 1.5, 2.7, 0.6, 1.9, 0.5, 1.05, 2.2,  # nu
+                         300.0, 450.0, 800.0, 1500.0, 600.0, 350.0, 900.0, 1200.0, 700.0, 500.0,
+                         0.02, 0.01, 0.03, 0.04, -0.3, 0.2, -0.1, 0.4, 0.1, -0.5],
+                        dtype=torch.float64)
+    params = MaternParams.from_flat(flat, n_procs=4)
+    value, dual = _kernel_tables(params, "cpu", dtype, True)
+    rtol = 4 * torch.finfo(dtype).eps
+    for k, (i, j) in enumerate(_pairs(4)):
+        nu, ls = params.nu[i, j].to(dtype), params.len_scale[i, j].to(dtype)
+        for got, want in ((value[k], K.recurrence_table(nu, ls, dtype)[0]),
+                          (dual[k], K.recurrence_table(nu, ls, dtype, dual=True)[0])):
+            assert got.dtype == dtype and got.shape == want.shape
+            torch.testing.assert_close(got, want, rtol=rtol, atol=0.0)
