@@ -11,9 +11,15 @@ Phases, in order; any failure exits nonzero without the final ok line:
 (b) build: compile the CUDA sources under ``cokriging_tpu_torch/kernels/csrc``
     and print the build time and the ptxas register/spill lines;
 (c) every kernel against its plain torch version on the card, in float32 and
-    float64, at the main path's shapes: the variogram passes at 3 pairs x
-    12,500 points x 15 bins and one pair at 40 bins (counts and h range
-    exact, means rtol 1e-5 / 1e-12), the Matern kernel at the 256 x 256
+    float64, at the main path's shapes: the variogram passes in one launch
+    each over the month's 3 variograms x 12,500 points x 15 bins and one at
+    40 bins (counts and h ranges exact, means rtol 1e-5 / 1e-12; bit-equal to
+    the one-variogram launches and run to run) and their stress cases
+    (``phase_c_variogram_stress``: the 36 variograms of processes of 1, 127,
+    128, 129, 255, 256, 257 and 513 points, geodesic and Euclidean,
+    semivariogram and covariogram, 15 and 40 bins with edges on pairs and 14
+    edges of one value after 0), the
+    Matern kernel at the 256 x 256
     joint blocks, a 4096^2 symmetric block and nu in {0.5, 1.5, 2.7} (atol
     5e-6 / 1e-12), and the Matern block-gradient kernel at a ragged 300 x 517
     block and a 4096^2 symmetric block with an asymmetric cotangent, nu in
@@ -51,8 +57,9 @@ Phases, in order; any failure exits nonzero without the final ok line:
     finite for the same month with rho = 0, see ``check_predictions``);
 (e) kernel timing with CUDA events at the path's shapes beside the plain
     versions (and the Matern kernel at one 12,500^2 symmetric block, held
-    against its plain version there too), printed as one ``{"kernels":
-    [...]}`` line with each kernel's bound, one row per kernel and path;
+    against its plain version there too; the variogram passes alone at 2 x
+    60,000 points), printed as one ``{"kernels": [...]}`` line with each
+    kernel's bound, one row per kernel and path;
 (f) the exact-likelihood path at the same size (bench.py's second axis:
     2 x 12,500 observations, default parameters with all length scales 700
     km, measurement variances 0, jitter 1e-6), float32 then float64: a
@@ -93,8 +100,9 @@ Phases, in order; any failure exits nonzero without the final ok line:
 
 ``python3 chip_smoke.py abcg`` runs only the phases named (a and b always)
 and prints no result line. The kernels line's rows of the kernels
-redesigned last (the block forward and the pairs gradient) carry their ptxas
-registers and spills from this run's build; a log line beside each gives the
+redesigned last (the variogram passes, the block forward and the pairs
+gradient) carry their ptxas registers, static shared memory and spills from
+this run's build; a log line beside each gives the
 time recorded for the kernel before the redesign, which is not part of the
 kernels line.
 
@@ -102,6 +110,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
+import hashlib
 import importlib.util
 import json
 import math
@@ -141,17 +150,28 @@ MATERN_GRAD_OPS = {"prefactor": 45 + 5, "series_setup": 78, "series_trip": 36,
 PAIR_SELECT_OPS = 4
 # Operations per pair of the variogram passes (csrc/variogram.cu): the
 # geodesic h is 11, the h_max test 1, row < col 1; the min/max updates 3;
-# a binned pair adds 2 per edge compare, 3 for the cloud and 2 to accumulate.
+# a binned pair adds 3 for the cloud and 2 to accumulate, and for its bin
+# 4 for the lookup cell (shift, subtract, two clamps) and 2 per exact compare
+# (k_cmp of them, csrc/vario.cuh::bin_count); a linear scan over the edges
+# took 2 per edge compare over all n_bins + 1 edges, the count the bound is
+# also given under.
 VARIO_PAIR_OPS = 13
 VARIO_MINMAX_OPS = 3
 VARIO_BIN_OPS_PER_EDGE = 2
 VARIO_BIN_OPS = 5
+VARIO_LOOKUP_OPS = 4
+VARIO_COMPARE_OPS = 2
 
 # The rows of the kernels redesigned last: the kernel's entry in the ptxas
 # report, and its time recorded before the redesign (chip_smoke on one NVIDIA
-# H100 80GB HBM3 at 700 W, the unsorted kernels without tables), which is
-# logged beside this run's and kept out of the kernels line.
+# H100 80GB HBM3 at 700 W: the unsorted Matern kernels without tables; the
+# variogram passes of one launch per variogram with a scan over the edges),
+# which is logged beside this run's and kept out of the kernels line.
 REDESIGNED = {
+    "variogram_minmax_float32": ("variogram.cu", "minmax_kernelIfLb1E", 0.440),
+    "variogram_minmax_float64": ("variogram.cu", "minmax_kernelIdLb1E", 0.611),
+    "variogram_bin_float32": ("variogram.cu", "bin_kernelIfLb1ELb0ELi1E", 1.601),
+    "variogram_bin_float64": ("variogram.cu", "bin_kernelIdLb1ELb0ELi1E", 1.711),
     "matern_correlation_float32": ("matern.cu", "matern_kernelIf", 0.709),
     "matern_correlation_float64": ("matern.cu", "matern_kernelId", 0.655),
     "matern_correlation_float32_nll": ("matern.cu", "matern_kernelIf", 31.92),
@@ -273,14 +293,20 @@ def run_pipeline(c1, v1, c2, v2, pred_coords, dtype, device, maxiter=MAXITER,
     out = lp(0, pred_coords, max_dist=1_000.0)
     sync()
     t3 = time.perf_counter()
-    times.update(variograms_s=t1 - t0, fit_s=t2 - t1, predict_s=t3 - t2, total_s=t3 - t0)
+    times.update(variograms_s=t1 - t0, fit_s=t2 - t1, predict_s=t3 - t2, total_s=t3 - t0,
+                 counts_per_pair=counts.sum(axis=1).tolist(),
+                 counts_sha256=hashlib.sha256(np.ascontiguousarray(counts).tobytes()).hexdigest())
     return params, result, out, times, lp
 
 
 # --- phase helpers ---------------------------------------------------------
 
 
-def cuda_time_ms(fn, reps, warm=True):
+def cuda_time_ms(fn, reps, warm=True, head_start_ms=0.0):
+    """Mean CUDA-event time of ``fn`` over ``reps`` calls. ``head_start_ms``:
+    the card first sleeps that long, so the host queues every call before
+    the card reaches them and the time is the card's alone (for wrappers
+    whose host work per call is close to their kernels' time)."""
     import torch
 
     if warm:
@@ -288,6 +314,8 @@ def cuda_time_ms(fn, reps, warm=True):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    if head_start_ms:
+        torch.cuda._sleep(int(head_start_ms * 2e6))  # cycles at <= 2 GHz
     start.record()
     for _ in range(reps):
         fn()
@@ -324,47 +352,164 @@ def variogram_case(c1, v1, c2, v2, dtype, device):
     return feats, vals, h_max, h_snap, snap
 
 
+MONTH_PAIRS = ((0, 0), (0, 1), (1, 1))
+# processes of the variogram stress cases: around the kernel's 256-point tiles
+VARIO_STRESS_N = (1, 127, 128, 129, 255, 256, 257, 513)
+
+
+def vario_sides(feats, vals, pairs):
+    """The pass-1 and pass-2 sides of the variograms ``pairs`` (the
+    arguments of ``variogram_minmax_pairs`` and ``variogram_bin_pairs``)."""
+    return ([(feats[i], feats[j], i == j) for i, j in pairs],
+            [(feats[i], feats[j], vals[i], vals[j], i == j) for i, j in pairs])
+
+
+def check_bins(name, got, want, rtol):
+    """Counts equal, sums within rtol of the plain version's: the sums' max
+    relative error."""
+    import torch
+
+    check(torch.equal(got[1], want[1]), f"{name}: counts differ from the plain version")
+    rel = float(((got[0] - want[0]).abs() / want[0].abs().clamp_min(1e-300)).max())
+    check(rel <= rtol, f"{name}: sums rel err {rel} (bar {rtol})")
+    return rel
+
+
+def check_same(name, a, b):
+    import torch
+
+    check(all(torch.equal(x, y) for x, y in zip(a, b)), f"{name}: not bit-equal")
+
+
 def phase_c_variogram(c1, v1, c2, v2, dtype, results):
+    """The month's three variograms in one launch per pass: h ranges equal
+    to the plain version's and the one-variogram launches', counts equal to
+    the plain version's, means within rtol; sums and counts bit-equal to the
+    one-variogram launches' and to a second call's; one cross variogram at
+    40 bins (two windows, two launches)."""
     import torch
 
     from cokriging_tpu_torch.estimate import empirical as E
     from cokriging_tpu_torch.kernels import cuda_ops as K
 
     name = np.dtype(dtype).name
+    np_dt = np.dtype(dtype)
     feats, vals, h_max, h_snap, snap = variogram_case(c1, v1, c2, v2, dtype, "cuda")
     rtol = 1e-5 if name == "float32" else 1e-12
-    err_mean = 0.0
-    for i, j in ((0, 0), (0, 1), (1, 1)):
-        marg = i == j
-        mm_k = K.variogram_minmax(feats[i], feats[j], marg, True, h_max, h_snap)
-        mm_p = K.variogram_minmax_plain(feats[i], feats[j], marg, True, h_max, h_snap)
-        check(torch.equal(mm_k, mm_p), f"variogram_minmax {name} pair {(i, j)}: {mm_k} vs {mm_p}")
-        hmin, hmax = mm_k.cpu().numpy()
-        _, h_edges = E._device_bins(hmin, hmax, True, np.dtype(dtype).type(snap), 15, np.dtype(dtype))
-        he = torch.as_tensor(h_edges, device="cuda")
-        s_k, n_k = K.variogram_bin(feats[i], feats[j], vals[i], vals[j], he, marg, True, False, h_max)
-        s_p, n_p = K.variogram_bin_plain(feats[i], feats[j], vals[i], vals[j], he, marg, True, False, h_max)
-        check(torch.equal(n_k, n_p), f"variogram_bin {name} pair {(i, j)} counts differ")
-        m_k = (s_k / n_k.clamp_min(1)).cpu().numpy()
-        m_p = (s_p / n_p.clamp_min(1)).cpu().numpy()
-        rel = float(np.max(np.abs(m_k - m_p) / np.maximum(np.abs(m_p), 1e-300)))
-        check(rel <= rtol, f"variogram_bin {name} pair {(i, j)} means rel err {rel}")
-        err_mean = max(err_mean, float(np.max(np.abs(m_k - m_p))))
-    # more bins than the kernel's histogram holds: two pair passes
-    mm = K.variogram_minmax(feats[0], feats[1], False, True, h_max, h_snap).cpu().numpy()
-    _, h_edges = E._device_bins(mm[0], mm[1], True, np.dtype(dtype).type(snap), 40, np.dtype(dtype))
-    he = torch.as_tensor(h_edges, device="cuda")
+    mm_sides, sides = vario_sides(feats, vals, MONTH_PAIRS)
+    mm_k = K.variogram_minmax_pairs(mm_sides, True, h_max, h_snap)
+    check(torch.equal(mm_k, K.variogram_minmax_pairs_plain(mm_sides, True, h_max, h_snap)),
+          f"variogram_minmax {name}: {mm_k} differs from the plain version")
+    check(torch.equal(mm_k, torch.stack([K.variogram_minmax(*sd, True, h_max, h_snap)
+                                         for sd in mm_sides])),
+          f"variogram_minmax {name}: one launch differs from the one-variogram launches")
+    edges = [E._device_bins(lo, hi, True, np_dt.type(snap), 15, np_dt)[1]
+             for lo, hi in mm_k.cpu().numpy()]
+    got = K.variogram_bin_pairs(sides, edges, True, False, h_max)
+    plain = K.variogram_bin_pairs_plain(sides, edges, True, False, h_max)
+    check_bins(f"variogram_bin {name}", got, plain, rtol)
+    m_k = (got[0] / got[1].clamp_min(1)).cpu().numpy()
+    m_p = (plain[0] / plain[1].clamp_min(1)).cpu().numpy()
+    rel = float(np.max(np.abs(m_k - m_p) / np.maximum(np.abs(m_p), 1e-300)))
+    check(rel <= rtol, f"variogram_bin {name}: means rel err {rel}")
+    err_mean = float(np.max(np.abs(m_k - m_p)))
+    one = [K.variogram_bin(*sd[:4], e, sd[4], True, False, h_max) for sd, e in zip(sides, edges)]
+    check_same(f"variogram_bin {name}: one launch against the one-variogram launches", got,
+               (torch.stack([a for a, _ in one]), torch.stack([b for _, b in one])))
+    check_same(f"variogram_bin {name}: run to run", got,
+               K.variogram_bin_pairs(sides, edges, True, False, h_max))
+    # more bins than the kernel's histogram holds: two windows, two launches
+    _, h40 = E._device_bins(*mm_k[1].cpu().numpy(), True, np_dt.type(snap), 40, np_dt)
     before = K.launch_counts()["variogram_bin"]
-    s_k, n_k = K.variogram_bin(feats[0], feats[1], vals[0], vals[1], he, False, True, False, h_max)
-    s_p, n_p = K.variogram_bin_plain(feats[0], feats[1], vals[0], vals[1], he, False, True, False, h_max)
+    got40 = K.variogram_bin_pairs(sides[1:2], [h40], True, False, h_max)
     check(K.launch_counts()["variogram_bin"] == before + 2, "40 bins must take two pair passes")
-    check(n_k.shape == (40,) and torch.equal(n_k, n_p), f"variogram_bin {name} 40 bins: counts differ")
-    rel40 = float(((s_k - s_p).abs() / s_p.abs().clamp_min(1e-300)).max())
-    check(rel40 <= rtol, f"variogram_bin {name} 40 bins: sums rel err {rel40}")
+    rel40 = check_bins(f"variogram_bin {name} 40 bins", got40,
+                       K.variogram_bin_pairs_plain(sides[1:2], [h40], True, False, h_max), rtol)
     results[f"variogram_minmax_{name}"] = {"max_abs_err": 0.0}  # checked equal
     results[f"variogram_bin_{name}"] = {"max_abs_err": err_mean}
-    log(f"(c) variogram {name}: minmax exact, counts exact, means max abs err {err_mean:.3e}; "
-        f"40 bins: counts exact, sums rel err {rel40:.3e}")
+    log(f"(c) variogram {name}: one launch per pass over 3 variograms: minmax exact, counts "
+        f"exact, means max abs err {err_mean:.3e}, bit-equal to the one-variogram launches and "
+        f"run to run; 40 bins: counts exact, sums rel err {rel40:.3e}")
+
+
+def on_edge_bins(fa, fb, marginal, geodesic, h_max, n_bins, np_dt):
+    """n_bins + 1 h-edges drawn from the variogram's own valid h values (as
+    the kernel forms them: h_block is the same arithmetic), the first pulled
+    to 0, so that pairs lie exactly on edges; fixed edges for a variogram
+    without pairs."""
+    import torch
+
+    from cokriging_tpu_torch.kernels import cuda_ops as K
+
+    h = K.h_block(fa, fb, geodesic)
+    valid = h <= h_max
+    if marginal:
+        valid &= torch.ones_like(valid).triu(1)
+    hv = torch.unique(h[valid]).cpu().numpy()
+    if hv.size < n_bins + 1:
+        return np.linspace(0.0, h_max, n_bins + 1).astype(np_dt)
+    edges = hv[np.linspace(0, hv.size - 1, n_bins + 1).round().astype(int)]
+    edges[0] = 0.0
+    return edges.astype(np_dt)
+
+
+def phase_c_variogram_stress(dtype, results):
+    """All 36 variograms of processes of VARIO_STRESS_N points (duplicated
+    points give h = 0), geodesic and Euclidean, semivariogram and
+    covariogram, at 15 and 40 bins with edges on pairs and at 14 edges of
+    one value after 0, in one call per pass (two launches: 32 variograms
+    per launch): h ranges equal to the plain version's, counts equal, sums
+    within rtol 1e-5 / 1e-12 and bit-equal run to run."""
+    import torch
+
+    from cokriging_tpu_torch.estimate import empirical as E
+    from cokriging_tpu_torch.kernels import cuda_ops as K
+
+    name = np.dtype(dtype).name
+    np_dt = np.dtype(dtype)
+    td = getattr(torch, name)
+    rtol = 1e-5 if name == "float32" else 1e-12
+    rng = np.random.default_rng(23)
+    pairs = [(i, j) for i in range(len(VARIO_STRESS_N)) for j in range(i, len(VARIO_STRESS_N))]
+    worst, n_cases = 0.0, 0
+    for geodesic in (True, False):
+        pts = [np.column_stack([rng.uniform(24, 50, n), rng.uniform(-124, -67, n)])
+               for n in VARIO_STRESS_N]
+        for k in range(2, len(pts)):
+            pts[k][:3] = pts[k - 1][:3]
+        scale = 1.0 if geodesic else 0.1
+        feats = [E.point_features(torch.as_tensor(p * scale, dtype=td, device="cuda"), geodesic)
+                 for p in pts]
+        vals = [torch.as_tensor(rng.normal(size=len(p)), dtype=td, device="cuda") for p in pts]
+        h_max = float(E._h_of_d(np_dt.type(2000.0 if geodesic else 3.0), geodesic))
+        h_snap = float(E._h_of_d(np_dt.type(1e-6), geodesic))
+        mm_sides, sides = vario_sides(feats, vals, pairs)
+        before = K.launch_counts()["variogram_minmax"]
+        mm = K.variogram_minmax_pairs(mm_sides, geodesic, h_max, h_snap)
+        check(K.launch_counts()["variogram_minmax"] == before + 2,
+              "36 variograms take two minmax launches")
+        check(torch.equal(mm, K.variogram_minmax_pairs_plain(mm_sides, geodesic, h_max, h_snap)),
+              f"variogram stress {name} geodesic={geodesic}: h ranges differ")
+        for n_bins in (15, 40, "same"):
+            if n_bins == "same":  # 14 edges of one value after 0: the many-compare lookup
+                n_bins = 14
+                edges = [np.r_[0.0, np.full(n_bins, 0.25 * h_max)].astype(np_dt) for _ in pairs]
+            else:
+                edges = [on_edge_bins(feats[i], feats[j], i == j, geodesic, h_max, n_bins, np_dt)
+                         for i, j in pairs]
+            for covariogram in (False, True):
+                what = (f"variogram stress {name} geodesic={geodesic} covariogram={covariogram} "
+                        f"{n_bins} bins, edges {edges[1][1:3]}")
+                got = K.variogram_bin_pairs(sides, edges, geodesic, covariogram, h_max)
+                worst = max(worst, check_bins(what, got, K.variogram_bin_pairs_plain(
+                    sides, edges, geodesic, covariogram, h_max), rtol))
+                check_same(f"{what}: run to run", got,
+                           K.variogram_bin_pairs(sides, edges, geodesic, covariogram, h_max))
+                check(int(got[1].sum()) > 0, f"{what}: no pairs binned")
+                n_cases += 1
+    log(f"(c) variogram stress {name}: {n_cases} calls of {len(pairs)} variograms (n in "
+        f"{VARIO_STRESS_N}, edges on pairs): counts exact, sums rel err <= {worst:.3e}, "
+        f"bit-equal run to run")
 
 
 def matern_blocks(c1, c2, dtype):
@@ -673,7 +818,7 @@ def pairs_bound(chunks, nus, lss, grad=False):
 
 
 def ptxas_of(lines, src, kernel):
-    """"R registers, S bytes stack, spills stores/loads" of the entry of
+    """"R registers, S bytes smem static; B bytes stack, spills" of the entry of
     ``src``'s ptxas report whose name holds ``kernel``, from the build's
     report lines (``_build.build()["ptxas"]``)."""
     section = entry = None
@@ -687,8 +832,11 @@ def ptxas_of(lines, src, kernel):
             found["spill"] = line.strip()
         elif entry is not None and "registers" in line:
             found["registers"] = line.split("Used", 1)[-1].split(",")[0].strip()
+            smem = [p.strip() for p in line.split(",") if "smem" in p]
+            found["smem"] = smem[0] if smem else "0 bytes smem"
             break
-    return f"{found.get('registers', 'not found')}; {found.get('spill', 'spills not found')}"
+    return (f"{found.get('registers', 'not found')}, {found.get('smem', 'smem not found')} static; "
+            f"{found.get('spill', 'spills not found')}")
 
 
 def bound_of(blocks):
@@ -699,59 +847,74 @@ def bound_of(blocks):
     return (t_bytes, "bytes") if t_bytes > t_ops else (t_ops, "operations")
 
 
-def vario_bound(n_pairs, n_valid, n_bins, dtype_name, minmax):
+def vario_bound(n_pairs, n_valid, k_cmp, n_bins, dtype_name, minmax):
+    """(bound ms, "operations", the bound under the edge scan's count) of
+    one pass: ``n_pairs`` pairs, ``n_valid`` [k] binned pairs of variogram
+    k, ``k_cmp`` [k] its exact compares per pair (csrc/vario.cuh)."""
+    rate = PEAK_OPS_PER_S[dtype_name] / 1e3
+    base = n_pairs * VARIO_PAIR_OPS
     if minmax:
-        ops = n_pairs * VARIO_PAIR_OPS + n_valid * VARIO_MINMAX_OPS
-    else:
-        ops = n_pairs * VARIO_PAIR_OPS + n_valid * (
-            VARIO_BIN_OPS + VARIO_BIN_OPS_PER_EDGE * (n_bins + 1))
-    return ops / PEAK_OPS_PER_S[dtype_name] * 1e3, "operations"
+        ops = base + sum(n_valid) * VARIO_MINMAX_OPS
+        return ops / rate, "operations", ops / rate
+    old = base + sum(n_valid) * (VARIO_BIN_OPS + VARIO_BIN_OPS_PER_EDGE * (n_bins + 1))
+    ops = base + sum(v * (VARIO_BIN_OPS + VARIO_LOOKUP_OPS + VARIO_COMPARE_OPS * k)
+                     for v, k in zip(n_valid, k_cmp))
+    return ops / rate, "operations", old / rate
 
 
-def phase_e(c1, v1, c2, v2, dtype, launches, results):
+def vario_rows(c1, v1, c2, v2, dtype, launches, shape, reps, plain_reps):
+    """The two passes over the three variograms of one month of points
+    (c1, c2): one call each, timed with CUDA events beside the plain
+    versions, with bounds from this run's pairs and counts; counts checked
+    equal to the plain version's. Rows of the kernels line."""
     import torch
 
     from cokriging_tpu_torch.estimate import empirical as E
     from cokriging_tpu_torch.kernels import cuda_ops as K
 
     name = np.dtype(dtype).name
-    td = getattr(torch, name)
+    np_dt = np.dtype(dtype)
     feats, vals, h_max, h_snap, snap = variogram_case(c1, v1, c2, v2, dtype, "cuda")
-    pairs = ((0, 0), (0, 1), (1, 1))
-    edges, n_pairs, n_valid = {}, 0, 0
-    for i, j in pairs:
-        hmin, hmax = K.variogram_minmax(feats[i], feats[j], i == j, True, h_max, h_snap).cpu().numpy()
-        edges[(i, j)] = torch.as_tensor(
-            E._device_bins(hmin, hmax, True, np.dtype(dtype).type(snap), 15, np.dtype(dtype))[1],
-            device="cuda")
-        n = feats[i].shape[0]
-        n_pairs += n * (n - 1) // 2 if i == j else n * feats[j].shape[0]
-        n_valid += int(K.variogram_bin(feats[i], feats[j], vals[i], vals[j], edges[(i, j)],
-                                       i == j, True, False, h_max)[1].sum())
-
-    def mm(fn):
-        return lambda: [fn(feats[i], feats[j], i == j, True, h_max, h_snap) for i, j in pairs]
-
-    def bn(fn):
-        return lambda: [fn(feats[i], feats[j], vals[i], vals[j], edges[(i, j)], i == j, True,
-                           False, h_max) for i, j in pairs]
-
-    rows = []
-    for kname, kern, plain, src_line, minmax in (
-        ("variogram_minmax", mm(K.variogram_minmax), mm(K.variogram_minmax_plain), 143, True),
-        ("variogram_bin", bn(K.variogram_bin), bn(K.variogram_bin_plain), 143, False),
+    mm_sides, sides = vario_sides(feats, vals, MONTH_PAIRS)
+    hr = K.variogram_minmax_pairs(mm_sides, True, h_max, h_snap).cpu().numpy()
+    edges = [E._device_bins(lo, hi, True, np_dt.type(snap), 15, np_dt)[1] for lo, hi in hr]
+    n_pairs = sum(f[0].shape[0] * (f[0].shape[0] - 1) // 2 if f[2] else
+                  f[0].shape[0] * f[1].shape[0] for f in mm_sides)
+    k_cmp = [K._bin_record(e, True, True, np_dt)[1] for e in edges]
+    n_valid = [int(v) for v in K.variogram_bin_pairs(sides, edges, True, False, h_max)[1].sum(1)]
+    rows, kept = [], {}
+    for kname, kern, plain, minmax in (
+        ("variogram_minmax", lambda: K.variogram_minmax_pairs(mm_sides, True, h_max, h_snap),
+         lambda: K.variogram_minmax_pairs_plain(mm_sides, True, h_max, h_snap), True),
+        ("variogram_bin", lambda: K.variogram_bin_pairs(sides, edges, True, False, h_max),
+         lambda: K.variogram_bin_pairs_plain(sides, edges, True, False, h_max), False),
     ):
-        ms = cuda_time_ms(kern, 20)
-        plain_ms = cuda_time_ms(plain, 3)
-        bound_ms, bound_by = vario_bound(n_pairs, n_valid, 15, name, minmax)
+        ms = cuda_time_ms(keep(kept, "kernel", kern), reps, head_start_ms=50.0)
+        plain_ms = cuda_time_ms(keep(kept, "plain", plain), plain_reps)
+        got, want = (kept["kernel"], kept["plain"]) if minmax else (kept["kernel"][1],
+                                                                    kept["plain"][1])
+        check(torch.equal(got, want), f"{kname} {name} {shape}: differs from the plain version")
+        bound_ms, bound_by, old_bound = vario_bound(n_pairs, n_valid, k_cmp, 15, name, minmax)
         rows.append(dict(
             name=f"{kname}_{name}", route="cuda",
             source="cokriging_tpu_torch/kernels/csrc/variogram.cu",
-            replaces=f"cokriging_tpu/kernels/pallas_ops.py:{src_line}",
+            replaces="cokriging_tpu/kernels/pallas_ops.py:143",
             launches=launches[kname], ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-            shape="3 pairs x 12500 points x 15 bins",
+            bound_ms_edge_scan=old_bound, shape=shape, pairs=n_pairs, binned=sum(n_valid),
+            k_cmp=k_cmp,
         ))
+    return rows
+
+
+def phase_e(c1, v1, c2, v2, dtype, launches, results):
+    import torch
+
+    from cokriging_tpu_torch.kernels import cuda_ops as K
+
+    name = np.dtype(dtype).name
+    td = getattr(torch, name)
+    rows = vario_rows(c1, v1, c2, v2, dtype, launches, "3 pairs x 12500 points x 15 bins", 20, 3)
 
     joint, _ = matern_blocks(c1, c2, dtype)
     nu, ls = 1.5, 800.0
@@ -1749,11 +1912,12 @@ def main(phases="abcdefg"):
 
         # (c) kernels against their plain versions, then small whole paths
         kres = {}
-        rows, bigs = [], []
+        rows, bigs, large_vario = [], [], []
         if "c" in phases:
             for dtype in (np.float32, np.float64):
                 c1, v1, c2, v2 = build_inputs(N_PER_PROC, dtype)
                 phase_c_variogram(c1, v1, c2, v2, dtype, kres)
+                phase_c_variogram_stress(dtype, kres)
                 phase_c_matern(c1, c2, dtype, kres)
                 phase_c_block_grad(c1, c2, dtype, kres)
                 phase_c_pairs(dtype, kres)
@@ -1777,7 +1941,10 @@ def main(phases="abcdefg"):
             x = params.to_flat().cpu().numpy().astype(np.float64)
             lo, hi = params.spec.bounds()
             tol = 1e-6 * (hi - lo)
+            counts_line = (f"(d) {name}: variogram counts per pair {times.pop('counts_per_pair')}, "
+                           f"sha256 {times.pop('counts_sha256')}")
             log(f"(d) {name}: stages {json.dumps(times)}")
+            log(counts_line)
             log(f"(d) {name}: launches {launches}, finite predictions {finite:.4%} of {len(out.pred)}, "
                 f"fit cost {result.cost:.6g}, params {np.array2string(x, precision=5)}")
             check(all(launches[k] > 0 for k in ("variogram_minmax", "variogram_bin", "matern_correlation")),
@@ -1788,6 +1955,14 @@ def main(phases="abcdefg"):
             r, big = phase_e(c1, v1b, c2, v2b, dtype, launches, kres)
             rows += r
             bigs.append(big)
+            # the variogram passes alone at the large-n example's size
+            large_vario += vario_rows(*build_inputs(N_LARGE, dtype), dtype, launches,
+                                      f"3 pairs x {N_LARGE} points x 15 bins", 5, 1)
+        for r in large_vario:
+            log(f"(e) {r['name']} at {r['shape']}, kernel only: {r['ms']:.3f} ms, plain "
+                f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+                f"{r['bound_ms_edge_scan']:.4f} ms under the edge scan's count), k_cmp "
+                f"{r['k_cmp']}, {r['pairs']} pairs, {r['binned']} binned")
         for big in bigs:
             log(f"(e) matern 12,500^2 symmetric {big['dtype']}: {big['ms']:.3f} ms "
                 f"[recorded before the redesign {RECORDED_BIG_MS[big['dtype']]} ms], plain {big['plain_ms']:.3f} ms, bound "
@@ -1814,6 +1989,8 @@ def main(phases="abcdefg"):
             if "one_launch_ms" in r:
                 extra = (f"; one launch {r['one_launch_ms']:.3f} ms [recorded before the redesign "
                          f"{RECORDED_ONE_LAUNCH_MS[r['name'].split('_')[4]]} ms]")
+            if "bound_ms_edge_scan" in r:
+                extra += f"; bound under the edge scan's count {r['bound_ms_edge_scan']:.4f} ms"
             log(f"(e) redesigned {r['name']}: {r['ms']:.3f} ms [recorded before the redesign "
                 f"{recorded if recorded is not None else 'none'} ms]{extra}, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}), launches {r['launches']}; ptxas {r['ptxas']}")

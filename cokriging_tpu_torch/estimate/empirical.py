@@ -11,9 +11,11 @@ multiply-adds, with the thresholds moved into h once:
    (src/fields.py:389-403), then per-bin cloud sums and pair counts.
 
 On the card both passes run in ``csrc/variogram.cu``
-(``kernels.cuda_ops.variogram_minmax`` / ``variogram_bin``); on the CPU in
-their blocked plain torch versions. The edges are computed on the host,
-with jnp.linspace's formula, so the two packages bin alike.
+(``kernels.cuda_ops.variogram_minmax_pairs`` / ``variogram_bin_pairs``), one
+launch per pass over all the variograms, as ``_all_pairs_program`` is one
+program over all of them; on the CPU in their blocked plain torch versions.
+The edges are computed on the host, with jnp.linspace's formula, so the two
+packages bin alike; the h ranges are read once, between the passes.
 
 Conventions preserved exactly: strict-upper-triangle marginal pairs and the
 full cross rectangle (src/fields.py:196-203); values centered by their field
@@ -28,7 +30,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from cokriging_tpu_torch.kernels.cuda_ops import variogram_bin, variogram_minmax
+from cokriging_tpu_torch.kernels.cuda_ops import variogram_bin_pairs, variogram_minmax_pairs
 from cokriging_tpu_torch.kernels.distance import ZERO_SNAP, ZERO_SNAP_F32_KM
 from cokriging_tpu_torch.utils.config import EARTH_RADIUS_KM, resolve_device
 
@@ -156,28 +158,20 @@ def empirical_variograms_device(
     # center by the field means (src/fields.py:378-381)
     centered = [(v - v.sum() / v.shape[0]).contiguous() for v in values]
 
-    all_centers, all_sums, all_counts = [], [], []
-    for i, j in pairs:
-        marginal = i == j
-        hmin, hmax = variogram_minmax(
-            feats[i], feats[j], marginal, geodesic, h_max, h_snap
-        ).cpu().numpy()
-        centers, h_edges = _device_bins(
-            hmin, hmax, geodesic, np_dtype.type(snap), config.n_bins, np_dtype
-        )
-        if not np.isfinite(centers).all():
-            raise ValueError("No pairs within max_dist; cannot build variogram bins.")
-        sums, counts = variogram_bin(
-            feats[i], feats[j], centered[i], centered[j],
-            torch.as_tensor(h_edges, device=dev), marginal, geodesic,
-            config.covariogram, h_max,
-        )
-        all_centers.append(centers)
-        all_sums.append(sums)
-        all_counts.append(counts)
-    centers = np.stack(all_centers)
-    sums = torch.stack(all_sums).cpu().numpy()
-    counts = torch.stack(all_counts).cpu().numpy()
+    # pass 1 over every variogram, then the one host read between the passes
+    hrange = variogram_minmax_pairs(
+        [(feats[i], feats[j], i == j) for i, j in pairs], geodesic, h_max, h_snap
+    ).cpu().numpy()
+    bins = [_device_bins(hmin, hmax, geodesic, np_dtype.type(snap), config.n_bins, np_dtype)
+            for hmin, hmax in hrange]
+    centers = np.stack([c for c, _ in bins])
+    if not np.isfinite(centers).all():
+        raise ValueError("No pairs within max_dist; cannot build variogram bins.")
+    sums, counts = variogram_bin_pairs(
+        [(feats[i], feats[j], centered[i], centered[j], i == j) for i, j in pairs],
+        [e for _, e in bins], geodesic, config.covariogram, h_max,
+    )
+    sums, counts = sums.cpu().numpy(), counts.cpu().numpy()
     means = np.where(counts > 0, sums / np.maximum(counts, 1), np.nan).astype(np_dtype)
     if (counts < 30).any():
         warnings.warn(

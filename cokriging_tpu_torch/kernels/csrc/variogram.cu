@@ -1,171 +1,241 @@
-// Empirical (cross-)variogram pair pass, on the card.
+// Empirical (cross-)variogram pair passes, on the card: one launch per pass
+// over every pair of variograms of a call.
 //
 // Replaces cokriging_tpu/kernels/pallas_ops.py::variogram_bin_pallas
 // (pallas_call at :117, _make_kernel :58), built to the contract of
-// cokriging_tpu/estimate/empirical.py::_all_pairs_program (:240-406): all
-// comparisons run on the monotone distance surrogate h (haversine
-// sin^2-term or squared Euclidean distance) formed from per-point features
-// by multiply-adds only, with the thresholds transformed once on the host.
-//   - minmax: min of h over valid pairs with h > h_snap, max of h over
-//     valid pairs (pass 1, :308-340);
+// cokriging_tpu/estimate/empirical.py::_all_pairs_program (:240-406), which
+// is one program over all the variograms: all comparisons run on the
+// monotone distance surrogate h (haversine sin^2-term or squared Euclidean
+// distance) formed from per-point features, with the thresholds moved into
+// h once on the host.
+//   - minmax: per variogram, min of h over valid pairs with h > h_snap and
+//     max of h over valid pairs (pass 1, :308-340);
 //   - bin: the cloud 0.5 (va - vb)^2 or va vb, bin = #(h_edges < h) - 1
 //     clipped (searchsorted side="left", :381-383), per-bin sums (double)
 //     and counts (int64) (pass 2, :363-398).
 // A pair is valid when row < n, col < m, h <= h_max and, for a marginal
-// (i == j) variogram, row < col.
+// variogram, row < col. The per-pair arithmetic lives in vario.cuh.
 //
-// What bounds it: operations. A pair costs ~11 multiply-adds for h, a
-// compare per bin edge and a shared-memory add, against no per-pair memory
-// traffic at all (each block reads 128 + 128 points).
+// Design. The grid is one flat index over the tiles of all the call's
+// variograms (`Pairs::tile0`, prefix sums from the host); a block finds its
+// variogram and, for a marginal one, its upper-triangle tile in closed form
+// (`tri_coords`). A tile is TILE x TILE pairs: each of the block's NT
+// threads owns CPT columns in registers, and the tile's rows sit in shared
+// memory (features and value; pass 2 stages STAGE rows at a time), so one
+// broadcast load of a row serves CPT pairs. No pair branches: rows past n
+// and columns past m are NaN points (h is NaN, not <= h_max), a pair beyond
+// h_max or outside the window goes to histogram slot n_win, which is never
+// read, and only the diagonal tiles of a marginal variogram test row < col.
+// The bin comes from `bin_count`'s lookup (the cell of h's top bits, then
+// one exact compare in the common case) instead of a compare per edge. h is
+// formed with explicitly rounded operations (no fused multiply-add), so it
+// equals the plain torch version's h bit for bit and the counts agree
+// exactly.
 //
-// Design: a block owns a 128 x 128 tile of pairs, one thread per column;
-// the tile's 128 row points sit in shared memory and every thread walks
-// them. Marginal pairs launch only the tiles with col-block >= row-block.
-// Sums go into per-thread slots of a shared-memory histogram (no atomics),
-// which the block adds up in a fixed order into one partial per tile. The
-// TPU kernel carried its sum across a sequential grid; blocks here run in
-// no order, so a second launch adds the per-tile partials in a fixed order:
-// the result is the same from run to run, and so is the fit built on it.
-// The histogram holds at most MAX_BINS bins; a call bins one window of at
-// most that many consecutive bins (its n_win + 1 sorted edges place every
-// pair below, inside or above the window), and the caller walks the windows.
-// h is formed with explicitly rounded operations (no fused multiply-add) so
-// it equals, bit for bit, the plain torch version's h: the pair counts of
-// the two agree exactly.
-#include <cuda_runtime.h>
-#include <math.h>
+// Sums go into per-thread columns of a shared-memory histogram (no atomics;
+// double sums, 16-bit counts: a thread bins at most TILE x CPT pairs of a
+// tile), and each tile adds its columns up in a fixed order; a second launch
+// adds each variogram's tile partials in a fixed order. So the sums are the
+// same from run to run, and so is the fit built on them. The histogram holds
+// one window of at most MAX_BINS bins (plus the dropped slot); the caller
+// walks the windows, one bin launch per window.
+//
+// What bounds it: instruction issue, and in pass 2 the shared-memory pipe
+// beside it. No pair reads device memory (a block reads 2 x TILE points). A
+// pair costs 11 explicitly rounded operations for h; pass 1 adds ~6 compares
+// and selects, pass 2 ~25 instructions: the lookup and its compare, the
+// slot, the cloud and its conversion to double, and a read-modify-write of
+// a double and a count in shared memory (with the lookup's three loads, ~9
+// shared-memory wavefronts per warp of pairs). The floating-point rate is
+// not the limit: a bound taken at 67 TFLOP/s counts a fused multiply-add as
+// two operations, and these passes have none.
+#include "vario.cuh"
 
 namespace {
 
-constexpr int VT = 128;          // tile edge (rows and columns); threads per block
-constexpr int MAX_BINS = 24;     // per-thread histogram slots in shared memory
+using ckv::BinLookup;
+using ckv::Record;
+
+constexpr int NT = 64;            // threads per block
+constexpr int CPT = 4;            // columns per thread
+constexpr int TILE = NT * CPT;    // rows and columns of a tile
+constexpr int STAGE = 128;        // rows staged in shared memory at a time
 constexpr int RED_THREADS = 256;
+constexpr int MAX_PAIRS = 32;     // variograms per launch
 
-template <typename T> __device__ __forceinline__ T mul_rn(T a, T b);
-template <> __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
-template <> __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
-template <typename T> __device__ __forceinline__ T add_rn(T a, T b);
-template <> __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-template <> __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-template <typename T> __device__ __forceinline__ T sub_rn(T a, T b);
-template <> __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
-template <> __device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+template <typename T> struct Pairs {
+  const T* fa[MAX_PAIRS];
+  const T* fb[MAX_PAIRS];
+  const T* va[MAX_PAIRS];
+  const T* vb[MAX_PAIRS];
+  int n[MAX_PAIRS];
+  int m[MAX_PAIRS];
+  int marginal[MAX_PAIRS];
+  long long tile0[MAX_PAIRS + 1];  // first tile of each variogram; then the total
+  int count;
+};
 
-// Geodesic features [sin(lat/2), cos(lat/2), sin(lon/2), cos(lon/2), cos(lat)]
-// give h = x^2 + cos(lat_a) cos(lat_b) y^2 with x = sin(dlat/2), y = sin(dlon/2);
-// Euclidean features [x, y] give the squared distance.
-template <typename T, bool GEO>
-__device__ __forceinline__ T h_pair(const T* fa, const T* fb) {
-  if (GEO) {
-    const T x = sub_rn(mul_rn(fa[0], fb[1]), mul_rn(fa[1], fb[0]));
-    const T y = sub_rn(mul_rn(fa[2], fb[3]), mul_rn(fa[3], fb[2]));
-    return add_rn(mul_rn(x, x), mul_rn(mul_rn(fa[4], fb[4]), mul_rn(y, y)));
-  }
-  const T dx = sub_rn(fa[0], fb[0]);
-  const T dy = sub_rn(fa[1], fb[1]);
-  return add_rn(mul_rn(dx, dx), mul_rn(dy, dy));
+template <typename T> __device__ __forceinline__ T nan_of();
+template <> __device__ __forceinline__ float nan_of<float>() { return __int_as_float(0x7fc00000); }
+template <> __device__ __forceinline__ double nan_of<double>() {
+  return __longlong_as_double(0x7ff8000000000000ll);
 }
 
-__host__ __device__ inline void tile_grid(int n, int m, int marginal, int& nr,
-                                          int& nc, long long& n_tiles) {
-  nr = (n + VT - 1) / VT;
-  nc = (m + VT - 1) / VT;
-  n_tiles = marginal ? static_cast<long long>(nr) * (nr + 1) / 2
-                     : static_cast<long long>(nr) * nc;
+struct Tile {
+  int pair, r0, c0, diag;
+};
+
+// The variogram, first row and first column of flat tile t.
+template <typename T>
+__device__ __forceinline__ Tile tile_at(const Pairs<T>& P, long long t) {
+  int p = 0;
+  while (p + 1 < P.count && P.tile0[p + 1] <= t) ++p;
+  const long long local = t - P.tile0[p];
+  const int nr = (P.n[p] + TILE - 1) / TILE;
+  int rb, cb;
+  if (P.marginal[p]) {
+    ckv::tri_coords(local, nr, rb, cb);
+  } else {
+    const int nc = (P.m[p] + TILE - 1) / TILE;
+    rb = static_cast<int>(local / nc);
+    cb = static_cast<int>(local % nc);
+  }
+  return Tile{p, rb * TILE, cb * TILE, P.marginal[p] && rb == cb};
 }
 
-// Linear tile index -> (row block, col block); marginal tiles have cb >= rb.
-__device__ __forceinline__ void tile_coords(int t, int nr, int nc, int marginal,
-                                            int& rb, int& cb) {
-  if (!marginal) {
-    rb = t / nc;
-    cb = t % nc;
-    return;
+// Stages rows r0 .. r0 + STAGE - 1 at srow[r * RS]: F features, then the
+// value when `va` is given (RS >= F + 1 then); rows past n are NaN points.
+template <typename T, int F, int RS>
+__device__ __forceinline__ void stage_rows(T* srow, const T* fa, const T* va, int n, int r0) {
+  for (int r = threadIdx.x; r < STAGE; r += NT) {
+    const int row = r0 + r;
+    const bool in = row < n;
+#pragma unroll
+    for (int f = 0; f < F; ++f)
+      srow[r * RS + f] = in ? fa[static_cast<size_t>(row) * F + f] : nan_of<T>();
+    if (va != nullptr) srow[r * RS + F] = in ? va[row] : T(0);
   }
-  rb = 0;
-  int rem = t;
-  while (rem >= nr - rb) {
-    rem -= nr - rb;
-    ++rb;
+}
+
+// This thread's CPT columns c0 + threadIdx.x + k NT: features (NaN past m)
+// and values.
+template <typename T, int F>
+__device__ __forceinline__ void load_cols(T (&cf)[CPT][F], T (&cv)[CPT], const T* fb,
+                                          const T* vb, int m, int c0) {
+#pragma unroll
+  for (int k = 0; k < CPT; ++k) {
+    const int col = c0 + threadIdx.x + k * NT;
+    const bool in = col < m;
+#pragma unroll
+    for (int f = 0; f < F; ++f)
+      cf[k][f] = in ? fb[static_cast<size_t>(col) * F + f] : nan_of<T>();
+    cv[k] = (in && vb != nullptr) ? vb[col] : T(0);
   }
-  cb = rb + rem;
 }
 
 template <typename T> __device__ __forceinline__ T warp_min(T v) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const T w = __shfl_down_sync(0xffffffffu, v, o);
-    v = w < v ? w : v;
-  }
+  for (int o = 16; o > 0; o >>= 1) v = fmin(v, __shfl_down_sync(0xffffffffu, v, o));
   return v;
 }
 template <typename T> __device__ __forceinline__ T warp_max(T v) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const T w = __shfl_down_sync(0xffffffffu, v, o);
-    v = w > v ? w : v;
-  }
+  for (int o = 16; o > 0; o >>= 1) v = fmax(v, __shfl_down_sync(0xffffffffu, v, o));
   return v;
 }
 
-template <typename T, bool GEO, int F>
-__global__ void minmax_kernel(const T* __restrict__ fa, const T* __restrict__ fb,
-                              int n, int m, int nr, int nc, int marginal, T h_max,
-                              T h_snap, T* __restrict__ part_min,
-                              T* __restrict__ part_max) {
-  __shared__ T sfa[VT * F];
-  __shared__ T wmin[VT / 32];
-  __shared__ T wmax[VT / 32];
-  int rb, cb;
-  tile_coords(blockIdx.x, nr, nc, marginal, rb, cb);
-  const int tid = threadIdx.x;
-  const int r0 = rb * VT;
-  if (r0 + tid < n) {
-    for (int f = 0; f < F; ++f) sfa[tid * F + f] = fa[static_cast<size_t>(r0 + tid) * F + f];
+// ---- pass 1 ---------------------------------------------------------------
+
+// acc = max(acc, v) / min(acc, v) where `take`: fmax / fmin for float; a
+// compare and select for double, whose fmin / fmax cost a NaN fix-up each.
+__device__ __forceinline__ float take_max(float acc, float v, bool take) {
+  return fmaxf(acc, take ? v : -INFINITY);
+}
+__device__ __forceinline__ double take_max(double acc, double v, bool take) {
+  return (take && v > acc) ? v : acc;
+}
+__device__ __forceinline__ float take_min(float acc, float v, bool take) {
+  return fminf(acc, take ? v : INFINITY);
+}
+__device__ __forceinline__ double take_min(double acc, double v, bool take) {
+  return (take && v < acc) ? v : acc;
+}
+
+// The tile's first `rows` rows, staged at srow[r * RS].
+template <typename T, bool GEO, bool DIAG, int RS>
+__device__ __forceinline__ void minmax_rows(const T* srow, const T (&cf)[CPT][GEO ? 5 : 2],
+                                            int rows, T h_max, T h_snap, T& hmin, T& hmax) {
+  constexpr int F = GEO ? 5 : 2;
+  for (int r = 0; r < rows; ++r) {
+    T rf[F];
+#pragma unroll
+    for (int f = 0; f < F; ++f) rf[f] = srow[r * RS + f];
+#pragma unroll
+    for (int k = 0; k < CPT; ++k) {
+      const T h = ckv::h_pair<T, GEO>(rf, cf[k]);
+      bool valid = h <= h_max;
+      if (DIAG) valid = valid && r < static_cast<int>(threadIdx.x) + k * NT;
+      hmax = take_max(hmax, h, valid);
+      hmin = take_min(hmin, h, valid && h > h_snap);
+    }
   }
+}
+
+template <typename T, bool GEO>
+__global__ void __launch_bounds__(NT) minmax_kernel(const __grid_constant__ Pairs<T> P, T h_max,
+                                                    T h_snap, T* __restrict__ part_min,
+                                                    T* __restrict__ part_max) {
+  constexpr int F = GEO ? 5 : 2;
+  constexpr int RS = GEO ? 8 : 2;  // 16-byte rows: one vector load of 4 features
+  __shared__ __align__(16) T srow[TILE * RS];  // the whole tile's rows
+  __shared__ T wmin[NT / 32];
+  __shared__ T wmax[NT / 32];
+  const Tile at = tile_at(P, blockIdx.x);
+  const int n = P.n[at.pair];
+  for (int r0 = 0; r0 < TILE; r0 += STAGE)
+    stage_rows<T, F, RS>(srow + r0 * RS, P.fa[at.pair], nullptr, n, at.r0 + r0);
+  T cf[CPT][F];
+  T cv[CPT];
+  load_cols<T, F>(cf, cv, P.fb[at.pair], nullptr, P.m[at.pair], at.c0);
   __syncthreads();
-  const int col = cb * VT + tid;
+  const int rows = n - at.r0 < TILE ? n - at.r0 : TILE;
   T hmin = INFINITY;
   T hmax = -INFINITY;
-  if (col < m) {
-    T fbr[F];
-    for (int f = 0; f < F; ++f) fbr[f] = fb[static_cast<size_t>(col) * F + f];
-    int rows = n - r0 < VT ? n - r0 : VT;
-    if (marginal && col - r0 < rows) rows = col - r0;  // row < col
-    for (int r = 0; r < rows; ++r) {
-      const T h = h_pair<T, GEO>(&sfa[r * F], fbr);
-      if (h <= h_max) {
-        hmax = h > hmax ? h : hmax;
-        if (h > h_snap) hmin = h < hmin ? h : hmin;
-      }
-    }
+  if (at.diag) {
+    minmax_rows<T, GEO, true, RS>(srow, cf, rows, h_max, h_snap, hmin, hmax);
+  } else {
+    minmax_rows<T, GEO, false, RS>(srow, cf, rows, h_max, h_snap, hmin, hmax);
   }
   hmin = warp_min(hmin);
   hmax = warp_max(hmax);
+  const int tid = threadIdx.x;
   if ((tid & 31) == 0) {
     wmin[tid >> 5] = hmin;
     wmax[tid >> 5] = hmax;
   }
   __syncthreads();
   if (tid == 0) {
-    for (int w = 1; w < VT / 32; ++w) {
-      hmin = wmin[w] < hmin ? wmin[w] : hmin;
-      hmax = wmax[w] > hmax ? wmax[w] : hmax;
+    for (int w = 1; w < NT / 32; ++w) {
+      hmin = fmin(hmin, wmin[w]);
+      hmax = fmax(hmax, wmax[w]);
     }
     part_min[blockIdx.x] = hmin;
     part_max[blockIdx.x] = hmax;
   }
 }
 
+// One block per variogram: [min, max] of its tiles' partials into out[2 p],
+// out[2 p + 1] (inf / -inf for a variogram without tiles).
 template <typename T>
-__global__ void minmax_reduce_kernel(const T* __restrict__ part_min,
-                                     const T* __restrict__ part_max,
-                                     long long n_parts, T* __restrict__ out) {
+__global__ void minmax_reduce_kernel(const __grid_constant__ Pairs<T> P,
+                                     const T* __restrict__ part_min,
+                                     const T* __restrict__ part_max, T* __restrict__ out) {
   __shared__ T smin[RED_THREADS / 32];
   __shared__ T smax[RED_THREADS / 32];
+  const int p = blockIdx.x;
   T hmin = INFINITY;
   T hmax = -INFINITY;
-  for (long long k = threadIdx.x; k < n_parts; k += RED_THREADS) {
-    hmin = part_min[k] < hmin ? part_min[k] : hmin;
-    hmax = part_max[k] > hmax ? part_max[k] : hmax;
+  for (long long k = P.tile0[p] + threadIdx.x; k < P.tile0[p + 1]; k += RED_THREADS) {
+    hmin = fmin(hmin, part_min[k]);
+    hmax = fmax(hmax, part_max[k]);
   }
   hmin = warp_min(hmin);
   hmax = warp_max(hmax);
@@ -176,112 +246,126 @@ __global__ void minmax_reduce_kernel(const T* __restrict__ part_min,
   __syncthreads();
   if (threadIdx.x == 0) {
     for (int w = 1; w < RED_THREADS / 32; ++w) {
-      hmin = smin[w] < hmin ? smin[w] : hmin;
-      hmax = smax[w] > hmax ? smax[w] : hmax;
+      hmin = fmin(hmin, smin[w]);
+      hmax = fmax(hmax, smax[w]);
     }
-    out[0] = hmin;
-    out[1] = hmax;
+    out[2 * p] = hmin;
+    out[2 * p + 1] = hmax;
   }
 }
 
-template <typename T, bool GEO, int F>
-__global__ void bin_kernel(const T* __restrict__ fa, const T* __restrict__ fb,
-                           const T* __restrict__ va, const T* __restrict__ vb,
-                           const T* __restrict__ h_edges, int n_bins, int first,
-                           int last, int n, int m, int nr, int nc, int marginal,
-                           int covariogram, T h_max,
-                           double* __restrict__ part_sums,
-                           long long* __restrict__ part_counts) {
-  // n_bins, h_edges: this window's bins and its n_bins + 1 edges; first /
-  // last: the window holds the first / last bin of all, which take the
-  // pairs clipped from below / above
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  double* hist_sum = reinterpret_cast<double*>(smem_raw);     // [n_bins][VT]
-  int* hist_cnt = reinterpret_cast<int*>(hist_sum + n_bins * VT);  // [n_bins][VT]
-  __shared__ T sfa[VT * F];
-  __shared__ T sva[VT];
-  __shared__ T sedge[MAX_BINS + 1];
+// ---- pass 2 ---------------------------------------------------------------
 
-  int rb, cb;
-  tile_coords(blockIdx.x, nr, nc, marginal, rb, cb);
+// Rows [r_lo, r_hi) of the tile, staged from r_lo at srow; hsum / hcnt: this
+// thread's histogram column, slot s at [s * NT].
+template <typename T, bool GEO, bool COV, bool DIAG, int K>
+__device__ __forceinline__ void bin_rows(const T* srow, const T (&cf)[CPT][GEO ? 5 : 2],
+                                         const T (&cv)[CPT], int r_lo, int r_hi, T h_max,
+                                         const BinLookup<T>& L, int n_win,
+                                         double* __restrict__ hsum,
+                                         unsigned short* __restrict__ hcnt) {
+  constexpr int F = GEO ? 5 : 2;
   const int tid = threadIdx.x;
-  const int r0 = rb * VT;
-  for (int b = 0; b < n_bins; ++b) {
-    hist_sum[b * VT + tid] = 0.0;
-    hist_cnt[b * VT + tid] = 0;
+  for (int r = r_lo; r < r_hi; ++r) {
+    T rf[F + 1];
+#pragma unroll
+    for (int f = 0; f <= F; ++f) rf[f] = srow[(r - r_lo) * (F + 1) + f];
+#pragma unroll
+    for (int k = 0; k < CPT; ++k) {
+      const T h = ckv::h_pair<T, GEO>(rf, cf[k]);
+      bool valid = h <= h_max;
+      if (DIAG) valid = valid && r < tid + k * NT;
+      const int s = ckv::bin_slot<K>(h, valid, L, n_win) * NT;
+      hsum[s] += static_cast<double>(ckv::cloud<T, COV>(rf[F], cv[k]));
+      hcnt[s] += 1;
+    }
   }
-  if (r0 + tid < n) {
-    for (int f = 0; f < F; ++f) sfa[tid * F + f] = fa[static_cast<size_t>(r0 + tid) * F + f];
-    sva[tid] = va[r0 + tid];
-  }
-  if (tid <= n_bins) sedge[tid] = h_edges[tid];
-  __syncthreads();
+}
 
-  const int col = cb * VT + tid;
-  if (col < m) {
-    T fbr[F];
-    for (int f = 0; f < F; ++f) fbr[f] = fb[static_cast<size_t>(col) * F + f];
-    const T vbc = vb[col];
-    int rows = n - r0 < VT ? n - r0 : VT;
-    if (marginal && col - r0 < rows) rows = col - r0;  // row < col
-    for (int r = 0; r < rows; ++r) {
-      const T h = h_pair<T, GEO>(&sfa[r * F], fbr);
-      if (!(h <= h_max)) continue;
-      int idx = -1;
-      for (int k = 0; k <= n_bins; ++k) idx += sedge[k] < h ? 1 : 0;
-      if (idx < 0) {
-        if (!first) continue;  // a lower window's pair
-        idx = 0;
-      } else if (idx > n_bins - 1) {
-        if (!last) continue;  // a higher window's pair
-        idx = n_bins - 1;
-      }
-      T cloud;
-      if (covariogram) {
-        cloud = mul_rn(sva[r], vbc);
-      } else {
-        const T diff = sub_rn(sva[r], vbc);
-        cloud = mul_rn(mul_rn(T(0.5), diff), diff);
-      }
-      hist_sum[idx * VT + tid] += static_cast<double>(cloud);
-      hist_cnt[idx * VT + tid] += 1;
+template <typename T, bool GEO, bool COV, int K>
+__global__ void __launch_bounds__(NT) bin_kernel(const __grid_constant__ Pairs<T> P,
+                                                 const unsigned char* __restrict__ records,
+                                                 int rec_used, int n_win, T h_max,
+                                                 double* __restrict__ part_sums,
+                                                 long long* __restrict__ part_counts) {
+  // records: one Record<T> per variogram for this window, of which the
+  // first rec_used bytes are read. Dynamic shared memory: the histogram's
+  // sums [n_win + 1][NT], the record, the counts [n_win + 1][NT] (16 bits:
+  // a thread bins at most TILE x CPT pairs of a tile)
+  constexpr int F = GEO ? 5 : 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* hsum = reinterpret_cast<double*>(smem_raw);
+  unsigned char* srec = smem_raw + (n_win + 1) * NT * sizeof(double);
+  unsigned short* hcnt = reinterpret_cast<unsigned short*>(srec + rec_used);
+  __shared__ __align__(16) T srow[STAGE * (F + 1)];
+
+  const Tile at = tile_at(P, blockIdx.x);
+  const int tid = threadIdx.x;
+  const int n = P.n[at.pair];
+  const uint4* rec = reinterpret_cast<const uint4*>(records + static_cast<size_t>(at.pair) *
+                                                                  Record<T>::bytes);
+  for (int k = tid; k < rec_used / 16; k += NT) reinterpret_cast<uint4*>(srec)[k] = rec[k];
+  for (int k = tid; k < (n_win + 1) * NT; k += NT) {
+    hsum[k] = 0.0;
+    hcnt[k] = 0;
+  }
+  T cf[CPT][F];
+  T cv[CPT];
+  load_cols<T, F>(cf, cv, P.fb[at.pair], P.vb[at.pair], P.m[at.pair], at.c0);
+  __syncthreads();
+  const BinLookup<T> L = ckv::lookup_of<T>(srec);
+  const int rows = n - at.r0 < TILE ? n - at.r0 : TILE;
+  for (int r_lo = 0; r_lo < rows; r_lo += STAGE) {
+    __syncthreads();
+    stage_rows<T, F, F + 1>(srow, P.fa[at.pair], P.va[at.pair], n, at.r0 + r_lo);
+    __syncthreads();
+    const int r_hi = rows - r_lo < STAGE ? rows : r_lo + STAGE;
+    if (at.diag) {
+      bin_rows<T, GEO, COV, true, K>(srow, cf, cv, r_lo, r_hi, h_max, L, n_win, hsum + tid,
+                                     hcnt + tid);
+    } else {
+      bin_rows<T, GEO, COV, false, K>(srow, cf, cv, r_lo, r_hi, h_max, L, n_win, hsum + tid,
+                                      hcnt + tid);
     }
   }
   __syncthreads();
-  // per-bin block sums in a fixed order: warp w takes bins w, w + 4, ...
+  // per-bin tile sums in a fixed order: warp w takes bins w, w + NT / 32, ...
   const int lane = tid & 31;
-  for (int b = tid >> 5; b < n_bins; b += VT / 32) {
+  for (int b = tid >> 5; b < n_win; b += NT / 32) {
     double s = 0.0;
     long long c = 0;
-    for (int k = lane; k < VT; k += 32) {
-      s += hist_sum[b * VT + k];
-      c += hist_cnt[b * VT + k];
+    for (int k = lane; k < NT; k += 32) {
+      s += hsum[b * NT + k];
+      c += hcnt[b * NT + k];
     }
     for (int o = 16; o > 0; o >>= 1) {
       s += __shfl_down_sync(0xffffffffu, s, o);
       c += __shfl_down_sync(0xffffffffu, c, o);
     }
     if (lane == 0) {
-      part_sums[static_cast<size_t>(blockIdx.x) * n_bins + b] = s;
-      part_counts[static_cast<size_t>(blockIdx.x) * n_bins + b] = c;
+      part_sums[static_cast<size_t>(blockIdx.x) * n_win + b] = s;
+      part_counts[static_cast<size_t>(blockIdx.x) * n_win + b] = c;
     }
   }
 }
 
-// One block per bin adds the per-tile partials in a fixed order.
-__global__ void bin_reduce_kernel(const double* __restrict__ part_sums,
-                                  const long long* __restrict__ part_counts,
-                                  long long n_parts, int n_bins,
-                                  double* __restrict__ sums,
-                                  long long* __restrict__ counts) {
+// Block (b, p) adds variogram p's tile partials of window bin b in a fixed
+// order into sums / counts [p * stride + b] (0 for a variogram without tiles).
+template <typename T>
+__global__ void bin_reduce_kernel(const __grid_constant__ Pairs<T> P,
+                                  const double* __restrict__ part_sums,
+                                  const long long* __restrict__ part_counts, int n_win,
+                                  double* __restrict__ sums, long long* __restrict__ counts,
+                                  int stride) {
   __shared__ double ss[RED_THREADS];
   __shared__ long long sc[RED_THREADS];
   const int b = blockIdx.x;
+  const int p = blockIdx.y;
   double s = 0.0;
   long long c = 0;
-  for (long long k = threadIdx.x; k < n_parts; k += RED_THREADS) {
-    s += part_sums[k * n_bins + b];
-    c += part_counts[k * n_bins + b];
+  for (long long k = P.tile0[p] + threadIdx.x; k < P.tile0[p + 1]; k += RED_THREADS) {
+    s += part_sums[k * n_win + b];
+    c += part_counts[k * n_win + b];
   }
   ss[threadIdx.x] = s;
   sc[threadIdx.x] = c;
@@ -294,66 +378,111 @@ __global__ void bin_reduce_kernel(const double* __restrict__ part_sums,
     __syncthreads();
   }
   if (threadIdx.x == 0) {
-    sums[b] = ss[0];
-    counts[b] = sc[0];
+    sums[static_cast<size_t>(p) * stride + b] = ss[0];
+    counts[static_cast<size_t>(p) * stride + b] = sc[0];
   }
 }
 
+// ---- host side ------------------------------------------------------------
+
+// Fills the launch descriptor from the caller's arrays: ptrs holds `per`
+// device pointers per variogram, dims {n, m, marginal, first tile} per
+// variogram. Checks the caller's tile offsets against this file's TILE.
 template <typename T>
-int minmax(const T* fa, const T* fb, int n, int m, int geodesic, int marginal,
-           T h_max, T h_snap, T* part_min, T* part_max, T* out,
-           cudaStream_t stream) {
-  int nr, nc;
-  long long n_tiles;
-  tile_grid(n, m, marginal, nr, nc, n_tiles);
-  const unsigned grid = static_cast<unsigned>(n_tiles);
-  if (geodesic) {
-    minmax_kernel<T, true, 5><<<grid, VT, 0, stream>>>(
-        fa, fb, n, m, nr, nc, marginal, h_max, h_snap, part_min, part_max);
-  } else {
-    minmax_kernel<T, false, 2><<<grid, VT, 0, stream>>>(
-        fa, fb, n, m, nr, nc, marginal, h_max, h_snap, part_min, part_max);
+cudaError_t make_pairs(Pairs<T>& P, int count, const void* const* ptrs, int per,
+                       const long long* dims) {
+  if (count < 1 || count > MAX_PAIRS) return cudaErrorInvalidValue;
+  P.count = count;
+  long long tiles = 0;
+  for (int p = 0; p < count; ++p) {
+    const T* const* q = reinterpret_cast<const T* const*>(ptrs + static_cast<size_t>(p) * per);
+    P.fa[p] = q[0];
+    P.fb[p] = q[1];
+    P.va[p] = per > 2 ? q[2] : nullptr;
+    P.vb[p] = per > 2 ? q[3] : nullptr;
+    const long long n = dims[4 * p], m = dims[4 * p + 1];
+    P.n[p] = static_cast<int>(n);
+    P.m[p] = static_cast<int>(m);
+    P.marginal[p] = static_cast<int>(dims[4 * p + 2]);
+    P.tile0[p] = dims[4 * p + 3];
+    const long long nr = (n + TILE - 1) / TILE, nc = (m + TILE - 1) / TILE;
+    if (P.tile0[p] != tiles || (P.marginal[p] && n != m)) return cudaErrorInvalidValue;
+    tiles += P.marginal[p] ? nr * (nr + 1) / 2 : nr * nc;
   }
-  cudaError_t err = cudaGetLastError();
+  P.tile0[count] = tiles;
+  return tiles < (1ll << 31) ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename T>
+int minmax(int count, const void* const* ptrs, const long long* dims, int geodesic, T h_max,
+           T h_snap, T* part_min, T* part_max, T* out, cudaStream_t stream) {
+  Pairs<T> P;
+  cudaError_t err = make_pairs(P, count, ptrs, 2, dims);
   if (err != cudaSuccess) return static_cast<int>(err);
-  minmax_reduce_kernel<T><<<1, RED_THREADS, 0, stream>>>(part_min, part_max,
-                                                         n_tiles, out);
+  const unsigned grid = static_cast<unsigned>(P.tile0[count]);
+  if (grid > 0) {
+    if (geodesic) {
+      minmax_kernel<T, true><<<grid, NT, 0, stream>>>(P, h_max, h_snap, part_min, part_max);
+    } else {
+      minmax_kernel<T, false><<<grid, NT, 0, stream>>>(P, h_max, h_snap, part_min, part_max);
+    }
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  minmax_reduce_kernel<T><<<count, RED_THREADS, 0, stream>>>(P, part_min, part_max, out);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Bins the window of at most MAX_BINS bins that starts at bin0; h_edges,
-// sums and counts are the arrays of all n_bins bins.
-template <typename T>
-int bin(const T* fa, const T* fb, const T* va, const T* vb, const T* h_edges,
-        int n_bins, int bin0, int n, int m, int geodesic, int marginal,
-        int covariogram, T h_max, double* part_sums, long long* part_counts,
-        double* sums, long long* counts, cudaStream_t stream) {
-  if (n_bins < 1 || bin0 < 0 || bin0 >= n_bins) return static_cast<int>(cudaErrorInvalidValue);
-  const int n_win = n_bins - bin0 < MAX_BINS ? n_bins - bin0 : MAX_BINS;
-  const int first = bin0 == 0;
-  const int last = bin0 + n_win == n_bins;
-  h_edges += bin0;
-  sums += bin0;
-  counts += bin0;
-  int nr, nc;
-  long long n_tiles;
-  tile_grid(n, m, marginal, nr, nc, n_tiles);
-  const unsigned grid = static_cast<unsigned>(n_tiles);
-  const size_t smem = static_cast<size_t>(n_win) * VT * (sizeof(double) + sizeof(int));
-  if (geodesic) {
-    bin_kernel<T, true, 5><<<grid, VT, smem, stream>>>(
-        fa, fb, va, vb, h_edges, n_win, first, last, n, m, nr, nc, marginal,
-        covariogram, h_max, part_sums, part_counts);
+template <typename T, bool GEO, bool COV>
+void launch_bin(const Pairs<T>& P, unsigned grid, size_t smem, cudaStream_t stream,
+                const unsigned char* records, int rec_used, int n_win, int k_cmp, T h_max,
+                double* part_sums, long long* part_counts) {
+  if (k_cmp == 1) {
+    bin_kernel<T, GEO, COV, 1><<<grid, NT, smem, stream>>>(P, records, rec_used, n_win, h_max,
+                                                            part_sums, part_counts);
   } else {
-    bin_kernel<T, false, 2><<<grid, VT, smem, stream>>>(
-        fa, fb, va, vb, h_edges, n_win, first, last, n, m, nr, nc, marginal,
-        covariogram, h_max, part_sums, part_counts);
+    bin_kernel<T, GEO, COV, 0><<<grid, NT, smem, stream>>>(P, records, rec_used, n_win, h_max,
+                                                            part_sums, part_counts);
   }
-  cudaError_t err = cudaGetLastError();
+}
+
+// Bins one window of n_win <= MAX_BINS bins, starting at bin0, of every
+// variogram; records: the variograms' lookup records for this window;
+// sums / counts: (count, stride) arrays of all the bins.
+template <typename T>
+int bin(int count, const void* const* ptrs, const long long* dims,
+        const unsigned char* records, int max_cells, int n_win, int max_k_cmp, int geodesic,
+        int covariogram, T h_max, double* part_sums, long long* part_counts, double* sums,
+        long long* counts, int stride, int bin0, cudaStream_t stream) {
+  if (n_win < 1 || n_win > ckv::MAX_BINS || bin0 < 0 || bin0 + n_win > stride ||
+      max_cells < 1 || max_cells > ckv::MAX_CELLS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rec_used = Record<T>::used(max_cells);
+  Pairs<T> P;
+  cudaError_t err = make_pairs(P, count, ptrs, 4, dims);
   if (err != cudaSuccess) return static_cast<int>(err);
-  bin_reduce_kernel<<<n_win, RED_THREADS, 0, stream>>>(part_sums, part_counts,
-                                                       n_tiles, n_win, sums,
-                                                       counts);
+  const unsigned grid = static_cast<unsigned>(P.tile0[count]);
+  if (grid > 0) {
+    const size_t smem = static_cast<size_t>(n_win + 1) * NT *
+                            (sizeof(double) + sizeof(unsigned short)) + rec_used;
+    if (geodesic && covariogram) {
+      launch_bin<T, true, true>(P, grid, smem, stream, records, rec_used, n_win, max_k_cmp,
+                                h_max, part_sums, part_counts);
+    } else if (geodesic) {
+      launch_bin<T, true, false>(P, grid, smem, stream, records, rec_used, n_win, max_k_cmp,
+                                 h_max, part_sums, part_counts);
+    } else if (covariogram) {
+      launch_bin<T, false, true>(P, grid, smem, stream, records, rec_used, n_win, max_k_cmp,
+                                 h_max, part_sums, part_counts);
+    } else {
+      launch_bin<T, false, false>(P, grid, smem, stream, records, rec_used, n_win, max_k_cmp,
+                                  h_max, part_sums, part_counts);
+    }
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  bin_reduce_kernel<T><<<dim3(n_win, count), RED_THREADS, 0, stream>>>(
+      P, part_sums, part_counts, n_win, sums + bin0, counts + bin0, stride);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -361,51 +490,38 @@ int bin(const T* fa, const T* fb, const T* va, const T* vb, const T* h_edges,
 
 extern "C" {
 
-long long vario_num_tiles(int n, int m, int marginal) {
-  int nr, nc;
-  long long n_tiles;
-  tile_grid(n, m, marginal, nr, nc, n_tiles);
-  return n_tiles;
-}
-
-int vario_max_bins() { return MAX_BINS; }
-
-int vario_minmax_f32(const float* fa, const float* fb, int n, int m,
-                     int geodesic, int marginal, float h_max, float h_snap,
-                     float* part_min, float* part_max, float* out,
+int vario_minmax_f32(int count, const void* const* ptrs, const long long* dims, int geodesic,
+                     float h_max, float h_snap, float* part_min, float* part_max, float* out,
                      void* stream) {
-  return minmax<float>(fa, fb, n, m, geodesic, marginal, h_max, h_snap,
-                       part_min, part_max, out,
+  return minmax<float>(count, ptrs, dims, geodesic, h_max, h_snap, part_min, part_max, out,
                        static_cast<cudaStream_t>(stream));
 }
 
-int vario_minmax_f64(const double* fa, const double* fb, int n, int m,
-                     int geodesic, int marginal, double h_max, double h_snap,
-                     double* part_min, double* part_max, double* out,
-                     void* stream) {
-  return minmax<double>(fa, fb, n, m, geodesic, marginal, h_max, h_snap,
-                        part_min, part_max, out,
+int vario_minmax_f64(int count, const void* const* ptrs, const long long* dims, int geodesic,
+                     double h_max, double h_snap, double* part_min, double* part_max,
+                     double* out, void* stream) {
+  return minmax<double>(count, ptrs, dims, geodesic, h_max, h_snap, part_min, part_max, out,
                         static_cast<cudaStream_t>(stream));
 }
 
-int vario_bin_f32(const float* fa, const float* fb, const float* va,
-                  const float* vb, const float* h_edges, int n_bins, int bin0,
-                  int n, int m, int geodesic, int marginal, int covariogram,
-                  float h_max, double* part_sums, long long* part_counts,
-                  double* sums, long long* counts, void* stream) {
-  return bin<float>(fa, fb, va, vb, h_edges, n_bins, bin0, n, m, geodesic,
-                    marginal, covariogram, h_max, part_sums, part_counts, sums,
-                    counts, static_cast<cudaStream_t>(stream));
+int vario_bin_f32(int count, const void* const* ptrs, const long long* dims,
+                  const unsigned char* records, int max_cells, int n_win, int max_k_cmp,
+                  int geodesic, int covariogram, float h_max, double* part_sums,
+                  long long* part_counts, double* sums, long long* counts, int stride, int bin0,
+                  void* stream) {
+  return bin<float>(count, ptrs, dims, records, max_cells, n_win, max_k_cmp, geodesic,
+                    covariogram, h_max, part_sums, part_counts, sums, counts, stride, bin0,
+                    static_cast<cudaStream_t>(stream));
 }
 
-int vario_bin_f64(const double* fa, const double* fb, const double* va,
-                  const double* vb, const double* h_edges, int n_bins, int bin0,
-                  int n, int m, int geodesic, int marginal, int covariogram,
-                  double h_max, double* part_sums, long long* part_counts,
-                  double* sums, long long* counts, void* stream) {
-  return bin<double>(fa, fb, va, vb, h_edges, n_bins, bin0, n, m, geodesic,
-                     marginal, covariogram, h_max, part_sums, part_counts,
-                     sums, counts, static_cast<cudaStream_t>(stream));
+int vario_bin_f64(int count, const void* const* ptrs, const long long* dims,
+                  const unsigned char* records, int max_cells, int n_win, int max_k_cmp,
+                  int geodesic, int covariogram, double h_max, double* part_sums,
+                  long long* part_counts, double* sums, long long* counts, int stride, int bin0,
+                  void* stream) {
+  return bin<double>(count, ptrs, dims, records, max_cells, n_win, max_k_cmp, geodesic,
+                     covariogram, h_max, part_sums, part_counts, sums, counts, stride, bin0,
+                     static_cast<cudaStream_t>(stream));
 }
 
 const char* vario_error_string(int code) {

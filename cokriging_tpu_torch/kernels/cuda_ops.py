@@ -2,7 +2,9 @@
 
 Counterpart of ``cokriging_tpu/kernels/pallas_ops.py``:
 
-- ``variogram_minmax`` and ``variogram_bin`` (``csrc/variogram.cu``) replace
+- ``variogram_minmax_pairs`` and ``variogram_bin_pairs`` (``csrc/variogram.cu``,
+  one launch per pass over all the variograms of a call; ``variogram_minmax``
+  and ``variogram_bin`` are their one-variogram forms) replace
   ``variogram_bin_pallas``, built to the two-pass contract of
   ``estimate/empirical.py::_all_pairs_program`` on the distance surrogate h;
 - ``matern_correlation_block`` (``csrc/matern.cu``) replaces
@@ -28,6 +30,7 @@ can show that its main path went through the kernels.
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from cokriging_tpu_torch.kernels import _build
@@ -123,8 +126,21 @@ def _check_features(fa, fb, geodesic, marginal):
 
 
 # ---------------------------------------------------------------------------
-# Variogram pair pass
+# Variogram pair passes
 # ---------------------------------------------------------------------------
+
+#: Rows and columns of pairs per block of ``csrc/variogram.cu`` (``TILE``); the
+#: library checks the tile offsets it is given against its own.
+VARIO_TILE = 256
+#: Variograms per launch of ``csrc/variogram.cu`` (``MAX_PAIRS``).
+VARIO_MAX_PAIRS = 32
+#: Bins of one window of the bin pass, and the layout of a window's lookup
+#: record (``csrc/vario.cuh``: ``MAX_BINS``, ``EDGE_CAP``, ``MAX_CELLS``,
+#: ``SLOT_CAP``, ``Record``).
+VARIO_MAX_BINS = 24
+_EDGE_CAP = 2 * (VARIO_MAX_BINS + 1)
+_MAX_CELLS = 1024
+_SLOT_CAP = 32
 
 
 def h_block(fa, fb, geodesic):
@@ -194,87 +210,210 @@ def variogram_bin_plain(fa, fb, va, vb, h_edges, marginal, geodesic, covariogram
     return sums[:n_bins], counts[:n_bins]
 
 
-def variogram_minmax(fa, fb, marginal, geodesic, h_max, h_snap):
-    """Pass 1 of the pair stream over point features ``fa`` (n, F) and
-    ``fb`` (m, F): tensor [hmin, hmax] (see ``variogram_minmax_plain``).
-    CUDA tensors run ``csrc/variogram.cu``; CPU tensors the plain version."""
-    if fa.device.type == "cpu":
-        return variogram_minmax_plain(fa, fb, marginal, geodesic, h_max, h_snap)
-    _check_cuda("variogram_minmax", fa, fb)
-    _check_features(fa, fb, geodesic, marginal)
-    n, m = fa.shape[0], fb.shape[0]
-    out = torch.full((2,), torch.inf, dtype=fa.dtype, device=fa.device)
-    out[1] = -torch.inf
-    if n == 0 or m == 0:
-        return out
-    T = _CT[fa.dtype]
-    sfx = _SUFFIX[fa.dtype]
-    n_tiles = _num_tiles(n, m, marginal)
-    part_min = torch.empty(n_tiles, dtype=fa.dtype, device=fa.device)
-    part_max = torch.empty(n_tiles, dtype=fa.dtype, device=fa.device)
-    f = _fn("variogram.cu", f"vario_minmax_{sfx}",
-            [_P, _P, _I, _I, _I, _I, T, T, _P, _P, _P, _P])
-    with torch.cuda.device(fa.device):
-        rc = f(_ptr(fa), _ptr(fb), n, m, int(geodesic), int(marginal),
-               T(float(h_max)), T(float(h_snap)), _ptr(part_min), _ptr(part_max),
-               _ptr(out), _stream(fa.device))
-    _check_rc("variogram.cu", rc, "variogram_minmax")
-    LAUNCHES["variogram_minmax"] += 1
+def variogram_minmax_pairs_plain(sides, geodesic, h_max, h_snap):
+    """Plain torch pass 1 over several variograms: ``variogram_minmax_plain``
+    of each ``(fa, fb, marginal)`` of ``sides``, stacked to (P, 2)."""
+    return torch.stack([variogram_minmax_plain(fa, fb, marg, geodesic, h_max, h_snap)
+                        for fa, fb, marg in sides])
+
+
+def variogram_bin_pairs_plain(sides, h_edges, geodesic, covariogram, h_max):
+    """Plain torch pass 2 over several variograms: ``variogram_bin_plain`` of
+    each ``(fa, fb, va, vb, marginal)`` of ``sides`` with its edges of
+    ``h_edges``, stacked to sums (P, n_bins) and counts (P, n_bins)."""
+    out = [variogram_bin_plain(fa, fb, va, vb, torch.as_tensor(e, device=fa.device), marg,
+                               geodesic, covariogram, h_max)
+           for (fa, fb, va, vb, marg), e in zip(sides, h_edges, strict=True)]
+    return torch.stack([s for s, _ in out]), torch.stack([c for _, c in out])
+
+
+def _record_offsets(np_dtype):
+    """(edges, slot, below, bytes): the byte layout of ``csrc/vario.cuh``'s
+    ``Record<T>``."""
+    slot = 16 + _EDGE_CAP * np_dtype.itemsize
+    below = slot + _SLOT_CAP
+    return 16, slot, below, (below + _MAX_CELLS + 15) // 16 * 16
+
+
+def _key_bits(x, np_dtype):
+    """``csrc/vario.cuh::key_bits``: the top 32 bits of each value."""
+    x = np.ascontiguousarray(x, np_dtype)
+    if np_dtype == np.float32:
+        return x.view(np.uint32).astype(np.int64)
+    return (x.view(np.uint64) >> np.uint64(32)).astype(np.int64)
+
+
+def _bin_record(edges, first, last, np_dtype):
+    """The lookup record (``csrc/vario.cuh::Record``) of one window's
+    n_win + 1 non-negative h-edges: (uint8 array, k_cmp, n_cells). With it the kernel
+    counts #(edges < h), which for sorted edges is
+    ``searchsorted(edges, h, side="left")``.
+
+    A cell is the top bits of h shifted right by ``shift``, less ``cell_lo``
+    (one below the least positive edge's, so zero edges have a cell of their
+    own), clipped to [0, n_cells); ``below[c]`` counts the edges in earlier
+    cells; ``k_cmp`` is the most edges one cell holds. The shift is the
+    coarsest that puts at most one edge in a cell, or, where no shift within
+    ``_MAX_CELLS`` cells does (edges closer than the cells can part), the one
+    with the fewest edges per cell. ``slot[c]`` for c = #(edges < h) is the
+    bin in the window, n_win where the pair belongs to another window;
+    ``first`` / ``last``: the window holds the first / last bin of all, which
+    take the pairs clipped from below / above."""
+    edges = np.asarray(edges)
+    n_win = edges.shape[0] - 1
+    if edges.dtype != np_dtype or edges.ndim != 1 or not 1 <= n_win <= VARIO_MAX_BINS:
+        raise ValueError(f"variogram_bin: a window needs 2 .. {VARIO_MAX_BINS + 1} edges "
+                         f"of the points' dtype {np_dtype}")
+    if not np.all(edges >= 0):  # NaN fails too
+        raise ValueError("variogram_bin: edges must be non-negative")
+    # #(edges < h) does not depend on their order; the linspace of equal
+    # ends can put an edge an ulp out of order
+    edges = np.sort(edges)
+    keys = _key_bits(edges, np_dtype)
+    # every shift at once, coarsest first: cells (32, n_win + 1), sorted rows
+    shifts = np.arange(31, -1, -1)[:, None]
+    positive = keys[edges > 0]
+    lo = (positive[0] >> shifts[:, 0]) - 1 if positive.size else np.zeros(32, np.int64)
+    n_cells = (keys[-1] >> shifts[:, 0]) - lo + 1
+    cells = np.clip((keys >> shifts) - lo[:, None], 0, (n_cells - 1)[:, None])
+    # most edges in one cell: the longest run of equal cells in each row
+    at = np.arange(cells.shape[1])
+    starts = np.where(np.diff(cells, axis=1, prepend=-1) != 0, at, 0)
+    k_all = (at - np.maximum.accumulate(starts, axis=1) + 1).max(axis=1)
+    fits = n_cells <= _MAX_CELLS  # a prefix: cells only grow as the shift falls
+    best = int(np.flatnonzero(fits & (k_all == k_all[fits].min()))[0])
+    shift, lo, n_cells, k_cmp = (int(v[best]) for v in (shifts[:, 0], lo, n_cells, k_all))
+    cells = cells[best]
+    o_edges, o_slot, o_below, size = _record_offsets(np_dtype)
+    rec = np.zeros(size, np.uint8)
+    rec[:16] = np.array([shift, lo, n_cells, k_cmp], np.int32).view(np.uint8)
+    padded = np.full(_EDGE_CAP, np.inf, np_dtype)
+    padded[:n_win + 1] = edges
+    rec[o_edges:o_slot] = padded.view(np.uint8)
+    slot = np.concatenate([[0 if first else n_win], np.arange(n_win),
+                           [n_win - 1 if last else n_win]])
+    rec[o_slot:o_slot + n_win + 2] = slot
+    rec[o_below:o_below + n_cells] = np.searchsorted(cells, np.arange(n_cells), side="left")
+    return rec, k_cmp, n_cells
+
+
+def _vario_launch_args(name, sides, n_ptrs):
+    """The C arrays of one launch over ``sides``: ``n_ptrs`` device pointers
+    per variogram, {n, m, marginal, first tile} per variogram (the tile grid
+    of ``csrc/variogram.cu``, counted here), and the total of tiles."""
+    ptrs, dims, tiles = [], [], 0
+    for side in sides:
+        n, m, marginal = side[0].shape[0], side[1].shape[0], bool(side[-1])
+        ptrs += [t.data_ptr() for t in side[:n_ptrs]]
+        dims += [n, m, int(marginal), tiles]
+        nr, nc = -(-n // VARIO_TILE), -(-m // VARIO_TILE)
+        tiles += nr * (nr + 1) // 2 if marginal else nr * nc
+    if tiles >= 2 ** 31:
+        raise ValueError(f"{name}: {tiles} tiles exceed one launch")
+    return (_P * len(ptrs))(*ptrs), (_LL * len(dims))(*dims), tiles
+
+
+def _check_sides(name, sides, geodesic, with_values):
+    if not sides:
+        raise ValueError(f"{name}: needs at least one variogram")
+    tensors = []
+    for side in sides:
+        fa, fb = side[0], side[1]
+        _check_features(fa, fb, geodesic, side[-1])
+        if with_values and (side[2].shape != (fa.shape[0],) or side[3].shape != (fb.shape[0],)):
+            raise ValueError(f"{name}: values must be (n,) and (m,)")
+        tensors += side[:4 if with_values else 2]
+    _check_cuda(name, *tensors)
+    return tensors[0].dtype, tensors[0].device
+
+
+def variogram_minmax_pairs(sides, geodesic, h_max, h_snap):
+    """Pass 1 of the pair stream over every variogram of a call:
+    ``sides[k] = (fa, fb, marginal)`` with point features ``fa`` (n, F) and
+    ``fb`` (m, F). Returns the (P, 2) tensor of [hmin, hmax] per variogram
+    (see ``variogram_minmax_plain``). CUDA tensors run ``csrc/variogram.cu``:
+    one launch over all the variograms' pairs (per ``VARIO_MAX_PAIRS``) and
+    one reduce, which writes every row; CPU tensors the plain version."""
+    if sides and sides[0][0].device.type == "cpu":
+        return variogram_minmax_pairs_plain(sides, geodesic, h_max, h_snap)
+    dtype, device = _check_sides("variogram_minmax", sides, geodesic, False)
+    T = _CT[dtype]
+    f = _fn("variogram.cu", f"vario_minmax_{_SUFFIX[dtype]}",
+            [_I, _P, _P, _I, T, T, _P, _P, _P, _P])
+    out = torch.empty((len(sides), 2), dtype=dtype, device=device)
+    for g0 in range(0, len(sides), VARIO_MAX_PAIRS):
+        group = sides[g0:g0 + VARIO_MAX_PAIRS]
+        ptrs, dims, tiles = _vario_launch_args("variogram_minmax", group, 2)
+        part = torch.empty((2, max(tiles, 1)), dtype=dtype, device=device)
+        with torch.cuda.device(device):
+            rc = f(len(group), ptrs, dims, int(geodesic), T(float(h_max)), T(float(h_snap)),
+                   _ptr(part[0]), _ptr(part[1]), _ptr(out[g0]), _stream(device))
+        _check_rc("variogram.cu", rc, "variogram_minmax")
+        if tiles:
+            LAUNCHES["variogram_minmax"] += 1
     return out
 
 
-def variogram_bin(fa, fb, va, vb, h_edges, marginal, geodesic, covariogram, h_max):
-    """Pass 2 of the pair stream: (sums float64, counts int64) per bin over
-    the cloud of values ``va`` (n,) and ``vb`` (m,) (see
-    ``variogram_bin_plain``). CUDA tensors run ``csrc/variogram.cu``; CPU
-    tensors the plain version."""
-    if fa.device.type == "cpu":
-        return variogram_bin_plain(
-            fa, fb, va, vb, h_edges, marginal, geodesic, covariogram, h_max
-        )
-    _check_cuda("variogram_bin", fa, fb, va, vb, h_edges)
-    _check_features(fa, fb, geodesic, marginal)
-    n, m = fa.shape[0], fb.shape[0]
-    n_bins = h_edges.shape[0] - 1
-    if va.shape != (n,) or vb.shape != (m,) or h_edges.ndim != 1:
-        raise ValueError("variogram_bin: values must be (n,), (m,) and edges 1-D")
-    if n_bins < 1:
-        raise ValueError("variogram_bin: needs at least one bin")
-    sums = torch.zeros(n_bins, dtype=torch.float64, device=fa.device)
-    counts = torch.zeros(n_bins, dtype=torch.int64, device=fa.device)
-    if n == 0 or m == 0:
-        return sums, counts
-    T = _CT[fa.dtype]
-    sfx = _SUFFIX[fa.dtype]
-    n_tiles = _num_tiles(n, m, marginal)
-    window = min(n_bins, _max_bins())
-    part_sums = torch.empty(n_tiles * window, dtype=torch.float64, device=fa.device)
-    part_counts = torch.empty(n_tiles * window, dtype=torch.int64, device=fa.device)
-    f = _fn("variogram.cu", f"vario_bin_{sfx}",
-            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, T, _P, _P, _P, _P, _P])
-    # the kernel's shared-memory histogram holds `window` bins: one pair pass
-    # per window of consecutive bins (the edges are sorted, so each pass
-    # knows its own pairs)
-    for bin0 in range(0, n_bins, window):
-        with torch.cuda.device(fa.device):
-            rc = f(_ptr(fa), _ptr(fb), _ptr(va), _ptr(vb), _ptr(h_edges), n_bins, bin0,
-                   n, m, int(geodesic), int(marginal), int(covariogram), T(float(h_max)),
-                   _ptr(part_sums), _ptr(part_counts), _ptr(sums), _ptr(counts),
-                   _stream(fa.device))
-        _check_rc("variogram.cu", rc, "variogram_bin")
-        LAUNCHES["variogram_bin"] += 1
+def variogram_bin_pairs(sides, h_edges, geodesic, covariogram, h_max):
+    """Pass 2 of the pair stream over every variogram of a call:
+    ``sides[k] = (fa, fb, va, vb, marginal)`` with values ``va`` (n,) and
+    ``vb`` (m,), binned at ``h_edges[k]``, its n_bins + 1 sorted,
+    non-negative h-edges (numpy, or a tensor, which is read to the host) in
+    the points' dtype. Returns sums (P, n_bins) float64 and counts (P, n_bins)
+    int64 (see ``variogram_bin_plain``). CUDA tensors run
+    ``csrc/variogram.cu``: per window of ``VARIO_MAX_BINS`` bins one launch
+    over all the variograms' pairs (per ``VARIO_MAX_PAIRS``) and one reduce,
+    which writes every bin; CPU tensors the plain version."""
+    if sides and sides[0][0].device.type == "cpu":
+        return variogram_bin_pairs_plain(sides, h_edges, geodesic, covariogram, h_max)
+    dtype, device = _check_sides("variogram_bin", sides, geodesic, True)
+    np_dtype = np.dtype(str(dtype).removeprefix("torch."))
+    edges = [e.cpu().numpy() if torch.is_tensor(e) else np.asarray(e) for e in h_edges]
+    n_bins = edges[0].shape[0] - 1 if edges else 0
+    if len(edges) != len(sides) or n_bins < 1 or any(e.shape != (n_bins + 1,) for e in edges):
+        raise ValueError("variogram_bin: one 1-D array of n_bins + 1 >= 2 edges per variogram")
+    T = _CT[dtype]
+    f = _fn("variogram.cu", f"vario_bin_{_SUFFIX[dtype]}",
+            [_I, _P, _P, _P, _I, _I, _I, _I, _I, T, _P, _P, _P, _P, _I, _I, _P])
+    sums = torch.empty((len(sides), n_bins), dtype=torch.float64, device=device)
+    counts = torch.empty((len(sides), n_bins), dtype=torch.int64, device=device)
+    window = min(n_bins, VARIO_MAX_BINS)
+    for g0 in range(0, len(sides), VARIO_MAX_PAIRS):
+        group = sides[g0:g0 + VARIO_MAX_PAIRS]
+        ptrs, dims, tiles = _vario_launch_args("variogram_bin", group, 4)
+        part_sums = torch.empty(max(tiles, 1) * window, dtype=torch.float64, device=device)
+        part_counts = torch.empty(max(tiles, 1) * window, dtype=torch.int64, device=device)
+        # the kernel's shared-memory histogram holds one window of bins: one
+        # launch per window (the edges are sorted, so each knows its pairs)
+        for bin0 in range(0, n_bins, window):
+            n_win = min(window, n_bins - bin0)
+            recs = [_bin_record(e[bin0:bin0 + n_win + 1], bin0 == 0, bin0 + n_win == n_bins,
+                                np_dtype) for e in edges[g0:g0 + VARIO_MAX_PAIRS]]
+            records = torch.from_numpy(np.concatenate([r[0] for r in recs])).pin_memory().to(
+                device, non_blocking=True)
+            with torch.cuda.device(device):
+                rc = f(len(group), ptrs, dims, _ptr(records), max(r[2] for r in recs), n_win,
+                       max(r[1] for r in recs), int(geodesic), int(covariogram),
+                       T(float(h_max)), _ptr(part_sums), _ptr(part_counts), _ptr(sums[g0]),
+                       _ptr(counts[g0]), n_bins, bin0, _stream(device))
+            _check_rc("variogram.cu", rc, "variogram_bin")
+            if tiles:
+                LAUNCHES["variogram_bin"] += 1
     return sums, counts
 
 
-def _num_tiles(n, m, marginal) -> int:
-    return int(_fn_ll("variogram.cu", "vario_num_tiles", [_I, _I, _I])(n, m, int(marginal)))
+def variogram_minmax(fa, fb, marginal, geodesic, h_max, h_snap):
+    """Pass 1 of one variogram: ``variogram_minmax_pairs`` of the one side
+    ``(fa, fb, marginal)``, the tensor [hmin, hmax]."""
+    return variogram_minmax_pairs([(fa, fb, marginal)], geodesic, h_max, h_snap)[0]
 
 
-def _max_bins() -> int:
-    f = getattr(_build.load("variogram.cu"), "vario_max_bins")
-    f.argtypes = []
-    f.restype = ctypes.c_int
-    return int(f())
+def variogram_bin(fa, fb, va, vb, h_edges, marginal, geodesic, covariogram, h_max):
+    """Pass 2 of one variogram: ``variogram_bin_pairs`` of the one side
+    ``(fa, fb, va, vb, marginal)`` at ``h_edges``, (sums, counts) per bin."""
+    sums, counts = variogram_bin_pairs([(fa, fb, va, vb, marginal)], [h_edges], geodesic,
+                                       covariogram, h_max)
+    return sums[0], counts[0]
 
 
 # ---------------------------------------------------------------------------

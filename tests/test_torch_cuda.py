@@ -107,6 +107,107 @@ def test_variogram_bin_takes_40_bins(cuda):
         assert K.launch_counts()["variogram_bin"] == before + 2
 
 
+def _on_edge_bins(fa, fb, marginal, geodesic, h_max, n_bins, dtype):
+    """n_bins + 1 h-edges drawn from the variogram's own valid h values, the
+    first pulled to 0, so that pairs lie exactly on edges (fixed edges for a
+    variogram without pairs)."""
+    h = K.h_block(fa, fb, geodesic)
+    valid = h <= h_max
+    if marginal:
+        valid &= torch.ones_like(valid).triu(1)
+    hv = torch.unique(h[valid]).cpu().numpy()
+    np_dt = np.dtype(str(dtype).removeprefix("torch."))
+    if hv.size < n_bins + 1:
+        return np.linspace(0.0, h_max, n_bins + 1).astype(np_dt)
+    edges = hv[np.linspace(0, hv.size - 1, n_bins + 1).round().astype(int)]
+    edges[0] = 0.0
+    return edges.astype(np_dt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("geodesic,covariogram", [(True, False), (True, True), (False, False)])
+def test_variogram_pairs_launch_stress(cuda, dtype, geodesic, covariogram):
+    """All 36 variograms of eight processes of 1, 127, 128, 129, 255, 256, 257
+    and 513 points (around the kernel's 256-point tiles; duplicated points
+    give h = 0) in one call per pass (two launches each: 32 variograms per
+    launch), at 15 and 40 bins (one and two windows) with edges on pairs, and
+    at 15 edges of one value after 0 (the lookup's many-compare path):
+    h ranges equal to the one-variogram launches and the plain version;
+    counts equal to the plain version's, sums within rtol 1e-5 / 1e-12; the
+    multi-variogram sums and counts bit-equal to the one-variogram launches'
+    and to a second call's."""
+    rng = np.random.default_rng(17)
+    ns = [1, 127, 128, 129, 255, 256, 257, 513]
+    pts = [_points(rng, n, dtype, cuda) for n in ns]
+    for k in range(2, len(pts)):
+        pts[k][:3] = pts[k - 1][:3]
+    if not geodesic:
+        pts = [p / 10.0 for p in pts]
+    feats = [E.point_features(p, geodesic).contiguous() for p in pts]
+    vals = [torch.as_tensor(rng.normal(size=n), dtype=dtype, device=cuda) for n in ns]
+    np_dt = np.dtype(str(dtype).removeprefix("torch."))
+    h_max = float(E._h_of_d(np_dt.type(2000.0 if geodesic else 3.0), geodesic))
+    h_snap = float(E._h_of_d(np_dt.type(1e-6), geodesic))
+    pairs = [(i, j) for i in range(len(ns)) for j in range(i, len(ns))]
+    mm_sides = [(feats[i], feats[j], i == j) for i, j in pairs]
+    before = K.launch_counts()
+    mm = K.variogram_minmax_pairs(mm_sides, geodesic, h_max, h_snap)
+    assert K.launch_counts()["variogram_minmax"] == before["variogram_minmax"] + 2
+    assert torch.equal(mm, K.variogram_minmax_pairs_plain(mm_sides, geodesic, h_max, h_snap))
+    assert torch.equal(mm, torch.stack([K.variogram_minmax(*s, geodesic, h_max, h_snap)
+                                        for s in mm_sides]))
+    sides = [(feats[i], feats[j], vals[i], vals[j], i == j) for i, j in pairs]
+    rtol = 1e-5 if dtype == torch.float32 else 1e-12
+    for n_bins in (15, 40, "same"):
+        if n_bins == "same":
+            n_bins = 14
+            edges = [np.r_[0.0, np.full(n_bins, 0.25 * h_max)].astype(np_dt) for _ in pairs]
+            assert K._bin_record(edges[0], True, True, np_dt)[1] == n_bins
+        else:
+            edges = [_on_edge_bins(feats[i], feats[j], i == j, geodesic, h_max, n_bins, dtype)
+                     for i, j in pairs]
+        before = K.launch_counts()["variogram_bin"]
+        s_k, n_k = K.variogram_bin_pairs(sides, edges, geodesic, covariogram, h_max)
+        assert K.launch_counts()["variogram_bin"] == before + 2 * (1 if n_bins <= 24 else 2)
+        s_p, n_p = K.variogram_bin_pairs_plain(sides, edges, geodesic, covariogram, h_max)
+        torch.cuda.synchronize()
+        assert torch.equal(n_k, n_p), n_bins
+        torch.testing.assert_close(s_k, s_p, rtol=rtol, atol=1e-12)
+        one = [K.variogram_bin(*s[:4], e, s[4], geodesic, covariogram, h_max)
+               for s, e in zip(sides, edges)]
+        assert torch.equal(s_k, torch.stack([a for a, _ in one]))
+        assert torch.equal(n_k, torch.stack([b for _, b in one]))
+        again = K.variogram_bin_pairs(sides, edges, geodesic, covariogram, h_max)
+        assert torch.equal(again[0], s_k) and torch.equal(again[1], n_k)
+        assert int(n_k.sum()) > 0
+
+
+def test_variogram_device_path_reads_once(cuda, monkeypatch):
+    """``empirical_variograms_device`` on the card: one launch per pass for
+    all three variograms, one host read of the h ranges between the passes
+    (and one of the results), counts equal to the CPU run's; centers and
+    means within 1e-12 (the point features' sin and cos differ by an ulp
+    between the card and the CPU)."""
+    rng = np.random.default_rng(5)
+    coords = [_points(rng, 600, torch.float64, "cpu").numpy() for _ in range(2)]
+    values = [rng.normal(size=600) for _ in range(2)]
+    cfg = E.VarioConfig(max_dist=2500.0, n_bins=15)
+    reads = []
+    to_cpu = torch.Tensor.cpu
+    monkeypatch.setattr(torch.Tensor, "cpu", lambda t, *a, **k: reads.append(t.shape) or to_cpu(t, *a, **k))
+    before = K.launch_counts()
+    _, c_k, m_k, n_k = E.empirical_variograms_device(coords, values, cfg, device=cuda)
+    after = K.launch_counts()
+    monkeypatch.undo()
+    assert after["variogram_minmax"] - before["variogram_minmax"] == 1
+    assert after["variogram_bin"] - before["variogram_bin"] == 1
+    assert reads == [(3, 2), (3, 15), (3, 15)]
+    _, c_p, m_p, n_p = E.empirical_variograms_device(coords, values, cfg, device="cpu")
+    np.testing.assert_array_equal(n_k, n_p)
+    np.testing.assert_allclose(c_k, c_p, rtol=1e-12)
+    np.testing.assert_allclose(m_k, m_p, rtol=1e-12)
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
 @pytest.mark.parametrize("nu,ls", [(0.3, 300.0), (0.5, 300.0), (1.5, 800.0), (2.7, 1500.0)])
 def test_block_grad_kernel_matches_plain(cuda, dtype, tol, nu, ls):

@@ -16,10 +16,12 @@ from cokriging_tpu.cov import MultivariateMatern as JMod
 from cokriging_tpu.fields.field import Field as JField
 from cokriging_tpu.fields.field import MultiField as JMultiField
 from cokriging_tpu.predict import IterativeJointPredictor as JIterative
-from cokriging_tpu_torch.cov.matern import MultivariateMatern, block_covariance
+from cokriging_tpu.predict import iterative as JI
+from cokriging_tpu_torch.cov.matern import MultivariateMatern, block_covariance, pair_table
 from cokriging_tpu_torch.estimate.nll import joint_distance_blocks
 from cokriging_tpu_torch.fields.field import Field, MultiField
 from cokriging_tpu_torch.kernels import cuda_ops as K
+from cokriging_tpu_torch.predict import iterative as TI
 from cokriging_tpu_torch.predict.iterative import IterativeJointPredictor, _tiled_rows_matvec
 from cokriging_tpu_torch.predict.joint import JointPredictor
 from cokriging_tpu_torch.utils.convert import params_from_numpy
@@ -111,3 +113,60 @@ def test_non_convergence_warns_and_options_raise(setup):
         ijp(0, pc, postprocess=True)
     with pytest.raises(NotImplementedError):
         IterativeJointPredictor(mod, _mf(coords, values), mesh=object(), device="cpu")
+
+
+def test_cg_residual_trajectory_follows_jax(setup, monkeypatch):
+    """The mean solve's relative residual, iteration by iteration (40 of
+    them, tol 0), of the port's ``_pcg`` and of the JAX package's CG
+    (``_pcg_init_core``, then ``_pcg_segment_core`` one iteration at a time,
+    as ``_pcg_host`` drives it) on one float64 system. The two agree to
+    rtol 1e-6 for the first 15 iterations; then round-off parts them, and
+    the residual of both rises at some iterations (CG's residual is not
+    monotone; its error's C-norm is) while both fall by four orders of
+    magnitude overall. So a residual that grows between two iterations is
+    the conditioning and round-off both packages share, not a fault of the
+    port. The port's per-iteration residuals come from ``_pcg`` at maxiter
+    1 .. 40 (CG from one start is deterministic), its matvecs memoized."""
+    coords, values, _ = setup
+    c = np.concatenate(coords)
+    procs = np.repeat([0, 1], [30, 37])
+    z = np.concatenate(values)
+    block, iters = 32, 40
+    pad = (-len(c)) % block
+    mask = np.r_[np.ones(len(c)), np.zeros(pad)]
+    jargs = (JParams.from_flat(jnp.asarray(FLAT)), jnp.asarray(np.r_[c, np.repeat(c[-1:], pad, 0)]),
+             jnp.asarray(np.r_[procs, np.repeat(procs[-1:], pad)], dtype=jnp.int32),
+             jnp.asarray(mask))
+    statics = dict(geodesic=False, block=block, mesh=None)
+    state, diag, bnorm = JI._pcg_init_core(*jargs, jnp.asarray(np.r_[z, np.zeros(pad)])[:, None],
+                                           **statics)
+    jax_rel = []
+    for _ in range(iters):
+        state, _, rel = JI._pcg_segment_core(*jargs, diag, bnorm, state, 0.0, seg=1, **statics)
+        jax_rel.append(float(rel))
+
+    seen = {}
+    matvec = TI._tiled_rows_matvec
+
+    def memo(*args):
+        key = args[5].numpy().tobytes()
+        if key not in seen:
+            seen[key] = matvec(*args)
+        return seen[key].clone()
+
+    monkeypatch.setattr(TI, "_tiled_rows_matvec", memo)
+    params = params_from_numpy(FLAT)
+    ct, pt, zt = torch.as_tensor(c), torch.as_tensor(procs), torch.as_tensor(z)[:, None]
+    table = pair_table(params, ct.device, ct.dtype)
+    port_rel = []
+    with torch.no_grad():
+        for k in range(1, iters + 1):
+            _, done, rel = TI._pcg(params, ct, pt, zt, 0.0, k, False, block, table)
+            assert done == k
+            port_rel.append(rel)
+    assert len(seen) == iters
+    jax_rel, port_rel = np.array(jax_rel), np.array(port_rel)
+    np.testing.assert_allclose(port_rel[:15], jax_rel[:15], rtol=1e-6)
+    for rel in (jax_rel, port_rel):
+        assert (np.diff(rel[15:]) > 0).any()  # rises at some iterations
+        assert rel[-5:].min() <= 1e-4 * rel[0]

@@ -19,10 +19,13 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from cokriging_tpu.cov import matern as JM
 from cokriging_tpu_torch.cov.matern import matern_correlation
 from cokriging_tpu_torch.kernels import cuda_ops as K
 from cokriging_tpu_torch.kernels.bessel import CF2_ITERS, SERIES_ITERS, _kv_value
@@ -417,6 +420,58 @@ def test_pairs_grad_entry_matches_plain(harness, sfx, spread):
         assert bool((err <= bar).all()), float((err / bar).max())
     assert int((~live).sum()) == 4 * len(nu) and not ok[~live].any()  # 0, -0, inf, NaN
     assert ok[live & (x < 50)].all()  # every entry short of M's underflow has its terms
+
+
+def _jax_pair_grad(nu, ls, h, k, w, dtype):
+    """The JAX package's float32 or float64 gradient terms at the same
+    (float32) inputs, summed per pair in float64 with non-finite terms
+    zeroed: autograd of the elementwise ``_matern_corr_raw`` that
+    ``matern_corr_pairs`` evaluates on the CPU, per entry."""
+    kk = k.numpy()
+
+    def loss(nu_e, ls_e):
+        return jnp.sum(jnp.asarray(w.numpy(), dtype) * JM._matern_corr_raw(
+            nu_e, ls_e, jnp.asarray(h.numpy(), dtype)))
+
+    terms = jax.jit(jax.grad(loss, argnums=(0, 1)))(jnp.asarray(nu.numpy()[kk], dtype),
+                                           jnp.asarray(ls.numpy()[kk], dtype))
+    return np.stack([np.bincount(kk, weights=np.where(np.isfinite(t), t, 0.0).astype(np.float64),
+                                 minlength=len(nu)) for t in map(np.asarray, terms)], axis=1)
+
+
+def test_pairs_grad_f32_distance_from_f64_is_shared_with_jax(harness):
+    """The f32 pairs gradient at the geometric spread (a third of each
+    pair's entries below x = 0.05), per-pair sums as a share of the float64
+    sum of |terms|, against the float64 value of the JAX package: the JAX
+    float32 terms, the kernel's (``pairs_grad_term``) and the plain
+    version's are all about 1e-5 away (measured 1.1e-5, 1.2e-5, 1.2e-5)
+    except in the dM/dnu sums at nu = 1.5 -+ one float32 ulp, where all
+    three are 8.1e-3 and 3.8e-3 away and within 4e-6 of each other: the reference's CF2 tangent,
+    truncated at a degenerate lane, is truncated at another trip in float64
+    (ROADMAP Queue 3). JAX's float32 is no closer to float64 than the port's,
+    so this is a limit of float32 that both packages share, not a fault of
+    the port."""
+    nu, ls, h, k, w = _grad_case("f32", np.random.default_rng(31), "geometric")
+    nu_abs = nu.abs()
+    jax32 = _jax_pair_grad(nu_abs, ls, h, k, w, jnp.float32)
+    jax64 = _jax_pair_grad(nu_abs, ls, h, k, w, jnp.float64)
+    mag = K.matern_corr_pairs_grad_plain(nu_abs.double(), ls.double(), k.double(), h.double(),
+                                         w.double(), absolute=True).numpy()
+    plain32 = K.matern_corr_pairs_grad_plain(nu_abs, ls, k.float(), h, w).numpy()
+    g_nu, g_ls, _ = _run_grad_terms(harness, "f32", h, w, k, K.recurrence_table(
+        nu, ls, torch.float32, dual=True))
+    kernel32 = torch.stack([torch.bincount(k, weights=g.double(), minlength=len(nu))
+                            for g in (g_nu, g_ls)], dim=1).numpy()
+    ulp = np.zeros(mag.shape, bool)
+    ulp[[3, 4], 0] = True  # the sums of dM/dnu at nu = 1.5 -+ ulp
+    dist = {name: np.abs(v - jax64) / mag
+            for name, v in (("jax", jax32), ("kernel", kernel32), ("plain", plain32))}
+    for name, d in dist.items():
+        assert d[~ulp].max() <= 3e-5, (name, d)
+        assert 1e-3 <= d[ulp].min() and d[ulp].max() <= 1e-2, (name, d)
+    for name in ("kernel", "plain"):
+        assert np.abs(dist[name] - dist["jax"])[ulp].max() <= 1e-5, name
+        assert dist[name][~ulp].max() <= 2.0 * dist["jax"][~ulp].max(), name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
