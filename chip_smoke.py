@@ -54,7 +54,8 @@ Phases, in order; any failure exits nonzero without the final ok line:
     kernel must have run, the fit must lie in its bounds, and the
     predictions must follow the reference's semantics (> 99% finite when
     the fitted joint covariance is positive definite; in any case > 99%
-    finite for the same month with rho = 0, see ``check_predictions``);
+    finite for the same month with rho = 0, see ``check_predictions``; the
+    finite share with the fit projected onto the validity region is logged);
 (e) kernel timing with CUDA events at the path's shapes beside the plain
     versions (and the Matern kernel at one 12,500^2 symmetric block, held
     against its plain version there too; the variogram passes alone at 2 x
@@ -97,6 +98,30 @@ Phases, in order; any failure exits nonzero without the final ok line:
     entries, and one pairs call and one CG matvec over all 49 row tiles run
     under ``torch.cuda.set_sync_debug_mode("error")`` (``cg_sync_free``). Its
     rows of the kernels line follow.
+
+(h) the table-to-map workflow at the size of bench.py's month, float32 then
+    float64: long-format frames of three months of the synthetic CONUS month
+    (2 x 12,500 rows per month, fresh noise each month, a linear time trend,
+    lat/lon covariates) -> ``MultiField.from_dataframes`` (timedeltas 0, -1;
+    every row main) -> ``empirical_variograms(mf)`` (1500 km, 15 bins; one
+    launch per pass) -> the CLI's WLS fit with ``project_validity=True``
+    (bounds, Cauchy-Schwarz) -> ``LocalPredictor(..., postprocess=True)`` at
+    the 6,256 land cells from (d)'s ~202 main data per field (1000 km; > 99%
+    finite) -> local LOOCV at all 12,500 data of process 0 (130 km: as many
+    data per neighborhood as (d)'s; > 99% finite) -> dense and CG LOOCV on
+    the first 2 x 2,500 rows with nuggets 0.1 (tol 1e-10, maxiter 500, chunks
+    of 1024; float64 rtol 1e-6 / atol 1e-8, the float32 gap logged). Every
+    stage runs with the launch counts set to 0 before it and read after it
+    (variogram passes 1 + 1, the Matern forward in prediction and in the
+    three LOOCVs, the pairs forward in CG); each postprocessed column is held
+    against a float64 numpy back-transform with the field's TrendStats, and
+    each LOOCV residual equals data - pred. Its rows of the kernels line: the
+    variogram passes at its shapes, the Matern forward at the LOOCV's three
+    12,500^2 blocks, the pairs forward at one CG row tile. Last, the CLI
+    (``python -m cokriging_tpu_torch fit / predict / loocv --device cuda``
+    in subprocesses) on tests/test_cli.py's staged tables against the same
+    commands with ``--device cpu``, float64: parameters rtol 1e-6, columns
+    atol 1e-6.
 
 ``python3 chip_smoke.py abcg`` runs only the phases named (a and b always)
 and prints no result line. The kernels line's rows of the kernels
@@ -332,7 +357,7 @@ def keep(store, key, fn):
     return run
 
 
-def variogram_case(c1, v1, c2, v2, dtype, device):
+def variogram_case(c1, v1, c2, v2, dtype, device, max_dist=3000.0):
     """The path's three pair passes: per pair its point features, centered
     values, h thresholds and (from the kernel's h range) h-edges."""
     import torch
@@ -347,7 +372,7 @@ def variogram_case(c1, v1, c2, v2, dtype, device):
         feats.append(E.point_features(ct, True))
         vals.append((vt - vt.sum() / vt.shape[0]).contiguous())
     snap = 2e-2 if td == torch.float32 else 1e-6
-    h_max = float(E._h_of_d(np.dtype(dtype).type(3000.0), True))
+    h_max = float(E._h_of_d(np.dtype(dtype).type(max_dist), True))
     h_snap = float(E._h_of_d(np.dtype(dtype).type(snap), True))
     return feats, vals, h_max, h_snap, snap
 
@@ -711,8 +736,16 @@ def check_predictions(lp, out, pc, name):
     out0 = LocalPredictor(MultivariateMatern(params=p0), lp.mf, device=lp.device)(
         0, pc.astype(out.pred.dtype), max_dist=1_000.0)
     finite0 = float(np.isfinite(out0.pred).mean())
+    # the same fit projected onto the validity region (fit_wls's
+    # project_validity=True), logged beside
+    from cokriging_tpu_torch.cov.spectral import project_to_valid
+
+    outp = LocalPredictor(MultivariateMatern(params=project_to_valid(lp.params)), lp.mf,
+                          device=lp.device)(0, pc.astype(out.pred.dtype), max_dist=1_000.0)
+    finitep = float(np.isfinite(outp.pred).mean())
     log(f"(d) {name}: fitted joint covariance PD at the data: {joint_pd}; "
-        f"finite predictions {finite:.4%}; with rho = 0: {finite0:.4%}")
+        f"finite predictions {finite:.4%}; with rho = 0: {finite0:.4%}; with the fit projected "
+        f"onto the validity region: {finitep:.4%}")
     check(finite0 > 0.99, f"(d) {name}: only {finite0:.2%} finite predictions with rho = 0")
 
 
@@ -862,11 +895,13 @@ def vario_bound(n_pairs, n_valid, k_cmp, n_bins, dtype_name, minmax):
     return ops / rate, "operations", old / rate
 
 
-def vario_rows(c1, v1, c2, v2, dtype, launches, shape, reps, plain_reps):
+def vario_rows(c1, v1, c2, v2, dtype, launches, shape, reps, plain_reps, max_dist=3000.0,
+               suffix=""):
     """The two passes over the three variograms of one month of points
-    (c1, c2): one call each, timed with CUDA events beside the plain
-    versions, with bounds from this run's pairs and counts; counts checked
-    equal to the plain version's. Rows of the kernels line."""
+    (c1, c2) within ``max_dist`` km: one call each, timed with CUDA events
+    beside the plain versions, with bounds from this run's pairs and counts;
+    counts checked equal to the plain version's. Rows of the kernels line
+    (named with ``suffix``)."""
     import torch
 
     from cokriging_tpu_torch.estimate import empirical as E
@@ -874,7 +909,7 @@ def vario_rows(c1, v1, c2, v2, dtype, launches, shape, reps, plain_reps):
 
     name = np.dtype(dtype).name
     np_dt = np.dtype(dtype)
-    feats, vals, h_max, h_snap, snap = variogram_case(c1, v1, c2, v2, dtype, "cuda")
+    feats, vals, h_max, h_snap, snap = variogram_case(c1, v1, c2, v2, dtype, "cuda", max_dist)
     mm_sides, sides = vario_sides(feats, vals, MONTH_PAIRS)
     hr = K.variogram_minmax_pairs(mm_sides, True, h_max, h_snap).cpu().numpy()
     edges = [E._device_bins(lo, hi, True, np_dt.type(snap), 15, np_dt)[1] for lo, hi in hr]
@@ -894,15 +929,17 @@ def vario_rows(c1, v1, c2, v2, dtype, launches, shape, reps, plain_reps):
         got, want = (kept["kernel"], kept["plain"]) if minmax else (kept["kernel"][1],
                                                                     kept["plain"][1])
         check(torch.equal(got, want), f"{kname} {name} {shape}: differs from the plain version")
+        # h ranges and counts equal; the bin sums' largest difference
+        err = 0.0 if minmax else float((kept["kernel"][0] - kept["plain"][0]).abs().max())
         bound_ms, bound_by, old_bound = vario_bound(n_pairs, n_valid, k_cmp, 15, name, minmax)
         rows.append(dict(
-            name=f"{kname}_{name}", route="cuda",
+            name=f"{kname}_{name}{suffix}", route="cuda",
             source="cokriging_tpu_torch/kernels/csrc/variogram.cu",
             replaces="cokriging_tpu/kernels/pallas_ops.py:143",
             launches=launches[kname], ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
             bound_ms_edge_scan=old_bound, shape=shape, pairs=n_pairs, binned=sum(n_valid),
-            k_cmp=k_cmp,
+            k_cmp=k_cmp, max_abs_err=err,
         ))
     return rows
 
@@ -1864,7 +1901,377 @@ def phase_g(dtype, results):
     return rows
 
 
-def main(phases="abcdefg"):
+# --- phase (h): the table-to-map workflow ---------------------------------
+
+H_TIMES = ("2019-01-01", "2019-02-01", "2019-03-01")
+H_TIMESTAMP = "2019-02-01"
+H_TREND = 0.25  # the linear time trend added per month
+H_MAX_DIST = 1500.0  # variogram range cutoff, km (the CLI's default)
+H_FIT_MAXITER = 200  # the CLI's default
+# LOOCV at all 12,500 data of a field: the radius whose neighborhoods hold as
+# many data (~45 per process) as (d)'s 1000 km does on its ~202-point
+# prediction fields; at 1000 km every one of the 12,500 systems would hold
+# ~5,400 data
+H_LOOCV_KM = 130.0
+H_SMALL = 2_500  # per process: the joint and CG LOOCV's rows
+CLI_TIMES = ("2018-04-01", "2018-05-01", "2018-06-01")
+
+
+def month_frames(n=N_PER_PROC, seed=11):
+    """Three months of bench.py's synthetic CONUS month as two long-format
+    frames [time, lat, lon, <name>, <name>_var]: the month's locations (seed
+    0), fresh noise each month (``seed``), a linear time trend."""
+    import pandas as pd
+
+    rng = np.random.default_rng(0)
+    c1, s1 = synthetic_month(rng, n)
+    c2, s2 = synthetic_month(rng, n)
+    nrng = np.random.default_rng(seed)
+    frames = []
+    for name, c, s, scale in (("xco2", c1, s1, 1.0), ("sif", c2, s2, -0.6)):
+        frames.append(pd.concat([
+            pd.DataFrame({"time": pd.Timestamp(t), "lat": c[:, 0], "lon": c[:, 1],
+                          name: scale * s + nrng.normal(scale=0.4, size=n) + H_TREND * k,
+                          f"{name}_var": 0.01})
+            for k, t in enumerate(H_TIMES)], ignore_index=True))
+    return frames, c1, c2
+
+
+def head_field(f, n):
+    """The first ``n`` rows of a field whose rows are all main."""
+    import dataclasses
+
+    mv = f.measurement_var
+    return dataclasses.replace(
+        f, coords=f.coords[:n], values=f.values[:n], coords_main=f.coords_main[:n],
+        values_main=f.values_main[:n], measurement_var=None if mv is None else mv[:n],
+        spatial_trend=f.spatial_trend[:n], spatial_trend_main=f.spatial_trend_main[:n])
+
+
+def check_back_transform(frame, raw_pred, raw_err, trend, surface, what, rtol):
+    """A postprocessed frame against its standardized values back-transformed
+    in float64 numpy with the field's TrendStats (``surface``: the OLS trend
+    at the frame's rows)."""
+    pred = raw_pred.astype(np.float64) * trend.scale_fact + trend.spatial_mean + surface \
+        + trend.temporal_trend
+    err = raw_err.astype(np.float64) * trend.scale_fact
+    ok = np.isfinite(pred)
+    check(np.array_equal(ok, np.isfinite(frame["pred"].to_numpy())), f"(h) {what}: NaN lanes moved")
+    gap = float(np.max(np.abs(frame["pred"].to_numpy()[ok] - pred[ok]) / np.abs(pred[ok]).clip(1.0)))
+    gap_e = float(np.max(np.abs(frame["pred_err"].to_numpy()[ok] - err[ok])))
+    check(gap <= rtol and gap_e <= rtol * trend.scale_fact,
+          f"(h) {what}: back-transform off by {gap:.3e} / {gap_e:.3e} (bar {rtol})")
+    return gap
+
+
+def phase_h(dtype, results):
+    """The table-to-map workflow at the size of bench.py's month in one
+    dtype; returns its rows of the kernels line."""
+    import warnings
+
+    import torch
+
+    from cokriging_tpu_torch.cov.matern import MultivariateMatern
+    from cokriging_tpu_torch.cov.spectral import params_rho_max
+    from cokriging_tpu_torch.data.grids import prediction_coords
+    from cokriging_tpu_torch.estimate.empirical import VarioConfig, empirical_variograms
+    from cokriging_tpu_torch.estimate.wls import cauchy_schwarz_check, fit_wls, moment_init
+    from cokriging_tpu_torch.fields.field import MultiField
+    from cokriging_tpu_torch.kernels import cuda_ops as K
+    from cokriging_tpu_torch.predict import IterativeJointPredictor, JointPredictor, LocalPredictor
+
+    name = np.dtype(dtype).name
+    td = getattr(torch, name)
+    atol = 5e-6 if name == "float32" else 1e-12
+    back_rtol = 1e-6 if name == "float32" else 1e-12
+    stages, launches = {}, {}
+
+    def stage(key, fn, kernels=()):
+        """``fn`` with the launch counts set to 0 just before and read just
+        after, timed on the host clock around a synchronize; every kernel
+        named must have run."""
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+        torch.cuda.synchronize()
+        stages[key] = time.perf_counter() - t0
+        launches[key] = {k: v for k, v in K.launch_counts().items() if v}
+        for w in caught:
+            log(f"(h) {name} {key}: warning: {str(w.message)[:110]}")
+        for k in kernels:
+            check(launches[key].get(k, 0) > 0, f"(h) {name} {key}: no {k} launch: {launches[key]}")
+        return out
+
+    # 1-2. the frames and the fields: all 12,500 rows of each field main
+    (frames, c1, c2), frames_s = timed_host(lambda: month_frames(N_PER_PROC))
+    args = (frames, ["xco2", "sif"], [["lon", "lat"]] * 2, H_TIMESTAMP, [0, -1])
+    mf64, fields_s = timed_host(lambda: MultiField.from_dataframes(*args, main_coords=None))
+    mf = mf64.astype(td)
+    log(f"(h) {name}: frames 2 x 3 months x {N_PER_PROC} rows in {frames_s:.3f} s, fields "
+        f"(trend removal, OLS, standardization) in {fields_s:.3f} s: timestamps "
+        f"{[f.timestamp for f in mf.fields]}, main rows {[f.coords_main.shape[0] for f in mf.fields]}, "
+        f"temporal trends {[round(f.trend.temporal_trend, 6) for f in mf.fields]}")
+    check([f.timestamp for f in mf.fields] == ["2019-02-01", "2019-01-01"], "(h) timedeltas")
+
+    # 3. variograms: one launch per pass
+    est = stage("variograms", lambda: empirical_variograms(
+        mf, VarioConfig(max_dist=H_MAX_DIST, n_bins=15)), ("variogram_minmax", "variogram_bin"))
+    check(launches["variograms"].get("variogram_minmax") == 1
+          and launches["variograms"].get("variogram_bin") == 1,
+          f"(h) {name}: variogram launches {launches['variograms']}, not 1 + 1")
+    check(est.timestamp == H_TIMESTAMP and est.timedeltas == [0, -1], "(h) estimate metadata")
+
+    # 4. the fit, as the CLI runs it: scipy L-BFGS-B from the moment
+    # initializer, projected onto the validity region
+    params, result = stage("fit", lambda: fit_wls(
+        est, init=moment_init(est), maxiter=H_FIT_MAXITER, project_validity=True))
+    x = params.to_flat().cpu().numpy().astype(np.float64)
+    lo, hi = params.spec.bounds()
+    tol = 1e-6 * (hi - lo)
+    cs_ok = cauchy_schwarz_check(params)
+    rho, bound = abs(float(params.rho[0, 1])), 0.99 * float(params_rho_max(params, 0, 1))
+    results[f"h_cs_{name}"] = cs_ok
+    log(f"(h) {name}: fit cost {result.cost:.6g}, iterations {result.n_iter}, success "
+        f"{result.success}, params {np.array2string(x, precision=5)}, |rho| {rho:.6g} within the "
+        f"projection's bound {bound:.6g}, Cauchy-Schwarz {cs_ok}")
+    check(params.sigma.dtype == td, f"(h) {name}: fitted params in {params.sigma.dtype}")
+    check(bool(np.all((x >= lo - tol) & (x <= hi + tol))), f"(h) {name}: params out of bounds")
+    check(rho <= bound * (1 + 1e-6), f"(h) {name}: |rho| {rho} above the projection's bound {bound}")
+    check(float(params.nu[0, 1]) >= 0.5 * float(params.nu[0, 0] + params.nu[1, 1]) * (1 - 1e-6),
+          f"(h) {name}: cross smoothness below the Gneiting floor after the projection")
+    if not cs_ok:
+        # this month's fit sits on the box (nu 0.2 / 3.5 / 0.2, ls_22 100 km),
+        # where the spectral bound of cov.spectral.rho_max admits a rho that
+        # fails Cauchy-Schwarz: the JAX package returns the same projected
+        # parameters and the same verdict (tests/test_torch_wls_validity.py)
+        log(f"(h) {name}: the projected fit fails the Cauchy-Schwarz check, as the JAX package's "
+            f"does on this month")
+    mod = MultivariateMatern(params=params)
+
+    # 5. prediction at the land cells on the data scale, from the fields on
+    # (d)'s prediction grid of ~202 data each (every 62nd observation)
+    sub = max(1, N_PER_PROC // 200)
+    main = np.concatenate([c1[::sub], c2[::sub]])
+    mf_pred = MultiField.from_dataframes(*args, main_coords=main).astype(td)
+    pc = prediction_coords().astype(dtype)
+
+    def predict():
+        lp = LocalPredictor(mod, mf_pred)
+        return lp, lp(0, pc, postprocess=True)
+
+    lp, frame = stage("predict", predict, ("matern_correlation",))
+    raw = lp(0, pc)
+    trend = mf_pred.fields[0].trend
+    finite = float(np.isfinite(frame["pred"].to_numpy()).mean())
+    gap = check_back_transform(frame, raw.pred, raw.pred_err, trend,
+                               trend.predict_ols(pc[:, ::-1].astype(np.float64)), "predict",
+                               back_rtol)
+    results[f"h_finite_predict_{name}"] = finite
+    log(f"(h) {name}: predict at {len(pc)} cells from {[f.coords_main.shape[0] for f in mf_pred.fields]} "
+        f"main data, 1000 km: finite {finite:.4%}, back-transform max rel gap {gap:.3e}, pred range "
+        f"[{np.nanmin(frame['pred']):.4f}, {np.nanmax(frame['pred']):.4f}]")
+    check(finite > 0.99, f"(h) {name}: only {finite:.2%} finite predictions after the projection")
+
+    # 6. local LOOCV at all 12,500 data of process 0
+    def local_cv():
+        lp_cv = LocalPredictor(mod, mf)
+        return lp_cv, lp_cv.cross_validation(0, max_dist=H_LOOCV_KM, postprocess=True)
+
+    with captured("matern_correlation_block") as m_calls:
+        lp_cv, cv = stage("local_loocv", local_cv, ("matern_correlation",))
+    cv_raw = lp_cv.cross_validation(0, max_dist=H_LOOCV_KM)
+    f0 = mf.fields[0]
+    finite_cv = float(np.isfinite(cv["pred"].to_numpy()).mean())
+    check(np.array_equal(cv["residual"].to_numpy(), (cv["data"] - cv["pred"]).to_numpy(),
+                         equal_nan=True),
+          f"(h) {name}: local LOOCV residual is not data - pred")
+    gap_cv = check_back_transform(cv, cv_raw.pred, cv_raw.pred_err, f0.trend,
+                                  f0.spatial_trend_main, "local LOOCV", back_rtol)
+    feb = frames[0][frames[0]["time"] == H_TIMESTAMP]["xco2"].to_numpy()
+    data_gap = float(np.max(np.abs(cv["data"].to_numpy() - feb)))
+    check(data_gap <= (1e-5 if name == "float32" else 1e-12) * float(np.abs(feb).max()),
+          f"(h) {name}: the LOOCV data column is not the frame's data ({data_gap:.3e})")
+    results[f"h_finite_loocv_{name}"] = finite_cv
+    log(f"(h) {name}: local LOOCV at {len(cv)} data, {H_LOOCV_KM:g} km: finite {finite_cv:.4%}, "
+        f"mean neighborhood {float(cv_raw.n_neighbors.mean()):.1f}, MSPE "
+        f"{float(np.nanmean(cv['residual'] ** 2)):.6g}, back-transform gap {gap_cv:.3e}, data "
+        f"column vs the frame {data_gap:.3e}")
+    check(finite_cv > 0.99, f"(h) {name}: only {finite_cv:.2%} finite LOOCV predictions")
+    del lp_cv, cv_raw
+    torch.cuda.empty_cache()
+
+    # 7. joint and CG LOOCV where the dense one fits and CG converges
+    small = MultiField(fields=[head_field(f, H_SMALL) for f in mf.fields], timestamp=mf.timestamp,
+                       timedeltas=mf.timedeltas)
+    mod_n = MultivariateMatern(params=params.replace(nugget=torch.full_like(params.nugget, 0.1)))
+    dense = stage("joint_loocv", lambda: JointPredictor(mod_n, small).cross_validation(
+        0, postprocess=True), ("matern_correlation",))
+    ijp = IterativeJointPredictor(mod_n, small, block=512, rhs_batch=1024, tol=1e-10, maxiter=500)
+    with captured("matern_corr_pairs", 1) as cg_calls:
+        it = stage("cg_loocv", lambda: ijp.cross_validation(0, postprocess=True),
+                   ("matern_corr_pairs",))
+    gaps = {c: float(np.max(np.abs(it[c].to_numpy() - dense[c].to_numpy())
+                            / (0.01 + np.abs(dense[c].to_numpy()))))
+            for c in ("pred", "pred_err")}
+    abs_gap = {c: float(np.max(np.abs(it[c].to_numpy() - dense[c].to_numpy())))
+               for c in ("pred", "pred_err")}
+    log(f"(h) {name}: joint vs CG LOOCV at 2 x {H_SMALL} (nugget 0.1, tol 1e-10, maxiter 500, "
+        f"chunks of 1024): CG (iterations, residual) {ijp.last_diagnostics}; max abs gap {abs_gap}, "
+        f"relative to |dense| + 0.01 {gaps}")
+    results[f"h_cg_gap_{name}"] = abs_gap
+    check(np.array_equal(it["residual"].to_numpy(), (it["data"] - it["pred"]).to_numpy(),
+                         equal_nan=True),
+          f"(h) {name}: CG LOOCV residual is not data - pred")
+    if name == "float64":
+        for c in ("pred", "pred_err"):
+            check(np.allclose(it[c], dense[c], rtol=1e-6, atol=1e-8),
+                  f"(h) float64: CG LOOCV {c} off the dense LOOCV by {abs_gap[c]:.3e}")
+
+    # the path's kernels against their plain versions at its own shapes
+    rows = vario_rows(*[np.ascontiguousarray(a.numpy()) for a in (
+        mf.fields[0].coords, mf.fields[0].values, mf.fields[1].coords, mf.fields[1].values)],
+        dtype, launches["variograms"], f"(h) 3 pairs x {N_PER_PROC} points x 15 bins, 1500 km",
+        20, 3, max_dist=H_MAX_DIST, suffix="_h")
+    for r in rows:
+        r.update(launches=launches["variograms"][r["name"].rsplit("_", 2)[0]],
+                 path="(h) variograms of the fields")
+    # block by block: the plain version's temporaries of three 12,500^2
+    # blocks at once do not fit beside the kept outputs in float64
+    m_ms = m_plain = m_err = 0.0
+    for a in m_calls:
+        kept = {}
+        m_ms += cuda_time_ms(keep(kept, "kernel", lambda: K.matern_correlation_block(
+            *a[:3], symmetric=a[3], table=a[4])), 2)
+        m_plain += cuda_time_ms(keep(kept, "plain", lambda: K.matern_correlation_block_plain(
+            *a[:3], symmetric=a[3])), 1, warm=False)
+        m_err = max(m_err, float((kept["kernel"] - kept["plain"]).abs().max()))
+        del kept
+        torch.cuda.empty_cache()
+    check(m_err <= atol, f"(h) {name}: Matern blocks of the LOOCV covariance err {m_err} (bar {atol})")
+    mb = bound_of([matern_bound(a[2], float(a[0]), float(a[1]), a[3]) for a in m_calls])
+    rows.append(dict(
+        name=f"matern_correlation_{name}_h", route="cuda",
+        source="cokriging_tpu_torch/kernels/csrc/matern.cu",
+        replaces="cokriging_tpu/kernels/pallas_ops.py:782",
+        launches=launches["local_loocv"].get("matern_correlation", 0), ms=m_ms, plain_ms=m_plain,
+        bound_ms=mb[0], bound_by=mb[1], library_ms=None, max_abs_err=m_err, max_err=m_err,
+        path="(h) local LOOCV joint covariance",
+        shape=f"{N_PER_PROC}^2 sym + {N_PER_PROC}^2 + {N_PER_PROC}^2 sym at the fitted nu, ls"))
+    del m_calls, lp
+    torch.cuda.empty_cache()
+    c_err, c_ms, c_plain = pairs_forward_check(cg_calls, atol, f"one {name} (h) CG LOOCV row tile")
+    cb = bound_of([pairs_bound([(cg_calls[0][3], cg_calls[0][2])], cg_calls[0][0].tolist(),
+                               cg_calls[0][1].tolist())])
+    rows.append(dict(
+        name=f"matern_corr_pairs_{name}_h_cg", route="cuda",
+        source="cokriging_tpu_torch/kernels/csrc/matern_pairs.cu",
+        replaces="cokriging_tpu/kernels/pallas_ops.py:631",
+        launches=launches["cg_loocv"].get("matern_corr_pairs", 0), ms=c_ms, plain_ms=c_plain,
+        bound_ms=cb[0], bound_by=cb[1], library_ms=None, max_abs_err=c_err, max_err=c_err,
+        path="(h) CG LOOCV", shape=f"one row tile {tuple(cg_calls[0][3].shape)}"))
+    del cg_calls, ijp
+    torch.cuda.empty_cache()
+    log(f"(h) {name}: stages (s) {json.dumps(stages)}")
+    log(f"(h) {name}: launches per stage {json.dumps(launches)}")
+    return rows
+
+
+def timed_host(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def cli_table(name, rng, own_seed):
+    """tests/test_cli.py's staged table: [time, lat, lon, <name>, <name>_var]
+    on the 4 x 5-degree base grid, three months, smooth partially correlated
+    signals."""
+    import pandas as pd
+
+    from cokriging_tpu_torch.data.grids import main_coords_array
+
+    mc = main_coords_array()
+    srng = np.random.default_rng(own_seed)
+    base = (np.sin(np.deg2rad(mc[:, 0]) * 5) + 0.5 * np.cos(np.deg2rad(mc[:, 1]) * (3 + own_seed % 3))
+            + 0.6 * srng.normal(size=len(mc)))
+    return pd.concat([
+        pd.DataFrame({"time": pd.Timestamp(t), "lat": mc[:, 0], "lon": mc[:, 1],
+                      name: base + 0.15 * rng.normal(size=len(mc)) + 0.05 * k, f"{name}_var": 0.01})
+        for k, t in enumerate(CLI_TIMES)], ignore_index=True)
+
+
+def phase_h_cli():
+    """``python -m cokriging_tpu_torch fit / predict / loocv --device cuda``
+    on tests/test_cli.py's staged tables, held against the same commands with
+    ``--device cpu`` (in this process), float64: parameters rtol 1e-6,
+    predictions and LOOCV columns atol 1e-6."""
+    import os
+    import tempfile
+
+    from cokriging_tpu_torch.__main__ import main as cli_main
+    from cokriging_tpu_torch.utils.io import load_params, load_table, save_table
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(6)
+        paths = []
+        for k, nm in enumerate(("xco2", "sif")):
+            paths.append(os.path.join(tmp, f"{nm}.parquet"))
+            save_table(paths[-1], cli_table(nm, rng, 600 + k))
+        common = ["--data", *paths, "--timestamp", CLI_TIMES[1], "--timedeltas", "0", "0"]
+        out, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            p = os.path.join(tmp, f"params_{dev}.npz")
+            for cmd, extra in (("fit", ["--max-dist", "3000", "--n-bins", "8", "--maxiter", "60",
+                                        "--project-validity", "--out", p]),
+                               ("predict", ["--params", p, "--out",
+                                            os.path.join(tmp, f"pred_{dev}.parquet")]),
+                               ("loocv", ["--params", p, "--out",
+                                          os.path.join(tmp, f"cv_{dev}.parquet")])):
+                argv = [cmd, *common, *extra, "--device", dev]
+                t0 = time.perf_counter()
+                if dev == "cuda":
+                    run = subprocess.run([sys.executable, "-m", "cokriging_tpu_torch", *argv],
+                                         cwd=HERE, capture_output=True, text=True, timeout=300,
+                                         env={**os.environ, "PYTHONPATH": str(HERE)})
+                    check(run.returncode == 0, f"(h) CLI {cmd} --device cuda: exit "
+                          f"{run.returncode}: {run.stderr[-2000:]}")
+                    out[dev, cmd, "stdout"] = run.stdout
+                else:
+                    import contextlib as _c
+                    import io as _io
+
+                    buf = _io.StringIO()
+                    with _c.redirect_stdout(buf):
+                        cli_main(argv)
+                    out[dev, cmd, "stdout"] = buf.getvalue()
+                secs[dev, cmd] = time.perf_counter() - t0
+            out[dev, "params"] = load_params(p).to_flat().numpy()
+            out[dev, "pred"] = load_table(os.path.join(tmp, f"pred_{dev}.parquet"))
+            out[dev, "cv"] = load_table(os.path.join(tmp, f"cv_{dev}.parquet"))
+    pg, pc = out["cuda", "params"], out["cpu", "params"]
+    check(np.allclose(pg, pc, rtol=1e-6, atol=0), f"(h) CLI params cuda {pg} vs cpu {pc}")
+    worst = {}
+    for key, cols in (("pred", ("pred", "pred_err")), ("cv", ("data", "pred", "residual", "pred_err"))):
+        g, c = out["cuda", key], out["cpu", key]
+        check(list(g.columns) == list(c.columns) and len(g) == len(c), f"(h) CLI {key} frames differ")
+        for col in cols:
+            a, b = g[col].to_numpy(), c[col].to_numpy()
+            check(np.array_equal(np.isfinite(a), np.isfinite(b)), f"(h) CLI {key} {col}: NaN lanes")
+            ok = np.isfinite(a)
+            worst[f"{key}.{col}"] = float(np.max(np.abs(a[ok] - b[ok]))) if ok.any() else 0.0
+            check(worst[f"{key}.{col}"] <= 1e-6, f"(h) CLI {key} {col}: cuda vs cpu {worst[key + '.' + col]}")
+    log(f"(h) CLI fit / predict / loocv, --device cuda (subprocesses) vs --device cpu: params max rel "
+        f"err {float(np.max(np.abs(pg - pc) / np.abs(pc))):.3e}, columns max abs err {worst}, "
+        f"predictions {len(out['cuda', 'pred'])} cells, finite "
+        f"{float(np.isfinite(out['cuda', 'pred']['pred']).mean()):.4%}; seconds "
+        f"{ {f'{d} {c}': round(v, 3) for (d, c), v in secs.items()} }")
+    log(f"(h) CLI loocv --device cuda printed: {out['cuda', 'loocv', 'stdout'].strip().splitlines()[-2]}")
+
+
+def main(phases="abcdefgh"):
     try:
         import torch
     except ImportError:
@@ -1896,6 +2303,9 @@ def main(phases="abcdefg"):
         import cokriging_tpu_torch.predict.iterative  # noqa: F401
         import cokriging_tpu_torch.predict.joint  # noqa: F401
         import cokriging_tpu_torch.predict.local  # noqa: F401
+        import cokriging_tpu_torch.predict.postprocess  # noqa: F401
+        import cokriging_tpu_torch.utils.io  # noqa: F401
+        from cokriging_tpu_torch.__main__ import _parser  # noqa: F401
         from cokriging_tpu_torch.data.grids import prediction_coords
         from cokriging_tpu_torch.kernels import _build
         from cokriging_tpu_torch.kernels import cuda_ops as K
@@ -1978,6 +2388,15 @@ def main(phases="abcdefg"):
         for dtype in (np.float32, np.float64) if "g" in phases else ():
             rows += phase_g(dtype, kres)
             log(f"(g) elapsed since start {time.perf_counter() - t_start:.1f} s")
+        # (h) the table-to-map workflow at bench size, float32 then float64
+        t_h = time.perf_counter()
+        for dtype in (np.float32, np.float64) if "h" in phases else ():
+            rows += phase_h(dtype, kres)
+            log(f"(h) elapsed since start {time.perf_counter() - t_start:.1f} s")
+        if "h" in phases:
+            phase_h_cli()
+            log(f"(h) seconds {time.perf_counter() - t_h:.1f}; elapsed since start "
+                f"{time.perf_counter() - t_start:.1f} s")
     except SmokeFailure as e:
         print(f"FAILED: {e}", file=sys.stderr)
         return 1
@@ -1995,7 +2414,7 @@ def main(phases="abcdefg"):
                 f"{recorded if recorded is not None else 'none'} ms]{extra}, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}), launches {r['launches']}; ptxas {r['ptxas']}")
     print(json.dumps({"kernels": rows}))
-    if phases != "abcdefg":
+    if phases != "abcdefgh":
         print(f"partial run of phases {phases}: no result")
         return 0
     print(smi)

@@ -104,6 +104,17 @@ def cross_semivariance(params: MaternParams, i: int, j: int, h):
     return sill - cross_covariance(params, i, j, h)
 
 
+def variogram_value(params: MaternParams, i: int, j: int, h, covariogram=False):
+    """Theoretical (cross-)variogram of the given kind (src/model.py:224-237)."""
+    if covariogram:
+        if i == j:
+            return covariance(params, i, h)
+        return cross_covariance(params, i, j, h)
+    if i == j:
+        return semivariance(params, i, h)
+    return cross_semivariance(params, i, j, h)
+
+
 class _ScaledMaternBlock(torch.autograd.Function):
     """One covariance block C = scale * M(nu, ls, h) + nugget * [h == 0]
     with scalar-only cotangents (the reference's ``_make_scaled_cvjp``,
@@ -210,6 +221,15 @@ def block_covariance(params: MaternParams, dists, h_grad: bool = True, table=Non
         ],
         dim=0,
     )
+
+
+def joint_covariance_from_coords(params: MaternParams, coords_tuple, geodesic):
+    """The joint block covariance of the per-process coordinate sets
+    ``coords_tuple``: their cross-distance blocks, then ``block_covariance``
+    (on the card through the Matern kernel), on the coordinates' device."""
+    from cokriging_tpu_torch.estimate.nll import joint_distance_blocks
+
+    return block_covariance(params, joint_distance_blocks(list(coords_tuple), geodesic=geodesic))
 
 
 def _pairs(p):
@@ -436,6 +456,7 @@ class MultivariateMatern:
                 f"params are for {self.params.n_procs} processes, "
                 f"n_procs={n_procs} requested."
             )
+        self.fit_result = None
 
     def correlation(self, i, j, h):
         return correlation(self.params, i, j, h)
@@ -458,3 +479,32 @@ class MultivariateMatern:
 
     def get_values(self):
         return np.asarray(self.params.to_flat().detach().cpu())
+
+    def variograms(self, h, kind: str = "semivariogram"):
+        """Theoretical variogram curves for all i <= j pairs as a pandas
+        frame (index (i, j, idx), columns distance/variogram), matching
+        src/model.py:239-247. ``h`` is evaluated on the parameters' device
+        in their dtype."""
+        import pandas as pd
+
+        cov = kind == "covariogram"
+        h_np = np.asarray(h)
+        h_t = torch.as_tensor(h_np, dtype=self.params.sigma.dtype, device=self.params.sigma.device)
+        frames = []
+        with torch.no_grad():
+            for i in range(self.n_procs):
+                for j in range(i, self.n_procs):
+                    v = variogram_value(self.params, i, j, h_t, covariogram=cov).cpu().numpy()
+                    df = pd.DataFrame({"distance": h_np, "variogram": v, "i": i, "j": j})
+                    frames.append(df.set_index(["i", "j", df.index]))
+        return pd.concat(frames)
+
+    def fit(self, estimate, guess: MaternParams = None, method: str = "scipy", device=None):
+        """Composite-WLS fit to an EmpiricalVariogram on ``device`` (the card
+        unless ``device="cpu"``); see ``estimate.wls.fit_wls``."""
+        from cokriging_tpu_torch.estimate.wls import fit_wls
+
+        self.params, self.fit_result = fit_wls(
+            estimate, self.params if guess is None else guess, method=method, device=device
+        )
+        return self

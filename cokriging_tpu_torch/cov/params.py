@@ -14,7 +14,7 @@ the flat vector, so autograd carries gradients from any matrix entry back to
 the flat parameter it came from.
 """
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Tuple
 
 import numpy as np
@@ -146,6 +146,9 @@ class MaternParams:
     def with_flat(self, x) -> "MaternParams":
         return MaternParams.from_flat(x, spec=self.spec)
 
+    def replace(self, **kw) -> "MaternParams":
+        return replace(self, **kw)
+
     def astype(self, dtype) -> "MaternParams":
         """Cast all parameter tensors (e.g. f32 for the card's fast path)."""
         return self.to(dtype=dtype)
@@ -158,6 +161,22 @@ class MaternParams:
                 for t in (self.sigma, self.nu, self.len_scale, self.nugget, self.rho)
             ),
             spec=self.spec,
+        )
+
+    # ---- host-side reporting -------------------------------------------
+
+    def to_dataframe(self):
+        """Names, values and (lower, upper) bounds in flat order, as a
+        pandas frame."""
+        import pandas as pd
+
+        lo, hi = self.spec.bounds()
+        return pd.DataFrame(
+            {
+                "name": self.spec.names(),
+                "value": self.to_flat().detach().cpu().numpy(),
+                "bounds": list(zip(lo, hi)),
+            }
         )
 
 

@@ -1,7 +1,9 @@
 """Empirical (cross-)variograms from one two-pass stream over all pairs.
 
-Counterpart of ``cokriging_tpu/estimate/empirical.py``'s device path
-(``empirical_variograms_device`` over ``_all_pairs_program``). Every
+Counterpart of ``cokriging_tpu/estimate/empirical.py``: the device path
+(``empirical_variograms_device`` over ``_all_pairs_program``), its entry for
+a ``MultiField`` (``empirical_variograms``) and the one-variogram form
+(``empirical_variogram_pair``). Every
 comparison runs on the monotone distance surrogate h (haversine
 sin^2-term, or squared Euclidean distance) built from per-point features by
 multiply-adds, with the thresholds moved into h once:
@@ -23,6 +25,7 @@ means; semivariogram cloud 0.5 (z_i - z_j)^2, covariogram z_i z_j;
 right-closed bins; a warning when a bin holds < 30 pairs.
 """
 
+import dataclasses
 import warnings
 from dataclasses import dataclass
 from typing import List, Optional
@@ -65,6 +68,20 @@ class EmpiricalVariogram:
     bin_counts: np.ndarray
     timestamp: Optional[str] = None
     timedeltas: Optional[List[int]] = None
+
+    @property
+    def df(self):
+        """The reference's frame (src/fields.py:230-252): index (i, j, bin),
+        columns bin_center, bin_mean, bin_count; built with pandas on each
+        read."""
+        import pandas as pd
+
+        frames = []
+        for k, (i, j) in enumerate(self.pairs):
+            df = pd.DataFrame({"bin_center": self.bin_centers[k], "bin_mean": self.bin_means[k],
+                               "bin_count": self.bin_counts[k], "i": i, "j": j})
+            frames.append(df.set_index(["i", "j", df.index]))
+        return pd.concat(frames)
 
 
 def point_features(coords, geodesic):
@@ -129,6 +146,26 @@ def _device_bins(hmin, hmax, geodesic, snap, n_bins, dtype):
     return centers, _h_of_d(edges, geodesic).astype(dtype)
 
 
+def _prepare(coords_list, values_list, config: VarioConfig, device):
+    """What both passes read, on ``device`` in the first coordinates' float
+    dtype: each point set's features, its values centered by their mean
+    (src/fields.py:378-381), the numpy dtype, the zero snap in km, and the
+    h thresholds of ``max_dist`` and of the snap."""
+    dev = resolve_device(device)
+    coords = [torch.as_tensor(c).to(dev) for c in coords_list]
+    dtype = coords[0].dtype
+    coords = [c.to(dtype) for c in coords]
+    np_dtype = np.dtype(str(dtype).removeprefix("torch."))
+    values = [torch.as_tensor(v).to(device=dev, dtype=dtype) for v in values_list]
+    geodesic = config.geodesic
+    snap = ZERO_SNAP_F32_KM if (geodesic and dtype == torch.float32) else ZERO_SNAP
+    h_max = float(_h_of_d(np_dtype.type(config.max_dist), geodesic))
+    h_snap = float(_h_of_d(np_dtype.type(snap), geodesic))
+    feats = [point_features(c, geodesic) for c in coords]
+    centered = [(v - v.sum() / v.shape[0]).contiguous() for v in values]
+    return feats, centered, np_dtype, snap, h_max, h_snap
+
+
 def empirical_variograms_device(
     coords_list, values_list, config: VarioConfig, pairs=None, device=None
 ):
@@ -142,21 +179,12 @@ def empirical_variograms_device(
     numpy arrays shaped (n_pairs, n_bins); means in the input dtype, counts
     int64.
     """
-    dev = resolve_device(device)
     p = len(coords_list)
     if pairs is None:
         pairs = [(i, j) for i in range(p) for j in range(p) if i <= j]
-    coords = [torch.as_tensor(c).to(dev) for c in coords_list]
-    dtype = coords[0].dtype
-    np_dtype = np.dtype(str(dtype).replace("torch.", ""))
-    values = [torch.as_tensor(v).to(device=dev, dtype=dtype) for v in values_list]
+    feats, centered, np_dtype, snap, h_max, h_snap = _prepare(coords_list, values_list,
+                                                              config, device)
     geodesic = config.geodesic
-    snap = ZERO_SNAP_F32_KM if (geodesic and dtype == torch.float32) else ZERO_SNAP
-    h_max = float(_h_of_d(np_dtype.type(config.max_dist), geodesic))
-    h_snap = float(_h_of_d(np_dtype.type(snap), geodesic))
-    feats = [point_features(c, geodesic) for c in coords]
-    # center by the field means (src/fields.py:378-381)
-    centered = [(v - v.sum() / v.shape[0]).contiguous() for v in values]
 
     # pass 1 over every variogram, then the one host read between the passes
     hrange = variogram_minmax_pairs(
@@ -179,6 +207,48 @@ def empirical_variograms_device(
             " variogram calculation."
         )
     return pairs, centers, means, counts
+
+
+def empirical_variograms(mf, config: VarioConfig, device=None) -> EmpiricalVariogram:
+    """All i <= j empirical (cross-)variograms of a MultiField's full-grid
+    data (src/fields.py:234-252) on ``device`` (the card unless
+    ``device="cpu"``): ``empirical_variograms_device``, one launch per pass
+    over every variogram. ``config.n_procs`` is set to the number of fields
+    (downstream, ``moment_init`` and ``fit_wls`` size the parameter vector
+    from it), and the MultiField's timestamp and timedeltas ride along."""
+    pairs, centers, means, counts = empirical_variograms_device(
+        [f.coords for f in mf.fields], [f.values for f in mf.fields], config, device=device
+    )
+    if config.n_procs != len(mf.fields):
+        config = dataclasses.replace(config, n_procs=len(mf.fields))
+    return EmpiricalVariogram(config=config, pairs=pairs, bin_centers=centers,
+                              bin_means=means, bin_counts=counts, timestamp=mf.timestamp,
+                              timedeltas=mf.timedeltas)
+
+
+def empirical_variogram_pair(coords_a, values_a, coords_b, values_b, config: VarioConfig,
+                             marginal: bool, device=None):
+    """One (i, j) binned variogram on ``device`` (the card unless
+    ``device="cpu"``): (centers float64, means in the points' dtype, counts
+    int64). As the reference's pair form builds them, each side's values are
+    centered by their own mean and the bins come from
+    ``variogram_bins(d_min, d_max)`` in float64, its edges cast to the
+    points' dtype; both passes are ``variogram_minmax_pairs`` /
+    ``variogram_bin_pairs`` over the one variogram, one launch each."""
+    (fa, fb), centered, np_dtype, _, h_max, h_snap = _prepare(
+        [coords_a, coords_b], [values_a, values_b], config, device)
+    geodesic = config.geodesic
+    hmin, hmax = variogram_minmax_pairs([(fa, fb, marginal)], geodesic, h_max, h_snap)[0].cpu().numpy()
+    if not (np.isfinite(hmin) and np.isfinite(hmax)):
+        raise ValueError("No pairs within max_dist; cannot build variogram bins.")
+    dmin, dmax = (float(_d_of_h(h, geodesic)) for h in (hmin, hmax))
+    centers, edges = variogram_bins(dmin, dmax, config.n_bins)
+    h_edges = _h_of_d(edges.astype(np_dtype), geodesic).astype(np_dtype)
+    sums, counts = variogram_bin_pairs([(fa, fb, *centered, marginal)], [h_edges], geodesic,
+                                       config.covariogram, h_max)
+    sums, counts = sums[0].cpu().numpy(), counts[0].cpu().numpy()
+    means = np.where(counts > 0, sums / np.maximum(counts, 1), np.nan).astype(np_dtype)
+    return centers, means, counts
 
 
 def variogram_bins(min_dist: float, max_dist: float, n_bins: int):

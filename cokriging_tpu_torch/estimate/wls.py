@@ -16,17 +16,24 @@ from torch autograd through the Matern/K_nu functions. Three methods:
   on the fit's device, one objective and one gradient per step;
 - ``method='lbfgs'``: ``estimate.nll.sigmoid_box_lbfgs`` on the fit's device
   from three deterministic starts (the reference's ``method='jax'``).
+
+Validity (the reference never enforced it, src/model.py:172, 336-343):
+``cauchy_schwarz_check`` tests the necessary Cauchy-Schwarz condition,
+``validity_penalty`` is its smooth violation penalty (weighted into the Adam
+objective by ``validity_weight``), and ``project_validity=True`` projects the
+optimum onto the exact spectral validity region
+(``cov.spectral.project_to_valid``).
 """
 
 import math
 import warnings
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from cokriging_tpu_torch.cov.matern import matern_correlation
+from cokriging_tpu_torch.cov.matern import covariance, cross_covariance, matern_correlation
 from cokriging_tpu_torch.cov.params import MaternParams, ParamSpec
 from cokriging_tpu_torch.utils.config import resolve_device
 
@@ -40,7 +47,64 @@ class FitResult:
     cost: float
     success: bool
     n_iter: int
-    estimate: object = None
+    estimate: object = None  # the EmpiricalVariogram fit against
+    theoretical: bool = False  # whether df_theoretical is available
+    _df_theoretical: object = field(default=None, repr=False)
+
+    @property
+    def df_theoretical(self):
+        """The theoretical curves on a 100-point grid as a pandas frame
+        (src/model.py:330-331), built on the first read; None for a fit run
+        with ``theoretical=False``."""
+        if self.theoretical and self._df_theoretical is None:
+            self._df_theoretical = _theoretical_df(self.params, self.estimate)
+        return self._df_theoretical
+
+    @property
+    def df_empirical(self):
+        return None if self.estimate is None else self.estimate.df
+
+    @property
+    def cs_valid(self) -> bool:
+        """Cauchy-Schwarz validity of the fitted cross-covariances (the
+        check the reference stubbed out, src/model.py:336-343)."""
+        return cauchy_schwarz_check(self.params)
+
+
+def _cs_terms(params: MaternParams, h):
+    """(|C_ij(h)|, sqrt(C_ii(h) C_jj(h))) of every pair i < j, nugget-free."""
+    p = params.n_procs
+    return [
+        (torch.abs(cross_covariance(params, i, j, h)),
+         torch.sqrt(covariance(params, i, h, use_nugget=False)
+                    * covariance(params, j, h, use_nugget=False)))
+        for i in range(p) for j in range(i + 1, p)
+    ]
+
+
+def cauchy_schwarz_check(params: MaternParams, n_h: int = 256) -> bool:
+    """|C_ij(h)| <= sqrt(C_ii(h) C_jj(h)) for all pairs on an h grid over
+    [0, 4 max len_scale], where violations (if any) live: a necessary
+    validity condition of the multivariate Matern, implied by the sufficient
+    Gneiting et al. (2010) parameter constraints."""
+    ls = params.len_scale
+    with torch.no_grad():
+        h = torch.linspace(0.0, 4.0 * float(torch.max(ls)), n_h, dtype=ls.dtype,
+                           device=ls.device)
+        return all(bool(torch.all(c <= r + 1e-12)) for c, r in _cs_terms(params, h))
+
+
+def validity_penalty(params: MaternParams, centers, n_h: int = 96):
+    """Smooth Cauchy-Schwarz violation penalty on a dense lag grid from 0
+    to the largest fitting lag: sum relu(|C_ij| - sqrt(C_ii C_jj))^2. The
+    grid reaches h -> 0, below the smallest bin center, where violations can
+    live; zero inside the valid region, so it never biases a valid fit."""
+    h = torch.linspace(0.0, 1.0, n_h, dtype=centers.dtype, device=centers.device) * torch.max(
+        centers)
+    total = torch.zeros((), dtype=h.dtype, device=h.device)
+    for c, r in _cs_terms(params, h):
+        total = total + torch.sum(torch.clamp_min(c - r, 0.0) ** 2)
+    return total
 
 
 def composite_wls_cost(flat, centers, means, counts, pairs, spec: ParamSpec):
@@ -179,6 +243,9 @@ def fit_wls(
     init: Optional[MaternParams] = None,
     method: str = "scipy",
     maxiter: int = 500,
+    validity_weight: float = 0.0,
+    theoretical: bool = True,
+    project_validity: bool = False,
     device=None,
 ) -> Tuple[MaternParams, FitResult]:
     """Fit Matern parameters to an EmpiricalVariogram by composite WLS.
@@ -187,6 +254,15 @@ def fit_wls(
     (or supplied) initial values, under the spec's box bounds. Runs on
     ``device`` (the card unless ``device="cpu"``) in the dtype of the
     estimate's bin centers; the fitted parameters stay there.
+
+    ``validity_weight`` (``method='adam'``) adds ``validity_weight`` times
+    the total pair count times ``validity_penalty`` to the objective.
+    ``theoretical=False`` leaves ``FitResult.df_theoretical`` None; with
+    True it builds the 100-point theoretical-curve frame on its first read
+    (pandas stays off the fit itself). ``project_validity=True`` projects
+    the optimum onto the spectral validity region
+    (``cov.spectral.project_to_valid``: the cross smoothness lifted to the
+    Gneiting floor, rho clipped to 0.99 of its ``rho_max`` bound).
     """
     dev = resolve_device(device)
     spec = (init or MaternParams.default(estimate.config.n_procs)).spec
@@ -209,7 +285,7 @@ def fit_wls(
             xt = torch.tensor(x, dtype=torch.float64, device=dev, requires_grad=True)
             v = composite_wls_cost(xt, centers, means, counts, pairs, spec)
             (g,) = torch.autograd.grad(v, xt)
-            return float(v), g.cpu().numpy()
+            return float(v.detach()), g.cpu().numpy()
 
         lo, hi = spec.bounds()
         res = minimize(
@@ -229,7 +305,11 @@ def fit_wls(
 
         def objective(u):
             x = _box_forward(u, lo, hi)
-            return composite_wls_cost(x, centers, means, counts, pairs, spec)
+            cost = composite_wls_cost(x, centers, means, counts, pairs, spec)
+            if validity_weight:
+                cost = cost + validity_weight * torch.sum(counts) * validity_penalty(
+                    MaternParams.from_flat(x, spec=spec), centers)
+            return cost
 
         u0 = _box_inverse(torch.as_tensor(x0, dtype=dt, device=dev), lo, hi)
         u = adam_cosine(objective, u0, maxiter)
@@ -259,6 +339,19 @@ def fit_wls(
     else:
         raise ValueError(f"Unknown method {method!r}")
 
-    return params, FitResult(
-        params=params, cost=cost, success=success, n_iter=n_iter, estimate=estimate
-    )
+    if project_validity:
+        from cokriging_tpu_torch.cov.spectral import project_to_valid
+
+        params = project_to_valid(params)
+    return params, FitResult(params=params, cost=cost, success=success, n_iter=n_iter,
+                             estimate=estimate, theoretical=theoretical)
+
+
+def _theoretical_df(params, estimate):
+    """Theoretical curves on a 100-point grid in the parameters' dtype
+    (src/model.py:330-331)."""
+    from cokriging_tpu_torch.cov.matern import MultivariateMatern
+
+    dt = np.dtype(str(params.sigma.dtype).removeprefix("torch."))
+    h = np.linspace(0, float(np.max(estimate.bin_centers)), 100, dtype=dt)
+    return MultivariateMatern(params.n_procs, params).variograms(h)

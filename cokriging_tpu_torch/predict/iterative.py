@@ -20,8 +20,14 @@ The conjugate-gradient solver is Jacobi-preconditioned and runs every
 right-hand side of a chunk at once with per-column step sizes (a converged
 column freezes: its step sizes are zero-guarded). The reference splits the
 iterations into bounded dispatches for a TPU's dispatch ceiling; here it is
-one loop. Sharding the row tiles over devices (``mesh=``) and LOOCV come
-with the port's ``parallel/``.
+one loop.
+
+LOOCV (``cross_validation``) solves C X = E for chunks of unit columns E at
+the withheld rows with the same multi-right-hand-side CG; by the symmetry of
+C^-1, column j of X is the precision row of datum j, which gives P_jj and
+(C^-1 z)_j for the identity of ``predict.joint``,
+pred_j = z_j - (C^-1 z)_j / P_jj and var_j = 1 / P_jj. Sharding the row
+tiles over devices (``mesh=``) comes with the port's ``parallel/``.
 """
 
 import warnings
@@ -31,7 +37,7 @@ import torch
 
 from cokriging_tpu_torch.cov.matern import gathered_covariance, pair_table
 from cokriging_tpu_torch.kernels.distance import distance_matrix
-from cokriging_tpu_torch.predict.local import LocalPrediction
+from cokriging_tpu_torch.predict.local import LocalPrediction, coord_rows
 from cokriging_tpu_torch.utils.config import resolve_device
 
 
@@ -109,6 +115,21 @@ def _predict_chunk(params, coords, procs, a, pchunk, i, tol, maxiter, geodesic, 
     return pred, torch.sqrt(torch.clamp_min(var, 0.0)), iters, resid
 
 
+def _loocv_chunk(params, coords, procs, z, rows, tol, maxiter, geodesic, block, table):
+    """(pred, pred_err, cg_iters, cg_resid) of LOOCV at the data ``rows``
+    (src/joint_prediction.py:207-257): X = C^-1 E for the unit columns E at
+    ``rows`` in one multi-right-hand-side CG, then P_jj = X[rows_j, j] and
+    (C^-1 z)_j = X[:, j] . z."""
+    q = rows.shape[0]
+    cols = torch.arange(q, device=z.device)
+    e = torch.zeros((z.shape[0], q), dtype=z.dtype, device=z.device)
+    e[rows, cols] = 1.0
+    X, iters, resid = _pcg(params, coords, procs, e, tol, maxiter, geodesic, block, table)
+    pkk = X[rows, cols]
+    pred = z[rows] - (X.T @ z) / pkk
+    return pred, torch.sqrt(torch.clamp_min(1.0 / pkk, 0.0)), iters, resid
+
+
 class IterativeJointPredictor:
     """Exact joint cokriging without materializing the joint covariance, on
     ``device`` (the card unless ``device="cpu"``), in the dtype of the field
@@ -118,15 +139,16 @@ class IterativeJointPredictor:
     equal to solver tolerance; CG run to ``tol`` is the exact solve.
 
     Args:
-        mod / mf: as JointPredictor.
+        mod / mf / covariates: as JointPredictor.
         block: row-tile height of the matrix-free matvec; peak memory per
             matvec is O(block x N).
-        rhs_batch: prediction points solved together per CG run.
+        rhs_batch: prediction points (or LOOCV data rows) solved together per
+            CG run; the last chunk is solved at its own width.
         tol: relative-residual CG stopping tolerance.
         maxiter: CG iteration cap; a solve that ends above 10 tol warns.
     """
 
-    def __init__(self, mod, mf, *, block: int = 512, rhs_batch: int = 256,
+    def __init__(self, mod, mf, covariates=None, *, block: int = 512, rhs_batch: int = 256,
                  tol: float = 1e-6, maxiter: int = 1000, mesh=None, device=None) -> None:
         if mod.n_procs != mf.n_procs:
             raise ValueError(
@@ -138,6 +160,7 @@ class IterativeJointPredictor:
         self.n_procs = mod.n_procs
         self.mod = mod
         self.mf = mf
+        self.covariates = covariates
         self.block = int(block)
         self.rhs_batch = int(rhs_batch)
         self.tol = float(tol)
@@ -156,21 +179,30 @@ class IterativeJointPredictor:
         z = torch.cat([torch.as_tensor(f.values_main) for f in fields]).to(self.device)
         return coords, procs, z
 
-    def __call__(self, i: int, pcoords, postprocess: bool = False,
-                 compute_err: bool = True) -> LocalPrediction:
-        """Predict process i at the (n_pred, 2) ``pcoords``.
-        ``compute_err=False`` skips the per-point variance solves (one
-        1-column CG in all) and returns NaN ``pred_err``."""
-        if postprocess:
-            raise NotImplementedError(
-                "postprocessing to data scale needs fields built from data frames"
+    def _warn_unconverged(self, diags, what):
+        self.last_diagnostics = diags
+        worst = max(r for _, r in diags)
+        if worst > 10.0 * self.tol:
+            warnings.warn(
+                f"{what} did not converge (relative residual "
+                f"{worst:.2e} > tol {self.tol:.0e} after maxiter="
+                f"{self.maxiter}); results are approximate."
             )
+
+    def __call__(self, i: int, pcoords, postprocess: bool = False,
+                 compute_err: bool = True):
+        """Predict process i at the (n_pred, 2) ``pcoords`` (an array, a
+        tensor or a frame of the two coordinate columns): a
+        ``LocalPrediction`` in standardized units, or with ``postprocess``
+        the reference's frame on the data scale. ``compute_err=False`` skips
+        the per-point variance solves (one 1-column CG in all) and returns
+        NaN ``pred_err``."""
         params = self.params
         geo = self.mf.geodesic
-        p_arr = np.atleast_2d(np.asarray(pcoords))
+        p_arr = coord_rows(pcoords)
         with torch.no_grad():
             coords, procs, z = self._stacked()
-            pc = torch.as_tensor(p_arr, dtype=coords.dtype, device=self.device)
+            pc = torch.tensor(p_arr, dtype=coords.dtype, device=self.device)
             table = pair_table(params, self.device, coords.dtype)
             a, it0, res0 = _pcg(params, coords, procs, z[:, None], self.tol, self.maxiter,
                                 geo, self.block, table)
@@ -184,16 +216,50 @@ class IterativeJointPredictor:
                 diags.append((it, res))
                 preds.append(pred)
                 errs.append(err)
-        self.last_diagnostics = diags
-        worst = max(r for _, r in diags)
-        if worst > 10.0 * self.tol:
-            warnings.warn(
-                f"iterative joint solve did not converge (relative residual "
-                f"{worst:.2e} > tol {self.tol:.0e} after maxiter="
-                f"{self.maxiter}); results are approximate."
-            )
+        self._warn_unconverged(diags, "iterative joint solve")
         n_data = int(z.shape[0])
-        return LocalPrediction(
+        out = LocalPrediction(
             p_arr, torch.cat(preds).cpu().numpy(), torch.cat(errs).cpu().numpy(),
             np.full(p_arr.shape[0], n_data), geo,
         )
+        if postprocess:
+            from cokriging_tpu_torch.predict.postprocess import postprocess_predictions
+
+            return postprocess_predictions(out.to_dataframe(), self.mf.fields[i],
+                                           self.covariates)
+        return out
+
+    def cross_validation(self, i: int, postprocess: bool = False):
+        """Matrix-free LOOCV at every main-grid datum of process i, exact to
+        the CG tolerance (``_loocv_chunk``; the dense ``JointPredictor``'s
+        precision identity without C^-1): a ``LocalPrediction`` in
+        standardized units, or with ``postprocess`` the LOOCV frame
+        (``predict.postprocess.loocv_frame``). ``last_diagnostics`` holds
+        (iterations, relative residual) per chunk; a chunk ending above 10
+        tol warns."""
+        params = self.params
+        geo = self.mf.geodesic
+        sizes = [int(f.coords_main.shape[0]) for f in self.mf.fields]
+        offset = sum(sizes[:i])
+        with torch.no_grad():
+            coords, procs, z = self._stacked()
+            table = pair_table(params, self.device, coords.dtype)
+            preds, errs, diags = [], [], []
+            for lo in range(0, sizes[i], self.rhs_batch):
+                rows = torch.arange(offset + lo, offset + min(lo + self.rhs_batch, sizes[i]),
+                                    device=self.device)
+                pred, err, it, res = _loocv_chunk(params, coords, procs, z, rows, self.tol,
+                                                  self.maxiter, geo, self.block, table)
+                diags.append((it, res))
+                preds.append(pred)
+                errs.append(err)
+        self._warn_unconverged(diags, "iterative LOOCV solves")
+        pred, err = torch.cat(preds).cpu().numpy(), torch.cat(errs).cpu().numpy()
+        field = self.mf.fields[i]
+        if postprocess:
+            from cokriging_tpu_torch.predict.postprocess import loocv_frame
+
+            return loocv_frame(field, geo, pred, err, True)
+        data_coords = np.asarray(field.coords_main)
+        return LocalPrediction(data_coords, pred, err,
+                               np.full(sizes[i], int(z.shape[0]) - 1), geo)

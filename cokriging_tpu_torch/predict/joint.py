@@ -22,8 +22,9 @@ naive delete-row/col path is kept (``cross_validation(..., method='naive')``)
 as a cross-check.
 
 Predictions come back as ``predict.local.LocalPrediction`` in standardized
-units. Conditional simulation (``sample``) and postprocessing to data scale
-come with ``sim/`` and ``predict/postprocess.py``.
+units, or with ``postprocess=True`` as the reference's frames on the data
+scale (``predict.postprocess``). Conditional simulation (``sample``) comes
+with ``sim/``.
 """
 
 import warnings
@@ -36,7 +37,7 @@ from cokriging_tpu_torch.estimate.nll import joint_distance_blocks
 from cokriging_tpu_torch.kernels.cuda_ops import matern_correlation_block
 from cokriging_tpu_torch.kernels.distance import distance_matrix
 from cokriging_tpu_torch.kernels.linalg import spd_inverse_from_chol
-from cokriging_tpu_torch.predict.local import LocalPrediction
+from cokriging_tpu_torch.predict.local import LocalPrediction, coord_rows
 from cokriging_tpu_torch.utils.config import resolve_device
 
 
@@ -135,9 +136,10 @@ def _loocv_core(params, coords_tuple, values_tuple, i, geodesic):
 class JointPredictor:
     """OO surface mirroring the reference joint Predictor
     (src/joint_prediction.py:13-257), on ``device`` (the card unless
-    ``device="cpu"``), in the dtype of the field values."""
+    ``device="cpu"``), in the dtype of the field values. ``covariates`` is
+    the prediction grid's covariate frame for ``postprocess=True``."""
 
-    def __init__(self, mod, mf, device=None) -> None:
+    def __init__(self, mod, mf, covariates=None, device=None) -> None:
         if mod.n_procs != mf.n_procs:
             raise ValueError(
                 "Number of theoretical processes different from empirical processes."
@@ -146,6 +148,7 @@ class JointPredictor:
         self.n_procs = mod.n_procs
         self.mod = mod
         self.mf = mf
+        self.covariates = covariates
         dtype = torch.as_tensor(mf.fields[0].values_main).dtype
         self.params = mod.params.to(device=self.device, dtype=dtype)
 
@@ -155,19 +158,18 @@ class JointPredictor:
         return coords, values
 
     def __call__(self, i: int, pcoords, postprocess: bool = False,
-                 cv_ix=None) -> LocalPrediction:
-        """Predict process i at the (n_pred, 2) ``pcoords``.
+                 cv_ix=None):
+        """Predict process i at the (n_pred, 2) ``pcoords`` (an array, a
+        tensor or a frame of the two coordinate columns): a
+        ``LocalPrediction`` in standardized units, or with ``postprocess``
+        the reference's frame on the data scale.
 
         ``cv_ix`` reproduces the reference's single-point withholding path
         (delete datum cv_ix of process i, predict at pcoords).
         """
-        if postprocess:
-            raise NotImplementedError(
-                "postprocessing to data scale needs fields built from data frames"
-            )
         coords, values = self._data()
-        p_arr = np.atleast_2d(np.asarray(pcoords))
-        pc = torch.as_tensor(p_arr, dtype=values[i].dtype, device=self.device)
+        p_arr = coord_rows(pcoords)
+        pc = torch.tensor(p_arr, dtype=values[i].dtype, device=self.device)
         geo = self.mf.geodesic
         with torch.no_grad():
             if cv_ix is not None:
@@ -179,10 +181,16 @@ class JointPredictor:
                 self._verify_model(self.params, coords, pc, i, geo)
             pred, pred_err = _joint_predict_core(self.params, coords, values, pc, i, geo)
         n_data = sum(int(v.shape[0]) for v in values)
-        return LocalPrediction(
+        out = LocalPrediction(
             p_arr, pred.cpu().numpy(), pred_err.cpu().numpy(),
             np.full(p_arr.shape[0], n_data), geo,
         )
+        if postprocess:
+            from cokriging_tpu_torch.predict.postprocess import postprocess_predictions
+
+            return postprocess_predictions(out.to_dataframe(), self.mf.fields[i],
+                                           self.covariates)
+        return out
 
     def _verify_model(self, params, coords, pcoords, i, geodesic):
         """PD check of the bordered [pred, data] covariance by trial
@@ -194,18 +202,16 @@ class JointPredictor:
             )
 
     def cross_validation(self, i: int, postprocess: bool = False,
-                         method: str = "fast") -> LocalPrediction:
+                         method: str = "fast"):
         """LOOCV at every data location of process i
-        (src/joint_prediction.py:207-257).
+        (src/joint_prediction.py:207-257): a ``LocalPrediction`` in
+        standardized units, or with ``postprocess`` the LOOCV frame
+        (``predict.postprocess.loocv_frame``).
 
         method='fast' uses the one-factorization precision identity;
         method='naive' replays the reference's delete-and-refactorize loop
         (useful as a numerical cross-check).
         """
-        if postprocess:
-            raise NotImplementedError(
-                "postprocessing to data scale needs fields built from data frames"
-            )
         coords, values = self._data()
         geo = self.mf.geodesic
         data_coords = coords[i].cpu().numpy()
@@ -218,5 +224,9 @@ class JointPredictor:
             outs = [self(i, data_coords[k], cv_ix=k) for k in range(n_i)]
             pred = np.array([o.pred[0] for o in outs])
             pred_err = np.array([o.pred_err[0] for o in outs])
+        if postprocess:
+            from cokriging_tpu_torch.predict.postprocess import loocv_frame
+
+            return loocv_frame(self.mf.fields[i], geo, pred, pred_err, True)
         n_data = sum(int(v.shape[0]) for v in values)
         return LocalPrediction(data_coords, pred, pred_err, np.full(n_i, n_data - 1), geo)

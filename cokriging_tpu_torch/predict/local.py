@@ -19,7 +19,18 @@ point Predictor (src/point_prediction.py:21-346):
 3. masked rows/columns become identity lanes, so one batched Cholesky solve
    serves every neighborhood size; a failed factorization gives NaN.
 
-LOOCV (``cross_validation``) comes later.
+LOOCV (``cross_validation``) predicts at every main-grid datum of a process
+with the self-datum withheld by the reference's d > 0 rule
+(src/point_prediction.py:140-142): zero-distance lanes of the predicted
+process leave the neighborhood on every path (the width search, the device
+search, the gathered systems of the kd path). Distances below the zero snap
+(``kernels.distance``) count as zero, so in float32 a same-process datum
+within ``ZERO_SNAP_F32_KM`` of the withheld one leaves with it, as in the
+JAX package.
+
+Predictions come back as ``LocalPrediction`` in standardized units, or with
+``postprocess=True`` as the reference's frame on the data scale
+(``predict.postprocess``).
 """
 
 import warnings
@@ -29,10 +40,10 @@ import numpy as np
 import torch
 
 from cokriging_tpu_torch.cov.matern import (
-    block_covariance,
     covariance,
     cross_covariance,
     gathered_covariance,
+    joint_covariance_from_coords,
     pair_table,
 )
 from cokriging_tpu_torch.kernels.distance import distance_matrix
@@ -88,7 +99,26 @@ class LocalPrediction:
         )
 
 
-def _kmax(pcoords, coords, n_valid, max_dist, geodesic):
+def coord_rows(pcoords) -> np.ndarray:
+    """(n, 2) numpy rows of prediction coordinates given as an array, a
+    tensor or a frame of the two coordinate columns."""
+    if hasattr(pcoords, "to_numpy"):
+        pcoords = pcoords.to_numpy()
+    return np.atleast_2d(np.asarray(pcoords))
+
+
+def _within(d, j, n_valid, max_dist, i, cv):
+    """Lanes of process j's distance rows ``d`` inside the radius and the
+    real data; under ``cv`` the zero-distance lanes of process i leave
+    (the d > 0 rule)."""
+    lane = torch.arange(d.shape[-1], device=d.device)[None, :]
+    within = (d <= max_dist) & (lane < n_valid[j])
+    if cv and j == i:
+        within = within & (d > 0.0)
+    return within
+
+
+def _kmax(pcoords, coords, n_valid, max_dist, geodesic, i=0, cv=False):
     """Largest neighborhood count per process over all locations, in
     location chunks that bound the distance buffer."""
     n_data = max(c.shape[0] for c in coords)
@@ -97,9 +127,7 @@ def _kmax(pcoords, coords, n_valid, max_dist, geodesic):
     for s in range(0, pcoords.shape[0], chunk):
         pc = pcoords[s : s + chunk]
         for j, cj in enumerate(coords):
-            d = distance_matrix(pc, cj, geodesic)
-            lane = torch.arange(d.shape[1], device=d.device)[None, :]
-            within = (d <= max_dist) & (lane < n_valid[j])
+            within = _within(distance_matrix(pc, cj, geodesic), j, n_valid, max_dist, i, cv)
             kmax[j] = torch.maximum(kmax[j], within.sum(dim=1).max())
     return kmax.cpu().tolist()
 
@@ -123,19 +151,19 @@ def _solve_local(params, a, cvec, z, mask, i, dtype):
 
 
 def _local_predict_batch(params, coords, values, joint_cov, pcoords, max_dist,
-                         i, geodesic, k_each, n_valid, dtype, table=None):
+                         i, geodesic, k_each, n_valid, dtype, table=None, cv=False):
     """Local prediction at every row of ``pcoords``: (pred, err, n_nb).
     ``joint_cov=None`` assembles each local system from the gathered
     neighborhood coordinates instead of gathering it from the joint
-    covariance (``table``: the parameters' ``pair_table`` for it)."""
+    covariance (``table``: the parameters' ``pair_table`` for it); ``cv``
+    withholds the zero-distance lanes of process i."""
     p = len(coords)
     offsets = np.concatenate([[0], np.cumsum([c.shape[0] for c in coords])])[:-1]
     dev = pcoords.device
     idx_local, dist_parts, mask_parts = [], [], []
     for j in range(p):
         d = distance_matrix(pcoords, coords[j], geodesic)
-        lane = torch.arange(d.shape[1], device=dev)[None, :]
-        within = (d <= max_dist) & (lane < n_valid[j])
+        within = _within(d, j, n_valid, max_dist, i, cv)
         score = torch.where(within, d, torch.inf)
         # the K nearest candidates, ties in index order (as lax.top_k)
         dj, idx = torch.sort(score, dim=1, stable=True)
@@ -172,14 +200,18 @@ def _local_predict_batch(params, coords, values, joint_cov, pcoords, max_dist,
     return _solve_local(params, a, cvec, z, mask, i, dtype)
 
 
-def _local_predict_gathered(params, gc, gz, pid, mask, s0, i, geodesic, dtype, table):
+def _local_predict_gathered(params, gc, gz, pid, mask, s0, i, geodesic, dtype, table,
+                            cv=False):
     """Local prediction from host-gathered neighborhoods (the kd path):
     ``gc`` (B, K, 2) neighbor coordinates, ``gz`` (B, K) values, ``pid``
     (K,) lane process ids, ``mask`` (B, K) true-neighbor lanes, ``s0``
     (B, 2) locations. True distances, the local covariance
     (``gathered_covariance``, ``table`` the parameters' ``pair_table``) and
-    the masked solve as on the device-search path."""
+    the masked solve as on the device-search path; ``cv`` drops the
+    zero-distance lanes of process i, on those true distances."""
     dvec = distance_matrix(s0[:, None, :], gc, geodesic)[:, 0, :]
+    if cv:
+        mask = mask & ((pid != i) | (dvec > 0.0))
     eye = torch.eye(gc.shape[1], dtype=dtype, device=gc.device)
     m2 = mask[:, :, None] & mask[:, None, :]
     a = torch.where(
@@ -197,7 +229,8 @@ def _local_predict_gathered(params, gc, gz, pid, mask, s0, i, geodesic, dtype, t
 class LocalPredictor:
     """OO surface mirroring the reference point Predictor
     (src/point_prediction.py:21-346), on ``device`` (the card unless
-    ``device="cpu"``).
+    ``device="cpu"``). ``covariates`` is the prediction grid's covariate
+    frame for ``postprocess=True`` (``predict.postprocess``).
 
     ``materialize_cov=False`` skips the n x n joint data covariance: each
     local system is assembled from its gathered neighborhood coordinates,
@@ -210,7 +243,7 @@ class LocalPredictor:
     #: data size beyond which the direct-assembly path searches with kd-trees
     KD_AUTO_THRESHOLD = 100_000
 
-    def __init__(self, mod, mf, device=None, materialize_cov: bool = True,
+    def __init__(self, mod, mf, covariates=None, device=None, materialize_cov: bool = True,
                  neighbor_method: str = "auto") -> None:
         if mod.n_procs != mf.n_procs:
             raise ValueError(
@@ -222,6 +255,7 @@ class LocalPredictor:
         self.n_procs = mod.n_procs
         self.mod = mod
         self.mf = mf
+        self.covariates = covariates
         self.params = mod.params.to(device=self.device)
         self.materialize_cov = bool(materialize_cov)
         self.neighbor_method = neighbor_method
@@ -248,22 +282,16 @@ class LocalPredictor:
         if self.materialize_cov:
             # joint covariance on the main grid, assembled once (reference
             # _cov_blocks, src/point_prediction.py:98-113)
-            p = len(coords)
-            dists = [
-                [distance_matrix(coords[a], coords[b], mf.geodesic) if a <= b else None
-                 for b in range(p)]
-                for a in range(p)
-            ]
             with torch.no_grad():
-                self.joint_cov = block_covariance(self.params, dists)
+                self.joint_cov = joint_covariance_from_coords(self.params, coords, mf.geodesic)
             self.dtype = self.joint_cov.dtype
         else:
             self.dtype = torch.promote_types(self.params.sigma.dtype, coords[0].dtype)
 
-    def _neighborhood_widths(self, pcoords, max_dist):
+    def _neighborhood_widths(self, pcoords, max_dist, i=0, cv=False):
         """Per-process K: the largest neighborhood over all locations,
         bucketed (masked lanes make any K >= the true width exact)."""
-        kmax = _kmax(pcoords, self._coords, self._n_valid, max_dist, self.mf.geodesic)
+        kmax = _kmax(pcoords, self._coords, self._n_valid, max_dist, self.mf.geodesic, i, cv)
         return tuple(
             min(_bucket_pow2(max(int(k), 1)), int(self._coords[j].shape[0]))
             for j, k in enumerate(kmax)
@@ -298,12 +326,14 @@ class LocalPredictor:
             return 2.0 * np.sin(half)
         return float(max_dist)
 
-    def _predict_kd(self, p_arr, max_dist, i):
+    def _predict_kd(self, p_arr, max_dist, i, cv=False):
         """Host kd-tree neighborhoods + the gathered local systems on the
         device (``_local_predict_gathered``). Widths come from an exact
         radius count over all locations first, so the k-nearest queries
         never truncate a neighborhood; locations stream through in host
-        chunks, so the gathered buffers stay O(chunk K) at any N."""
+        chunks, so the gathered buffers stay O(chunk K) at any N. ``cv``
+        withholds the zero-distance lanes of process i in the gathered
+        systems."""
         from scipy.spatial import cKDTree
 
         coords_np = [c[:n].cpu().numpy() for c, n in zip(self._coords, self._n_valid)]
@@ -345,18 +375,40 @@ class LocalPredictor:
                 gc, gz, mask, s0 = (torch.as_tensor(a[t:t + dev_chunk], device=self.device)
                                     for a in host)
                 parts.append(_local_predict_gathered(
-                    self.params, gc, gz, pid, mask, s0, i, self.mf.geodesic, self.dtype, table
+                    self.params, gc, gz, pid, mask, s0, i, self.mf.geodesic, self.dtype, table, cv
                 ))
         return parts
 
-    def __call__(self, i: int, pcoords, max_dist: float = 1e3,
-                 postprocess: bool = False) -> LocalPrediction:
-        """Cokrige process ``i`` at the (n_pred, 2) ``pcoords``."""
+    def __call__(self, i: int, pcoords, max_dist: float = 1e3, postprocess: bool = False):
+        """Cokrige process ``i`` at the (n_pred, 2) ``pcoords`` (an array,
+        a tensor or a frame of the two coordinate columns): a
+        ``LocalPrediction`` in standardized units, or with ``postprocess``
+        the reference's frame on the data scale (needs a field built from a
+        data frame; ``covariates`` as given to the predictor)."""
+        out = self._predict(i, coord_rows(pcoords), max_dist, cv=False)
         if postprocess:
-            raise NotImplementedError(
-                "postprocessing to data scale needs fields built from data frames"
-            )
-        p_arr = np.atleast_2d(np.asarray(pcoords))
+            from cokriging_tpu_torch.predict.postprocess import postprocess_predictions
+
+            return postprocess_predictions(out.to_dataframe(), self.mf.fields[i],
+                                           self.covariates)
+        return out
+
+    def cross_validation(self, i: int, max_dist: float = 1e3, postprocess: bool = False):
+        """LOOCV at each main-grid datum of process ``i``, withholding the
+        self-datum by the d > 0 rule (src/point_prediction.py:303-346): a
+        ``LocalPrediction`` at the data locations in standardized units, or
+        with ``postprocess`` the LOOCV frame (``predict.postprocess.
+        loocv_frame``: data and predictions on the data scale, residual =
+        data - pred)."""
+        field = self.mf.fields[i]
+        out = self._predict(i, np.asarray(field.coords_main), max_dist, cv=True)
+        if postprocess:
+            from cokriging_tpu_torch.predict.postprocess import loocv_frame
+
+            return loocv_frame(field, self.mf.geodesic, out.pred, out.pred_err, True)
+        return out
+
+    def _predict(self, i, p_arr, max_dist, cv):
         use_kd = not self.materialize_cov and (
             self.neighbor_method == "kd"
             or (self.neighbor_method == "auto"
@@ -364,10 +416,10 @@ class LocalPredictor:
         )
         with torch.no_grad():
             if use_kd:
-                parts = self._predict_kd(p_arr, max_dist, i)
+                parts = self._predict_kd(p_arr, max_dist, i, cv)
             else:
-                pc = torch.as_tensor(p_arr, dtype=self.dtype, device=self.device)
-                k_each = self._neighborhood_widths(pc, max_dist)
+                pc = torch.tensor(p_arr, dtype=self.dtype, device=self.device)
+                k_each = self._neighborhood_widths(pc, max_dist, i, cv)
                 chunk = self._batch_size(k_each, pc.shape[0])
                 table = None
                 if self.joint_cov is None:
@@ -376,7 +428,7 @@ class LocalPredictor:
                     _local_predict_batch(
                         self.params, self._coords, self._values, self.joint_cov,
                         pc[s : s + chunk], max_dist, i, self.mf.geodesic, k_each,
-                        self._n_valid, self.dtype, table,
+                        self._n_valid, self.dtype, table, cv,
                     )
                     for s in range(0, pc.shape[0], chunk)
                 ]

@@ -588,3 +588,152 @@ def test_pair_table_rows_on_card(cuda):
             nu, ls = params.nu[i, j].to(dtype), params.len_scale[i, j].to(dtype)
             assert torch.equal(table.rows(i, j)[0], K.recurrence_table(nu, ls, dtype)[0])
             assert torch.equal(table.rows(i, j)[1], K.recurrence_table(nu, ls, dtype, dual=True)[0])
+
+
+# --- the table-to-map workflow on the card ---------------------------------
+
+
+def _frame_fields(n, seed):
+    """Two processes' long-format frames (three months of n cells, a
+    temporal and a lon/lat trend) as a float64 MultiField, all rows main."""
+    import pandas as pd
+
+    from cokriging_tpu_torch.fields.field import MultiField
+
+    rng = np.random.default_rng(seed)
+    dfs = []
+    for name, sign in (("xco2", 1.0), ("sif", -0.7)):
+        lat, lon = rng.uniform(30.0, 45.0, n), rng.uniform(-110.0, -90.0, n)
+        s = np.sin(np.deg2rad(lat) * 8.0) + 0.5 * np.cos(np.deg2rad(lon) * 6.0)
+        dfs.append(pd.concat([
+            pd.DataFrame({"time": t, "lat": lat, "lon": lon,
+                          name: sign * s + 0.02 * lat + 0.1 * k + rng.normal(scale=0.3, size=n),
+                          f"{name}_var": 0.01})
+            for k, t in enumerate(pd.date_range("2019-01-01", periods=3, freq="MS"))
+        ], ignore_index=True))
+    return MultiField.from_dataframes(dfs, ["xco2", "sif"], [["lon", "lat"]] * 2,
+                                      "2019-02-01", [0, 0])
+
+
+_CV_FLAT = [1.0, 0.9, 1.3, 1.2, 1.1, 450.0, 500.0, 550.0, 0.08, 0.1, -0.5]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4), (torch.float64, 1e-10)])
+@pytest.mark.parametrize("kw", [{}, {"materialize_cov": False, "neighbor_method": "device"},
+                                {"materialize_cov": False, "neighbor_method": "kd"}])
+def test_local_loocv_on_card_matches_cpu(cuda, dtype, tol, kw):
+    """Local LOOCV (materialized, direct and kd paths) on the card against
+    the same code on the CPU, standardized and on the data scale; the
+    materialized path launches the Matern kernel, the direct ones the
+    pairs kernel."""
+    from cokriging_tpu_torch.cov.matern import MultivariateMatern
+    from cokriging_tpu_torch.cov.params import MaternParams
+    from cokriging_tpu_torch.predict.local import LocalPredictor
+
+    mf = _frame_fields(150, 5).astype(dtype)
+    mod = MultivariateMatern(params=MaternParams.from_flat(torch.tensor(_CV_FLAT)))
+    before = K.launch_counts()
+    card = LocalPredictor(mod, mf, device=cuda, **kw)
+    got = card.cross_validation(0, max_dist=600.0)
+    kernel = "matern_corr_pairs" if kw else "matern_correlation"
+    assert K.launch_counts()[kernel] > before[kernel]
+    cpu = LocalPredictor(mod, mf, device="cpu", **kw)
+    want = cpu.cross_validation(0, max_dist=600.0)
+    np.testing.assert_array_equal(got.n_neighbors, want.n_neighbors)
+    np.testing.assert_allclose(got.pred, want.pred, rtol=tol, atol=tol)
+    np.testing.assert_allclose(got.pred_err, want.pred_err, rtol=tol, atol=tol)
+    frame = card.cross_validation(0, max_dist=600.0, postprocess=True)
+    np.testing.assert_allclose(frame["residual"], frame["data"] - frame["pred"], rtol=0, atol=0)
+    assert np.isfinite(frame["pred"]).all()
+
+
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float64, 1e-6, 1e-8)])
+def test_iterative_loocv_on_card_matches_dense(cuda, dtype, rtol, atol):
+    """CG LOOCV on the card (the pairs kernel in every matvec) against the
+    dense LOOCV on the card, a ragged last chunk included."""
+    from cokriging_tpu_torch.cov.matern import MultivariateMatern
+    from cokriging_tpu_torch.cov.params import MaternParams
+    from cokriging_tpu_torch.predict.iterative import IterativeJointPredictor
+    from cokriging_tpu_torch.predict.joint import JointPredictor
+
+    mf = _frame_fields(300, 6).astype(dtype)
+    mod = MultivariateMatern(params=MaternParams.from_flat(torch.tensor(_CV_FLAT)))
+    before = K.launch_counts()["matern_corr_pairs"]
+    ijp = IterativeJointPredictor(mod, mf, block=256, rhs_batch=128, tol=1e-10, maxiter=500,
+                                  device=cuda)
+    got = ijp.cross_validation(1, postprocess=True)
+    assert K.launch_counts()["matern_corr_pairs"] > before
+    assert len(ijp.last_diagnostics) == 3
+    want = JointPredictor(mod, mf, device=cuda).cross_validation(1, postprocess=True)
+    for col in ("data", "pred", "residual", "pred_err"):
+        np.testing.assert_allclose(got[col], want[col], rtol=rtol, atol=atol, err_msg=col)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_empirical_variograms_of_a_multifield_on_card(cuda, dtype):
+    """``empirical_variograms(mf)`` is ``empirical_variograms_device`` over
+    the fields (counts equal, one launch per pass), and its counts are the
+    CPU's: equal in float64; in float32 the card's and the host's sin/cos
+    round the point features apart in the last ulp, which moves a few pairs
+    across an edge (at most 1e-4 of a bin)."""
+    mf = _frame_fields(2_000, 7).astype(dtype)
+    cfg = E.VarioConfig(max_dist=1500.0, n_bins=15)
+    before = K.launch_counts()
+    est = E.empirical_variograms(mf, cfg, device=cuda)
+    after = K.launch_counts()
+    assert (after["variogram_minmax"] - before["variogram_minmax"],
+            after["variogram_bin"] - before["variogram_bin"]) == (1, 1)
+    _, centers, means, counts = E.empirical_variograms_device(
+        [f.coords for f in mf.fields], [f.values for f in mf.fields], cfg, device=cuda)
+    np.testing.assert_array_equal(est.bin_counts, counts)
+    np.testing.assert_array_equal(est.bin_means, means)
+    cpu = E.empirical_variograms(mf, cfg, device="cpu")
+    if dtype == torch.float64:
+        np.testing.assert_array_equal(est.bin_counts, cpu.bin_counts)
+    else:
+        np.testing.assert_allclose(est.bin_counts, cpu.bin_counts, rtol=1e-4, atol=0)
+    assert est.timestamp == "2019-02-01" and est.config.n_procs == 2
+
+
+def test_cli_round_trip_on_card_matches_cpu(cuda, tmp_path):
+    """``python -m cokriging_tpu_torch fit / predict / loocv --device cuda``
+    against the same commands with ``--device cpu``, in float64: parameters
+    rtol 1e-6, predictions and LOOCV columns atol 1e-6."""
+    import pandas as pd
+
+    from cokriging_tpu_torch.__main__ import main
+    from cokriging_tpu_torch.data.grids import main_coords_array
+    from cokriging_tpu_torch.utils.io import load_params, load_table, save_table
+
+    mc = main_coords_array()
+    rng = np.random.default_rng(6)
+    paths = []
+    for k, name in enumerate(["xco2", "sif"]):
+        base = (np.sin(np.deg2rad(mc[:, 0]) * 5) + 0.5 * np.cos(np.deg2rad(mc[:, 1]) * (3 + k))
+                + 0.6 * np.random.default_rng(600 + k).normal(size=len(mc)))
+        df = pd.concat([pd.DataFrame({"time": pd.Timestamp(t), "lat": mc[:, 0], "lon": mc[:, 1],
+                                      name: base + 0.15 * rng.normal(size=len(mc)) + 0.05 * j,
+                                      f"{name}_var": 0.01})
+                        for j, t in enumerate(["2018-04-01", "2018-05-01", "2018-06-01"])],
+                       ignore_index=True)
+        paths.append(str(tmp_path / f"{name}.parquet"))
+        save_table(paths[-1], df)
+    common = ["--data", *paths, "--timestamp", "2018-05-01", "--timedeltas", "0", "0"]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = str(tmp_path / f"p_{dev}.npz")
+        main(["fit", *common, "--max-dist", "3000", "--n-bins", "8", "--maxiter", "60",
+              "--project-validity", "--device", dev, "--out", p])
+        out[dev, "params"] = load_params(p).to_flat().numpy()
+        main(["predict", *common, "--params", p, "--max-dist", "2000", "--device", dev,
+              "--out", str(tmp_path / f"pred_{dev}.parquet")])
+        out[dev, "pred"] = load_table(tmp_path / f"pred_{dev}.parquet")
+        main(["loocv", *common, "--params", p, "--max-dist", "3000", "--device", dev,
+              "--out", str(tmp_path / f"cv_{dev}.parquet")])
+        out[dev, "cv"] = load_table(tmp_path / f"cv_{dev}.parquet")
+    np.testing.assert_allclose(out["cuda", "params"], out["cpu", "params"], rtol=1e-6)
+    for key, cols in (("pred", ("pred", "pred_err")),
+                      ("cv", ("data", "pred", "residual", "pred_err"))):
+        for col in cols:
+            np.testing.assert_allclose(out["cuda", key][col], out["cpu", key][col], atol=1e-6,
+                                       err_msg=f"{key} {col}")

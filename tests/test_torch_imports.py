@@ -1,5 +1,7 @@
 """The port's main path imports neither JAX, nor the JAX package, nor the
-optional frame/plot libraries."""
+optional frame/plot libraries. The frame layer (fields from data frames,
+the grids' frame wrangling, postprocessing, table I/O, the CLI) imports
+pandas only inside the functions that take or return frames."""
 
 import subprocess
 import sys
@@ -23,6 +25,17 @@ import cokriging_tpu_torch.predict.iterative
 import cokriging_tpu_torch.predict.joint
 import cokriging_tpu_torch.predict.local
 import cokriging_tpu_torch.utils.convert
+import cokriging_tpu_torch.predict.postprocess
+import cokriging_tpu_torch.utils.io
+import cokriging_tpu_torch.__main__
+import cokriging_tpu_torch.cov
+import cokriging_tpu_torch.data
+import cokriging_tpu_torch.estimate
+import cokriging_tpu_torch.fields
+import cokriging_tpu_torch.kernels
+import cokriging_tpu_torch.predict
+from cokriging_tpu_torch.__main__ import _parser
+_parser()
 from cokriging_tpu_torch.data.grids import prediction_coords
 prediction_coords()
 bad = sorted(m for m in sys.modules

@@ -8,6 +8,7 @@ import warnings
 
 import jax.numpy as jnp
 import numpy as np
+import pandas as pd
 import pytest
 import torch
 
@@ -109,8 +110,11 @@ def test_non_convergence_warns_and_options_raise(setup):
         out = ijp(0, pc[:5])
     assert any("did not converge" in str(w.message) for w in caught)
     assert np.isfinite(out.pred).all() and [k for k, _ in ijp.last_diagnostics] == [2, 2]
-    with pytest.raises(NotImplementedError):
-        ijp(0, pc, postprocess=True)
+    # fields built from arrays carry no trend: the data-scale frame is the
+    # standardized one (the JAX package's postprocess_predictions)
+    with pytest.warns(UserWarning, match="did not converge"):
+        frame = ijp(0, pc[:5], postprocess=True)
+    pd.testing.assert_frame_equal(frame, out.to_dataframe())
     with pytest.raises(NotImplementedError):
         IterativeJointPredictor(mod, _mf(coords, values), mesh=object(), device="cpu")
 

@@ -6,6 +6,7 @@ import warnings
 
 import jax.numpy as jnp
 import numpy as np
+import pandas as pd
 import pytest
 import torch
 
@@ -101,8 +102,9 @@ def test_predictor_surface_and_withholding():
     with pytest.warns(UserWarning, match="not positive definite"):
         out_bad = jp_bad(0, pc[3:])
     assert np.isnan(out_bad.pred).all()
-    with pytest.raises(NotImplementedError):
-        jp(0, pc, postprocess=True)
+    # fields built from arrays carry no trend: the data-scale frame is the
+    # standardized one (the JAX package's postprocess_predictions)
+    pd.testing.assert_frame_equal(jp(0, pc[3:], postprocess=True), out.to_dataframe())
 
 
 def test_float32_with_refinement_tracks_float64():
