@@ -48,7 +48,7 @@ Phases, in order; any failure exits nonzero without the final ok line:
 (d) the main path at the benchmark's size (bench.py's workload: 2 x 12,500
     synthetic CONUS observations, variograms, a 600-step Adam WLS fit from
     the moment initializer, local cokriging at every 0.5-degree land cell),
-    float32 then float64: a warm-up run (60 Adam steps), then a timed run on
+    float32 then float64: a warm-up run (10 Adam steps), then a timed run on
     fresh noise with
     the launch counts set to 0 just before it and read just after; every
     kernel must have run, the fit must lie in its bounds, and the
@@ -123,6 +123,38 @@ Phases, in order; any failure exits nonzero without the final ok line:
     commands with ``--device cpu``, float64: parameters rtol 1e-6, columns
     atol 1e-6.
 
+(i) simulation and the parametric bootstrap, float64: the dense cofield at the
+    simulation experiment's size (``examples/simulation_experiment.py``: a
+    51 x 51 grid, seed 42; its 5,202^2 covariance against the plain version,
+    atol 1e-12, |L L^T - C|_F / |C|_F < 1e-12, the semi-colocated sample's
+    indices equal to numpy's draw), the spectral cofield at the million-point
+    workflow's (``examples/million_point_workflow.py:73-87``: 1024 x 1024 on
+    [0, 100]^2, seed 11, a 2048^2 torus; its lag-grid blocks against the
+    plain version, min_rel_eig >= -clip_tol, the embedded covariance equal to
+    the model's blocks to 1e-10 of the sill; ``sample_ensemble(16)``, then
+    2 x 12,500 observations), on them the WLS fit (maxiter 60) projected onto
+    the validity region and the parametric bootstrap as ``examples/uncertainty_demo.py:77``
+    runs it (200 replicates, maxiter 200; variograms to 30 in 15 bins) with
+    stage times: the batched bin pass's counts equal to the reference
+    pass's, its sums to 200 single-replicate launches of the existing pass
+    (rtol 1e-12 / 1e-5) and to its plain version on 8 replicates and on
+    all 200, 8 replicates refit alone equal to their batched refits (rtol
+    1e-8), every refit finite and in its box, each parameter's 95% interval
+    logged beside the truth; the batched pass and refit once more in float32
+    on the first 50 replicates cast (one refit alone, rtol 1e-5); conditional simulation from the first 2 x 2,500
+    observations at the 32 x 32 sub-grid, 100 draws, in float32 and float64
+    (pred and pred_err equal to ``__call__``'s, sample means within 5
+    standard errors, root root^T equal to the posterior covariance); and
+    ``fit --maxiter 30 --bootstrap 16`` / ``predict --joint
+    --conditional-sims 10 --device cuda`` on tests/test_cli.py's staged
+    tables. Each stage runs
+    with the launch counts set to 0 before it and read after it (the Matern
+    forward in every simulation, both variogram passes and the batched form
+    in the bootstrap). Its rows of the kernels line: the batched pass in both
+    dtypes (with the 200 single launches' time as ``yardstick_ms``) and the
+    Matern forward at the 5,202^2 covariance, the 2048^2 lag grid and the
+    replicates' 12,500^2 blocks.
+
 ``python3 chip_smoke.py abcg`` runs only the phases named (a and b always)
 and prints no result line. The kernels line's rows of the kernels
 redesigned last (the variogram passes, the block forward and the pairs
@@ -149,7 +181,7 @@ import numpy as np
 HERE = Path(__file__).resolve().parent
 N_PER_PROC = 12_500
 MAXITER = 600
-WARMUP_MAXITER = 60  # the warm-up run of phase (d): its steps only warm up
+WARMUP_MAXITER = 10  # the warm-up run of phase (d): its steps only warm up
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W):
 # 3.35 TB/s of HBM3, 67 TFLOP/s float32 and 34 TFLOP/s float64 outside the
@@ -400,6 +432,20 @@ def check_bins(name, got, want, rtol):
     return rel
 
 
+def check_bin_sums(name, got, want, scale, rtol):
+    """Counts equal, sums within rtol of the plain version's relative to
+    ``scale``, each bin's sum of |terms| (the measure a sum's rounding is
+    bounded by; it is the sum itself where the terms are >= 0): the largest
+    such error, and the largest relative to the sums themselves."""
+    import torch
+
+    check(torch.equal(got[1], want[1]), f"{name}: counts differ from the plain version")
+    diff = (got[0] - want[0]).abs()
+    err = float((diff / scale.clamp_min(1e-300)).max())
+    check(err <= rtol, f"{name}: sums err {err} of the sum of |terms| (bar {rtol})")
+    return err, float((diff / want[0].abs().clamp_min(1e-300)).max())
+
+
 def check_same(name, a, b):
     import torch
 
@@ -484,7 +530,10 @@ def phase_c_variogram_stress(dtype, results):
     covariogram, at 15 and 40 bins with edges on pairs and at 14 edges of
     one value after 0, in one call per pass (two launches: 32 variograms
     per launch): h ranges equal to the plain version's, counts equal, sums
-    within rtol 1e-5 / 1e-12 and bit-equal run to run."""
+    within rtol 1e-5 / 1e-12 of each bin's sum of |terms| (the plain
+    version adds with atomics, so its last bits vary run to run, and a
+    covariogram bin's products can cancel far below that sum) and bit-equal
+    run to run."""
     import torch
 
     from cokriging_tpu_torch.estimate import empirical as E
@@ -496,7 +545,7 @@ def phase_c_variogram_stress(dtype, results):
     rtol = 1e-5 if name == "float32" else 1e-12
     rng = np.random.default_rng(23)
     pairs = [(i, j) for i in range(len(VARIO_STRESS_N)) for j in range(i, len(VARIO_STRESS_N))]
-    worst, n_cases = 0.0, 0
+    worst, worst_rel, n_cases = 0.0, 0.0, 0
     for geodesic in (True, False):
         pts = [np.column_stack([rng.uniform(24, 50, n), rng.uniform(-124, -67, n)])
                for n in VARIO_STRESS_N]
@@ -526,15 +575,21 @@ def phase_c_variogram_stress(dtype, results):
                 what = (f"variogram stress {name} geodesic={geodesic} covariogram={covariogram} "
                         f"{n_bins} bins, edges {edges[1][1:3]}")
                 got = K.variogram_bin_pairs(sides, edges, geodesic, covariogram, h_max)
-                worst = max(worst, check_bins(what, got, K.variogram_bin_pairs_plain(
-                    sides, edges, geodesic, covariogram, h_max), rtol))
+                want = K.variogram_bin_pairs_plain(sides, edges, geodesic, covariogram, h_max)
+                # a covariogram's products cancel: its rounding is bounded
+                # relative to the sum of |a b|, the covariogram of |a|, |b|
+                scale = K.variogram_bin_pairs_plain(
+                    [(fa, fb, va.abs(), vb.abs(), m) for fa, fb, va, vb, m in sides], edges,
+                    geodesic, True, h_max)[0] if covariogram else want[0]
+                err, rel = check_bin_sums(what, got, want, scale, rtol)
+                worst, worst_rel = max(worst, err), max(worst_rel, rel)
                 check_same(f"{what}: run to run", got,
                            K.variogram_bin_pairs(sides, edges, geodesic, covariogram, h_max))
                 check(int(got[1].sum()) > 0, f"{what}: no pairs binned")
                 n_cases += 1
     log(f"(c) variogram stress {name}: {n_cases} calls of {len(pairs)} variograms (n in "
-        f"{VARIO_STRESS_N}, edges on pairs): counts exact, sums rel err <= {worst:.3e}, "
-        f"bit-equal run to run")
+        f"{VARIO_STRESS_N}, edges on pairs): counts exact, sums err <= {worst:.3e} of the sum of "
+        f"|terms| ({worst_rel:.3e} of the sums), bit-equal run to run")
 
 
 def matern_blocks(c1, c2, dtype):
@@ -1338,13 +1393,14 @@ def geo_fields(pairs):
 
 
 @contextlib.contextmanager
-def captured(name, limit=None):
-    """The arguments of the calls of ``cuda_ops.<name>`` made inside the
-    block (the first ``limit`` of them), as the path hands them over: the
-    positional ones, then the keyword ones' values in order (the pairs
-    forward's prebuilt ``table``)."""
+def captured(name, limit=None, module=None):
+    """The arguments of the calls of ``cuda_ops.<name>`` (or ``module``'s
+    ``name``) made inside the block (the first ``limit`` of them), as the
+    path hands them over: the positional ones, then the keyword ones' values
+    in order (the pairs forward's prebuilt ``table``)."""
     from cokriging_tpu_torch.kernels import cuda_ops as K
 
+    K = module or K
     store, orig = [], getattr(K, name)
 
     def spy(*args, **kwargs):
@@ -2140,26 +2196,11 @@ def phase_h(dtype, results):
                  path="(h) variograms of the fields")
     # block by block: the plain version's temporaries of three 12,500^2
     # blocks at once do not fit beside the kept outputs in float64
-    m_ms = m_plain = m_err = 0.0
-    for a in m_calls:
-        kept = {}
-        m_ms += cuda_time_ms(keep(kept, "kernel", lambda: K.matern_correlation_block(
-            *a[:3], symmetric=a[3], table=a[4])), 2)
-        m_plain += cuda_time_ms(keep(kept, "plain", lambda: K.matern_correlation_block_plain(
-            *a[:3], symmetric=a[3])), 1, warm=False)
-        m_err = max(m_err, float((kept["kernel"] - kept["plain"]).abs().max()))
-        del kept
-        torch.cuda.empty_cache()
-    check(m_err <= atol, f"(h) {name}: Matern blocks of the LOOCV covariance err {m_err} (bar {atol})")
-    mb = bound_of([matern_bound(a[2], float(a[0]), float(a[1]), a[3]) for a in m_calls])
-    rows.append(dict(
-        name=f"matern_correlation_{name}_h", route="cuda",
-        source="cokriging_tpu_torch/kernels/csrc/matern.cu",
-        replaces="cokriging_tpu/kernels/pallas_ops.py:782",
-        launches=launches["local_loocv"].get("matern_correlation", 0), ms=m_ms, plain_ms=m_plain,
-        bound_ms=mb[0], bound_by=mb[1], library_ms=None, max_abs_err=m_err, max_err=m_err,
-        path="(h) local LOOCV joint covariance",
-        shape=f"{N_PER_PROC}^2 sym + {N_PER_PROC}^2 + {N_PER_PROC}^2 sym at the fitted nu, ls"))
+    rows.append(matern_row(
+        f"matern_correlation_{name}_h", launches["local_loocv"].get("matern_correlation", 0),
+        "(h) local LOOCV joint covariance",
+        f"{N_PER_PROC}^2 sym + {N_PER_PROC}^2 + {N_PER_PROC}^2 sym at the fitted nu, ls",
+        matern_calls_check(m_calls, atol, f"(h) {name}: Matern blocks of the LOOCV covariance")))
     del m_calls, lp
     torch.cuda.empty_cache()
     c_err, c_ms, c_plain = pairs_forward_check(cg_calls, atol, f"one {name} (h) CG LOOCV row tile")
@@ -2271,7 +2312,562 @@ def phase_h_cli():
     log(f"(h) CLI loocv --device cuda printed: {out['cuda', 'loocv', 'stdout'].strip().splitlines()[-2]}")
 
 
-def main(phases="abcdefgh"):
+# --- phase (i): simulation and the parametric bootstrap -----------------------
+
+# examples/simulation_experiment.py:28 (the dense simulator's truth) and
+# examples/million_point_workflow.py:73-81 (the spectral one's, on [0, 100]^2)
+I_DENSE_TRUTH = [1.0, 1.0, 1.5, 1.5, 1.5, 0.2, 0.2, 0.2, 0.0, 0.0, -0.6]
+I_DENSE_GRID = 51
+I_SPEC_TRUTH = [1.0, 1.0, 1.5, 1.5, 1.5, 5.0, 5.0, 5.0, 0.05, 0.05, -0.6]
+I_SPEC_BOUNDS = dict(sigma_bounds=(0.2, 3.0), nu_bounds=(0.4, 3.0), len_scale_bounds=(0.5, 25.0),
+                     nugget_bounds=(0.0, 0.5))
+I_SPEC_GRID = 1024
+I_ENSEMBLE = 16
+# the bootstrap (examples/uncertainty_demo.py:77: 200 replicates, maxiter
+# 200) at bench.py's n on the spectral field's sample; the variograms to 30
+# (six length scales of the truth's 5) in 15 bins
+I_N = N_PER_PROC
+I_REP = 200
+I_MAXITER = 200
+I_MAX_DIST = 30.0
+I_CHECK_REP = 8  # replicates held against the plain batched pass
+# replicates refit alone against their batched refits, per dtype: each such
+# refit is a host-bound run of ~200 iterations (~20 s f64 on the card alone),
+# so they run side by side in worker processes
+I_SINGLE_REP = 8
+I_REFIT_WORKERS = 8
+# the float32 repeat of the batched pass and refit: the first 50 replicates
+I_REP_F32 = 50
+I_FIT_MAXITER = 60  # the WLS fit before the bootstrap (tests/test_cli.py's)
+I_COND_N = 2_500  # per process: the conditional simulation's data
+I_COND_STEP = 32  # every 32nd grid line: a 32 x 32 sub-grid
+I_COND_SAMPLES = 100
+
+
+def i_stage(name, stages, launches, key, fn, kernels=()):
+    """``fn`` with the launch counts set to 0 just before and read just
+    after, timed on the host clock around a synchronize; every kernel named
+    must have run."""
+    import warnings
+
+    import torch
+
+    from cokriging_tpu_torch.kernels import cuda_ops as K
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = fn()
+    torch.cuda.synchronize()
+    stages[key] = time.perf_counter() - t0
+    launches[key] = {k: v for k, v in K.launch_counts().items() if v}
+    for w in caught:
+        log(f"(i) {name} {key}: warning: {str(w.message)[:110]}")
+    for k in kernels:
+        check(launches[key].get(k, 0) > 0, f"(i) {name} {key}: no {k} launch: {launches[key]}")
+    return out
+
+
+def matern_calls_check(calls, atol, what, reps=2):
+    """The Matern kernel against its plain version at a path's own launches
+    (``calls``: the argument tuples ``captured`` kept), one at a time, every
+    output finite; ``what`` names them in a failure. Returns (max abs error,
+    kernel ms, plain ms, bound ms, bound by)."""
+    import torch
+
+    from cokriging_tpu_torch.kernels import cuda_ops as K
+
+    def sym_of(a):  # block_covariance passes symmetric= and table=, covariance_block table=
+        return a[3] if len(a) > 4 else False
+
+    ms = plain_ms = err = 0.0
+    for a in calls:
+        kept = {}
+        sym, table = sym_of(a), (a[-1] if len(a) > 3 else None)
+        ms += cuda_time_ms(keep(kept, "kernel", lambda: K.matern_correlation_block(
+            *a[:3], symmetric=sym, table=table)), reps)
+        plain_ms += cuda_time_ms(keep(kept, "plain", lambda: K.matern_correlation_block_plain(
+            *a[:3], symmetric=sym)), 1, warm=False)
+        err = max(err, float((kept["kernel"] - kept["plain"]).abs().max()))
+        check(bool(torch.isfinite(kept["kernel"]).all()), f"{what}: not finite")
+        del kept
+        torch.cuda.empty_cache()
+    check(err <= atol, f"{what}: err {err} (bar {atol})")
+    b = bound_of([matern_bound(a[2], float(a[0]), float(a[1]), sym_of(a)) for a in calls])
+    return err, ms, plain_ms, b[0], b[1]
+
+
+def matern_row(name, launches, what, shape, check_out):
+    err, ms, plain_ms, bound_ms, bound_by = check_out
+    return dict(name=name, route="cuda", source="cokriging_tpu_torch/kernels/csrc/matern.cu",
+                replaces="cokriging_tpu/kernels/pallas_ops.py:782", launches=launches, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                max_abs_err=err, max_err=err, path=what, shape=shape)
+
+
+def phase_i_dense(stages, launches, rows):
+    """1. The dense cofield at the simulation experiment's size, float64."""
+    import torch
+
+    from cokriging_tpu_torch.cov.matern import MultivariateMatern
+    from cokriging_tpu_torch.cov.params import MaternParams
+    from cokriging_tpu_torch.kernels import cuda_ops as K
+    from cokriging_tpu_torch.sim import BivariateRandomField, CartesianGrid
+
+    mod = MultivariateMatern(params=MaternParams.from_flat(torch.tensor(I_DENSE_TRUTH)))
+    grid = CartesianGrid(xcount=I_DENSE_GRID, ycount=I_DENSE_GRID, device="cuda")
+    with captured("matern_correlation_block") as calls:
+        rf = i_stage("dense", stages, launches, "dense_cofield",
+                     lambda: BivariateRandomField(mod, grid, seed=42), ("matern_correlation",))
+    n2 = 2 * grid.count
+    check(rf.cmat.shape == (n2, n2) and rf.cmat.dtype == torch.float64, "(i) dense covariance shape")
+    resid = float(torch.linalg.matrix_norm(rf.chol_lower @ rf.chol_lower.T - rf.cmat)
+                  / torch.linalg.matrix_norm(rf.cmat))
+    check(resid < 1e-12, f"(i) dense: |L L^T - C|_F / |C|_F = {resid}")
+    # the covariance against its plain assembly, block by block
+    p = mod.params.to(device="cuda")
+    d = grid.dist
+    plain = {}
+    for i, j in ((0, 0), (0, 1), (1, 1)):
+        m = K.matern_correlation_block_plain(p.nu[i, j], p.len_scale[i, j], d)
+        if i == j:
+            plain[i, j] = p.sigma[i] ** 2 * m + torch.where(d == 0.0, p.nugget[i], 0.0)
+        else:
+            plain[i, j] = p.rho[i, j] * p.sigma[i] * p.sigma[j] * m
+    n = grid.count
+    cov_err = max(float((rf.cmat[i * n:(i + 1) * n, j * n:(j + 1) * n] - plain[i, j]).abs().max())
+                  for i, j in plain)
+    del plain
+    check(cov_err <= 1e-12, f"(i) dense covariance against the plain version: {cov_err}")
+    samples = rf.sample(size=100, epsilon=[0.1, 0.1], seed=7)
+    # the semi-colocated indices: numpy's draw, index for index
+    rng = np.random.default_rng(7)
+    rows_np = rng.choice(grid.count, size=150, replace=False)
+    want = [np.concatenate([rows_np[:50], rows_np[50:100]]),
+            np.concatenate([rows_np[:50], rows_np[100:150]])]
+    for k, s in enumerate(samples):
+        check(np.array_equal(s[["x", "y"]].values, grid.coords.values[want[k]]),
+              f"(i) dense sample {k}: indices differ from numpy's draw")
+    log(f"(i) dense cofield {I_DENSE_GRID} x {I_DENSE_GRID}, seed 42, float64: covariance "
+        f"{n2}^2, max abs err against the plain version {cov_err:.3e}, |L L^T - C|_F/|C|_F "
+        f"{resid:.3e}; sample(100, eps 0.1, seed 7) indices equal numpy's; field sd "
+        f"{[round(float(f['value'].std()), 4) for f in rf.fields]}")
+    rows.append(matern_row("matern_correlation_float64_i_dense",
+                           launches["dense_cofield"].get("matern_correlation", 0),
+                           "(i) dense cofield covariance",
+                           f"{n} ^2 sym + {n}^2 + {n}^2 sym (the {n2}^2 covariance)",
+                           matern_calls_check(calls, 1e-12, "(i) Matern at the dense covariance")))
+    del rf, calls
+    torch.cuda.empty_cache()
+
+
+def phase_i_spectral(stages, launches, rows):
+    """2. The spectral cofield at the million-point workflow's size, and its
+    sample of bench.py's n; returns (model, spec, samples)."""
+    import torch
+
+    from cokriging_tpu_torch.cov.matern import MultivariateMatern, covariance_block
+    from cokriging_tpu_torch.cov.params import MaternParams, ParamSpec
+    from cokriging_tpu_torch.sim import CartesianGrid, SpectralRandomField
+
+    spec = ParamSpec(2, **I_SPEC_BOUNDS)
+    mod = MultivariateMatern(params=MaternParams.from_flat(torch.tensor(I_SPEC_TRUTH), spec=spec))
+    grid = CartesianGrid(xbounds=(0, 100), ybounds=(0, 100), xcount=I_SPEC_GRID,
+                         ycount=I_SPEC_GRID, device="cuda")
+    with captured("matern_correlation_block") as calls:
+        rf = i_stage("spectral", stages, launches, "spectral_build",
+                     lambda: SpectralRandomField(mod, grid, seed=11), ("matern_correlation",))
+    clip_tol = 1e-6
+    check(rf.min_rel_eig >= -clip_tol, f"(i) spectral: min_rel_eig {rf.min_rel_eig}")
+    p = mod.params.to(device="cuda")
+    h = calls[-1][2]  # the final torus's lag grid
+    emb_err = 0.0
+    for i, j in ((0, 0), (0, 1), (1, 1)):
+        block = covariance_block(p, i, j, h)
+        emb_err = max(emb_err, float((rf.embedded_covariance(i, j) - block).abs().max()))
+        del block
+    sill = max(float(p.sigma[i] ** 2 + p.nugget[i]) for i in range(2))
+    check(emb_err <= 1e-10 * sill, f"(i) spectral: embedded covariance off the model by {emb_err}")
+    ens = i_stage("spectral", stages, launches, "sample_ensemble",
+                  lambda: rf.sample_ensemble(I_ENSEMBLE, seed=5))
+    check(tuple(ens.shape) == (I_ENSEMBLE, 2, I_SPEC_GRID, I_SPEC_GRID)
+          and bool(torch.isfinite(ens).all()), "(i) spectral ensemble shape / finite")
+    var = [float(ens[:, k].var()) for k in range(2)]
+    del ens
+    samples = i_stage("spectral", stages, launches, "sample",
+                      lambda: rf.sample(size=I_N, seed=7))
+    log(f"(i) spectral cofield {I_SPEC_GRID} x {I_SPEC_GRID} on [0, 100]^2, seed 11: torus "
+        f"{rf._mx} x {rf._my}, min_rel_eig {rf.min_rel_eig:.3e} (clip_tol {clip_tol}), embedded "
+        f"covariance against the model's lag-grid blocks {emb_err:.3e} (sill {sill}); ensemble of "
+        f"{I_ENSEMBLE} variances {[round(v, 4) for v in var]}; sample 2 x {I_N}")
+    rows.append(matern_row("matern_correlation_float64_i_spectral",
+                           launches["spectral_build"].get("matern_correlation", 0),
+                           "(i) spectral cofield lag-grid blocks",
+                           f"3 x {rf._mx} x {rf._my} full", matern_calls_check(
+                               calls, 1e-12, "(i) Matern at the spectral lag grid", reps=3)))
+    del rf, calls
+    torch.cuda.empty_cache()
+    return mod, spec, samples
+
+
+def vario_batch_bound(n_pairs, n_valid, k_cmp, n_rep, dtype_name):
+    """(bound ms, "operations") of the batched bin pass: h, the row < col
+    and h_max tests once per pair, the lookup and its compares once per
+    binned pair, the cloud and the add per binned pair and replicate."""
+    ops = n_pairs * VARIO_PAIR_OPS + sum(
+        v * (VARIO_LOOKUP_OPS + VARIO_COMPARE_OPS * k + VARIO_BIN_OPS * n_rep)
+        for v, k in zip(n_valid, k_cmp))
+    return ops / (PEAK_OPS_PER_S[dtype_name] / 1e3), "operations"
+
+
+def batch_pass_rows(coords, values, cfg, calls, launches, dtype, n_rep):
+    """The bootstrap's batched bin launch (``calls``: its arguments, kept by
+    ``captured``) against B single-replicate launches of the existing pass
+    (the yardstick), its plain version on ``I_CHECK_REP`` replicates and on
+    all ``n_rep`` (the launch's own output), and its timing; returns the
+    kernels line's row."""
+    import torch
+
+    from cokriging_tpu_torch.kernels import cuda_ops as K
+
+    name = np.dtype(dtype).name
+    rtol = 1e-5 if name == "float32" else 1e-12
+    sides, edges, geodesic, cov, h_max = calls[0]
+    kept = {}
+    ms = cuda_time_ms(keep(kept, "kernel", lambda: K.variogram_bin_batch(
+        sides, edges, geodesic, cov, h_max)), 3)
+    sums, counts = kept["kernel"]
+    singles = [[(fa, fb, va[b].contiguous(), vb[b].contiguous(), m) for fa, fb, va, vb, m in sides]
+               for b in range(n_rep)]
+    yard = {}
+    yard_ms = cuda_time_ms(keep(yard, "out", lambda: [K.variogram_bin_pairs(
+        s, edges, geodesic, cov, h_max) for s in singles]), 1)
+    rel = 0.0
+    for b, (s1, n1) in enumerate(yard["out"]):
+        check(torch.equal(n1, counts), f"(i) {name} batched counts differ from replicate {b}'s pass")
+        rel = max(rel, float(((sums[:, b] - s1).abs() / s1.abs().clamp_min(1e-300)).max()))
+    check(rel <= rtol, f"(i) {name} batched sums against {n_rep} single launches: {rel} (bar {rtol})")
+
+    def against_plain(got, plain, what):
+        check(torch.equal(got[1], plain[1]), f"(i) {name} batched counts differ from the plain "
+              f"version {what}")
+        rel_p = float(((got[0] - plain[0]).abs() / plain[0].abs().clamp_min(1e-300)).max())
+        check(rel_p <= rtol, f"(i) {name} batched sums against the plain version {what}: {rel_p} "
+              f"(bar {rtol})")
+        return rel_p, float((got[0] - plain[0]).abs().max())
+
+    few = [(fa, fb, va[:I_CHECK_REP].contiguous(), vb[:I_CHECK_REP].contiguous(), m)
+           for fa, fb, va, vb, m in sides]
+    rel8, _ = against_plain(K.variogram_bin_batch(few, edges, geodesic, cov, h_max),
+                            K.variogram_bin_batch_plain(few, edges, geodesic, cov, h_max),
+                            f"on {I_CHECK_REP} replicates")
+    # the path's own shape: all n_rep replicates, its launch's output
+    plain_ms = cuda_time_ms(keep(kept, "plain", lambda: K.variogram_bin_batch_plain(
+        sides, edges, geodesic, cov, h_max)), 1, warm=False)
+    rel_all, err = against_plain(kept["kernel"], kept["plain"], f"on all {n_rep} replicates")
+    np_dt = np.dtype(dtype)
+    k_cmp = [K._bin_record(e, True, True, np_dt)[1] for e in edges]
+    n_pairs = sum(fa.shape[0] * (fa.shape[0] - 1) // 2 if m else fa.shape[0] * fb.shape[0]
+                  for fa, fb, _, _, m in sides)
+    n_valid = [int(c) for c in counts.sum(1)]
+    bound_ms, bound_by = vario_batch_bound(n_pairs, n_valid, k_cmp, n_rep, name)
+    log(f"(i) {name} batched bin pass, {n_rep} replicates x 3 variograms x {sides[0][0].shape[0]} "
+        f"points x {len(edges[0]) - 1} bins: {ms:.3f} ms [the {n_rep} single-replicate launches of "
+        f"the existing pass: {yard_ms:.3f} ms], plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms; "
+        f"sums against the single launches max rel {rel:.3e}, against the plain version on "
+        f"{I_CHECK_REP} replicates {rel8:.3e} and on all {n_rep} {rel_all:.3e} (max abs {err:.3e}); "
+        f"counts exact; {n_pairs} pairs, {sum(n_valid)} binned")
+    return dict(name=f"variogram_bin_batch_{name}_i", route="cuda",
+                source="cokriging_tpu_torch/kernels/csrc/variogram.cu",
+                replaces="cokriging_tpu/kernels/pallas_ops.py:143",
+                launches=launches.get("variogram_bin_batch", 0), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None, max_abs_err=err,
+                max_err=err, yardstick_ms=yard_ms, path="(i) parametric bootstrap re-estimate",
+                shape=f"{n_rep} replicates x 3 pairs x {sides[0][0].shape[0]} points x "
+                      f"{len(edges[0]) - 1} bins")
+
+
+def refit_jobs(name, x0, arrays, pairs, spec, flats, costs, rtol):
+    """Every batched refit finite and in its box; returns the jobs of the
+    first ``I_SINGLE_REP`` replicates' refits alone (``refit_alone``), each
+    with the batched refit it must equal."""
+    lo, hi = spec.bounds()
+    check(np.isfinite(flats).all() and np.isfinite(costs).all(), f"(i) {name} refits not finite")
+    check(bool(np.all((flats >= lo) & (flats <= hi))), f"(i) {name} refits outside the box")
+    c, m, n = (np.asarray(a) for a in arrays)
+    return [dict(name=name, b=b, pairs=tuple(pairs), spec=spec, rtol=rtol, flat=flats[b],
+                 cost=costs[b], args=(np.asarray(x0)[b], c[b], m[b], n[b]))
+            for b in range(I_SINGLE_REP)]
+
+
+def refit_alone(job):
+    """One replicate refit alone, the single-instance fitter in the
+    replicate's dtype on the card (run in a worker process): (x, cost)."""
+    import torch
+
+    from cokriging_tpu_torch.estimate.wls import make_device_wls_fitter
+
+    c = job["args"][1]
+    fit = make_device_wls_fitter(job["pairs"], job["spec"], I_MAXITER)
+    x1, v1, _, _ = fit(*(torch.as_tensor(a, device="cuda", dtype=torch.as_tensor(c).dtype)
+                         for a in job["args"]))
+    return x1.cpu().numpy(), float(v1)
+
+
+def refits_alone(jobs, stages):
+    """The jobs' refits alone in ``I_REFIT_WORKERS`` worker processes on the
+    card (each refit is host-bound: the card runs them side by side), each
+    against its batched refit; returns the worst relative gap per dtype."""
+    import multiprocessing
+
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(I_REFIT_WORKERS) as pool:
+        out = pool.map_async(refit_alone, jobs, chunksize=1).get(timeout=900)
+    stages["refits_alone"] = time.perf_counter() - t0
+    worst = {}
+    for job, (x1, v1) in zip(jobs, out, strict=True):
+        rel = float(np.max(np.abs(x1 - job["flat"]) / np.abs(job["flat"]).clip(1e-300)))
+        worst[job["name"]] = max(worst.get(job["name"], 0.0), rel)
+        check(rel <= job["rtol"] and abs(v1 - job["cost"]) <= job["rtol"] * abs(job["cost"]),
+              f"(i) {job['name']} replicate {job['b']}: batched refit off its fit alone by {rel} "
+              f"(bar {job['rtol']})")
+    return worst
+
+
+def phase_i_bootstrap(mod, spec, samples, stages, launches, rows):
+    """3. The WLS fit and the parametric bootstrap at 2 x ``I_N``, float64,
+    then the batched pass and refit once more in float32."""
+    import torch
+
+    from cokriging_tpu_torch.cov.matern import MultivariateMatern
+    from cokriging_tpu_torch.estimate import bootstrap as TB
+    from cokriging_tpu_torch.estimate.empirical import VarioConfig, empirical_variograms
+    from cokriging_tpu_torch.estimate.wls import fit_wls, fit_wls_batch_arrays, moment_init
+    from cokriging_tpu_torch.fields.field import Field, MultiField
+
+    mf = MultiField(fields=[Field.from_arrays(s[["x", "y"]].values, s[f"Z{k}"].values, f"Z{k}")
+                            for k, s in enumerate(samples)])
+    cfg = VarioConfig(max_dist=I_MAX_DIST, n_bins=15, geodesic=False)
+    est = i_stage("bootstrap", stages, launches, "variograms",
+                  lambda: empirical_variograms(mf, cfg), ("variogram_minmax", "variogram_bin"))
+    params, result = i_stage("bootstrap", stages, launches, "wls_fit", lambda: fit_wls(
+        est, init=moment_init(est, spec=spec), maxiter=I_FIT_MAXITER, project_validity=True))
+    x_fit = params.to_flat().cpu().numpy()
+    log(f"(i) WLS fit on the spectral sample (scipy, projected): cost {result.cost:.6g}, "
+        f"iterations {result.n_iter}, params {np.array2string(x_fit, precision=4)}")
+    kept = {}
+
+    def spy(name):
+        orig = getattr(TB, name)
+
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*a, **k)
+            torch.cuda.synchronize()
+            stages[f"bootstrap_{name}"] = time.perf_counter() - t0
+            kept[name] = (a, out)
+            return out
+        return run
+
+    orig = {k: getattr(TB, k) for k in ("simulate_replicates", "batched_variograms",
+                                        "fit_wls_batch_arrays")}
+    for k in orig:
+        setattr(TB, k, spy(k))
+    try:
+        with captured("matern_correlation_block") as m_calls, \
+                captured("variogram_bin_batch", module=TB) as b_calls:
+            boot = i_stage("bootstrap", stages, launches, "parametric_bootstrap",
+                           lambda: TB.parametric_bootstrap(MultivariateMatern(params=params), mf, cfg,
+                                                           n_rep=I_REP, seed=3, maxiter=I_MAXITER),
+                           ("matern_correlation", "variogram_minmax", "variogram_bin",
+                            "variogram_bin_batch"))
+    finally:
+        for k, f in orig.items():
+            setattr(TB, k, f)
+    lb = launches["parametric_bootstrap"]
+    # the batched pass's counts equal the reference pass's (batched_variograms
+    # raises otherwise); here once more against the reference pass itself
+    (coords, values_rep, _), (pairs, centers, means, counts) = kept["batched_variograms"]
+    x0 = kept["fit_wls_batch_arrays"][0][0]
+    arrays = kept["fit_wls_batch_arrays"][0][1:4]
+    flats, costs = boot.flats, boot.costs
+    rows.append(batch_pass_rows(coords, values_rep, cfg, b_calls, lb, np.float64, I_REP))
+    jobs = refit_jobs("float64", x0, arrays, pairs, spec, flats, costs, 1e-8)
+    summary = boot.summary()
+    truth = np.asarray(I_SPEC_TRUTH)
+    cover = (summary["q025"].to_numpy() <= truth) & (truth <= summary["q975"].to_numpy())
+    log(f"(i) bootstrap float64: {I_REP} replicates, maxiter {I_MAXITER}: stages "
+        f"{ {k: round(v, 3) for k, v in stages.items() if k.startswith('bootstrap_')} }, launches "
+        f"{lb}; 95% intervals "
+        f"{[(n, round(a, 4), round(b, 4)) for n, a, b in zip(summary['name'], summary['q025'], summary['q975'])]}"
+        f", cover the truth on {int(cover.sum())}/11 {cover.astype(int).tolist()}")
+    rows.append(matern_row("matern_correlation_float64_i_replicates",
+                           lb.get("matern_correlation", 0), "(i) simulate_replicates covariance",
+                           f"{I_N}^2 sym + {I_N}^2 + {I_N}^2 sym", matern_calls_check(
+                               m_calls, 1e-12, "(i) Matern at the replicate covariance", reps=1)))
+    del m_calls
+    torch.cuda.empty_cache()
+
+    # the batched pass and refit once more in float32 on the first
+    # I_REP_F32 replicates cast
+    c32 = [torch.as_tensor(c).to(torch.float32) for c in coords]
+    v32 = [v[:I_REP_F32].to(torch.float32) for v in values_rep]
+    with captured("variogram_bin_batch", module=TB) as b32:
+        pairs32, centers32, means32, counts32 = i_stage(
+            "bootstrap", stages, launches, "batched_variograms_f32",
+            lambda: TB.batched_variograms(c32, v32, cfg), ("variogram_bin_batch",))
+    rows.append(batch_pass_rows(c32, v32, cfg, b32, launches["batched_variograms_f32"],
+                                np.float32, I_REP_F32))
+    a32 = (np.tile(centers32[None], (I_REP_F32, 1, 1)), np.nan_to_num(means32, nan=0.0),
+           np.tile(counts32[None], (I_REP_F32, 1, 1)).astype(np.float32))
+    x0_32 = np.asarray(x0)[:I_REP_F32]
+    flats32, costs32, _ = i_stage("bootstrap", stages, launches, "refit_f32",
+                                  lambda: fit_wls_batch_arrays(x0_32, *a32, pairs32, spec,
+                                                               maxiter=I_MAXITER))
+    jobs += refit_jobs("float32", x0_32, a32, pairs32, spec, flats32, costs32, 1e-5)
+    log(f"(i) bootstrap float32 (the first {I_REP_F32} replicates cast): batched pass "
+        f"{stages['batched_variograms_f32']:.3f} s, refit {stages['refit_f32']:.3f} s; flats "
+        f"against float64 max abs {float(np.max(np.abs(flats32 - flats[:I_REP_F32]))):.3e}")
+    worst = refits_alone(jobs, stages)
+    log(f"(i) {I_SINGLE_REP} replicates per dtype refit alone ({I_REFIT_WORKERS} worker "
+        f"processes, {stages['refits_alone']:.1f} s), max rel gap to their batched refits "
+        f"{ {k: f'{v:.3e}' for k, v in worst.items()} }")
+    return params, mf
+
+
+def phase_i_conditional(mod, mf, stages, launches, rows):
+    """4. Conditional simulation from the first 2 x ``I_COND_N`` observations
+    at the 32 x 32 sub-grid, float32 and float64."""
+    import torch
+
+    from cokriging_tpu_torch.fields.field import Field, MultiField
+    from cokriging_tpu_torch.predict import JointPredictor
+    from cokriging_tpu_torch.predict import joint as TJ
+
+    small = MultiField(fields=[Field.from_arrays(f.coords[:I_COND_N], f.values[:I_COND_N], f.name)
+                               for f in mf.fields])
+    g = np.linspace(0.0, 100.0, I_SPEC_GRID)[::I_COND_STEP]
+    cells = np.array([(x, y) for x in g for y in g])
+    taken = {tuple(r) for f in small.fields for r in f.coords.numpy().round(9)}
+    cells = cells[[tuple(r) not in taken for r in cells.round(9)]]
+    for dtype, rtol, root_tol in ((torch.float32, 1e-4, 1e-4), (torch.float64, 1e-8, 1e-10)):
+        name = str(dtype).replace("torch.", "")
+        jp = JointPredictor(mod, small.astype(dtype))
+        out, draws = i_stage("conditional", stages, launches, f"sample_{name}",
+                             lambda: jp.sample(0, cells, n_samples=I_COND_SAMPLES, seed=8),
+                             ("matern_correlation",))
+        base = jp(0, cells)
+        check(draws.shape == (I_COND_SAMPLES, len(cells)) and np.isfinite(draws).all(),
+              f"(i) conditional {name}: draws shape / finite")
+        gap = max(float(np.max(np.abs(out.pred - base.pred) / np.abs(base.pred).clip(1e-3))),
+                  float(np.max(np.abs(out.pred_err - base.pred_err) / base.pred_err)))
+        check(gap <= rtol, f"(i) conditional {name}: pred / pred_err off __call__'s by {gap}")
+        z = np.abs(draws.mean(axis=0) - out.pred) / (out.pred_err / np.sqrt(I_COND_SAMPLES))
+        check(np.all(z < 5.0), f"(i) conditional {name}: sample means {z.max():.2f} SE off pred")
+        coords = tuple(f.coords_main.to(device="cuda", dtype=dtype) for f in small.fields)
+        values = tuple(f.values_main.to(device="cuda", dtype=dtype) for f in small.fields)
+        with torch.no_grad():
+            _, _, post, root = TJ._posterior(jp.params, coords, values,
+                                             torch.as_tensor(cells, device="cuda", dtype=dtype),
+                                             0, False)
+            root_err = float((root @ root.T - post).abs().max() / post.abs().max())
+        check(root_err <= root_tol, f"(i) conditional {name}: root root^T off the posterior by {root_err}")
+        log(f"(i) conditional simulation {name}: {len(cells)} cells from 2 x {I_COND_N} data, "
+            f"{I_COND_SAMPLES} draws in {stages[f'sample_{name}']:.3f} s, launches "
+            f"{launches[f'sample_{name}']}; pred/pred_err against __call__ {gap:.3e}, means max "
+            f"{z.max():.2f} SE, root root^T against the posterior {root_err:.3e}")
+        del jp, post, root
+        torch.cuda.empty_cache()
+
+
+def phase_i_cli(stages):
+    """5. ``fit --bootstrap 16`` and ``predict --joint --conditional-sims
+    10`` with ``--device cuda`` on tests/test_cli.py's staged tables (their
+    projected fit is positive definite), the prediction held against the
+    same command on the CPU in this process."""
+    import io
+    import os
+    import tempfile
+
+    import pandas as pd
+
+    from cokriging_tpu_torch.__main__ import main as cli_main
+    from cokriging_tpu_torch.data.grids import main_coords_array
+    from cokriging_tpu_torch.utils.io import load_table, save_table
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(6)
+        paths = []
+        for k, nm in enumerate(("xco2", "sif")):
+            paths.append(os.path.join(tmp, f"{nm}.parquet"))
+            save_table(paths[-1], cli_table(nm, rng, 600 + k))
+        mc = main_coords_array()
+        grid = os.path.join(tmp, "grid.parquet")
+        save_table(grid, pd.DataFrame({"lat": mc[::3, 0] + 0.5, "lon": mc[::3, 1] + 0.5}))
+        common = ["--data", *paths, "--timestamp", CLI_TIMES[1], "--timedeltas", "0", "0"]
+        params = os.path.join(tmp, "params.npz")
+        out = {}
+        for cmd, argv in (
+            ("fit", ["fit", *common, "--max-dist", "3000", "--n-bins", "8", "--maxiter", "30",
+                     "--project-validity", "--bootstrap", "16", "--out", params]),
+            ("predict", ["predict", *common, "--params", params, "--pred-grid", grid, "--joint",
+                         "--conditional-sims", "10", "--seed", "3",
+                         "--out", os.path.join(tmp, "pred_cuda.parquet")]),
+        ):
+            t0 = time.perf_counter()
+            run = subprocess.run([sys.executable, "-m", "cokriging_tpu_torch", *argv,
+                                  "--device", "cuda"], cwd=HERE, capture_output=True, text=True,
+                                 timeout=300, env={**os.environ, "PYTHONPATH": str(HERE)})
+            stages[f"cli_{cmd}"] = time.perf_counter() - t0
+            check(run.returncode == 0, f"(i) CLI {cmd} --device cuda: exit {run.returncode}: "
+                  f"{run.stderr[-2000:]}")
+            out[cmd] = run.stdout
+        boot = pd.read_csv(f"{params}.bootstrap.csv")
+        check(list(boot.columns) == ["name", "value", "bounds", "std_err", "bias", "q025", "q975"]
+              and boot.shape == (11, 7) and np.isfinite(boot["std_err"]).all(),
+              f"(i) CLI bootstrap table: {boot.columns.tolist()} {boot.shape}")
+        pred = load_table(os.path.join(tmp, "pred_cuda.parquet"))
+        with np.load(os.path.join(tmp, "pred_cuda.parquet.samples.npz")) as f:
+            keys, sims = list(f.keys()), f["samples"]
+        check(keys == ["samples"] and sims.shape == (10, len(pred)) and np.isfinite(sims).all(),
+              f"(i) CLI samples: {keys} {sims.shape}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli_main(["predict", *common, "--params", params, "--pred-grid", grid, "--joint",
+                      "--out", os.path.join(tmp, "pred_cpu.parquet"), "--device", "cpu"])
+        cpu = load_table(os.path.join(tmp, "pred_cpu.parquet"))
+        gap = float(np.max(np.abs(pred[["pred", "pred_err"]].to_numpy()
+                                  - cpu[["pred", "pred_err"]].to_numpy())))
+        check(gap <= 1e-6, f"(i) CLI conditional-sims prediction against the CPU: {gap}")
+    log(f"(i) CLI fit --bootstrap 16 / predict --joint --conditional-sims 10 --device cuda: "
+        f"{stages['cli_fit']:.1f} / {stages['cli_predict']:.1f} s per process; bootstrap table "
+        f"{boot.shape}, std_err {np.round(boot['std_err'].to_numpy(), 4).tolist()}; samples "
+        f"{sims.shape}; prediction against the CPU {gap:.3e}; printed "
+        f"{out['fit'].strip().splitlines()[-1]!r}")
+
+
+def phase_i():
+    """Simulation and the parametric bootstrap; returns its rows of the
+    kernels line."""
+    import torch
+
+    stages, launches, rows = {}, {}, []
+    t0 = time.perf_counter()
+    phase_i_dense(stages, launches, rows)
+    mod, spec, samples = phase_i_spectral(stages, launches, rows)
+    params, mf = phase_i_bootstrap(mod, spec, samples, stages, launches, rows)
+    phase_i_conditional(mod, mf, stages, launches, rows)
+    torch.cuda.empty_cache()
+    phase_i_cli(stages)
+    log(f"(i) stages (s) {json.dumps({k: round(v, 4) for k, v in stages.items()})}")
+    log(f"(i) launches per stage {json.dumps(launches)}")
+    log(f"(i) seconds {time.perf_counter() - t0:.1f}")
+    return rows
+
+
+def main(phases="abcdefghi"):
     try:
         import torch
     except ImportError:
@@ -2296,6 +2892,7 @@ def main(phases="abcdefgh"):
         found = {m: importlib.util.find_spec(m) is not None for m in ("pandas", "matplotlib", "jax")}
         log(f"(a) installed: {found}")
         import cokriging_tpu_torch.cov.spectral  # noqa: F401
+        import cokriging_tpu_torch.estimate.bootstrap  # noqa: F401
         import cokriging_tpu_torch.estimate.empirical  # noqa: F401
         import cokriging_tpu_torch.estimate.nll  # noqa: F401
         import cokriging_tpu_torch.estimate.vecchia  # noqa: F401
@@ -2304,6 +2901,8 @@ def main(phases="abcdefgh"):
         import cokriging_tpu_torch.predict.joint  # noqa: F401
         import cokriging_tpu_torch.predict.local  # noqa: F401
         import cokriging_tpu_torch.predict.postprocess  # noqa: F401
+        import cokriging_tpu_torch.sim.cofield  # noqa: F401
+        import cokriging_tpu_torch.sim.spectral  # noqa: F401
         import cokriging_tpu_torch.utils.io  # noqa: F401
         from cokriging_tpu_torch.__main__ import _parser  # noqa: F401
         from cokriging_tpu_torch.data.grids import prediction_coords
@@ -2397,6 +2996,10 @@ def main(phases="abcdefgh"):
             phase_h_cli()
             log(f"(h) seconds {time.perf_counter() - t_h:.1f}; elapsed since start "
                 f"{time.perf_counter() - t_start:.1f} s")
+        # (i) simulation and the parametric bootstrap
+        if "i" in phases:
+            rows += phase_i()
+            log(f"(i) elapsed since start {time.perf_counter() - t_start:.1f} s")
     except SmokeFailure as e:
         print(f"FAILED: {e}", file=sys.stderr)
         return 1
@@ -2414,7 +3017,7 @@ def main(phases="abcdefgh"):
                 f"{recorded if recorded is not None else 'none'} ms]{extra}, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}), launches {r['launches']}; ptxas {r['ptxas']}")
     print(json.dumps({"kernels": rows}))
-    if phases != "abcdefgh":
+    if phases != "abcdefghi":
         print(f"partial run of phases {phases}: no result")
         return 0
     print(smi)

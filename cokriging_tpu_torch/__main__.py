@@ -10,26 +10,24 @@ arguments, defaults, output files and printed summaries:
     loocv      leave-one-out cross-validation diagnostics
                (MSPE/MAPE/coverage; local or joint predictor)
 
-``--device`` (default ``cuda``) picks where the work runs; ``--device cpu``
-runs on the host. ``sim``, ``bench``, ``fit --bootstrap``,
-``fit --std-errors`` and ``predict --conditional-sims`` need modules the port
-does not have yet and stop with an error that names the ROADMAP item that
-ports them.
+``fit --bootstrap N`` adds the parametric bootstrap of a WLS fit
+(``<out>.bootstrap.csv``), ``predict --joint --conditional-sims N`` the
+conditional realizations (``<out>.samples.npz``). ``--device`` (default
+``cuda``) picks where the work runs; ``--device cpu`` runs on the host.
+``sim``, ``bench`` and ``fit --std-errors`` need modules the port does not
+have yet and stop with an error that names the ROADMAP item that ports them.
 """
 
 import argparse
 import sys
 
 _NOT_YET = {
-    "sim": "the simulation experiment needs the port's sim/ (ROADMAP.md Queue 1 items 4-5)",
+    "sim": "the simulation experiment writes figures, which need the port's plot/ "
+           "(ROADMAP.md Queue 1 item 13); its simulators are ported (sim/)",
     "bench": "the port's benchmark script is a benchmark PR's work (ROADMAP.md Queue 1, "
              "note for a benchmark PR)",
-    "bootstrap": "--bootstrap needs the port's estimate/bootstrap.py (ROADMAP.md Queue 1 "
-                 "item 6)",
     "std_errors": "--std-errors needs the port's estimate/uncertainty.py (ROADMAP.md Queue 1 "
                   "item 7)",
-    "conditional_sims": "--conditional-sims needs JointPredictor.sample (ROADMAP.md Queue 1 "
-                        "item 4)",
 }
 
 
@@ -72,7 +70,7 @@ def _parser():
                             "for prediction; pairwise Gneiting bound)")
     p_fit.add_argument("--bootstrap", type=int, default=0, metavar="N",
                        help="(--method wls) parametric bootstrap of N replicates "
-                            "(not ported yet)")
+                            "(per-parameter SEs + percentile CIs -> <out>.bootstrap.csv)")
     p_fit.add_argument("--std-errors", action="store_true",
                        help="asymptotic standard errors from the exact-NLL Hessian "
                             "(not ported yet)")
@@ -94,8 +92,8 @@ def _parser():
                              "CG solver (predict/iterative.py) for observation counts past "
                              "one card's O(N^2) covariance memory")
     p_pred.add_argument("--conditional-sims", type=int, default=0, metavar="N",
-                        help="(--joint) conditional-simulation realizations (not ported "
-                             "yet)")
+                        help="(--joint) also draw N conditional-simulation realizations "
+                             "from the full posterior -> <out>.samples.npz")
     p_pred.add_argument("--seed", type=int, default=0,
                         help="PRNG seed for --conditional-sims")
     p_pred.add_argument("--out", default="predictions.parquet")
@@ -171,9 +169,25 @@ def _fit(args, mf):
     save_params(args.out, params, metadata={"timestamp": args.timestamp})
     print(params.to_dataframe().to_string(index=False))
     print(f"{quality} -> {args.out}")
+    if args.bootstrap:
+        from cokriging_tpu_torch.cov.matern import MultivariateMatern
+        from cokriging_tpu_torch.estimate.bootstrap import parametric_bootstrap
+        from cokriging_tpu_torch.estimate.empirical import VarioConfig
+
+        boot = parametric_bootstrap(
+            MultivariateMatern(params=params), mf,
+            VarioConfig(max_dist=args.max_dist, n_bins=args.n_bins), n_rep=args.bootstrap,
+            maxiter=args.maxiter, main=True, device=args.device,
+        )
+        bdf = boot.summary()
+        bdf.to_csv(f"{args.out}.bootstrap.csv", index=False)
+        print(bdf.to_string(index=False))
+        print(f"bootstrap ({args.bootstrap} replicates) -> {args.out}.bootstrap.csv")
 
 
 def _predict(args, mf):
+    import numpy as np
+
     from cokriging_tpu_torch.cov.matern import MultivariateMatern
     from cokriging_tpu_torch.data.grids import prediction_coords
     from cokriging_tpu_torch.utils.io import load_params, load_table, save_table
@@ -192,7 +206,13 @@ def _predict(args, mf):
             from cokriging_tpu_torch.predict.joint import JointPredictor
 
             jp = JointPredictor(mod, mf, device=args.device)
-        out = jp(args.process, pgrid, postprocess=False)
+        if args.conditional_sims:
+            out, samples = jp.sample(args.process, pgrid, n_samples=args.conditional_sims,
+                                     seed=args.seed)
+            np.savez_compressed(f"{args.out}.samples.npz", samples=samples)
+            print(f"{args.conditional_sims} conditional realizations -> {args.out}.samples.npz")
+        else:
+            out = jp(args.process, pgrid, postprocess=False)
     else:
         from cokriging_tpu_torch.predict.local import LocalPredictor
 
@@ -240,9 +260,16 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.cmd in ("sim", "bench"):
         parser.error(_NOT_YET[args.cmd])
-    for flag in ("bootstrap", "std_errors", "conditional_sims"):
-        if getattr(args, flag, False):
-            parser.error(_NOT_YET[flag])
+    if getattr(args, "std_errors", False):
+        parser.error(_NOT_YET["std_errors"])
+    if args.cmd == "fit" and args.bootstrap and args.method != "wls":
+        parser.error("--bootstrap requires --method wls")
+    if args.cmd == "predict" and args.conditional_sims:
+        if not args.joint:
+            parser.error("--conditional-sims requires --joint")
+        if args.solver == "cg":
+            parser.error("--conditional-sims requires the dense solver (posterior covariance); "
+                         "drop --solver cg")
     from cokriging_tpu_torch.utils.config import resolve_device
 
     resolve_device(args.device)  # raise now, before the tables load, without a card

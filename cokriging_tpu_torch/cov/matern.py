@@ -223,6 +223,23 @@ def block_covariance(params: MaternParams, dists, h_grad: bool = True, table=Non
     )
 
 
+def covariance_block(params: MaternParams, i: int, j: int, d, table=None):
+    """Covariance block between process i and process j at the 2-D
+    distances ``d`` (nugget at exact zeros when i == j), like the blocks of
+    the joint covariance: ``matern_correlation_block``, on a CUDA tensor the
+    Matern kernel, with the pair's row of ``table`` (the parameters'
+    ``pair_table``) where it is of d's dtype."""
+    from cokriging_tpu_torch.kernels.cuda_ops import matern_correlation_block
+
+    row = None
+    if table is not None and d.is_cuda and d.dtype == table.value.dtype:
+        row = table.rows(i, j)[0]
+    m = matern_correlation_block(params.nu[i, j], params.len_scale[i, j], d, table=row)
+    if i == j:
+        return m.mul_(params.sigma[i] ** 2).add_(torch.where(d == 0.0, params.nugget[i], 0.0))
+    return m.mul_(params.rho[i, j] * params.sigma[i] * params.sigma[j])
+
+
 def joint_covariance_from_coords(params: MaternParams, coords_tuple, geodesic):
     """The joint block covariance of the per-process coordinate sets
     ``coords_tuple``: their cross-distance blocks, then ``block_covariance``

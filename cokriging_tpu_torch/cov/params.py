@@ -109,23 +109,26 @@ class MaternParams:
     @staticmethod
     def from_flat(x, spec: ParamSpec = None, n_procs: int = 2) -> "MaternParams":
         """Build from the reference-ordered flat vector (src/model.py:145).
-        Keeps the caller's float dtype and device; differentiable in x."""
+        Keeps the caller's float dtype and device; differentiable in x. A
+        leading batch shape of x (the batched WLS fits) is kept on every
+        member: sigma (..., p), nu (..., p, p) and so on."""
         spec = spec or ParamSpec(n_procs=n_procs)
         p = spec.n_procs
         x = torch.as_tensor(x)
         if not x.is_floating_point():
             x = x.to(torch.get_default_dtype())
-        if x.numel() != spec.n_params:
+        if x.ndim == 0 or x.shape[-1] != spec.n_params:
             raise ValueError(
-                f"flat vector has {x.numel()} entries, spec needs {spec.n_params}"
+                f"flat vector has {x.shape[-1] if x.ndim else 1} entries, spec needs "
+                f"{spec.n_params}"
             )
         t = p * (p + 1) // 2
         s = p * (p - 1) // 2
-        sigma = x[:p]
-        nu = _sym_from_triu(x[p : p + t], p, k_diag=0)
-        len_scale = _sym_from_triu(x[p + t : p + 2 * t], p, k_diag=0)
-        nugget = x[p + 2 * t : 2 * p + 2 * t]
-        rho = _sym_from_triu(x[2 * p + 2 * t : 2 * p + 2 * t + s], p, k_diag=1)
+        sigma = x[..., :p]
+        nu = _sym_from_triu(x[..., p : p + t], p, k_diag=0)
+        len_scale = _sym_from_triu(x[..., p + t : p + 2 * t], p, k_diag=0)
+        nugget = x[..., p + 2 * t : 2 * p + 2 * t]
+        rho = _sym_from_triu(x[..., 2 * p + 2 * t : 2 * p + 2 * t + s], p, k_diag=1)
         rho = rho + torch.eye(p, dtype=x.dtype, device=x.device)
         return MaternParams(sigma, nu, len_scale, nugget, rho, spec)
 
@@ -187,5 +190,5 @@ def _sym_from_triu(vals, p, k_diag=0):
     idx = np.full((p, p), len(iu[0]))  # points at the appended zero
     idx[iu] = np.arange(len(iu[0]))
     idx[(iu[1], iu[0])] = np.arange(len(iu[0]))
-    padded = torch.cat([vals, vals.new_zeros(1)])
-    return padded[torch.as_tensor(idx, device=vals.device)]
+    padded = torch.cat([vals, vals.new_zeros(vals.shape[:-1] + (1,))], dim=-1)
+    return padded[..., torch.as_tensor(idx, device=vals.device)]

@@ -12,7 +12,9 @@ ch. 4). ``rho_max`` and ``project_to_valid`` hold a fitted model to the
 Gneiting, Kleiber & Schlather (2010) validity bound. These are host-side
 utilities on a few scalars: they compute in float64 on the CPU whatever
 the parameters' dtype and device, and hand results back in them.
-``bessel_j0`` and the spectral round trip come with ``sim/``.
+``bessel_j0`` and ``spectral_correlation_roundtrip`` (the spectral density
+integrated back to a correlation) are the self-consistency check of the
+densities.
 """
 
 import dataclasses
@@ -167,3 +169,69 @@ def project_to_valid(params, margin: float = 0.99, d=2, lift_nu: bool = True,
             r = torch.clamp(params.rho[i, j].to(_F64), -bound, bound).to(rho.dtype)
             rho = _set_sym(rho, i, j, r)
     return dataclasses.replace(params, rho=rho)
+
+
+def bessel_j0(x):
+    """J_0(x), Bessel function of the first kind, order zero, in float64 on
+    the host.
+
+    Abramowitz & Stegun 9.4.1 (|x| < 8, rational polynomial) and 9.4.3
+    (|x| >= 8, modulus/phase asymptotic); ~1e-8 absolute accuracy, plenty
+    for the spectral round-trip quadrature, whose discretization error
+    dominates.
+    """
+    x = torch.abs(_f64(x))
+    # |x| < 8: rational P(y)/Q(y) in y = x^2
+    y = x * x
+    p_small = (
+        57568490574.0
+        + y * (-13362590354.0 + y * (651619640.7
+        + y * (-11214424.18 + y * (77392.33017 + y * (-184.9052456)))))
+    )
+    q_small = (
+        57568490411.0
+        + y * (1029532985.0 + y * (9494680.718
+        + y * (59272.64853 + y * (267.8532712 + y))))
+    )
+    small = p_small / q_small
+    # |x| >= 8: modulus-phase form
+    ax = torch.clamp_min(x, 1e-30)
+    z = 8.0 / ax
+    y2 = z * z
+    xx = ax - 0.785398164
+    p1 = (
+        1.0
+        + y2 * (-0.1098628627e-2 + y2 * (0.2734510407e-4
+        + y2 * (-0.2073370639e-5 + y2 * 0.2093887211e-6)))
+    )
+    p2 = (
+        -0.1562499995e-1
+        + y2 * (0.1430488765e-3 + y2 * (-0.6911147651e-5
+        + y2 * (0.7621095161e-6 + y2 * (-0.934935152e-7))))
+    )
+    large = torch.sqrt(0.636619772 / ax) * (torch.cos(xx) * p1 - z * torch.sin(xx) * p2)
+    return torch.where(x < 8.0, small, large)
+
+
+def spectral_correlation_roundtrip(nu, len_scale, h, n_freq=4096, w_max=None, d=1):
+    """Numerically invert the d-dimensional spectral density back to a
+    correlation and evaluate it at lags h (float64, host), the
+    self-consistency check of the notebook's spectral/covariance comparisons
+    (research/matern_spectrum.ipynb cells 7-14). d=1 is the cosine-transform
+    pair; d=2 the Hankel transform
+
+        C(h) = 2 pi * int_0^inf S(w) J_0(2 pi w h) w dw.
+    """
+    if d not in (1, 2):
+        raise NotImplementedError("roundtrip check implemented for d in (1, 2)")
+    if w_max is None:
+        w_max = 40.0 / len_scale
+    w = torch.linspace(0.0, float(w_max), n_freq, dtype=_F64)
+    s = matern_spectral_density(w, nu, len_scale, d=d)
+    h = torch.atleast_1d(_f64(h))
+    if d == 1:
+        # C(h) = 2 * int_0^inf S(w) cos(2 pi w h) dw  (even spectrum)
+        integrand = s[None, :] * torch.cos(2.0 * math.pi * w[None, :] * h[:, None])
+        return 2.0 * torch.trapezoid(integrand, w, dim=1)
+    integrand = s[None, :] * bessel_j0(2.0 * math.pi * w[None, :] * h[:, None]) * w[None, :]
+    return 2.0 * math.pi * torch.trapezoid(integrand, w, dim=1)

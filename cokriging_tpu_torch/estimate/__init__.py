@@ -7,6 +7,7 @@ from cokriging_tpu_torch.estimate.wls import (  # noqa: F401
     cauchy_schwarz_check,
     composite_wls_cost,
     fit_wls,
+    fit_wls_batch,
     moment_init,
 )
 from cokriging_tpu_torch.estimate.nll import (  # noqa: F401
@@ -20,4 +21,10 @@ from cokriging_tpu_torch.estimate.vecchia import (  # noqa: F401
     fit_vecchia_device,
     maxmin_order,
     vecchia_nll,
+)
+from cokriging_tpu_torch.estimate.bootstrap import (  # noqa: F401
+    BootstrapResult,
+    batched_variograms,
+    parametric_bootstrap,
+    simulate_replicates,
 )

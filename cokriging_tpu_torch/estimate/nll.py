@@ -25,7 +25,9 @@ import torch
 
 from cokriging_tpu_torch.cov.matern import block_covariance
 from cokriging_tpu_torch.cov.params import MaternParams, ParamSpec
-from cokriging_tpu_torch.estimate.wls import _box_forward, _box_inverse, adam_cosine
+from cokriging_tpu_torch.estimate.wls import (
+    _box_forward, _box_inverse, _ordered_sum, adam_cosine,
+)
 from cokriging_tpu_torch.kernels.distance import euclidean_matrix, haversine_matrix
 from cokriging_tpu_torch.kernels.linalg import spd_inverse_from_chol
 from cokriging_tpu_torch.utils.config import resolve_device
@@ -201,25 +203,232 @@ def nll_u_value_and_grad(u, lo, hi, dists, z, spec, measurement_var=None, jitter
     )
 
 
-def _lbfgs_direction(g, S, Y, rho, head):
-    """L-BFGS two-loop recursion over the circular history (newest first);
-    slots with rho == 0 are empty."""
-    m = rho.shape[0]
-    order = [(head - 1 - k) % m for k in range(m)]
-    order = [k for k in order if bool(rho[k] > 0.0)]
+def _dot(a, b):
+    """Row-wise dot products over the last axis, added in order (the same
+    operations for a member alone and in any batch)."""
+    return _ordered_sum(a * b)
+
+
+def _lbfgs_direction(g, S, Y, rho, head, n_filled):
+    """L-BFGS two-loop recursion of every member over its circular history
+    (newest first): g (M, d), S and Y (M, m, d), rho (M, m), head (M,).
+    ``n_filled`` is (fewest, most) filled slots over the members, host
+    ints: older slots are empty for all and skipped, and the newest
+    ``fewest`` are filled for all and need no mask (an empty slot, rho == 0,
+    leaves q as it is)."""
+    m = rho.shape[1]
+    fewest, most = n_filled
+    if most == 0:
+        return -g
+    order = (head[:, None] - 1 - torch.arange(most, device=head.device)) % m
+    So = S.gather(1, order[..., None].expand(-1, -1, S.shape[2])).unbind(1)
+    Yo = Y.gather(1, order[..., None].expand(-1, -1, Y.shape[2])).unbind(1)
+    ro = rho.gather(1, order)
+    valid = (ro > 0.0)[..., None].unbind(1)
+    ro = ro.unbind(1)
+
+    def masked(k, new, q):
+        return new if k < fewest else torch.where(valid[k], new, q)
+
     q = g
     alphas = []
-    for k in order:
-        a = rho[k] * (S[k] @ q)
-        q = q - a * Y[k]
+    for k in range(most):
+        a = ro[k] * _dot(So[k], q)
+        q = masked(k, q - a[:, None] * Yo[k], q)
         alphas.append(a)
-    if order:  # initial Hessian scale from the newest pair
-        k = order[0]
-        q = (S[k] @ Y[k]) / torch.clamp_min(Y[k] @ Y[k], 1e-30) * q
-    for k, a in zip(reversed(order), reversed(alphas)):
-        b = rho[k] * (Y[k] @ q)
-        q = q + (a - b) * S[k]
+    # initial Hessian scale from the newest pair (slots fill in order and
+    # stay filled, so the newest is filled whenever any is)
+    gamma = _dot(So[0], Yo[0]) / torch.clamp_min(_dot(Yo[0], Yo[0]), 1e-30)
+    q = masked(0, gamma[:, None] * q, q)
+    for k in range(most - 1, -1, -1):
+        b = ro[k] * _dot(Yo[k], q)
+        q = masked(k, q + (alphas[k] - b)[:, None] * So[k], q)
     return -q
+
+
+def sigmoid_box_lbfgs_batch(
+    raw, x0, lo, hi, maxiter: int = 200, tol: float = 1e-6,
+    memory_size: int = 10, n_starts: int = 1,
+):
+    """Minimize B independent objectives over the box [lo, hi] with L-BFGS
+    under the sigmoid reparameterization x = lo + (hi - lo) * sigmoid(u),
+    all members at once on x0's device: the reference's
+    ``sigmoid_box_lbfgs`` (cokriging_tpu/estimate/nll.py:196-429) as the
+    reference's ``fit_wls_batch_arrays`` vmaps it, each member stepping
+    until its own stop and frozen after it.
+
+    ``raw(x, rows)`` evaluates the objectives of the members ``x`` (k, d),
+    ``rows`` (k,) naming the batch row (0 .. B - 1) each belongs to, and
+    returns their (k,) values; it must treat rows independently. ``x0`` is
+    (B, d). Each batch row runs ``n_starts`` members: its own start and
+    ``n_starts - 1`` deterministic box-fraction restarts.
+
+    Every iteration evaluates one trial point u + alpha * d for each active
+    member in one call of ``raw`` and either accepts it or moves that
+    member's step bracket, every rule applied per member with masks; the
+    host reads the card once per iteration (which members are active, which
+    accepted their last trial and so need a new direction, and how full
+    each curvature history is). Steps
+    are searched by Lewis-Overton bracketing (Armijo failure caps the
+    bracket, curvature failure raises its floor, doubling while
+    unbracketed) with the safeguarded quadratic-interpolation candidate,
+    which lands in the weak-Wolfe window (c1 = 1e-4, c2 = 0.9); after 20
+    probes without an accept any Armijo point is taken, and 40 probes
+    without one is a line-search failure. A curvature pair is stored only
+    when s.y is positive relative to |s| |y|. Besides the gradient
+    tolerance, three consecutive clean Wolfe accepts whose relative
+    improvement stays below ftol stop a member (scipy's factr = 1e7 test,
+    made robust to one tiny backtracked step). Gradients are cleaned
+    (non-finite entries zeroed) so penalty-region probes cannot poison the
+    curvature memory.
+
+    Of a row's starts the best basin wins, preferring the row's own start
+    unless a restart is better by a real margin (0.1% relative).
+
+    Returns (x (B, d), value (B,), n_iter (B,) int64, converged (B,) bool):
+    n_iter counts objective evaluations (accepts and line-search probes,
+    summed over the row's starts); converged is True iff the winning start
+    stopped on the gradient tolerance or the ftol test at a genuine point.
+    A cleaned gradient of exactly zero means the iterate is stranded on the
+    non-PD penalty plateau; that exit reports converged=False.
+    """
+    m = memory_size
+    dt, dev = x0.dtype, x0.device
+    B, d = x0.shape
+    c1, c2 = 1e-4, 0.9
+    ftol = 2.2e-9 if dt == torch.float64 else 1e-6
+
+    starts = [x0]
+    if n_starts > 1:
+        fr = torch.linspace(0.25, 0.75, n_starts - 1, dtype=dt, device=dev)
+        starts += [(lo + f * (hi - lo)).expand(B, d) for f in fr]
+    # member r = row * n_starts + start
+    u = _box_inverse(torch.stack(starts, dim=1).reshape(B * n_starts, d), lo, hi)
+    rows = torch.arange(B, device=dev).repeat_interleave(n_starts)
+    M = u.shape[0]
+
+    def value_and_grad(ut, rows_t):
+        ut = ut.detach().clone().requires_grad_(True)
+        v = raw(_box_forward(_CleanGrad.apply(ut), lo, hi), rows_t)
+        (g,) = torch.autograd.grad(v.sum(), ut)
+        return v.detach(), g
+
+    f, g = value_and_grad(u, rows)
+    gg = _dot(g, g)  # |g|^2, kept beside g
+    S = torch.zeros((M, m, d), dtype=dt, device=dev)
+    Y = torch.zeros_like(S)
+    rho = torch.zeros((M, m), dtype=dt, device=dev)
+    head = torch.zeros(M, dtype=torch.int64, device=dev)
+    dvec = -g
+    alpha = torch.clamp_max(1.0 / torch.clamp_min(torch.sqrt(gg), 1e-12), 1.0)
+    alo = torch.zeros(M, dtype=dt, device=dev)
+    ahi = torch.full((M,), math.inf, dtype=dt, device=dev)
+    evals = torch.zeros(M, dtype=torch.int64, device=dev)
+    bt = torch.zeros_like(evals)
+    n_small = torch.zeros_like(evals)
+    fail = torch.zeros(M, dtype=torch.bool, device=dev)
+    accepted = torch.zeros(M, dtype=torch.bool, device=dev)  # a new direction is due
+    while True:
+        active = (evals < maxiter) & (torch.sqrt(gg) >= tol) & ~fail & (n_small < 3)
+        # the one host read of the iteration: who steps, who accepted its
+        # last trial, and how full each history is
+        state = torch.cat([active.long(), (accepted & active).long(),
+                           torch.clamp_max(head, m)]).cpu().numpy()
+        idx_np = np.flatnonzero(state[:M])
+        if idx_np.size == 0:
+            break
+        # new directions of the members that accepted (a rejected trial
+        # keeps its direction)
+        new_np = np.flatnonzero(state[M:2 * M])
+        if new_np.size:
+            filled = state[2 * M:][new_np]
+            n_filled = (int(filled.min()), int(filled.max()))
+            if new_np.size == M:
+                dvec = _lbfgs_direction(g, S, Y, rho, head, n_filled)
+            else:
+                k = torch.as_tensor(new_np, device=dev)
+                dvec[k] = _lbfgs_direction(g[k], S[k], Y[k], rho[k], head[k], n_filled)
+        full = idx_np.size == M
+        idx = None if full else torch.as_tensor(idx_np, device=dev)
+
+        def take(t):
+            return t if full else t[idx]
+
+        def put(t, v):
+            if full:
+                return v
+            t[idx] = v
+            return t
+
+        u_a, f_a, g_a, gg_a, d_a = (take(t) for t in (u, f, g, gg, dvec))
+        al, lo_a, hi_a, bt_a, ns_a = (take(t) for t in (alpha, alo, ahi, bt, n_small))
+        S_a, Y_a, rho_a, head_a = (take(t) for t in (S, Y, rho, head))
+        ut = u_a + al[:, None] * d_a
+        ft, gt = value_and_grad(ut, take(rows))
+        s, y = ut - u_a, gt - g_a
+        # the iteration's six dot products in one ordered sum (each the
+        # same additions as alone)
+        slope, gt_d, curv, ss, yy, gtt = _ordered_sum(
+            torch.stack([g_a * d_a, gt * d_a, s * y, s * s, y * y, gt * gt])).unbind(0)
+        armijo = ft <= f_a + c1 * al * slope
+        curv_ok = gt_d >= c2 * slope
+        accept = armijo & (curv_ok | (bt_a >= 20))
+        # only clean Wolfe accepts count toward the ftol stop: a forced
+        # accept makes tiny progress by construction
+        small = (f_a - ft) <= ftol * torch.clamp_min(torch.abs(ft), 1.0)
+        ns_n = torch.where(armijo & curv_ok, torch.where(small, ns_a + 1, 0), ns_a)
+        # accept: store the curvature pair and step
+        store = accept & (curv > 1e-10 * torch.sqrt(ss * yy))
+        slot = torch.nn.functional.one_hot(head_a % m, m).bool() & store[:, None]
+        S_a = torch.where(slot[..., None], s[:, None], S_a)
+        Y_a = torch.where(slot[..., None], y[:, None], Y_a)
+        rho_a = torch.where(slot, (1.0 / torch.clamp_min(curv, 1e-30))[:, None], rho_a)
+        head_a = head_a + store.long()
+        # reject: a curvature failure raises the floor, an Armijo failure
+        # caps the bracket; then the minimizer of the 1-d quadratic through
+        # (f, slope, ft), safeguarded into the open bracket, bisection when
+        # degenerate, doubling while unbracketed
+        lo_r = torch.where(armijo, al, lo_a)
+        hi_r = torch.where(armijo, hi_a, al)
+        denom = 2.0 * (ft - f_a - slope * al)
+        alpha_q = torch.where(
+            denom > 0.0, -slope * al * al / torch.clamp_min(denom, 1e-30),
+            0.5 * (lo_r + torch.minimum(hi_r, 2.0 * al)),
+        )
+        top = torch.minimum(hi_r, 4.0 * al)
+        alpha_q = torch.minimum(torch.maximum(alpha_q, lo_r + 0.1 * (top - lo_r)),
+                                lo_r + 0.9 * (top - lo_r))
+        alpha_r = torch.where(torch.isfinite(hi_r), alpha_q, 2.0 * al)
+        bt_n = torch.where(accept, 0, bt_a + 1)
+        u = put(u, torch.where(accept[:, None], ut, u_a))
+        f = put(f, torch.where(accept, ft, f_a))
+        g = put(g, torch.where(accept[:, None], gt, g_a))
+        gg = put(gg, torch.where(accept, gtt, gg_a))
+        S, Y, rho, head = put(S, S_a), put(Y, Y_a), put(rho, rho_a), put(head, head_a)
+        alpha = put(alpha, torch.where(accept, 1.0, alpha_r))
+        alo = put(alo, torch.where(accept, 0.0, lo_r))
+        ahi = put(ahi, torch.where(accept, math.inf, hi_r))
+        fail = put(fail, take(fail) | (~accept & (bt_n > 40)))
+        bt, n_small = put(bt, bt_n), put(n_small, ns_n)
+        evals = put(evals, take(evals) + 1)
+        accepted = put(accepted, accept)
+    err = torch.sqrt(gg)
+    genuine = (err > 0.0) & torch.isfinite(f) & ~fail
+    conv = ((err < tol) | (n_small >= 3)) & genuine
+    # per row, the best basin: the row's own start unless a restart is
+    # better by a real margin (near-ties between basins would otherwise let
+    # summation-order noise flip the winner)
+    v = f.reshape(B, n_starts).cpu().numpy().astype(np.float64)
+    k = np.zeros(B, dtype=np.int64)
+    for b in range(B):
+        v0 = v[b, 0]
+        thresh = v0 - max(1e-3 * abs(v0), 1e-6) if math.isfinite(v0) else math.inf
+        for i in range(1, n_starts):
+            if math.isfinite(v[b, i]) and v[b, i] < thresh and (k[b] == 0 or v[b, i] < v[b, k[b]]):
+                k[b] = i
+    win = torch.as_tensor(k, device=dev) + n_starts * torch.arange(B, device=dev)
+    return (_box_forward(u[win], lo, hi), f[win], (evals + 1).reshape(B, n_starts).sum(1),
+            conv[win])
 
 
 def sigmoid_box_lbfgs(
@@ -229,22 +438,9 @@ def sigmoid_box_lbfgs(
     """Minimize ``raw(x)`` over the box [lo, hi] with L-BFGS under the
     sigmoid reparameterization x = lo + (hi - lo) * sigmoid(u), on x0's
     device: the reference's algorithm step for step
-    (cokriging_tpu/estimate/nll.py:196-429), as a plain loop over tensors.
-
-    Every iteration evaluates one trial point u + alpha * d and either
-    accepts it or moves the step bracket. Steps are searched by
-    Lewis-Overton bracketing (Armijo failure caps the bracket, curvature
-    failure raises its floor, doubling while unbracketed) with the
-    safeguarded quadratic-interpolation candidate, which lands in the
-    weak-Wolfe window (c1 = 1e-4, c2 = 0.9); after 20 probes without an
-    accept any Armijo point is taken, and 40 probes without one is a
-    line-search failure. A curvature pair is stored only when s.y is
-    positive relative to |s| |y| (the skip rule keeps the implicit inverse
-    Hessian positive definite). Besides the gradient tolerance, three
-    consecutive clean Wolfe accepts whose relative improvement stays below
-    ftol stop the run (scipy's factr = 1e7 test, made robust to one tiny
-    backtracked step). Gradients are cleaned (non-finite entries zeroed) so
-    penalty-region probes cannot poison the curvature memory.
+    (cokriging_tpu/estimate/nll.py:196-429), ``sigmoid_box_lbfgs_batch``
+    of the one instance, its ``n_starts`` starts in one batch (each start's
+    objective evaluated in turn).
 
     ``n_starts > 1`` adds deterministic box-fraction restarts and returns
     the best basin, preferring the caller's start unless a restart is better
@@ -254,102 +450,13 @@ def sigmoid_box_lbfgs(
     Returns (x, value, n_iter, converged): n_iter counts objective
     evaluations (accepts and line-search probes, summed over starts);
     converged is True iff the winning start stopped on the gradient
-    tolerance or the ftol test at a genuine point. A cleaned gradient of
-    exactly zero means the iterate is stranded on the non-PD penalty
-    plateau; that exit reports converged=False.
+    tolerance or the ftol test at a genuine point.
     """
-    m = memory_size
-    dt = x0.dtype
-    dev = x0.device
-    c1, c2 = 1e-4, 0.9
-    ftol = 2.2e-9 if dt == torch.float64 else 1e-6
-    raw_u = _box_objective(raw, lo, hi)
-
-    def scalar(v):
-        return torch.as_tensor(v, dtype=dt, device=dev)
-
-    def run_one(u):
-        f, g = _value_and_grad(raw_u, u)
-        S = torch.zeros((m, u.shape[0]), dtype=dt, device=dev)
-        Y = torch.zeros_like(S)
-        rho = torch.zeros(m, dtype=dt, device=dev)
-        head = 0
-        dvec = -g
-        gnorm0 = torch.sqrt(g @ g)
-        alpha = torch.clamp_max(1.0 / torch.clamp_min(gnorm0, 1e-12), 1.0)
-        alo, ahi = scalar(0.0), scalar(math.inf)
-        evals = bt = n_small = 0
-        fail = False
-        while (evals < maxiter and bool(torch.sqrt(g @ g) >= tol) and not fail
-               and n_small < 3):
-            ut = u + alpha * dvec
-            ft, gt = _value_and_grad(raw_u, ut)
-            slope = g @ dvec
-            armijo = bool(ft <= f + c1 * alpha * slope)
-            curv_ok = bool(gt @ dvec >= c2 * slope)
-            accept = armijo and (curv_ok or bt >= 20)
-            if armijo and curv_ok:
-                # only clean Wolfe accepts count toward the ftol stop: a
-                # forced accept makes tiny progress by construction
-                small = bool((f - ft) <= ftol * torch.clamp_min(torch.abs(ft), 1.0))
-                n_small = n_small + 1 if small else 0
-            if accept:
-                s = ut - u
-                y = gt - g
-                curv = s @ y
-                if bool(curv > 1e-10 * torch.sqrt((s @ s) * (y @ y))):
-                    pos = head % m
-                    S[pos], Y[pos] = s, y
-                    rho[pos] = 1.0 / torch.clamp_min(curv, 1e-30)
-                    head += 1
-                u, f, g = ut, ft, gt
-                dvec = _lbfgs_direction(g, S, Y, rho, head)
-                alpha, alo, ahi = scalar(1.0), scalar(0.0), scalar(math.inf)
-                bt = 0
-            else:
-                if armijo:
-                    alo = alpha  # curvature failure raises the floor
-                else:
-                    ahi = alpha  # Armijo failure caps the bracket
-                # minimizer of the 1-d quadratic through (f, slope, ft),
-                # safeguarded into the open bracket; bisection when degenerate
-                denom = 2.0 * (ft - f - slope * alpha)
-                if bool(denom > 0.0):
-                    alpha_q = -slope * alpha * alpha / torch.clamp_min(denom, 1e-30)
-                else:
-                    alpha_q = 0.5 * (alo + torch.minimum(ahi, 2.0 * alpha))
-                top = torch.minimum(ahi, 4.0 * alpha)
-                alpha_q = torch.minimum(
-                    torch.maximum(alpha_q, alo + 0.1 * (top - alo)), alo + 0.9 * (top - alo)
-                )
-                alpha = alpha_q if bool(torch.isfinite(ahi)) else 2.0 * alpha
-                bt += 1
-                fail = bt > 40
-            evals += 1
-        err = torch.sqrt(g @ g)
-        genuine = bool(err > 0.0) and bool(torch.isfinite(f)) and not fail
-        converged = (bool(err < tol) or n_small >= 3) and genuine
-        return u, f, evals + 1, converged
-
-    x0 = torch.as_tensor(x0, dtype=dt, device=dev)
-    starts = [x0]
-    if n_starts > 1:
-        fr = torch.linspace(0.25, 0.75, n_starts - 1, dtype=dt, device=dev)
-        starts += [lo + f * (hi - lo) for f in fr]
-    runs = [run_one(_box_inverse(x, lo, hi)) for x in starts]
-    # prefer the caller's start unless a restart is better by a real margin:
-    # near-ties between basins would otherwise let summation-order noise
-    # flip the winner
-    v0 = float(runs[0][1])
-    thresh = v0 - max(1e-3 * abs(v0), 1e-6) if math.isfinite(v0) else math.inf
-    k = 0
-    for i, (_, v, _, _) in enumerate(runs):
-        if math.isfinite(float(v)) and float(v) < thresh and (
-            k == 0 or float(v) < float(runs[k][1])
-        ):
-            k = i
-    u, v, _, converged = runs[k]
-    return _box_forward(u, lo, hi), v, sum(r[2] for r in runs), converged
+    x, v, n, conv = sigmoid_box_lbfgs_batch(
+        lambda x, rows: torch.stack([raw(xi) for xi in x]), x0[None], lo, hi,
+        maxiter=maxiter, tol=tol, memory_size=memory_size, n_starts=n_starts,
+    )
+    return x[0], v[0], int(n[0]), bool(conv[0])
 
 
 def _bounds(spec, dtype, device):

@@ -33,7 +33,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from cokriging_tpu_torch.cov.matern import covariance, cross_covariance, matern_correlation
+from cokriging_tpu_torch.cov.matern import matern_correlation
 from cokriging_tpu_torch.cov.params import MaternParams, ParamSpec
 from cokriging_tpu_torch.utils.config import resolve_device
 
@@ -72,12 +72,18 @@ class FitResult:
 
 
 def _cs_terms(params: MaternParams, h):
-    """(|C_ij(h)|, sqrt(C_ii(h) C_jj(h))) of every pair i < j, nugget-free."""
+    """(|C_ij(h)|, sqrt(C_ii(h) C_jj(h))) of every pair i < j, nugget-free.
+    ``params`` may carry a leading batch shape (``MaternParams.from_flat``
+    of a (..., n_params) stack); ``h`` is (..., n_h) then."""
     p = params.n_procs
+    sig = params.sigma[..., None]
+
+    def corr(i, j):
+        return matern_correlation(params.nu[..., i, j, None], params.len_scale[..., i, j, None], h)
+
     return [
-        (torch.abs(cross_covariance(params, i, j, h)),
-         torch.sqrt(covariance(params, i, h, use_nugget=False)
-                    * covariance(params, j, h, use_nugget=False)))
+        (torch.abs(params.rho[..., i, j, None] * sig[..., i, :] * sig[..., j, :] * corr(i, j)),
+         torch.sqrt(sig[..., i, :] ** 2 * corr(i, i) * (sig[..., j, :] ** 2 * corr(j, j))))
         for i in range(p) for j in range(i + 1, p)
     ]
 
@@ -98,12 +104,42 @@ def validity_penalty(params: MaternParams, centers, n_h: int = 96):
     """Smooth Cauchy-Schwarz violation penalty on a dense lag grid from 0
     to the largest fitting lag: sum relu(|C_ij| - sqrt(C_ii C_jj))^2. The
     grid reaches h -> 0, below the smallest bin center, where violations can
-    live; zero inside the valid region, so it never biases a valid fit."""
-    h = torch.linspace(0.0, 1.0, n_h, dtype=centers.dtype, device=centers.device) * torch.max(
-        centers)
-    total = torch.zeros((), dtype=h.dtype, device=h.device)
+    live; zero inside the valid region, so it never biases a valid fit.
+    With batched ``params`` (batch shape S) and centers of shape S + (...),
+    one penalty per member."""
+    batch = params.sigma.shape[:-1]
+    h = torch.linspace(0.0, 1.0, n_h, dtype=centers.dtype, device=centers.device) * (
+        centers.reshape(*batch, -1).amax(-1)[..., None])
+    total = torch.zeros(batch, dtype=h.dtype, device=h.device)
     for c, r in _cs_terms(params, h):
-        total = total + torch.sum(torch.clamp_min(c - r, 0.0) ** 2)
+        total = total + torch.sum(torch.clamp_min(c - r, 0.0) ** 2, dim=-1)
+    return total
+
+
+def _flat_positions(pairs, spec: ParamSpec) -> np.ndarray:
+    """(7, n_pairs) positions in the flat vector of sigma_i, sigma_j,
+    nugget_i, nugget_j, nu_ij, len_scale_ij and rho_ij of every pair (rho's
+    row holds 0 for a marginal pair, where it is not read)."""
+    p = spec.n_procs
+    t = p * (p + 1) // 2
+    iu = [(i, j) for i in range(p) for j in range(p) if i <= j]
+    iu1 = [(i, j) for i in range(p) for j in range(p) if i < j]
+    return np.array([
+        [i for i, _ in pairs], [j for _, j in pairs],
+        [p + 2 * t + i for i, _ in pairs], [p + 2 * t + j for _, j in pairs],
+        [p + iu.index((i, j)) for i, j in pairs], [p + t + iu.index((i, j)) for i, j in pairs],
+        [2 * p + 2 * t + iu1.index((i, j)) if i < j else 0 for i, j in pairs],
+    ])
+
+
+def _ordered_sum(x):
+    """Sum over the last axis, added in order: one member's sum takes the
+    same operations whatever else is in the batch (a reduction kernel's
+    order can depend on the number of rows)."""
+    parts = x.unbind(-1)
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
     return total
 
 
@@ -113,32 +149,26 @@ def composite_wls_cost(flat, centers, means, counts, pairs, spec: ParamSpec):
     Rows align to ``pairs``. Bins with zero count, NaN mean, or zero model
     value are excluded. Marginal and cross groups both reduce to
     fit = A - B * M(nu, ls, h), so all pairs share one Matern evaluation.
+    A leading batch shape (flat (..., n_params), the bins (..., n_pairs,
+    n_bins)) gives one cost per member. Every parameter is gathered to the
+    bins' full shape and the bins are added in order, so no step reduces
+    across broadcast axes: a member's cost and gradient take the same
+    operations alone and in any batch.
     """
-    params = MaternParams.from_flat(flat, spec=spec)
     dev = flat.device
-    ii = torch.as_tensor([i for i, _ in pairs], device=dev)
-    jj = torch.as_tensor([j for _, j in pairs], device=dev)
-    marginal = ii == jj
-    sill = 0.5 * (
-        params.sigma[ii] ** 2
-        + params.nugget[ii]
-        + params.sigma[jj] ** 2
-        + params.nugget[jj]
-    )
-    a_coef = torch.where(marginal, params.sigma[ii] ** 2 + params.nugget[ii], sill)
-    b_coef = torch.where(
-        marginal,
-        params.sigma[ii] ** 2,
-        params.rho[ii, jj] * params.sigma[ii] * params.sigma[jj],
-    )
-    m = matern_correlation(
-        params.nu[ii, jj][:, None], params.len_scale[ii, jj][:, None], centers
-    )
-    fit = a_coef[:, None] - b_coef[:, None] * m
+    n_pairs, n_bins = centers.shape[-2:]
+    pos = torch.as_tensor(_flat_positions(pairs, spec), device=dev)[:, :, None].expand(
+        7, n_pairs, n_bins)
+    si, sj, ni, nj, nu, ls, rho = (flat[..., pos[k]] for k in range(7))
+    marginal = torch.as_tensor([i == j for i, j in pairs], device=dev)[:, None]
+    sill = 0.5 * (si**2 + ni + sj**2 + nj)
+    a_coef = torch.where(marginal, si**2 + ni, sill)
+    b_coef = torch.where(marginal, si**2, rho * si * sj)
+    fit = a_coef - b_coef * matern_correlation(nu, ls, centers)
     valid = (counts > 0) & torch.isfinite(means) & (fit != 0.0)
     fit_safe = torch.where(fit == 0.0, 1.0, fit)
     r = (means - fit_safe) / fit_safe
-    return torch.sum(torch.where(valid, counts * r * r, 0.0))
+    return _ordered_sum(torch.where(valid, counts * r * r, 0.0).flatten(-2))
 
 
 def moment_init(estimate, spec: Optional[ParamSpec] = None) -> MaternParams:
@@ -198,7 +228,10 @@ def moment_init(estimate, spec: Optional[ParamSpec] = None) -> MaternParams:
 
 
 def _box_forward(u, lo, hi):
-    return lo + (hi - lo) * torch.sigmoid(u)
+    # 1 / (1 + exp(-u)), not torch.sigmoid: the CPU's vectorized sigmoid
+    # rounds otherwise than its scalar tail, so a member's value would
+    # depend on its place in a batch
+    return lo + (hi - lo) / (1.0 + torch.exp(-u))
 
 
 def _box_inverse(x, lo, hi):
@@ -299,42 +332,18 @@ def fit_wls(
         )
         cost, n_iter, success = float(res.fun), int(res.nit), bool(res.success)
     elif method == "adam":
-        lo_np, hi_np = spec.bounds()
-        lo = torch.as_tensor(lo_np, dtype=dt, device=dev)
-        hi = torch.as_tensor(hi_np, dtype=dt, device=dev)
-
-        def objective(u):
-            x = _box_forward(u, lo, hi)
-            cost = composite_wls_cost(x, centers, means, counts, pairs, spec)
-            if validity_weight:
-                cost = cost + validity_weight * torch.sum(counts) * validity_penalty(
-                    MaternParams.from_flat(x, spec=spec), centers)
-            return cost
-
-        u0 = _box_inverse(torch.as_tensor(x0, dtype=dt, device=dev), lo, hi)
-        u = adam_cosine(objective, u0, maxiter)
-        with torch.no_grad():
-            x = _box_forward(u, lo, hi)
-            cost = float(objective(u))
+        fitter = make_device_adam_fitter(tuple(pairs), spec, maxiter,
+                                         validity_weight=validity_weight)
+        x, cost = fitter(torch.as_tensor(x0, dtype=dt, device=dev), centers, means, counts)
         params = MaternParams.from_flat(x, spec=spec)
-        n_iter = maxiter
+        cost, n_iter = float(cost), maxiter
         success = bool(np.isfinite(cost))
     elif method == "lbfgs":
-        from cokriging_tpu_torch.estimate.nll import sigmoid_box_lbfgs
-
-        lo_np, hi_np = spec.bounds()
-        # 3 deterministic starts: WLS cost surfaces are multimodal (a
-        # secondary basin ~100x above the optimum catches default and
-        # moment inits on oracle problems)
-        x, cost, n_iter, success = sigmoid_box_lbfgs(
-            lambda x: composite_wls_cost(x, centers, means, counts, pairs, spec),
-            torch.as_tensor(x0, dtype=dt, device=dev),
-            torch.as_tensor(lo_np, dtype=dt, device=dev),
-            torch.as_tensor(hi_np, dtype=dt, device=dev),
-            maxiter=maxiter, n_starts=3,
-        )
-        params = MaternParams.from_flat(x.detach(), spec=spec)
-        cost = float(cost)
+        fitter = make_device_wls_fitter(tuple(pairs), spec, maxiter)
+        x, cost, n_iter, success = fitter(torch.as_tensor(x0, dtype=dt, device=dev), centers,
+                                          means, counts)
+        params = MaternParams.from_flat(x, spec=spec)
+        cost, n_iter = float(cost), int(n_iter)
         success = bool(success) and bool(np.isfinite(cost))
     else:
         raise ValueError(f"Unknown method {method!r}")
@@ -355,3 +364,179 @@ def _theoretical_df(params, estimate):
     dt = np.dtype(str(params.sigma.dtype).removeprefix("torch."))
     h = np.linspace(0, float(np.max(estimate.bin_centers)), 100, dtype=dt)
     return MultivariateMatern(params.n_procs, params).variograms(h)
+
+
+def _wls_objective(pairs, spec, validity_weight, centers, means, counts):
+    """x (..., n_params) -> the composite WLS cost of each member, plus
+    ``validity_weight`` times its total pair count times its
+    ``validity_penalty``."""
+
+    def objective(x):
+        cost = composite_wls_cost(x, centers, means, counts, pairs, spec)
+        if validity_weight:
+            cost = cost + validity_weight * torch.sum(counts, dim=(-2, -1)) * validity_penalty(
+                MaternParams.from_flat(x, spec=spec), centers)
+        return cost
+
+    return objective
+
+
+def make_device_adam_fitter(pairs, spec, maxiter=800, lr=0.3, validity_weight=0.0):
+    """Adam with a cosine-decayed learning rate under the sigmoid box
+    transform (``adam_cosine``), in the estimate's dtype on its device.
+
+    Returns fit(x0, centers, means, counts) -> (x, cost). With a leading
+    batch axis (x0 (B, n_params), the bins (B, n_pairs, n_bins)) every
+    member takes its own steps in the same launches: Adam's update is
+    elementwise and each member's gradient is its own, so each equals its
+    fit alone. ``lr`` is the schedule peak.
+    """
+    lo_np, hi_np = spec.bounds()
+
+    def fit(x0, centers, means, counts):
+        dt, dev = centers.dtype, centers.device
+        lo = torch.as_tensor(lo_np, dtype=dt, device=dev)
+        hi = torch.as_tensor(hi_np, dtype=dt, device=dev)
+        raw = _wls_objective(pairs, spec, validity_weight, centers, means, counts)
+
+        def objective(u):
+            return raw(_box_forward(u, lo, hi))
+
+        u0 = _box_inverse(torch.as_tensor(x0, dtype=dt, device=dev), lo, hi)
+        u = adam_cosine(lambda u: objective(u).sum(), u0, maxiter, lr=lr)
+        with torch.no_grad():
+            return _box_forward(u, lo, hi), objective(u)
+
+    return fit
+
+
+def make_device_wls_fitter(pairs, spec, maxiter=300, validity_weight=0.0):
+    """Bounded L-BFGS fitter on the estimate's device:
+    (x0, centers, means, counts) -> (x, cost, n_evals, converged).
+
+    ``estimate.nll.sigmoid_box_lbfgs_batch`` from 3 deterministic starts
+    (WLS cost surfaces are multimodal: a secondary basin ~100x above the
+    optimum catches default and moment inits on oracle problems). With a
+    leading batch axis (x0 (B, n_params), the bins (B, n_pairs, n_bins))
+    all B x 3 members step together, one cost evaluation per iteration for
+    all of them, and each member's result is its fit alone.
+
+    ``validity_weight`` adds the Cauchy-Schwarz ``validity_penalty``
+    (scaled by the total pair count): thin monthly estimates otherwise
+    minimize at |rho| = 1, where the joint model is singular.
+    """
+    from cokriging_tpu_torch.estimate.nll import sigmoid_box_lbfgs_batch
+
+    lo_np, hi_np = spec.bounds()
+
+    def fit(x0, centers, means, counts):
+        dt, dev = centers.dtype, centers.device
+        single = centers.ndim == 2
+        x0 = torch.as_tensor(x0, dtype=dt, device=dev)
+        if single:
+            x0, centers, means, counts = x0[None], centers[None], means[None], counts[None]
+
+        def raw(x, rows):
+            return _wls_objective(pairs, spec, validity_weight, centers[rows], means[rows],
+                                  counts[rows])(x)
+
+        out = sigmoid_box_lbfgs_batch(
+            raw, x0, torch.as_tensor(lo_np, dtype=dt, device=dev),
+            torch.as_tensor(hi_np, dtype=dt, device=dev), maxiter=maxiter, n_starts=3,
+        )
+        return tuple(o[0] for o in out) if single else out
+
+    return fit
+
+
+def fit_wls_batch(
+    estimates,
+    init: Optional[MaternParams] = None,
+    maxiter: int = 300,
+    mesh=None,
+    validity_weight: float = 0.0,
+    per_month_init: bool = False,
+    project_validity=False,
+    device=None,
+):
+    """Fit many months or bands at once: the batched L-BFGS fitter
+    (``make_device_wls_fitter``) over all of them on ``device`` (the card
+    unless ``device="cpu"``), in the dtype of their bin centers.
+
+    Args:
+        estimates: list of EmpiricalVariogram with identical pairs/n_bins.
+        init: shared initial MaternParams (also fixes spec/bounds).
+        mesh: not supported yet (a device mesh is ROADMAP.md Queue 1 item
+            8); anything but None raises.
+        validity_weight: Cauchy-Schwarz penalty weight (see
+            ``make_device_wls_fitter``).
+        per_month_init: start each month from its own ``moment_init``
+            instead of the shared ``init``.
+        project_validity: project each fitted month onto the spectral
+            validity region (``cov.spectral.project_to_valid``): ``True``
+            lifts the cross smoothness to the Gneiting floor and clips rho to
+            its bound; ``"parsimony"`` also snaps the cross structure onto
+            the parsimonious bivariate Matern.
+
+    Returns:
+        (list of MaternParams, costs ndarray, converged bool ndarray), all
+        in estimate order.
+    """
+    if not estimates:
+        return [], np.zeros(0)
+    pairs = tuple(estimates[0].pairs)
+    init = init or MaternParams.default(estimates[0].config.n_procs)
+    spec = init.spec
+    centers = np.stack([e.bin_centers for e in estimates])
+    # zero-count bins are excluded by the cost mask; NaN means zeroed here
+    means = np.nan_to_num(np.stack([e.bin_means for e in estimates]), nan=0.0)
+    counts = np.stack([e.bin_counts for e in estimates])
+    if per_month_init:
+        x0 = np.stack([moment_init(e, spec=spec).to_flat().numpy() for e in estimates])
+    else:
+        x0 = np.tile(init.to_flat().detach().cpu().numpy()[None], (len(estimates), 1))
+    xs, costs, conv = fit_wls_batch_arrays(
+        x0, centers, means, counts, pairs, spec, maxiter=maxiter, mesh=mesh,
+        validity_weight=validity_weight, device=device,
+    )
+    dev = resolve_device(device)
+    params_list = [MaternParams.from_flat(torch.as_tensor(x, device=dev), spec=spec) for x in xs]
+    if project_validity:
+        from cokriging_tpu_torch.cov.spectral import project_to_valid
+
+        parsimony = project_validity == "parsimony"
+        params_list = [project_to_valid(p, parsimony=parsimony) for p in params_list]
+    return params_list, costs, conv
+
+
+def fit_wls_batch_arrays(
+    x0, centers, means, counts, pairs, spec, maxiter: int = 300, mesh=None,
+    validity_weight: float = 0.0, device=None,
+):
+    """Array-level core of ``fit_wls_batch`` and the engine of the
+    parametric bootstrap (``estimate.bootstrap``): the batched L-BFGS over
+    (centers, means, counts) stacks on ``device`` (the card unless
+    ``device="cpu"``), in the dtype of ``centers``.
+
+    Args:
+        x0: (B, n_params) initial flat vectors.
+        centers/means/counts: (B, n_pairs, n_bins) stacks (means must be
+            NaN-free; zero-count bins are masked by the cost).
+        mesh: not supported yet (ROADMAP.md Queue 1 item 8); anything but
+            None raises.
+
+    Returns:
+        (xs, costs, converged): (B, n_params) fitted flats, (B,) final
+        costs, (B,) bool convergence flags, as numpy arrays.
+    """
+    if mesh is not None:
+        raise ValueError("mesh= is not ported yet (ROADMAP.md Queue 1 item 8)")
+    dev = resolve_device(device)
+    c = torch.as_tensor(np.asarray(centers), device=dev)
+    fitter = make_device_wls_fitter(tuple(pairs), spec, maxiter, validity_weight=validity_weight)
+    xs, costs, _, conv = fitter(
+        torch.as_tensor(np.asarray(x0), dtype=c.dtype, device=dev), c,
+        torch.as_tensor(np.asarray(means), dtype=c.dtype, device=dev),
+        torch.as_tensor(np.asarray(counts), device=dev).to(c.dtype),
+    )
+    return xs.cpu().numpy(), costs.cpu().numpy(), conv.cpu().numpy()

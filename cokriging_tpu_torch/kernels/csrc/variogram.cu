@@ -40,6 +40,23 @@
 // one window of at most MAX_BINS bins (plus the dropped slot); the caller
 // walks the windows, one bin launch per window.
 //
+// The replicate-batched bin pass (bin_batch_kernel) bins B value replicates
+// over one set of pairs: the parametric bootstrap's re-estimate, which the
+// reference runs as jnp (cokriging_tpu/estimate/bootstrap.py::
+// _batched_bin_program, :93-176). A block takes a strip of STRIP rows of one
+// variogram and a group of BNT replicates, one per thread. Per chunk of
+// CHUNK columns its threads first compute each pair's h and histogram slot
+// once, into shared memory (and, in the first replicate group, its count);
+// then every thread walks the chunk's pairs for its own replicate: the row
+// value from device memory (values are (n, B), so a warp's loads are
+// contiguous), the column values in registers, the pair's slot a broadcast
+// read, and the cloud added into the thread's own histogram column (no
+// atomics; all lanes of a warp share the slot, so the column reads and
+// writes are contiguous). Each thread's column is its replicate's partial of
+// the strip; a second launch adds each variogram's strip partials in a fixed
+// order. What bounds it: the shared-memory read-modify-write of a double per
+// pair and replicate, beside ~9 instructions for the cloud and the slot.
+//
 // What bounds it: instruction issue, and in pass 2 the shared-memory pipe
 // beside it. No pair reads device memory (a block reads 2 x TILE points). A
 // pair costs 11 explicitly rounded operations for h; pass 1 adds ~6 compares
@@ -383,6 +400,149 @@ __global__ void bin_reduce_kernel(const __grid_constant__ Pairs<T> P,
   }
 }
 
+
+// ---- replicate-batched pass 2 ---------------------------------------------
+
+constexpr int BNT = 64;     // threads, one replicate each, per block of the batched pass
+constexpr int STRIP = 64;   // rows of a strip
+constexpr int CHUNK = 32;   // columns of a chunk (two 16-byte rows of slots)
+
+// The variogram and first row of flat strip s (`tile0` holds first strips).
+template <typename T>
+__device__ __forceinline__ int2 strip_at(const Pairs<T>& P, long long s) {
+  int p = 0;
+  while (p + 1 < P.count && P.tile0[p + 1] <= s) ++p;
+  return make_int2(p, static_cast<int>((s - P.tile0[p]) * STRIP));
+}
+
+template <typename T, bool GEO, bool COV, int K>
+__global__ void __launch_bounds__(BNT) bin_batch_kernel(const __grid_constant__ Pairs<T> P,
+                                                        const unsigned char* __restrict__ records,
+                                                        int rec_used, int n_win, T h_max,
+                                                        int n_rep,
+                                                        double* __restrict__ part_sums,
+                                                        long long* __restrict__ part_counts) {
+  // Dynamic shared memory: the histogram's sums [n_win + 1][BNT], its counts
+  // [n_win + 1][BNT] (the first replicate group only), the record. va / vb
+  // are (n, n_rep) / (m, n_rep) row-major.
+  constexpr int F = GEO ? 5 : 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* hsum = reinterpret_cast<double*>(smem_raw);
+  unsigned* hcnt = reinterpret_cast<unsigned*>(hsum + (n_win + 1) * BNT);
+  unsigned char* srec = reinterpret_cast<unsigned char*>(hcnt + (n_win + 1) * BNT);
+  __shared__ __align__(16) T srow[STRIP * F];
+  __shared__ __align__(16) T scol[CHUNK * F];
+  __shared__ __align__(16) unsigned char sslot[STRIP * CHUNK];
+
+  const int2 at = strip_at(P, blockIdx.x);
+  const int pair = at.x, r0 = at.y;
+  const int tid = threadIdx.x;
+  const int n = P.n[pair], m = P.m[pair];
+  const bool marginal = P.marginal[pair] != 0;
+  const bool counting = blockIdx.y == 0;
+  const int b = blockIdx.y * BNT + tid;
+  const bool live = b < n_rep;
+  const T* __restrict__ fa = P.fa[pair];
+  const T* __restrict__ fb = P.fb[pair];
+  const T* __restrict__ va = P.va[pair];
+  const T* __restrict__ vb = P.vb[pair];
+
+  const uint4* rec = reinterpret_cast<const uint4*>(records + static_cast<size_t>(pair) *
+                                                                  Record<T>::bytes);
+  for (int k = tid; k < rec_used / 16; k += BNT) reinterpret_cast<uint4*>(srec)[k] = rec[k];
+  for (int k = tid; k < (n_win + 1) * BNT; k += BNT) {
+    hsum[k] = 0.0;
+    hcnt[k] = 0;
+  }
+  for (int k = tid; k < STRIP * F; k += BNT) {
+    const int row = r0 + k / F;
+    srow[k] = row < n ? fa[static_cast<size_t>(row) * F + k % F] : nan_of<T>();
+  }
+  __syncthreads();
+  const BinLookup<T> L = ckv::lookup_of<T>(srec);
+  const int rows = n - r0 < STRIP ? n - r0 : STRIP;
+  // a marginal strip's pairs lie right of its first row (STRIP is a
+  // multiple of CHUNK, so its chunks start there)
+  for (int c0 = marginal ? r0 : 0; c0 < m; c0 += CHUNK) {
+    __syncthreads();  // the previous chunk's slots are consumed
+    for (int k = tid; k < CHUNK * F; k += BNT) {
+      const int col = c0 + k / F;
+      scol[k] = col < m ? fb[static_cast<size_t>(col) * F + k % F] : nan_of<T>();
+    }
+    __syncthreads();
+    // each pair's slot, once for all replicates
+    for (int q = tid; q < STRIP * CHUNK; q += BNT) {
+      const int r = q / CHUNK, c = q % CHUNK;
+      const T h = ckv::h_pair<T, GEO>(srow + r * F, scol + c * F);
+      bool valid = h <= h_max;
+      if (marginal) valid = valid && r0 + r < c0 + c;
+      const int s = ckv::bin_slot<K>(h, valid, L, n_win);
+      sslot[q] = static_cast<unsigned char>(s);
+      if (counting) hcnt[s * BNT + tid] += 1;
+    }
+    __syncthreads();
+    T cv[CHUNK];
+#pragma unroll
+    for (int c = 0; c < CHUNK; ++c) {
+      const int col = c0 + c;
+      cv[c] = (live && col < m) ? vb[static_cast<size_t>(col) * n_rep + b] : T(0);
+    }
+    for (int r = 0; r < rows; ++r) {
+      const T a = live ? va[static_cast<size_t>(r0 + r) * n_rep + b] : T(0);
+      const uint4* slots = reinterpret_cast<const uint4*>(sslot + r * CHUNK);
+#pragma unroll
+      for (int w = 0; w < CHUNK / 16; ++w) {
+        const uint4 pk = slots[w];
+        const unsigned word[4] = {pk.x, pk.y, pk.z, pk.w};
+#pragma unroll
+        for (int k = 0; k < 16; ++k) {
+          const int s = (word[k / 4] >> (8 * (k % 4))) & 0xff;
+          hsum[s * BNT + tid] += static_cast<double>(ckv::cloud<T, COV>(a, cv[w * 16 + k]));
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if (live) {
+    for (int k = 0; k < n_win; ++k)
+      part_sums[(static_cast<size_t>(blockIdx.x) * n_rep + b) * n_win + k] = hsum[k * BNT + tid];
+  }
+  if (counting) {
+    // per-bin strip counts in a fixed order: warp w takes bins w, w + BNT / 32, ...
+    const int lane = tid & 31;
+    for (int k = tid >> 5; k < n_win; k += BNT / 32) {
+      long long c = 0;
+      for (int t = lane; t < BNT; t += 32) c += hcnt[k * BNT + t];
+      for (int o = 16; o > 0; o >>= 1) c += __shfl_down_sync(0xffffffffu, c, o);
+      if (lane == 0) part_counts[static_cast<size_t>(blockIdx.x) * n_win + k] = c;
+    }
+  }
+}
+
+// One thread per output (p, b, bin of the window): variogram p's strip
+// partials of replicate b added in a fixed order into sums[(p n_rep + b)
+// stride + bin]; the b == 0 threads add the counts into counts[p stride + bin].
+template <typename T>
+__global__ void bin_batch_reduce_kernel(const __grid_constant__ Pairs<T> P,
+                                        const double* __restrict__ part_sums,
+                                        const long long* __restrict__ part_counts, int n_win,
+                                        int n_rep, double* __restrict__ sums,
+                                        long long* __restrict__ counts, int stride) {
+  const long long o = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (o >= static_cast<long long>(P.count) * n_rep * n_win) return;
+  const int k = static_cast<int>(o % n_win);
+  const int b = static_cast<int>((o / n_win) % n_rep);
+  const int p = static_cast<int>(o / (static_cast<long long>(n_win) * n_rep));
+  double s = 0.0;
+  long long c = 0;
+  for (long long st = P.tile0[p]; st < P.tile0[p + 1]; ++st) {
+    s += part_sums[(st * n_rep + b) * n_win + k];
+    if (b == 0) c += part_counts[st * n_win + k];
+  }
+  sums[(static_cast<size_t>(p) * n_rep + b) * stride + k] = s;
+  if (b == 0) counts[static_cast<size_t>(p) * stride + k] = c;
+}
+
 // ---- host side ------------------------------------------------------------
 
 // Fills the launch descriptor from the caller's arrays: ptrs holds `per`
@@ -486,6 +646,88 @@ int bin(int count, const void* const* ptrs, const long long* dims,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The batched pass's descriptor: as make_pairs, but `tile0` holds each
+// variogram's first strip of STRIP rows.
+template <typename T>
+cudaError_t make_strips(Pairs<T>& P, int count, const void* const* ptrs, const long long* dims) {
+  if (count < 1 || count > MAX_PAIRS) return cudaErrorInvalidValue;
+  P.count = count;
+  long long strips = 0;
+  for (int p = 0; p < count; ++p) {
+    const T* const* q = reinterpret_cast<const T* const*>(ptrs + static_cast<size_t>(p) * 4);
+    P.fa[p] = q[0];
+    P.fb[p] = q[1];
+    P.va[p] = q[2];
+    P.vb[p] = q[3];
+    const long long n = dims[4 * p], m = dims[4 * p + 1];
+    P.n[p] = static_cast<int>(n);
+    P.m[p] = static_cast<int>(m);
+    P.marginal[p] = static_cast<int>(dims[4 * p + 2]);
+    P.tile0[p] = dims[4 * p + 3];
+    if (P.tile0[p] != strips || (P.marginal[p] && n != m)) return cudaErrorInvalidValue;
+    strips += (n + STRIP - 1) / STRIP;
+  }
+  P.tile0[count] = strips;
+  return strips < (1ll << 31) ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename T, bool GEO, bool COV>
+void launch_bin_batch(const Pairs<T>& P, dim3 grid, size_t smem, cudaStream_t stream,
+                      const unsigned char* records, int rec_used, int n_win, int k_cmp, T h_max,
+                      int n_rep, double* part_sums, long long* part_counts) {
+  if (k_cmp == 1) {
+    bin_batch_kernel<T, GEO, COV, 1><<<grid, BNT, smem, stream>>>(
+        P, records, rec_used, n_win, h_max, n_rep, part_sums, part_counts);
+  } else {
+    bin_batch_kernel<T, GEO, COV, 0><<<grid, BNT, smem, stream>>>(
+        P, records, rec_used, n_win, h_max, n_rep, part_sums, part_counts);
+  }
+}
+
+// Bins one window of every variogram for n_rep replicates; part_sums /
+// part_counts: (strips, n_rep, n_win) / (strips, n_win) scratch; sums /
+// counts: (count, n_rep, stride) / (count, stride) arrays of all the bins.
+template <typename T>
+int bin_batch(int count, const void* const* ptrs, const long long* dims,
+              const unsigned char* records, int max_cells, int n_win, int max_k_cmp,
+              int geodesic, int covariogram, T h_max, int n_rep, double* part_sums,
+              long long* part_counts, double* sums, long long* counts, int stride, int bin0,
+              cudaStream_t stream) {
+  if (n_win < 1 || n_win > ckv::MAX_BINS || bin0 < 0 || bin0 + n_win > stride ||
+      max_cells < 1 || max_cells > ckv::MAX_CELLS || n_rep < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rec_used = Record<T>::used(max_cells);
+  Pairs<T> P;
+  cudaError_t err = make_strips(P, count, ptrs, dims);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long strips = P.tile0[count];
+  if (strips > 0) {
+    const dim3 grid(static_cast<unsigned>(strips), static_cast<unsigned>((n_rep + BNT - 1) / BNT));
+    const size_t smem = static_cast<size_t>(n_win + 1) * BNT * (sizeof(double) + sizeof(unsigned)) +
+                        rec_used;
+    if (geodesic && covariogram) {
+      launch_bin_batch<T, true, true>(P, grid, smem, stream, records, rec_used, n_win, max_k_cmp,
+                                      h_max, n_rep, part_sums, part_counts);
+    } else if (geodesic) {
+      launch_bin_batch<T, true, false>(P, grid, smem, stream, records, rec_used, n_win,
+                                       max_k_cmp, h_max, n_rep, part_sums, part_counts);
+    } else if (covariogram) {
+      launch_bin_batch<T, false, true>(P, grid, smem, stream, records, rec_used, n_win,
+                                       max_k_cmp, h_max, n_rep, part_sums, part_counts);
+    } else {
+      launch_bin_batch<T, false, false>(P, grid, smem, stream, records, rec_used, n_win,
+                                        max_k_cmp, h_max, n_rep, part_sums, part_counts);
+    }
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long outs = static_cast<long long>(count) * n_rep * n_win;
+  bin_batch_reduce_kernel<T><<<static_cast<unsigned>((outs + RED_THREADS - 1) / RED_THREADS),
+                               RED_THREADS, 0, stream>>>(P, part_sums, part_counts, n_win, n_rep,
+                                                         sums + bin0, counts + bin0, stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -522,6 +764,26 @@ int vario_bin_f64(int count, const void* const* ptrs, const long long* dims,
   return bin<double>(count, ptrs, dims, records, max_cells, n_win, max_k_cmp, geodesic,
                      covariogram, h_max, part_sums, part_counts, sums, counts, stride, bin0,
                      static_cast<cudaStream_t>(stream));
+}
+
+int vario_bin_batch_f32(int count, const void* const* ptrs, const long long* dims,
+                        const unsigned char* records, int max_cells, int n_win, int max_k_cmp,
+                        int geodesic, int covariogram, float h_max, int n_rep,
+                        double* part_sums, long long* part_counts, double* sums,
+                        long long* counts, int stride, int bin0, void* stream) {
+  return bin_batch<float>(count, ptrs, dims, records, max_cells, n_win, max_k_cmp, geodesic,
+                          covariogram, h_max, n_rep, part_sums, part_counts, sums, counts,
+                          stride, bin0, static_cast<cudaStream_t>(stream));
+}
+
+int vario_bin_batch_f64(int count, const void* const* ptrs, const long long* dims,
+                        const unsigned char* records, int max_cells, int n_win, int max_k_cmp,
+                        int geodesic, int covariogram, double h_max, int n_rep,
+                        double* part_sums, long long* part_counts, double* sums,
+                        long long* counts, int stride, int bin0, void* stream) {
+  return bin_batch<double>(count, ptrs, dims, records, max_cells, n_win, max_k_cmp, geodesic,
+                           covariogram, h_max, n_rep, part_sums, part_counts, sums, counts,
+                           stride, bin0, static_cast<cudaStream_t>(stream));
 }
 
 const char* vario_error_string(int code) {

@@ -7,6 +7,9 @@ Counterpart of ``cokriging_tpu/kernels/pallas_ops.py``:
   and ``variogram_bin`` are their one-variogram forms) replace
   ``variogram_bin_pallas``, built to the two-pass contract of
   ``estimate/empirical.py::_all_pairs_program`` on the distance surrogate h;
+  ``variogram_bin_batch`` (the same source) is pass 2 for a batch of value
+  replicates over one set of pairs, the parametric bootstrap's re-estimate
+  (``estimate/bootstrap.py::_batched_bin_program`` in the JAX package);
 - ``matern_correlation_block`` (``csrc/matern.cu``) replaces
   ``matern_correlation_pallas``;
 - ``matern_block_grad`` (``csrc/matern_grad.cu``) replaces
@@ -40,7 +43,7 @@ from cokriging_tpu_torch.kernels.bessel import (
 
 #: Kernel launches per wrapper since the last ``reset_launch_counts()``.
 LAUNCHES = {
-    "variogram_minmax": 0, "variogram_bin": 0, "matern_correlation": 0,
+    "variogram_minmax": 0, "variogram_bin": 0, "variogram_bin_batch": 0, "matern_correlation": 0,
     "matern_block_grad": 0, "matern_corr_pairs": 0, "matern_corr_pairs_grad": 0,
 }
 
@@ -141,6 +144,8 @@ VARIO_MAX_BINS = 24
 _EDGE_CAP = 2 * (VARIO_MAX_BINS + 1)
 _MAX_CELLS = 1024
 _SLOT_CAP = 32
+#: Rows per strip of the batched bin pass (``csrc/variogram.cu`` ``STRIP``).
+VARIO_STRIP = 64
 
 
 def h_block(fa, fb, geodesic):
@@ -155,12 +160,12 @@ def h_block(fa, fb, geodesic):
     return dx * dx + dy * dy
 
 
-def _plain_blocks(fa, fb, marginal):
-    """Row blocks of the plain pair pass: (first row, end row, first column,
-    row < col mask or None). Marginal blocks skip the columns left of their
-    first row."""
+def _plain_blocks(fa, fb, marginal, batch=1):
+    """Row blocks of the plain pair pass (of ``batch`` value replicates):
+    (first row, end row, first column, row < col mask or None). Marginal
+    blocks skip the columns left of their first row."""
     n, m = fa.shape[0], fb.shape[0]
-    rows = max(1, _PLAIN_PAIR_ELEMS // max(m, 1))
+    rows = max(1, _PLAIN_PAIR_ELEMS // max(batch * m, 1))
     for r0 in range(0, n, rows):
         r1 = min(n, r0 + rows)
         c0 = r0 if marginal else 0
@@ -400,6 +405,111 @@ def variogram_bin_pairs(sides, h_edges, geodesic, covariogram, h_max):
             if tiles:
                 LAUNCHES["variogram_bin"] += 1
     return sums, counts
+
+
+def variogram_bin_batch_plain(sides, h_edges, geodesic, covariogram, h_max):
+    """Plain torch pass 2 over a batch of value replicates: ``sides[k] =
+    (fa, fb, va, vb, marginal)`` with ``va`` (B, n) and ``vb`` (B, m).
+    Returns sums (P, B, n_bins) float64 and counts (P, n_bins) int64; each
+    block of pairs finds its bins once for all replicates, bin = #(h_edges <
+    h) - 1 clipped."""
+    sums, counts = [], []
+    for (fa, fb, va, vb, marginal), e in zip(sides, h_edges, strict=True):
+        _check_features(fa, fb, geodesic, marginal)
+        e = torch.as_tensor(e, device=fa.device)
+        n_bins, B = e.shape[0] - 1, va.shape[0]
+        s = torch.zeros((B, n_bins + 1), dtype=torch.float64, device=fa.device)
+        c = torch.zeros(n_bins + 1, dtype=torch.int64, device=fa.device)
+        for r0, r1, c0, tri in _plain_blocks(fa, fb, marginal, B):
+            h = h_block(fa[r0:r1], fb[c0:], geodesic)
+            valid = h <= h_max
+            if tri is not None:
+                valid = valid & tri
+            idx = torch.clamp(torch.searchsorted(e, h, side="left") - 1, 0, n_bins - 1)
+            idx = torch.where(valid, idx, n_bins).reshape(-1)  # slot n_bins: dropped
+            a, b = va[:, r0:r1, None], vb[:, None, c0:]
+            if covariogram:
+                cloud = a * b
+            else:
+                diff = a - b
+                cloud = 0.5 * diff * diff
+            s.index_add_(1, idx, cloud.reshape(B, -1).double())
+            c += torch.bincount(idx, minlength=n_bins + 1)
+        sums.append(s[:, :n_bins])
+        counts.append(c[:n_bins])
+    return torch.stack(sums), torch.stack(counts)
+
+
+def variogram_bin_batch(sides, h_edges, geodesic, covariogram, h_max):
+    """Pass 2 of the pair stream for a batch of B value replicates over one
+    set of pairs: ``sides[k] = (fa, fb, va, vb, marginal)`` as
+    ``variogram_bin_pairs`` takes them but with values ``va`` (B, n) and
+    ``vb`` (B, m), each replicate centered by the caller. Returns sums (P, B,
+    n_bins) float64 and counts (P, n_bins) int64. CUDA tensors run
+    ``csrc/variogram.cu``'s batched form: per window of ``VARIO_MAX_BINS``
+    bins one launch over all the variograms' pairs and replicates (per
+    ``VARIO_MAX_PAIRS`` variograms), each pair's bin found once for all
+    replicates, and one reduce; CPU tensors the plain version."""
+    if sides and sides[0][0].device.type == "cpu":
+        return variogram_bin_batch_plain(sides, h_edges, geodesic, covariogram, h_max)
+    if not sides:
+        raise ValueError("variogram_bin_batch: needs at least one variogram")
+    B = sides[0][2].shape[0]
+    flat = []
+    for fa, fb, va, vb, marginal in sides:
+        _check_features(fa, fb, geodesic, marginal)
+        if va.shape != (B, fa.shape[0]) or vb.shape != (B, fb.shape[0]) or B < 1:
+            raise ValueError("variogram_bin_batch: values must be (B, n) and (B, m), one B")
+        # (n, B): a warp's replicates read contiguous values
+        flat.append((fa, fb, va.T.contiguous(), vb.T.contiguous(), marginal))
+    _check_cuda("variogram_bin_batch", *[t for side in flat for t in side[:4]])
+    dtype, device = sides[0][0].dtype, sides[0][0].device
+    np_dtype = np.dtype(str(dtype).removeprefix("torch."))
+    edges = [e.cpu().numpy() if torch.is_tensor(e) else np.asarray(e) for e in h_edges]
+    n_bins = edges[0].shape[0] - 1 if edges else 0
+    if len(edges) != len(sides) or n_bins < 1 or any(e.shape != (n_bins + 1,) for e in edges):
+        raise ValueError("variogram_bin_batch: one 1-D array of n_bins + 1 >= 2 edges per "
+                         "variogram")
+    T = _CT[dtype]
+    f = _fn("variogram.cu", f"vario_bin_batch_{_SUFFIX[dtype]}",
+            [_I, _P, _P, _P, _I, _I, _I, _I, _I, T, _I, _P, _P, _P, _P, _I, _I, _P])
+    sums = torch.empty((len(sides), B, n_bins), dtype=torch.float64, device=device)
+    counts = torch.empty((len(sides), n_bins), dtype=torch.int64, device=device)
+    window = min(n_bins, VARIO_MAX_BINS)
+    for g0 in range(0, len(sides), VARIO_MAX_PAIRS):
+        group = flat[g0:g0 + VARIO_MAX_PAIRS]
+        ptrs, dims, strips = _vario_strip_args(group)
+        part_sums = torch.empty(max(strips, 1) * B * window, dtype=torch.float64, device=device)
+        part_counts = torch.empty(max(strips, 1) * window, dtype=torch.int64, device=device)
+        for bin0 in range(0, n_bins, window):
+            n_win = min(window, n_bins - bin0)
+            recs = [_bin_record(e[bin0:bin0 + n_win + 1], bin0 == 0, bin0 + n_win == n_bins,
+                                np_dtype) for e in edges[g0:g0 + VARIO_MAX_PAIRS]]
+            records = torch.from_numpy(np.concatenate([r[0] for r in recs])).pin_memory().to(
+                device, non_blocking=True)
+            with torch.cuda.device(device):
+                rc = f(len(group), ptrs, dims, _ptr(records), max(r[2] for r in recs), n_win,
+                       max(r[1] for r in recs), int(geodesic), int(covariogram),
+                       T(float(h_max)), B, _ptr(part_sums), _ptr(part_counts), _ptr(sums[g0]),
+                       _ptr(counts[g0]), n_bins, bin0, _stream(device))
+            _check_rc("variogram.cu", rc, "variogram_bin_batch")
+            if strips:
+                LAUNCHES["variogram_bin_batch"] += 1
+    return sums, counts
+
+
+def _vario_strip_args(sides):
+    """The C arrays of one batched launch over ``sides``: 4 device pointers
+    per variogram and {n, m, marginal, first strip} per variogram (strips of
+    ``VARIO_STRIP`` rows, counted here), and the total of strips."""
+    ptrs, dims, strips = [], [], 0
+    for fa, fb, va, vb, marginal in sides:
+        ptrs += [t.data_ptr() for t in (fa, fb, va, vb)]
+        dims += [fa.shape[0], fb.shape[0], int(bool(marginal)), strips]
+        strips += -(-fa.shape[0] // VARIO_STRIP)
+    if strips >= 2 ** 31:
+        raise ValueError(f"variogram_bin_batch: {strips} strips exceed one launch")
+    return (_P * len(ptrs))(*ptrs), (_LL * len(dims))(*dims), strips
 
 
 def variogram_minmax(fa, fb, marginal, geodesic, h_max, h_snap):

@@ -23,8 +23,8 @@ as a cross-check.
 
 Predictions come back as ``predict.local.LocalPrediction`` in standardized
 units, or with ``postprocess=True`` as the reference's frames on the data
-scale (``predict.postprocess``). Conditional simulation (``sample``) comes
-with ``sim/``.
+scale (``predict.postprocess``). ``sample`` draws conditional simulations
+from the full posterior (mean and covariance).
 """
 
 import warnings
@@ -32,26 +32,12 @@ import warnings
 import numpy as np
 import torch
 
-from cokriging_tpu_torch.cov.matern import block_covariance, pair_table
+from cokriging_tpu_torch.cov.matern import block_covariance, covariance_block, pair_table
 from cokriging_tpu_torch.estimate.nll import joint_distance_blocks
-from cokriging_tpu_torch.kernels.cuda_ops import matern_correlation_block
 from cokriging_tpu_torch.kernels.distance import distance_matrix
 from cokriging_tpu_torch.kernels.linalg import spd_inverse_from_chol
 from cokriging_tpu_torch.predict.local import LocalPrediction, coord_rows
 from cokriging_tpu_torch.utils.config import resolve_device
-
-
-def _cov_block(params, i, j, d, table):
-    """Covariance block between process i and process j at the 2-D
-    distances ``d`` (nugget at exact zeros when i == j): on a CUDA tensor
-    through the Matern kernel with the pair's row of ``table`` (the
-    parameters' ``pair_table`` where it is of d's dtype), like the blocks of
-    the joint covariance."""
-    row = table.rows(i, j)[0] if d.is_cuda and d.dtype == table.value.dtype else None
-    m = matern_correlation_block(params.nu[i, j], params.len_scale[i, j], d, table=row)
-    if i == j:
-        return m.mul_(params.sigma[i] ** 2).add_(torch.where(d == 0.0, params.nugget[i], 0.0))
-    return m.mul_(params.rho[i, j] * params.sigma[i] * params.sigma[j])
 
 
 def _joint_system(params, coords_tuple, pcoords, i, geodesic):
@@ -66,12 +52,12 @@ def _joint_system(params, coords_tuple, pcoords, i, geodesic):
     joint_cov = block_covariance(params, dists, table=table)
     pred_cross = torch.cat(
         [
-            _cov_block(params, i, j, distance_matrix(cj, pcoords, geodesic), table)
+            covariance_block(params, i, j, distance_matrix(cj, pcoords, geodesic), table)
             for j, cj in enumerate(coords_tuple)
         ],
         dim=0,
     )
-    pred_cov = _cov_block(params, i, i, distance_matrix(pcoords, pcoords, geodesic), table)
+    pred_cov = covariance_block(params, i, i, distance_matrix(pcoords, pcoords, geodesic), table)
     return joint_cov, pred_cross, pred_cov
 
 
@@ -104,6 +90,57 @@ def _refined_posdef_solve(a, b, refine_iters: int = 2):
             r = (b64 - a64 @ x.double()).float()
             x = x + torch.cholesky_solve(r, chol)
     return torch.where(info == 0, x, torch.nan)
+
+
+def _posterior(params, coords_tuple, values_tuple, pcoords, i, geodesic):
+    """The joint-cokriging posterior of process i at ``pcoords``: (pred,
+    pred_err, the symmetrized posterior covariance K* - W^T K, and its root
+    U sqrt(max(w, 0)) from ``eigh``, so root root^T is the covariance with
+    its negative eigenvalues clipped to 0).
+
+    The root comes from eigh rather than Cholesky: the posterior is only
+    positive semi-definite (exactly singular where pcoords touch data
+    locations and the nugget is zero), and clipping is the clean limit there,
+    where a Cholesky would fail.
+    """
+    joint_cov, pred_cross, pred_cov = _joint_system(params, coords_tuple, pcoords, i, geodesic)
+    z = torch.cat(list(values_tuple))
+    weights = _refined_posdef_solve(joint_cov, pred_cross)
+    pred = weights.T @ z
+    post_cov = pred_cov - weights.T @ pred_cross
+    post_cov = 0.5 * (post_cov + post_cov.T)
+    pred_err = torch.sqrt(torch.clamp_min(post_cov.diagonal(), 0.0))
+    w, u = torch.linalg.eigh(post_cov)
+    return pred, pred_err, post_cov, u * torch.sqrt(torch.clamp_min(w, 0.0))[None, :]
+
+
+def _posterior_noise(seed: int, n_pred: int, n_samples: int, dtype, device) -> torch.Tensor:
+    """(n_pred, n_samples) standard normals from a generator on ``device``
+    seeded with ``seed``."""
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    return torch.randn((n_pred, n_samples), generator=gen, dtype=dtype, device=device)
+
+
+def _conditional_sample_core(params, coords_tuple, values_tuple, pcoords, seed, i, geodesic,
+                             n_samples):
+    """Conditional (posterior) Gaussian simulation at ``pcoords``.
+
+    The joint-cokriging predictive distribution is the full Gaussian
+    posterior, mean W^T z and covariance K* - W^T K (the matrix whose
+    diagonal the reference reads pred_err off, src/joint_prediction.py:74-78,
+    discarding the off-diagonals). Its draws are field realizations that
+    honor the data, the model and the spatial correlation of the prediction
+    error: the geostatistical "conditional simulation" the reference never
+    implemented. The nugget rides the prediction covariance as in
+    prediction, so samples are of the observable process Z.
+
+    Returns (pred, pred_err, samples (n_samples, npred)) in standardized
+    units.
+    """
+    pred, pred_err, _, root = _posterior(params, coords_tuple, values_tuple, pcoords, i,
+                                         geodesic)
+    eps = _posterior_noise(seed, root.shape[0], n_samples, root.dtype, root.device)
+    return pred, pred_err, (pred[:, None] + root @ eps).T
 
 
 def _verify_core(params, coords_tuple, pcoords, i, geodesic):
@@ -200,6 +237,47 @@ class JointPredictor:
                 "Prediction joint covariance matrix is not positive definite;"
                 " model technically invalid."
             )
+
+    def sample(self, i: int, pcoords, n_samples: int = 1, seed: int = 0,
+               postprocess: bool = False):
+        """Conditional simulation: ``n_samples`` realizations of process i
+        at ``pcoords`` from the full joint-cokriging posterior (mean and
+        covariance, not just the diagonal the reference reports), drawn on
+        the predictor's device from a generator seeded with ``seed``.
+
+        Returns ``(prediction, samples)``: what ``__call__`` returns (a
+        ``LocalPrediction``, or with ``postprocess`` the frame on the data
+        scale) and an ``(n_samples, n_rows)`` numpy array of realizations
+        aligned with its rows, in the same units: with ``postprocess`` every
+        realization gets the frame's affine back-transform, its additive
+        surface read off the frame itself (pred' - scale_fact * pred), so
+        the covariate merge and its dropped rows live in
+        ``postprocess_predictions`` alone.
+        """
+        coords, values = self._data()
+        p_arr = coord_rows(pcoords)
+        pc = torch.tensor(p_arr, dtype=values[i].dtype, device=self.device)
+        geo = self.mf.geodesic
+        with torch.no_grad():
+            self._verify_model(self.params, coords, pc, i, geo)
+            pred, pred_err, samples = _conditional_sample_core(
+                self.params, coords, values, pc, seed, i, geo, int(n_samples))
+        samples = samples.cpu().numpy()
+        n_data = sum(int(v.shape[0]) for v in values)
+        out = LocalPrediction(p_arr, pred.cpu().numpy(), pred_err.cpu().numpy(),
+                              np.full(p_arr.shape[0], n_data), geo)
+        if not postprocess:
+            return out, samples
+        from cokriging_tpu_torch.predict.postprocess import postprocess_predictions
+
+        df = out.to_dataframe()
+        df["_row_ix"] = np.arange(len(df))
+        frame = postprocess_predictions(df, self.mf.fields[i], self.covariates)
+        keep = frame["_row_ix"].to_numpy().astype(int)
+        trend = self.mf.fields[i].trend
+        s = 1.0 if trend is None else trend.scale_fact
+        additive = frame["pred"].to_numpy() - s * out.pred[keep].astype(np.float64)
+        return frame.drop(columns="_row_ix"), samples[:, keep] * s + additive[None, :]
 
     def cross_validation(self, i: int, postprocess: bool = False,
                          method: str = "fast"):

@@ -1,8 +1,9 @@
 """The port's CLI (``python -m cokriging_tpu_torch``) against the JAX
 package's (``python -m cokriging_tpu``), in process through ``main(argv)``, on
 the CPU in float64: ``fit`` -> ``predict`` -> ``loocv`` on the staged tables
-of tests/test_cli.py, parameter files read across the two packages, and the
-errors for what the port does not run yet."""
+of tests/test_cli.py, parameter files read across the two packages,
+``fit --bootstrap`` and ``predict --joint --conditional-sims`` (their files,
+columns and shapes), and the errors for what the port does not run yet."""
 
 import contextlib
 import io
@@ -145,12 +146,63 @@ def test_loocv_matches_jax(staged, fitted, predictor, capsys):
     assert stats["torch"][3:] == stats["jax"][3:]
 
 
+def test_fit_bootstrap_writes_the_jax_packages_table(staged, fitted, capsys):
+    """``fit --bootstrap N``: ``<out>.bootstrap.csv`` with the JAX CLI's
+    columns and rows, around the same fitted parameters, and the same printed
+    table. The replicates are each package's own draws, so only the fitted
+    values agree; the bootstrap columns are finite and the intervals hold
+    the replicates' spread."""
+    tmp, paths, _ = staged
+    fit = ["fit", *_common(paths), "--max-dist", "3000", "--n-bins", "8", "--maxiter", "30",
+           "--project-validity", "--bootstrap", "4"]
+    tables, printed = {}, {}
+    for name, main, extra in (("jax", jax_main, []), ("torch", torch_main, ["--device", "cpu"])):
+        out = tmp / f"boot_{name}.npz"
+        printed[name] = _run(capsys, main, fit + extra + ["--out", str(out)])
+        tables[name] = pd.read_csv(f"{out}.bootstrap.csv")
+    j, t = tables["jax"], tables["torch"]
+    assert list(t.columns) == list(j.columns) == ["name", "value", "bounds", "std_err", "bias",
+                                                  "q025", "q975"]
+    assert t.shape == j.shape == (11, 7)
+    assert list(t["name"]) == list(j["name"]) and list(t["bounds"]) == list(j["bounds"])
+    np.testing.assert_allclose(t["value"], j["value"], rtol=1e-5)
+    assert np.isfinite(t[["std_err", "bias", "q025", "q975"]].to_numpy()).all()
+    assert (t["q025"] <= t["q975"]).all() and (t["std_err"] >= 0).all()
+    for p in printed.values():
+        assert p.splitlines()[-1].startswith("bootstrap (4 replicates) -> ")
+
+
+def test_predict_conditional_sims_writes_the_jax_packages_files(staged, fitted, capsys):
+    """``predict --joint --conditional-sims N --seed S``: the prediction
+    table as without the flag, and ``<out>.samples.npz`` with one (N,
+    n_cells) array under ``samples``, as the JAX CLI writes them."""
+    tmp, paths, grid = staged
+    files = {}
+    for name, main, extra in (("jax", jax_main, []), ("torch", torch_main, ["--device", "cpu"])):
+        out = tmp / f"sims_{name}.parquet"
+        printed = _run(capsys, main, ["predict", *_common(paths), "--params", str(fitted["jax"]),
+                                      "--pred-grid", grid, "--joint", "--conditional-sims", "6",
+                                      "--seed", "3", *extra, "--out", str(out)])
+        assert f"6 conditional realizations -> {out}.samples.npz" in printed
+        with np.load(f"{out}.samples.npz") as f:
+            files[name] = (TIO.load_table(out), list(f.keys()), f["samples"])
+    (jt, jk, js), (tt, tk, ts) = files["jax"], files["torch"]
+    assert tk == jk == ["samples"]
+    assert ts.shape == js.shape == (6, len(main_coords_array()[::3])) and np.isfinite(ts).all()
+    assert list(tt.columns) == list(jt.columns) == ["lat", "lon", "pred", "pred_err"]
+    for col in ("pred", "pred_err"):
+        np.testing.assert_allclose(tt[col], jt[col], atol=1e-6, err_msg=col)
+
+
 @pytest.mark.parametrize("argv,match", [
     (["sim"], "sim/"),
     (["bench"], "benchmark"),
-    (["fit", "--bootstrap", "4"], "bootstrap.py"),
+    (["fit", "--method", "nll", "--bootstrap", "4"], "--bootstrap requires --method wls"),
     (["fit", "--std-errors"], "uncertainty.py"),
-    (["predict", "--params", "x.npz", "--joint", "--conditional-sims", "4"], "sample"),
+    (["predict", "--params", "x.npz", "--conditional-sims", "4"],
+     "--conditional-sims requires --joint"),
+    (["predict", "--params", "x.npz", "--joint", "--solver", "cg", "--conditional-sims", "4"],
+     "requires the dense solver"),
     (["fit", "--timedeltas", "0"], "one offset per --data table"),
 ])
 def test_parser_errors_name_what_is_missing(staged, argv, match, capsys):

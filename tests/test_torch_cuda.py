@@ -737,3 +737,43 @@ def test_cli_round_trip_on_card_matches_cpu(cuda, tmp_path):
         for col in cols:
             np.testing.assert_allclose(out["cuda", key][col], out["cpu", key][col], atol=1e-6,
                                        err_msg=f"{key} {col}")
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("geodesic,covariogram,n_rep,n_bins", [
+    (True, False, 5, 15), (True, True, 70, 9), (False, False, 130, 30),
+])
+def test_variogram_bin_batch_matches_plain_and_single_launches(cuda, dtype, rtol, geodesic,
+                                                               covariogram, n_rep, n_bins):
+    """The replicate-batched bin pass over three variograms (ragged strips,
+    one or three replicate groups, one or two windows): counts equal to the
+    plain version's and to each replicate's own pass, sums within rtol of
+    both; one launch per window."""
+    rng = np.random.default_rng(11)
+    np_dt = np.dtype(str(dtype).replace("torch.", ""))
+    pts = [_points(rng, n, dtype, cuda) for n in (130, 67)]
+    if not geodesic:
+        pts = [p / 10.0 for p in pts]
+    feats = [E.point_features(p, geodesic) for p in pts]
+    vals = [torch.as_tensor(rng.normal(size=(n_rep, p.shape[0])), dtype=dtype, device=cuda)
+            for p in pts]
+    pairs = ((0, 0), (0, 1), (1, 1))
+    max_d = 2000.0 if geodesic else 3.0
+    h_max = float(E._h_of_d(np_dt.type(max_d), geodesic))
+    h_snap = float(E._h_of_d(np_dt.type(1e-6), geodesic))
+    mm = K.variogram_minmax_pairs([(feats[i], feats[j], i == j) for i, j in pairs], geodesic,
+                                  h_max, h_snap).cpu().numpy()
+    edges = [E._device_bins(lo, hi, geodesic, np_dt.type(1e-6), n_bins, np_dt)[1] for lo, hi in mm]
+    sides = [(feats[i], feats[j], vals[i], vals[j], i == j) for i, j in pairs]
+    before = K.launch_counts()["variogram_bin_batch"]
+    s_k, n_k = K.variogram_bin_batch(sides, edges, geodesic, covariogram, h_max)
+    assert K.launch_counts()["variogram_bin_batch"] == before + (2 if n_bins > 24 else 1)
+    s_p, n_p = K.variogram_bin_batch_plain(sides, edges, geodesic, covariogram, h_max)
+    assert s_k.shape == (3, n_rep, n_bins) and torch.equal(n_k, n_p)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(s_k, s_p, rtol=rtol, atol=1e-12)
+    for b in (0, n_rep - 1):
+        one = [(fa, fb, va[b].contiguous(), vb[b].contiguous(), m) for fa, fb, va, vb, m in sides]
+        s1, n1 = K.variogram_bin_pairs(one, edges, geodesic, covariogram, h_max)
+        assert torch.equal(n1, n_k)
+        torch.testing.assert_close(s_k[:, b], s1, rtol=rtol, atol=1e-12)

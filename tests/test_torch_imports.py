@@ -24,6 +24,10 @@ import cokriging_tpu_torch.kernels.cuda_ops
 import cokriging_tpu_torch.predict.iterative
 import cokriging_tpu_torch.predict.joint
 import cokriging_tpu_torch.predict.local
+import cokriging_tpu_torch.estimate.bootstrap
+import cokriging_tpu_torch.sim
+import cokriging_tpu_torch.sim.cofield
+import cokriging_tpu_torch.sim.spectral
 import cokriging_tpu_torch.utils.convert
 import cokriging_tpu_torch.predict.postprocess
 import cokriging_tpu_torch.utils.io
