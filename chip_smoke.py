@@ -155,6 +155,39 @@ Phases, in order; any failure exits nonzero without the final ok line:
     Matern forward at the 5,202^2 covariance, the 2048^2 lag grid and the
     replicates' 12,500^2 blocks.
 
+(j) parameter uncertainty: (f)'s maximum-likelihood fit (bench.py's month,
+    every 5th observation, 2 x 2,500, float64), its observed information on
+    the card (``torch.autograd.functional.hessian`` of the plain-AD NLL: 11
+    rows of double backward through the block kernels, whose backward is the
+    second-order pair of ``csrc/matern_hess.cu``), timed, with the launch
+    counts set to 0 just before and read just after (every kernel of the
+    path must run), symmetric to round-off before symmetrization (1e-10 of
+    max|H|) and equal to ``observed_information``; both new kernels held
+    against their plain versions at the Hessian's own blocks (the Hessian
+    sums at all three 2,500^2 blocks, each within 1e-14 of its sum of
+    |terms| in float64 and 1e-6 in float32, ``J_HESS_BAR``; the tangent
+    within 1e-12 / 1e-5 of its largest entry) and timed there; at the fit with its nuggets raised to 0.1, each
+    column against a central (or, beside the positive-definite wall,
+    one-sided) difference of the card's exact gradient (1e-4 of the
+    column's largest entry), and the float32 information against the
+    float64 one (1e-3 of max|H|); ``examples/uncertainty_demo.py``'s ML half
+    at its own size (41 x 41 grid, seed 42, 2 x 120 samples, seed 43: the
+    information at its truth, card against the CPU within 1e-9 of max|H|,
+    the CPU's computed in a worker process beside the rest of the phase,
+    and ``nll_std_errors``); ``optim_lag_nd`` over lags 0..359 (tau
+    30) and ``get_stats`` at ``examples/crosscov_eda.py``'s size (36 x 72 x
+    1,825 daily cells, ~70% missing) on the card against the CPU on every
+    8th cell (lags equal, 1e-10), and ``regional_stats`` by hemisphere and
+    latitude band on ``examples/xcov_eda.py``'s 5-degree monthly frame, card
+    against CPU. Its rows of the kernels line: both kernels in both dtypes.
+    Phase (i)'s CLI fit also runs ``--std-errors``, its table held against
+    ``nll_std_errors`` in this process (1e-6).
+
+Cuts of depth against the time limit: (d)'s float64 Adam fit runs 200 of
+bench.py's 600 steps (its per-step time is logged); (f) holds the
+block-gradient kernel against its plain version at the 12,500^2 cross block
+only (it times the kernel at all three).
+
 ``python3 chip_smoke.py abcg`` runs only the phases named (a and b always)
 and prints no result line. The kernels line's rows of the kernels
 redesigned last (the variogram passes, the block forward and the pairs
@@ -174,6 +207,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -181,6 +215,9 @@ import numpy as np
 HERE = Path(__file__).resolve().parent
 N_PER_PROC = 12_500
 MAXITER = 600
+# the float64 Adam fit of (d) is cut to this many steps (its per-step time is
+# reported; float32 keeps bench.py's 600)
+MAXITER_F64 = 200
 WARMUP_MAXITER = 10  # the warm-up run of phase (d): its steps only warm up
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W):
@@ -835,7 +872,7 @@ def cf2_trips(mu, x, dtype):
     return trips
 
 
-def entry_ops(x, nu, dtype, grad=False):
+def entry_ops(x, nu, dtype, grad=False, ops=None):
     """Operations of the Matern kernel (``grad``: of the block-gradient
     kernel) over entries at x = sqrt(2 nu) h / ls > 0 of one nu, CF2 counted
     per trip the result needs: up to convergence, none past the setup for a
@@ -844,7 +881,7 @@ def entry_ops(x, nu, dtype, grad=False):
     import torch
 
     name = str(dtype).replace("torch.", "")
-    o = MATERN_GRAD_OPS if grad else MATERN_OPS
+    o = ops or (MATERN_GRAD_OPS if grad else MATERN_OPS)
     nl = math.floor(abs(nu) + 0.5)
     mu = abs(nu) - nl
     steps = max(nl - 1, 0) if grad else nl  # the gradient stops one order short
@@ -859,15 +896,18 @@ def entry_ops(x, nu, dtype, grad=False):
             + cf2_x.numel() * o["cf2_setup"] + trips * o["cf2_trip"])
 
 
-def matern_bound(h, nu, ls, symmetric, grad=False):
-    """Least times for one Matern block (``grad``: for its block gradient):
-    (bytes / HBM rate, operations / peak rate) in ms over the entries this
-    block's data needs, counted in row chunks; ``bound_of`` combines them."""
+def matern_bound(h, nu, ls, symmetric, grad=False, ops=None, n_out=4):
+    """Least times for one Matern block (``grad``: for its block gradient,
+    or with ``ops`` one of the gradient-like second-order kernels: the
+    Hessian sums, ``n_out`` = 5 doubles out, or the tangent, ``n_out`` = 0
+    and the block written): (bytes / HBM rate, operations / peak rate) in ms
+    over the entries this block's data needs, counted in row chunks;
+    ``bound_of`` combines them."""
     import torch
 
     name = str(h.dtype).replace("torch.", "")
     n, m = h.shape
-    ops = 0
+    n_ops = 0
     rows = max(1, (1 << 24) // m)
     for r0 in range(0, n, rows):
         hc = h[r0:r0 + rows]
@@ -875,12 +915,13 @@ def matern_bound(h, nu, ls, symmetric, grad=False):
         if symmetric:
             ri = torch.arange(r0, r0 + hc.shape[0], device=h.device)[:, None]
             mask &= torch.arange(m, device=h.device)[None, :] <= ri
-        ops += entry_ops(math.sqrt(2 * nu) * hc[mask] / ls, nu, h.dtype, grad)
+        n_ops += entry_ops(math.sqrt(2 * nu) * hc[mask] / ls, nu, h.dtype, grad, ops)
     n_entries = n * (n + 1) // 2 if symmetric else h.numel()
-    # forward: h read where evaluated, the block written; gradient: h read
-    # where evaluated, the cotangent read whole, four doubles written
-    nbytes = (n_entries + h.numel()) * h.element_size() + (32 if grad else 0)
-    return nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[name] * 1e3
+    # forward and tangent: h read where evaluated, the block written;
+    # gradient and Hessian sums: h read where evaluated, the cotangent read
+    # whole, n_out doubles written
+    nbytes = (n_entries + h.numel()) * h.element_size() + (8 * n_out if grad else 0)
+    return nbytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_OPS_PER_S[name] * 1e3
 
 
 def pairs_bound(chunks, nus, lss, grad=False):
@@ -1211,9 +1252,10 @@ def phase_f(dtype, pc, results):
                   (dists[0][1], g_cov[:h, h:], False, float(xg[3]), float(xg[6]), table.rows(0, 1)),
                   (dists[1][1], g_cov[h:, h:], True, float(xg[4]), float(xg[7]), table.rows(1, 1))]
 
-        def grads(fn, **kw):
+        def grads(fn, checked=None, **kw):
+            chosen = blocks if checked is None else blocks[checked:checked + 1]
             return lambda: [fn(1.0, 0.1, nu, ls, hb, ct, symmetric=sym, **kw)
-                            for hb, ct, sym, nu, ls, _ in blocks]
+                            for hb, ct, sym, nu, ls, _ in chosen]
 
         def grads_k():
             return [K.matern_block_grad(1.0, 0.1, nu, ls, hb, ct, symmetric=sym, table=rows[1])
@@ -1225,10 +1267,14 @@ def phase_f(dtype, pc, results):
         # (e) the block-gradient kernel's row at these three 12,500^2 blocks
         # with the evaluation's own cotangent, each block's four sums held
         # against the plain version at the bar of phase (c)
+        # the plain version at the cross block only (the 12,500^2 full one): at
+        # all three it took ~72 s of the script's time limit
         kept = {}
         ms = cuda_time_ms(keep(kept, "kernel", grads_k), 2)
-        plain_ms = cuda_time_ms(keep(kept, "plain", grads(K.matern_block_grad_plain)), 1, warm=False)
-        mags = grads(K.matern_block_grad_plain, absolute=True)()
+        kept["kernel"] = kept["kernel"][1:2]
+        plain_ms = cuda_time_ms(keep(kept, "plain", grads(K.matern_block_grad_plain, checked=1)),
+                                1, warm=False)
+        mags = grads(K.matern_block_grad_plain, absolute=True, checked=1)()
         tol = 1e-5 if name == "float32" else 1e-12
         grad_res = dict(results[f"matern_block_grad_{name}"])
         full_rel = 0.0
@@ -1240,8 +1286,8 @@ def phase_f(dtype, pc, results):
             full_rel = max(full_rel, float((diff / mag.clamp_min(1e-300)).max()))
             grad_res["max_abs_err"] = max(grad_res["max_abs_err"], float(diff.max()))
         grad_res["max_err"] = max(grad_res["max_err"], full_rel)
-        log(f"(f) {name}: block gradient at the three 12,500^2 blocks: worst |kernel - plain| / "
-            f"sum|terms| {full_rel:.3e} (bar {tol})")
+        log(f"(f) {name}: block gradient at the 12,500^2 cross block: |kernel - plain| / "
+            f"sum|terms| {full_rel:.3e} (bar {tol}); plain {plain_ms:.1f} ms there")
         grad_bound = bound_of([matern_bound(hb, nu, ls, sym, grad=True) for hb, _, sym, nu, ls, _ in blocks])
         # the Matern forward at the same three blocks, one at a time
         atol = 5e-6 if name == "float32" else 1e-12
@@ -1296,6 +1342,7 @@ def phase_f(dtype, pc, results):
              source="cokriging_tpu_torch/kernels/csrc/matern_grad.cu",
              replaces="cokriging_tpu/kernels/pallas_ops.py:485",
              launches=launches["matern_block_grad"], launches_per_eval=3, ms=ms, plain_ms=plain_ms,
+             plain_of="the 12,500^2 cross block only",
              bound_ms=grad_bound[0], bound_by=grad_bound[1], library_ms=None,
              path="(f) exact likelihood", shape=shape, **grad_res),
     ]
@@ -2783,6 +2830,14 @@ def phase_i_conditional(mod, mf, stages, launches, rows):
         torch.cuda.empty_cache()
 
 
+def _cli_multifield(paths, common):
+    """The CLI's MultiField of its staged tables, as ``fit`` builds it."""
+    from cokriging_tpu_torch.__main__ import _multifield, _parser
+
+    parser = _parser()
+    return _multifield(parser, parser.parse_args(["fit", *common, "--device", "cuda"]))
+
+
 def phase_i_cli(stages):
     """5. ``fit --bootstrap 16`` and ``predict --joint --conditional-sims
     10`` with ``--device cuda`` on tests/test_cli.py's staged tables (their
@@ -2796,7 +2851,8 @@ def phase_i_cli(stages):
 
     from cokriging_tpu_torch.__main__ import main as cli_main
     from cokriging_tpu_torch.data.grids import main_coords_array
-    from cokriging_tpu_torch.utils.io import load_table, save_table
+    from cokriging_tpu_torch.estimate.uncertainty import nll_std_errors
+    from cokriging_tpu_torch.utils.io import load_params, load_table, save_table
 
     with tempfile.TemporaryDirectory() as tmp:
         rng = np.random.default_rng(6)
@@ -2812,7 +2868,7 @@ def phase_i_cli(stages):
         out = {}
         for cmd, argv in (
             ("fit", ["fit", *common, "--max-dist", "3000", "--n-bins", "8", "--maxiter", "30",
-                     "--project-validity", "--bootstrap", "16", "--out", params]),
+                     "--project-validity", "--bootstrap", "16", "--std-errors", "--out", params]),
             ("predict", ["predict", *common, "--params", params, "--pred-grid", grid, "--joint",
                          "--conditional-sims", "10", "--seed", "3",
                          "--out", os.path.join(tmp, "pred_cuda.parquet")]),
@@ -2829,6 +2885,17 @@ def phase_i_cli(stages):
         check(list(boot.columns) == ["name", "value", "bounds", "std_err", "bias", "q025", "q975"]
               and boot.shape == (11, 7) and np.isfinite(boot["std_err"]).all(),
               f"(i) CLI bootstrap table: {boot.columns.tolist()} {boot.shape}")
+        # --std-errors: its table against nll_std_errors here, on the card, at
+        # the fitted parameters file
+        sedf = pd.read_csv(f"{params}.std_errors.csv")
+        cli_mf = _cli_multifield(paths, common)
+        with contextlib.redirect_stderr(io.StringIO()):
+            ref = nll_std_errors(load_params(params), cli_mf)
+        se_gap = float(np.max(np.abs(sedf["std_err"].to_numpy() - ref["std_err"].to_numpy())
+                              / np.maximum(np.abs(ref["std_err"].to_numpy()), 1e-300)))
+        check(list(sedf.columns) == list(ref.columns) and sedf.shape == (11, 5)
+              and list(sedf["at_bound"]) == list(ref["at_bound"]) and se_gap <= 1e-6,
+              f"(i) CLI std errors against nll_std_errors: {sedf.columns.tolist()} {se_gap}")
         pred = load_table(os.path.join(tmp, "pred_cuda.parquet"))
         with np.load(os.path.join(tmp, "pred_cuda.parquet.samples.npz")) as f:
             keys, sims = list(f.keys()), f["samples"]
@@ -2844,7 +2911,8 @@ def phase_i_cli(stages):
     log(f"(i) CLI fit --bootstrap 16 / predict --joint --conditional-sims 10 --device cuda: "
         f"{stages['cli_fit']:.1f} / {stages['cli_predict']:.1f} s per process; bootstrap table "
         f"{boot.shape}, std_err {np.round(boot['std_err'].to_numpy(), 4).tolist()}; samples "
-        f"{sims.shape}; prediction against the CPU {gap:.3e}; printed "
+        f"{sims.shape}; prediction against the CPU {gap:.3e}; std errors against "
+        f"nll_std_errors {se_gap:.3e}; printed "
         f"{out['fit'].strip().splitlines()[-1]!r}")
 
 
@@ -2867,7 +2935,457 @@ def phase_i():
     return rows
 
 
-def main(phases="abcdefghi"):
+# --- phase (j): parameter uncertainty -----------------------------------------
+
+# Operations per entry of the second-order kernels (csrc/matern_hess.cu over
+# csrc/kv.cuh's Dual2<T>: an add 3, a product 10, a product with a scalar 3,
+# a reciprocal 8, an exponential 6): the Hessian kernel's second-order
+# series and CF2 trips, recurrence step and matern_second_tab's own
+# arithmetic; the tangent kernel runs the block gradient's dual pass and
+# weights its three terms.
+MATERN_HESS_OPS = {"prefactor": 90, "series_setup": 140, "series_trip": 59,
+                   "cf2_setup": 70, "cf2_trip": 110, "recurrence_step": 19}
+MATERN_TANGENT_OPS = dict(MATERN_GRAD_OPS, prefactor=MATERN_GRAD_OPS["prefactor"] + 8)
+J_STRIDE = 5  # (f)'s maximum-likelihood subsample of bench.py's month: 2 x 2,500
+J_JITTER = 1e-6
+J_FD_STEP = 1e-5  # central-difference step, of each parameter's box width
+# bars, from the CPU rehearsal of this phase (PERF.md section 6): each Hessian
+# column against the central difference of the exact gradient, relative to
+# the column's largest entry; the Hessian before symmetrization symmetric to
+# round-off, relative to max|H|; float32 against float64, relative to
+# max|H|; the demo's card against the CPU
+J_FD_BAR = 1e-4
+J_SYM_BAR = {"float64": 1e-10, "float32": 1e-4}
+J_F32_BAR = 1e-3
+# the Hessian sums against their plain versions, each within its bar of its
+# sum of |terms| (first-order sums, then d2M/dnu2, d2M/dnu dls, d2M/dls2):
+# read on an H100 at (j)'s blocks, float64 <= 1.4e-17 and float32 <= 7.5e-9,
+# where a kernel that left one sum out reads >= 7.9e-7 / 7.5e-5
+J_HESS_BAR = {"float64": [1e-14] * 5, "float32": [1e-6] * 5}
+J_DEMO_BAR = 1e-9
+J_DEMO_THREADS = 2  # the demo's CPU Hessian runs beside the card's work
+# examples/uncertainty_demo.py:56-68: the truth, the bounds, the 41 x 41 grid
+J_DEMO_TRUTH = [1.0, 1.0, 1.5, 1.5, 1.5, 0.2, 0.2, 0.2, 0.05, 0.05, -0.6]
+J_DEMO_BOUNDS = dict(sigma_bounds=(0.1, 3.0), len_scale_bounds=(0.02, 1.0),
+                     nugget_bounds=(0.0, 0.5))
+# examples/crosscov_eda.py's optimal-lag search (lags 0..359 days, tau 30),
+# the CPU reference on every 8th cell
+J_EDA_LAGS = (0, 360)
+J_EDA_TAU = 30
+J_EDA_STRIDE = 8
+
+
+def j_problem():
+    """(f)'s maximum-likelihood problem in float64: bench.py's month (noise
+    seed 1), every 5th observation of each process, fitted on the card by
+    ``fit_nll_device`` from the default start (L-BFGS, maxiter 60, jitter
+    1e-6) as phase (f) fits it; returns (the MultiField, the fitted
+    parameters, the fit's info)."""
+    import torch
+
+    from cokriging_tpu_torch.cov.params import MaternParams
+    from cokriging_tpu_torch.estimate.nll import fit_nll_device
+    from cokriging_tpu_torch.fields.field import Field, MultiField
+
+    c1, v1, c2, v2 = build_inputs(N_PER_PROC, np.float64, noise_seed=1)
+    fields = [Field.from_arrays(c[::J_STRIDE], v[::J_STRIDE], f"Z{k}")
+              for k, (c, v) in enumerate(((c1, v1), (c2, v2)))]
+    for f in fields:
+        f.geodesic = True
+    mf = MultiField(fields=fields)
+    params, info = fit_nll_device(mf, init=MaternParams.default(2, dtype=torch.float64),
+                                  jitter=J_JITTER, maxiter=60, method="lbfgs")
+    return mf, params, info
+
+
+def j_hessian(mf, params, dtype_name, rows, stages, launches):
+    """The observed information of ``params`` on ``mf`` in one dtype on the
+    card: the raw Hessian (before symmetrization, its launch counts and the
+    arguments of its second-order launches captured), then
+    ``observed_information`` itself (equal to the raw one symmetrized);
+    both new kernels held against their plain versions at the Hessian's own
+    blocks, timed there for this path's rows of the kernels line. Returns
+    the information."""
+    import torch
+
+    from cokriging_tpu_torch.estimate.nll import _fit_inputs, neg_log_likelihood
+    from cokriging_tpu_torch.estimate.uncertainty import observed_information
+    from cokriging_tpu_torch.kernels import cuda_ops as K
+
+    td = getattr(torch, dtype_name)
+    mf = mf.astype(td)
+    params = params.astype(td)
+    spec = params.spec
+    _, dists, z, _ = _fit_inputs(mf, params, False, True, "cuda")
+    flat = params.to_flat().detach().to("cuda")
+
+    def fn(f):
+        return neg_log_likelihood(f, dists, z, spec, None, J_JITTER, analytic_grad=False)
+
+    with torch.no_grad():
+        value = float(fn(flat).detach())
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with captured("matern_block_hess") as hess_calls, \
+            captured("matern_block_tangent") as all_tan_calls:
+        raw = torch.autograd.functional.hessian(fn, flat)
+    torch.cuda.synchronize()
+    stages[f"hessian_{dtype_name}_s"] = time.perf_counter() - t0
+    counts = {k: v for k, v in K.launch_counts().items() if v}
+    launches[f"hessian_{dtype_name}"] = counts
+    for k in ("matern_correlation", "matern_block_grad", "matern_block_tangent",
+              "matern_block_hess"):
+        check(counts.get(k, 0) > 0, f"(j) {dtype_name}: no {k} launch in the Hessian: {counts}")
+    raw = raw.detach().double().cpu().numpy()
+    scale = float(np.abs(raw).max())
+    asym = float(np.abs(raw - raw.T).max()) / scale
+    log(f"(j) {dtype_name}: NLL {value} at the fit; raw Hessian in {stages[f'hessian_{dtype_name}_s']:.3f} s, "
+        f"launches {counts}, max|H| {scale:.6g}, asymmetry {asym:.3e} (bar {J_SYM_BAR[dtype_name]})")
+    check(np.isfinite(raw).all() and asym <= J_SYM_BAR[dtype_name],
+          f"(j) {dtype_name}: Hessian not finite or not symmetric: {asym}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    info = observed_information(params, mf, jitter=J_JITTER)
+    stages[f"observed_information_{dtype_name}_s"] = time.perf_counter() - t0
+    gap = float(np.abs(info - 0.5 * (raw + raw.T)).max()) / scale
+    check(gap <= 1e-12, f"(j) {dtype_name}: observed_information off the raw Hessian: {gap}")
+    # per block (by its distances) the first tangent launch of nonzero weights
+    tan_calls, seen = [], set()
+    for a in all_tan_calls:
+        if a[3].data_ptr() not in seen and bool((a[4] != 0).any()):
+            seen.add(a[3].data_ptr())
+            tan_calls.append(a)
+    rows += j_kernel_rows(dtype_name, hess_calls, tan_calls, counts)
+    return info
+
+
+def j_kernel_rows(dtype_name, hess_calls, tan_calls, counts):
+    """Both second-order kernels against their plain versions at the
+    Hessian's own launches (the Hessian sums at its three blocks; the tangent
+    at each block's first launch with nonzero weights), each timed there;
+    their rows of the kernels line."""
+    import torch
+
+    from cokriging_tpu_torch.kernels import cuda_ops as K
+
+    hess_calls = [[t.detach() if torch.is_tensor(t) else t for t in a] for a in hess_calls]
+    tan_calls = [[t.detach() if torch.is_tensor(t) else t for t in a] for a in tan_calls]
+    f32 = dtype_name == "float32"
+    hess = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, max_err=0.0)
+    bar = torch.tensor(J_HESS_BAR[dtype_name], dtype=torch.float64, device="cuda")
+    blocks = []
+    check(len(hess_calls) == 3, f"(j) {dtype_name}: {len(hess_calls)} Hessian-sum launches")
+    for k, (nu, ls, h, ct, sym) in enumerate(hess_calls):
+        kept = {}
+        hess["ms"] += cuda_time_ms(keep(kept, "kernel", lambda: K.matern_block_hess(
+            nu, ls, h, ct, symmetric=sym)), 3)
+        # the plain sums and their sums of |terms| from one timed pass
+        hess["plain_ms"] += cuda_time_ms(keep(kept, "plain", lambda: K.matern_block_hess_plain(
+            nu, ls, h, ct, symmetric=sym, magnitude=True)), 1, warm=False)
+        kept["plain"], mag = kept["plain"]
+        diff = (kept["kernel"] - kept["plain"]).abs()
+        rel = diff / mag.clamp_min(1e-300)
+        hess["max_abs_err"] = max(hess["max_abs_err"], float(diff.max()))
+        hess["max_err"] = max(hess["max_err"], float(rel.max()))
+        # what a kernel that left one sum out (returned 0 for it) would read
+        dropped = (kept["plain"].abs() / mag.clamp_min(1e-300)).tolist()
+        name = f"{k} ({'symmetric' if sym else 'full'} {h.shape[0]} x {h.shape[1]})"
+        blocks.append(dict(block=name, err=rel.tolist(), dropped_sum_reads=dropped))
+        log(f"(j) {dtype_name} Hessian sums at block {name}: |kernel - plain| / sum|terms| "
+            f"{np.array2string(rel.cpu().numpy(), precision=2)} (bars {J_HESS_BAR[dtype_name]}); "
+            f"a kernel leaving one sum out reads {np.array2string(np.array(dropped), precision=2)}")
+        check(bool(torch.isfinite(kept["kernel"]).all()) and bool((rel <= bar).all()),
+              f"(j) Hessian sums {dtype_name} block {k}: {kept['kernel'].tolist()} vs plain "
+              f"{kept['plain'].tolist()}, |terms| {mag.tolist()}, bars {J_HESS_BAR[dtype_name]}")
+        del kept
+        torch.cuda.empty_cache()
+    tan = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, max_err=0.0)
+    for k, a in enumerate(tan_calls):
+        scale, nu, ls, h, w, sym = a[:6]
+        table = a[6] if len(a) > 6 else None
+        kept = {}
+        tan["ms"] += cuda_time_ms(keep(kept, "kernel", lambda: K.matern_block_tangent(
+            scale, nu, ls, h, w, symmetric=sym, table=table)), 3)
+        tan["plain_ms"] += cuda_time_ms(keep(kept, "plain", lambda: K.matern_block_tangent_plain(
+            scale, nu, ls, h, w, symmetric=sym)), 1, warm=False)
+        err = float((kept["kernel"] - kept["plain"]).abs().max())
+        size = float(kept["plain"].abs().max())
+        check(bool(torch.isfinite(kept["kernel"]).all()) and err <= (1e-5 if f32 else 1e-12) * size,
+              f"(j) tangent {dtype_name} block {k}: err {err} of {size}")
+        tan["max_abs_err"] = max(tan["max_abs_err"], err)
+        tan["max_err"] = max(tan["max_err"], err / size)
+        del kept
+        torch.cuda.empty_cache()
+    hb = bound_of([matern_bound(a[2], float(a[0]), float(a[1]), a[4], grad=True,
+                                ops=MATERN_HESS_OPS, n_out=5) for a in hess_calls])
+    tb = bound_of([matern_bound(a[3], float(a[1]), float(a[2]), a[5], grad=True,
+                                ops=MATERN_TANGENT_OPS, n_out=0) for a in tan_calls])
+    shape = "Hessian blocks 2500^2 sym + 2500^2 + 2500^2 sym"
+    log(f"(j) {dtype_name}: Hessian sums at the three blocks {hess['ms']:.3f} ms, plain "
+        f"{hess['plain_ms']:.1f} ms, worst |kernel - plain| / sum|terms| {hess['max_err']:.3e}; "
+        f"tangent at {len(tan_calls)} blocks {tan['ms']:.3f} ms, plain {tan['plain_ms']:.1f} ms, "
+        f"worst err / max|entry| {tan['max_err']:.3e}")
+    replaces = "cokriging_tpu/estimate/uncertainty.py:75-79 (jax.hessian; no Pallas kernel)"
+    return [
+        dict(name=f"matern_block_hess_{dtype_name}", route="cuda",
+             source="cokriging_tpu_torch/kernels/csrc/matern_hess.cu", replaces=replaces,
+             launches=counts.get("matern_block_hess", 0), bound_ms=hb[0], bound_by=hb[1],
+             library_ms=None, path="(j) observed information", shape=shape,
+             bars=J_HESS_BAR[dtype_name], blocks=blocks, **hess),
+        dict(name=f"matern_block_tangent_{dtype_name}", route="cuda",
+             source="cokriging_tpu_torch/kernels/csrc/matern_hess.cu", replaces=replaces,
+             launches=counts.get("matern_block_tangent", 0), launches_timed=len(tan_calls),
+             bound_ms=tb[0], bound_by=tb[1], library_ms=None, path="(j) observed information",
+             shape=f"{shape}, each block's first launch of nonzero weights", **tan),
+    ]
+
+
+def j_finite_difference(mf, params, info):
+    """Each column of the float64 information against a difference of the
+    card's exact gradient (``nll_value_and_grad``: the analytic backward
+    through the block-gradient kernel), steps h of J_FD_STEP of each
+    parameter's box width: central, or one-sided of second order
+    (-3 g(x) + 4 g(x + h) - g(x + 2h)) / 2h into the box where the central
+    stencil would leave the positive-definite region (a fit ends on its wall,
+    ROADMAP Queue 3) or the box; every stencil point must factorize."""
+    import torch
+
+    from cokriging_tpu_torch.estimate.nll import _fit_inputs, _penalty, nll_value_and_grad
+
+    _, dists, z, _ = _fit_inputs(mf, params, False, True, "cuda")
+    spec = params.spec
+    flat = params.to_flat().detach().to("cuda", torch.float64)
+    penalty = float(_penalty(z.shape[0], torch.float64, "cpu"))
+    lo, hi = (np.asarray(b, np.float64) for b in spec.bounds())
+    step = J_FD_STEP * (hi - lo)
+
+    def grad_at(k, t):
+        e = torch.zeros(11, dtype=torch.float64, device="cuda")
+        e[k] = float(t)
+        v, g = nll_value_and_grad(flat + e, dists, z, spec, None, J_JITTER)
+        return float(v) != penalty, g.cpu().numpy()
+
+    x = flat.cpu().numpy()
+    fd = np.zeros((11, 11))
+    one_sided = []
+    for k in range(11):
+        h = step[k]
+        ok_p, gp = grad_at(k, h)
+        ok_m, gm = grad_at(k, -h)
+        if ok_p and ok_m and x[k] - h >= lo[k] and x[k] + h <= hi[k]:
+            fd[:, k] = (gp - gm) / (2.0 * h)
+            continue
+        d = 1.0 if (ok_p and x[k] + 2 * h <= hi[k]) else -1.0
+        ok0, g0 = grad_at(k, 0.0)
+        ok1, g1 = grad_at(k, d * h)
+        ok2, g2 = grad_at(k, 2 * d * h)
+        check(ok0 and ok1 and ok2, f"(j) no factorizing stencil for parameter {k}")
+        fd[:, k] = d * (-3.0 * g0 + 4.0 * g1 - g2) / (2.0 * h)
+        one_sided.append(k)
+    col = np.abs(info - fd).max(axis=0) / np.maximum(np.abs(info).max(axis=0), 1e-300)
+    log(f"(j) float64: Hessian columns against a difference of the exact gradient (step "
+        f"{J_FD_STEP} of each box width; one-sided for {one_sided}): worst {col.max():.3e} "
+        f"(bar {J_FD_BAR}) per column {np.array2string(col, precision=2)}")
+    check(bool((col <= J_FD_BAR).all()), f"(j) Hessian off the difference of the gradient: {col}")
+
+
+def j_demo_truth(device):
+    """The demo's truth as MaternParams (float64) on ``device``."""
+    import torch
+
+    from cokriging_tpu_torch.cov.params import MaternParams, ParamSpec
+
+    return MaternParams.from_flat(torch.tensor(J_DEMO_TRUTH, dtype=torch.float64, device=device),
+                                  spec=ParamSpec(n_procs=2, **J_DEMO_BOUNDS))
+
+
+def j_demo_cpu_information(mf):
+    """The port's information of the demo at its truth on the CPU (run in a
+    worker process, beside the rest of phase (j)): (information, seconds)."""
+    import torch
+
+    from cokriging_tpu_torch.estimate.uncertainty import observed_information
+
+    torch.set_num_threads(J_DEMO_THREADS)
+    t0 = time.perf_counter()
+    info = observed_information(j_demo_truth("cpu"), mf, device="cpu")
+    return info, time.perf_counter() - t0
+
+
+def j_demo_start(stages):
+    """examples/uncertainty_demo.py's maximum-likelihood half at its own
+    size: its truth on a 41 x 41 grid, seed 42, 2 x 120 samples with epsilon
+    0.05 (seed 43), simulated on the card; the port's CPU information of that
+    sample starts in a worker process (the reference the card is held to,
+    ~35 s on the host). Returns (the MultiField, the pool, its pending
+    result)."""
+    import dataclasses
+    import multiprocessing
+
+    import torch
+
+    from cokriging_tpu_torch.cov.matern import MultivariateMatern
+    from cokriging_tpu_torch.sim import BivariateRandomField, CartesianGrid
+
+    t0 = time.perf_counter()
+    rf = BivariateRandomField(MultivariateMatern(params=j_demo_truth("cuda")),
+                              CartesianGrid(xcount=41, ycount=41), seed=42)
+    mf = rf.to_fields(rf.sample(size=120, epsilon=[0.05, 0.05], seed=43))
+    torch.cuda.synchronize()
+    stages["demo_sim_s"] = time.perf_counter() - t0
+    on_cpu = dataclasses.replace(mf, fields=[dataclasses.replace(f, **{
+        k: getattr(f, k).cpu() for k in ("coords", "values", "coords_main", "values_main",
+                                          "measurement_var") if getattr(f, k) is not None})
+        for f in mf.fields])
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    return mf, pool, pool.apply_async(j_demo_cpu_information, (on_cpu,))
+
+
+def j_demo(stages, mf, pending):
+    """The demo's information at the truth on the card against the port's
+    on the CPU (float64, J_DEMO_BAR of max|H|), and ``nll_std_errors`` on the
+    card's information."""
+    import torch
+
+    from cokriging_tpu_torch.estimate.uncertainty import nll_std_errors, observed_information
+
+    truth = j_demo_truth("cuda")
+    t1 = time.perf_counter()
+    info_card = observed_information(truth, mf)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    info_cpu, cpu_s = pending.get(timeout=600)
+    t3 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        df = nll_std_errors(truth, mf, information=info_card)
+    stages.update(demo_hessian_card_s=t2 - t1, demo_hessian_cpu_s=cpu_s,
+                  demo_cpu_wait_s=t3 - t2)
+    gap = float(np.abs(info_card - info_cpu).max()) / float(np.abs(info_cpu).max())
+    log(f"(j) demo (2 x {mf.fields[0].size}, at the truth): Hessian card {t2 - t1:.3f} s, CPU "
+        f"{cpu_s:.3f} s in its worker process (waited {t3 - t2:.3f} s for it), card against CPU "
+        f"{gap:.3e} of max|H| (bar {J_DEMO_BAR}); eigenvalues "
+        f"{np.array2string(np.linalg.eigvalsh(info_card), precision=3)}; std_err "
+        f"{np.round(df['std_err'].to_numpy(), 4).tolist()}; warnings "
+        f"{[str(w.message)[:50] for w in caught]}")
+    check(gap <= J_DEMO_BAR, f"(j) demo Hessian card against CPU: {gap}")
+    check(np.isfinite(df["std_err"].to_numpy()).all(), "(j) demo standard errors not finite")
+
+
+def j_eda(stages, launches):
+    """The space-time statistics at examples/crosscov_eda.py's size (its
+    ``synthesize_daily(seed=0)``: a global 5-degree daily cube over five
+    years, 36 x 72 x 1,825, ~70% missing): ``optim_lag_nd`` over lags 0..359
+    with tau 30 and ``get_stats`` on the card, held against the port on the
+    CPU on every 8th cell (lags equal, xcor to 1e-10); then ``regional_stats``
+    on examples/xcov_eda.py's 5-degree monthly frame, card against CPU."""
+    import torch
+
+    from cokriging_tpu_torch.stats import (
+        get_stats, hemisphere_labels, lat_band_labels, optim_lag_nd, regional_monthly,
+        regional_stats,
+    )
+
+    examples = {}
+    for name in ("crosscov_eda", "xcov_eda"):
+        spec = importlib.util.spec_from_file_location(f"_{name}", HERE / "examples" / f"{name}.py")
+        examples[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(examples[name])
+    check(not [m for m in ("jax", "cokriging_tpu") if m in sys.modules],
+          "(j) loading the examples' data makers imported JAX")
+    t0 = time.perf_counter()
+    sif, xco2, _, _, _ = examples["crosscov_eda"].synthesize_daily(seed=0)
+    shape = (36, 72, sif.shape[-1])
+    sif, xco2 = sif.reshape(shape), xco2.reshape(shape)
+    stages["eda_synthesize_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best = optim_lag_nd(xco2, sif, lag_bnds=J_EDA_LAGS, tau=J_EDA_TAU)
+    stats = get_stats({"sif": sif, "xco2": xco2})
+    torch.cuda.synchronize()
+    stages["eda_card_s"] = time.perf_counter() - t0
+    sub = (slice(None), slice(None, None, J_EDA_STRIDE))
+    t0 = time.perf_counter()
+    ref = optim_lag_nd(xco2[sub], sif[sub], lag_bnds=J_EDA_LAGS, tau=J_EDA_TAU, device="cpu")
+    ref_stats = get_stats({"sif": sif[sub], "xco2": xco2[sub]}, device="cpu")
+    stages["eda_cpu_every_8th_s"] = time.perf_counter() - t0
+    lag_eq = bool(np.array_equal(best["optim_lag"][sub], ref["optim_lag"]))
+    xc_gap = float(np.nanmax(np.abs(best["xcor"][sub] - ref["xcor"])))
+    st_gap = max(float(np.nanmax(np.abs(stats[k][sub] - ref_stats[k]) / np.maximum(
+        np.abs(ref_stats[k]), 1e-300))) for k in ref_stats)
+    finite = float(np.isfinite(best["xcor"]).mean())
+    lags, n_lag = np.unique(best["optim_lag"][np.isfinite(best["xcor"])], return_counts=True)
+    log(f"(j) EDA cube {shape}: optimal lags + get_stats on the card {stages['eda_card_s']:.3f} s "
+        f"(CPU on every {J_EDA_STRIDE}th cell {stages['eda_cpu_every_8th_s']:.3f} s); lags equal "
+        f"{lag_eq}, xcor gap {xc_gap:.3e}, stats rel gap {st_gap:.3e}; cells with a lag "
+        f"{finite:.3%}, the commonest lags {lags[np.argsort(-n_lag)][:3].tolist()} (the raw cubes: "
+        f"the seasonal cycle, which the example removes first, dominates their correlation)")
+    check(lag_eq and xc_gap <= 1e-10 and st_gap <= 1e-10,
+          f"(j) EDA card against CPU: lags equal {lag_eq}, xcor {xc_gap}, stats {st_gap}")
+    df = examples["xcov_eda"].synthesize_global_monthly()
+    t0 = time.perf_counter()
+    tables = {}
+    for grouper, labels in (("hemisphere", hemisphere_labels(df)),
+                            ("lat_band", lat_band_labels(df, width=30.0))):
+        monthly = regional_monthly(df, labels)
+        tables[grouper] = (regional_stats(monthly, grouper, lags=(0, 1, 2, 3)),
+                           regional_stats(monthly, grouper, lags=(0, 1, 2, 3), device="cpu"))
+    stages["regional_stats_s"] = time.perf_counter() - t0
+    for grouper, (card, cpu) in tables.items():
+        num = card.select_dtypes("number").to_numpy(np.float64)
+        gap = float(np.nanmax(np.abs(num - cpu.select_dtypes("number").to_numpy(np.float64))
+                              / np.maximum(np.abs(num), 1e-300)))
+        check(gap <= 1e-10 and card.shape == cpu.shape, f"(j) regional_stats {grouper}: {gap}")
+        log(f"(j) regional_stats by {grouper} ({len(df)} rows): {card.shape}, card against CPU {gap:.3e}")
+
+
+def phase_j():
+    """Parameter uncertainty: the observed information of (f)'s ML fit in
+    float64 and float32, the demo's, the space-time statistics; returns its
+    rows of the kernels line."""
+    import torch
+
+    from cokriging_tpu_torch.estimate.uncertainty import observed_information
+
+    stages, launches, rows = {}, {}, []
+    t0 = time.perf_counter()
+    demo_mf, pool, pending = j_demo_start(stages)
+    try:
+        t1 = time.perf_counter()
+        mf, params, fit = j_problem()
+        stages["ml_fit_s"] = time.perf_counter() - t1
+        log(f"(j) (f)'s ML fit (2 x {mf.fields[0].size}, float64): {fit}, params "
+            f"{np.array2string(params.to_flat().cpu().numpy(), precision=5)}")
+        j_hessian(mf, params, "float64", rows, stages, launches)
+        # the difference check and float32 against float64 at the fit with its
+        # nuggets raised to 0.1 ((f)'s convention): an ML fit of the free model
+        # may end on the wall of the positive-definite region (ROADMAP Queue 3),
+        # where no difference of the gradient is defined and a float32 factor
+        # carries the conditioning's error
+        lifted = params.to_flat().detach().clone()
+        lifted[8:10] = torch.clamp_min(lifted[8:10], 0.1)
+        lifted = params.with_flat(lifted)
+        info64b = observed_information(lifted, mf, jitter=J_JITTER)
+        j_finite_difference(mf, lifted, info64b)
+        info32 = j_hessian(mf, lifted, "float32", rows, stages, launches)
+        gap = float(np.abs(info32 - info64b).max()) / float(np.abs(info64b).max())
+        log(f"(j) float32 information against float64 at nuggets >= 0.1: {gap:.3e} of max|H| "
+            f"(bar {J_F32_BAR})")
+        check(gap <= J_F32_BAR, f"(j) float32 information off float64's: {gap}")
+        torch.cuda.empty_cache()
+        j_demo(stages, demo_mf, pending)
+        j_eda(stages, launches)
+    finally:
+        pool.terminate()
+        pool.join()
+    log(f"(j) stages (s) {json.dumps({k: round(v, 4) for k, v in stages.items()})}")
+    log(f"(j) launches {json.dumps(launches)}")
+    log(f"(j) seconds {time.perf_counter() - t0:.1f}")
+    return rows
+
+
+def main(phases="abcdefghij"):
     try:
         import torch
     except ImportError:
@@ -2895,6 +3413,7 @@ def main(phases="abcdefghi"):
         import cokriging_tpu_torch.estimate.bootstrap  # noqa: F401
         import cokriging_tpu_torch.estimate.empirical  # noqa: F401
         import cokriging_tpu_torch.estimate.nll  # noqa: F401
+        import cokriging_tpu_torch.estimate.uncertainty  # noqa: F401
         import cokriging_tpu_torch.estimate.vecchia  # noqa: F401
         import cokriging_tpu_torch.estimate.wls  # noqa: F401
         import cokriging_tpu_torch.predict.iterative  # noqa: F401
@@ -2903,6 +3422,7 @@ def main(phases="abcdefghi"):
         import cokriging_tpu_torch.predict.postprocess  # noqa: F401
         import cokriging_tpu_torch.sim.cofield  # noqa: F401
         import cokriging_tpu_torch.sim.spectral  # noqa: F401
+        import cokriging_tpu_torch.stats.spacetime  # noqa: F401
         import cokriging_tpu_torch.utils.io  # noqa: F401
         from cokriging_tpu_torch.__main__ import _parser  # noqa: F401
         from cokriging_tpu_torch.data.grids import prediction_coords
@@ -2944,7 +3464,10 @@ def main(phases="abcdefghi"):
             run_pipeline(c1, v1, c2, v2, pc.astype(dtype), dtype, "cuda", maxiter=WARMUP_MAXITER)
             _, v1b, _, v2b = build_inputs(N_PER_PROC, dtype, noise_seed=2)
             K.reset_launch_counts()
-            params, result, out, times, lp = run_pipeline(c1, v1b, c2, v2b, pc.astype(dtype), dtype, "cuda")
+            steps = MAXITER if name == "float32" else MAXITER_F64
+            params, result, out, times, lp = run_pipeline(c1, v1b, c2, v2b, pc.astype(dtype), dtype,
+                                                          "cuda", maxiter=steps)
+            times["fit_ms_per_step"] = 1e3 * times["fit_s"] / steps
             launches = K.launch_counts()
             finite = float(np.isfinite(out.pred).mean())
             x = params.to_flat().cpu().numpy().astype(np.float64)
@@ -3000,6 +3523,10 @@ def main(phases="abcdefghi"):
         if "i" in phases:
             rows += phase_i()
             log(f"(i) elapsed since start {time.perf_counter() - t_start:.1f} s")
+        # (j) parameter uncertainty
+        if "j" in phases:
+            rows += phase_j()
+            log(f"(j) elapsed since start {time.perf_counter() - t_start:.1f} s")
     except SmokeFailure as e:
         print(f"FAILED: {e}", file=sys.stderr)
         return 1
@@ -3017,7 +3544,7 @@ def main(phases="abcdefghi"):
                 f"{recorded if recorded is not None else 'none'} ms]{extra}, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}), launches {r['launches']}; ptxas {r['ptxas']}")
     print(json.dumps({"kernels": rows}))
-    if phases != "abcdefghi":
+    if phases != "abcdefghij":
         print(f"partial run of phases {phases}: no result")
         return 0
     print(smi)

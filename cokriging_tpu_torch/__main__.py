@@ -11,11 +11,12 @@ arguments, defaults, output files and printed summaries:
                (MSPE/MAPE/coverage; local or joint predictor)
 
 ``fit --bootstrap N`` adds the parametric bootstrap of a WLS fit
-(``<out>.bootstrap.csv``), ``predict --joint --conditional-sims N`` the
-conditional realizations (``<out>.samples.npz``). ``--device`` (default
-``cuda``) picks where the work runs; ``--device cpu`` runs on the host.
-``sim``, ``bench`` and ``fit --std-errors`` need modules the port does not
-have yet and stop with an error that names the ROADMAP item that ports them.
+(``<out>.bootstrap.csv``), ``fit --std-errors`` the standard errors from
+the exact NLL's Hessian (``<out>.std_errors.csv``), ``predict --joint
+--conditional-sims N`` the conditional realizations (``<out>.samples.npz``).
+``--device`` (default ``cuda``) picks where the work runs; ``--device cpu``
+runs on the host. ``sim`` and ``bench`` need modules the port does not have
+yet and stop with an error that names the ROADMAP item that ports them.
 """
 
 import argparse
@@ -26,8 +27,6 @@ _NOT_YET = {
            "(ROADMAP.md Queue 1 item 13); its simulators are ported (sim/)",
     "bench": "the port's benchmark script is a benchmark PR's work (ROADMAP.md Queue 1, "
              "note for a benchmark PR)",
-    "std_errors": "--std-errors needs the port's estimate/uncertainty.py (ROADMAP.md Queue 1 "
-                  "item 7)",
 }
 
 
@@ -183,6 +182,13 @@ def _fit(args, mf):
         bdf.to_csv(f"{args.out}.bootstrap.csv", index=False)
         print(bdf.to_string(index=False))
         print(f"bootstrap ({args.bootstrap} replicates) -> {args.out}.bootstrap.csv")
+    if args.std_errors:
+        from cokriging_tpu_torch.estimate.uncertainty import nll_std_errors
+
+        sedf = nll_std_errors(params, mf, device=args.device)
+        sedf.to_csv(f"{args.out}.std_errors.csv", index=False)
+        print(sedf.to_string(index=False))
+        print(f"NLL-Hessian standard errors -> {args.out}.std_errors.csv")
 
 
 def _predict(args, mf):
@@ -260,8 +266,6 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.cmd in ("sim", "bench"):
         parser.error(_NOT_YET[args.cmd])
-    if getattr(args, "std_errors", False):
-        parser.error(_NOT_YET["std_errors"])
     if args.cmd == "fit" and args.bootstrap and args.method != "wls":
         parser.error("--bootstrap requires --method wls")
     if args.cmd == "predict" and args.conditional_sims:

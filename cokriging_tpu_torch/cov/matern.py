@@ -31,9 +31,10 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from cokriging_tpu_torch.cov.params import MaternParams
-from cokriging_tpu_torch.kernels.bessel import kv
+from cokriging_tpu_torch.kernels.bessel import kv, lgamma
 
 _LN2 = math.log(2.0)
 
@@ -57,7 +58,7 @@ def matern_correlation(nu, len_scale, h):
     positive = h > 0.0
     hs = torch.where(positive, h, 1.0) / len_scale
     arg = torch.sqrt(2.0 * nu) * hs
-    log_pref = (1.0 - nu) * _LN2 - torch.lgamma(nu) + nu * torch.log(arg)
+    log_pref = (1.0 - nu) * _LN2 - lgamma(nu) + nu * torch.log(arg)
     corr = torch.exp(log_pref) * kv(nu, arg)
     corr = torch.where(torch.isfinite(corr), corr, 0.0)
     corr = torch.clamp_min(corr, 0.0)
@@ -124,7 +125,8 @@ class _ScaledMaternBlock(torch.autograd.Function):
     (``value_row``, ``dual_row``: the pair's rows of a ``pair_table``, or
     None to build them per launch); on the CPU both are their plain
     versions. ``symmetric`` (marginal self-distance blocks) lets both
-    evaluate the lower triangle only."""
+    evaluate the lower triangle only. The backward is the differentiable
+    ``_ScaledMaternBlockGrad``, so a Hessian runs through the block."""
 
     @staticmethod
     def forward(ctx, scale, nugget, nu, ls, h, symmetric, value_row=None, dual_row=None):
@@ -140,13 +142,60 @@ class _ScaledMaternBlock(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct):
-        from cokriging_tpu_torch.kernels.cuda_ops import matern_block_grad
-
         scale, nugget, nu, ls, h = ctx.saved_tensors
-        g = matern_block_grad(scale, nugget, nu, ls, h, ct.to(h.dtype), ctx.symmetric,
-                              table=ctx.dual_row)
+        g = _ScaledMaternBlockGrad.apply(scale, nugget, nu, ls, h, ct.to(h.dtype), ctx.symmetric,
+                                         ctx.dual_row)
         return (g[0].to(scale.dtype), g[1].to(nugget.dtype), g[2].to(nu.dtype),
                 g[3].to(ls.dtype), None, None, None, None)
+
+
+class _ScaledMaternBlockGrad(torch.autograd.Function):
+    """The block's four scalar gradients g = (sum ct M, sum ct [h == 0],
+    scale sum ct dM/dnu, scale sum ct dM/dls) as a function of (scale,
+    nugget, nu, ls) and the cotangent ct, so that a double backward (a
+    Hessian) runs through the block. The forward is the block-gradient
+    kernel (``matern_block_grad``; the only launch of a first-order
+    backward). The backward, for a cotangent v of g, gives ct the block's
+    tangent along v (``matern_block_tangent``: v_s M + v_n [h == 0] +
+    scale (v_nu dM/dnu + v_ls dM/dls)) and (scale, nugget, nu, ls) the
+    4 x 4 contraction of the five second-order sums of ``matern_block_hess``
+    (sum ct dM/dnu, sum ct dM/dls and the three sums of ct times M's second
+    partials) with v; nugget gets 0. On a CUDA tensor both are the kernels
+    of ``csrc/matern_hess.cu``, on the CPU their plain versions. The
+    backward is not differentiable again."""
+
+    @staticmethod
+    def forward(ctx, scale, nugget, nu, ls, h, ct, symmetric, dual_row=None):
+        from cokriging_tpu_torch.kernels.cuda_ops import matern_block_grad
+
+        ctx.save_for_backward(scale, nu, ls, h, ct)
+        ctx.symmetric = symmetric
+        ctx.dual_row = dual_row
+        return matern_block_grad(scale, nugget, nu, ls, h, ct, symmetric, table=dual_row)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, v):
+        from cokriging_tpu_torch.kernels.cuda_ops import matern_block_hess, matern_block_tangent
+
+        scale, nu, ls, h, ct = ctx.saved_tensors
+        v = v.to(torch.float64)
+        g_s = g_nu = g_ls = g_ct = None
+        need = ctx.needs_input_grad
+        if need[0] or need[2] or need[3]:
+            # the sums do not depend on v: one launch serves every row of a Hessian
+            if not hasattr(ctx, "sums"):
+                ctx.sums = matern_block_hess(nu, ls, h, ct, ctx.symmetric)
+            a_nu, a_ls, h_nn, h_nl, h_ll = ctx.sums
+            s = scale.to(torch.float64)
+            g_s = (v[2] * a_nu + v[3] * a_ls).to(scale.dtype)
+            g_nu = (v[0] * a_nu + s * (v[2] * h_nn + v[3] * h_nl)).to(nu.dtype)
+            g_ls = (v[0] * a_ls + s * (v[2] * h_nl + v[3] * h_ll)).to(ls.dtype)
+        if need[5]:
+            g_ct = matern_block_tangent(scale, nu, ls, h, v, ctx.symmetric,
+                                        table=ctx.dual_row).to(ct.dtype)
+        g_n = torch.zeros_like(scale) if need[1] else None
+        return g_s, g_n, g_nu, g_ls, None, g_ct, None, None
 
 
 def _needs_grad(params: MaternParams) -> bool:
@@ -311,7 +360,7 @@ def _kernel_tables(params: MaternParams, device, dtype, grad: bool):
 
     nu_pairs, ls_pairs = (t.detach().to(device) for t in _pair_stacks(params))
     value = recurrence_table(nu_pairs, ls_pairs, dtype)
-    return value, recurrence_table(nu_pairs, ls_pairs, dtype, dual=True) if grad else None
+    return value, recurrence_table(nu_pairs, ls_pairs, dtype, order=1) if grad else None
 
 
 class _MaternCorrPairs(torch.autograd.Function):

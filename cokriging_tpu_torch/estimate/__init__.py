@@ -28,3 +28,7 @@ from cokriging_tpu_torch.estimate.bootstrap import (  # noqa: F401
     parametric_bootstrap,
     simulate_replicates,
 )
+from cokriging_tpu_torch.estimate.uncertainty import (  # noqa: F401
+    nll_std_errors,
+    observed_information,
+)

@@ -20,7 +20,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("variogram.cu", "matern.cu", "matern_grad.cu", "matern_pairs.cu")
+SOURCES = ("variogram.cu", "matern.cu", "matern_grad.cu", "matern_pairs.cu", "matern_hess.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

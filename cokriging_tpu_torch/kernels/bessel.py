@@ -19,7 +19,12 @@ Taylor polynomial ``inv_gamma1p`` (the same values as the reference).
 ``autograd.Function`` that mirrors the reference's custom JVP: d/dx is the
 analytic ``-(K_{nu-1} + K_{nu+1}) / 2`` and d/dnu is the exact derivative
 of the same series/CF2 pass with ``nl`` pinned (taken by reverse mode,
-which costs less than torch's forward mode here).
+which costs less than torch's forward mode here). A first-order backward
+reuses the partials of the forward pass; a backward that builds a graph
+(``create_graph``: a Hessian) takes them again from that pass kept in the
+graph, so K_nu's second derivatives are the derivatives of the same
+partials, as in the reference. ``kv_exact_grad`` differentiates the
+recurrences directly.
 
 The CUDA counterpart of these loops is ``csrc/kv.cuh``.
 """
@@ -79,8 +84,8 @@ def gam12_tangent(mu):
         d_gp = dinv_gamma1p(mu)
         d_gm = -dinv_gamma1p(-mu)
     else:
-        d_gp = -torch.digamma(1.0 + mu) * inv_gp
-        d_gm = torch.digamma(1.0 - mu) * inv_gm
+        d_gp = -_Digamma.apply(1.0 + mu) * inv_gp
+        d_gm = _Digamma.apply(1.0 - mu) * inv_gm
     d_gam2 = 0.5 * (d_gm + d_gp)
     # quotient rule away from 0; at the removable singularity the odd
     # series d(-(A1 + A3 mu^2)) = -2 A3 mu
@@ -94,6 +99,59 @@ def gam12_tangent(mu):
     return d_gam1, d_gam2, d_gp, d_gm
 
 
+def trigamma(x):
+    """psi'(x) for x > 0, to float64 round-off: the recurrence psi'(x) =
+    psi'(x + 1) + 1/x^2 shifts every lane to x >= 10 in ten branch-free
+    steps, then the asymptotic series to x^-15. ``torch.polygamma(1, .)``
+    (the derivative torch gives ``digamma``) is off by ~5e-10 relative in
+    float64, which a Hessian through lgamma would carry."""
+    acc = torch.zeros_like(x)
+    for _ in range(10):
+        small = x < 10.0
+        acc = acc + torch.where(small, 1.0 / (x * x), 0.0)
+        x = torch.where(small, x + 1.0, x)
+    ix = 1.0 / x
+    ix2 = ix * ix
+    series = ix2 * (7.0 / 6.0)
+    for c in (-691.0 / 2730.0, 5.0 / 66.0, -1.0 / 30.0, 1.0 / 42.0, -1.0 / 30.0, 1.0 / 6.0):
+        series = ix2 * (c + series)
+    return acc + ix + 0.5 * ix2 + ix * series
+
+
+class _Digamma(torch.autograd.Function):
+    """digamma whose derivative is ``trigamma``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.digamma(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        return grad * trigamma(x)
+
+
+class _Lgamma(torch.autograd.Function):
+    """lgamma whose derivative is ``_Digamma``: the same values and first
+    derivative as ``torch.lgamma``, and a second derivative to round-off."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.lgamma(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        return grad * _Digamma.apply(x)
+
+
+def lgamma(x):
+    """``torch.lgamma`` with second derivatives to float64 round-off."""
+    return _Lgamma.apply(x)
+
+
 def _gam12(mu):
     """(gam1, gam2, 1/Gamma(1+mu), 1/Gamma(1-mu)) for |mu| <= 1/2.
 
@@ -105,8 +163,8 @@ def _gam12(mu):
         inv_gp = inv_gamma1p(mu)
         inv_gm = inv_gamma1p(-mu)
     else:
-        inv_gp = torch.exp(-torch.lgamma(1.0 + mu))
-        inv_gm = torch.exp(-torch.lgamma(1.0 - mu))
+        inv_gp = torch.exp(-lgamma(1.0 + mu))
+        inv_gm = torch.exp(-lgamma(1.0 - mu))
     gam2 = 0.5 * (inv_gm + inv_gp)
     small = torch.abs(mu) < 1e-3
     mu_safe = torch.where(small, 1.0, mu)
@@ -297,22 +355,62 @@ def _kv_value(nu, x, with_grads):
     )
 
 
-class _KvGrad(torch.autograd.Function):
-    """Attaches the precomputed partials of K_nu(x) to the graph."""
+def _kv_partials_graph(nu, x):
+    """(dK/dnu, dK/dx) on x > 0 as differentiable functions of ``nu`` and
+    ``x``: the partials of ``_kv_value`` from the same series/CF2 pass with
+    nl pinned, the pass and its mu-tangent kept in the graph
+    (``create_graph``), as the reference's second derivative differentiates
+    its custom JVP rule (``_kv_jvp``): dK/dx = -(K_{nu-1} + K_{nu+1}) / 2
+    and dK/dnu come out of one pass in (mu, x), and mu = |nu| - nl carries
+    |nu|'s sign into their nu-derivatives."""
+    nu, x = torch.broadcast_tensors(nu, x)
+    nu_abs = torch.abs(nu)
+    pos = x > 0.0
+    x_safe = torch.where(pos, x, 1.0)
+    nl = torch.floor(nu_abs.detach() + 0.5)
+    with torch.enable_grad():
+        # the tangent is taken against a zero offset of mu, so that it stays
+        # a function of nu and x whether or not they require grad
+        z = torch.zeros_like(x_safe, requires_grad=True)
+        m = nu_abs - nl + z
+        k_mu, k_mu1 = _kv_pair(m, x_safe)
+        k_prev, k_mid, k_next = kv_triple_from_pair(m, nl, x_safe, k_mu, k_mu1)
+        (dk_dnu,) = torch.autograd.grad(k_mid.sum(), z, create_graph=True)
+    dk_dx = -0.5 * (k_prev + k_next)
+    return torch.where(pos, dk_dnu, 0.0), torch.where(pos, dk_dx, 0.0)
+
+
+class _Kv(torch.autograd.Function):
+    """K_nu(x) with its precomputed first partials. The backward returns
+    them when it builds no graph (every fit's gradient: no further pass);
+    under ``create_graph`` it rebuilds them as differentiable functions of
+    (nu, x) (``_kv_partials_graph``), so a double backward gets the second
+    derivatives of K_nu that ``jax.grad(jax.grad(kv))`` gets in the
+    reference."""
 
     @staticmethod
     def forward(ctx, nu, x, k, dk_dnu, dk_dx):
-        ctx.save_for_backward(dk_dnu, dk_dx)
-        ctx.shapes = (nu.shape, x.shape)
+        ctx.save_for_backward(nu, x, dk_dnu, dk_dx)
         return k.clone()
 
     @staticmethod
     def backward(ctx, grad):
-        dk_dnu, dk_dx = ctx.saved_tensors
-        nu_shape, x_shape = ctx.shapes
-        g_nu = _sum_to(grad * dk_dnu, nu_shape) if ctx.needs_input_grad[0] else None
-        g_x = _sum_to(grad * dk_dx, x_shape) if ctx.needs_input_grad[1] else None
+        nu, x, dk_dnu, dk_dx = ctx.saved_tensors
+        if torch.is_grad_enabled():
+            dk_dnu, dk_dx = _kv_partials_graph(nu, x)
+        g_nu = _sum_to(grad * dk_dnu, nu.shape) if ctx.needs_input_grad[0] else None
+        g_x = _sum_to(grad * dk_dx, x.shape) if ctx.needs_input_grad[1] else None
         return g_nu, g_x, None, None, None
+
+
+def _promote(nu, x):
+    """(nu, x) as tensors of one float dtype (at least float32) on one
+    device."""
+    nu = torch.as_tensor(nu)
+    x = torch.as_tensor(x)
+    dtype = torch.promote_types(torch.promote_types(nu.dtype, x.dtype), torch.float32)
+    device = x.device if (x.ndim or not nu.ndim) else nu.device
+    return nu.to(device=device, dtype=dtype), x.to(device=device, dtype=dtype)
 
 
 def kv(nu, x):
@@ -320,17 +418,30 @@ def kv(nu, x):
 
     Matches ``scipy.special.kv`` on ``x > 0``, ``0 < |nu| <= 30``;
     ``x == 0`` gives ``inf`` and ``x < 0`` gives ``nan``, like scipy.
-    Differentiable in both arguments (see the module docstring).
+    Differentiable in both arguments, to any order (see the module
+    docstring).
     """
-    nu = torch.as_tensor(nu)
-    x = torch.as_tensor(x)
-    dtype = torch.promote_types(torch.promote_types(nu.dtype, x.dtype), torch.float32)
-    device = x.device if (x.ndim or not nu.ndim) else nu.device
-    nu = nu.to(device=device, dtype=dtype)
-    x = x.to(device=device, dtype=dtype)
+    nu, x = _promote(nu, x)
     needs = torch.is_grad_enabled() and (nu.requires_grad or x.requires_grad)
     with torch.no_grad():
         k, dk_dnu, dk_dx = _kv_value(nu, x, needs)
     if not needs:
         return k
-    return _KvGrad.apply(nu, x, k, dk_dnu, dk_dx)
+    return _Kv.apply(nu, x, k, dk_dnu, dk_dx)
+
+
+def kv_ratio(nu, x):
+    """K_{nu+1}(x) / K_nu(x) (reference ``kv_ratio``, bessel.py:537-539)."""
+    return kv(nu + 1.0, x) / kv(nu, x)
+
+
+def kv_exact_grad(nu, x):
+    """K_|nu|(x) differentiated by plain autograd straight through the
+    series/CF2 pass and the order recurrence (reference ``kv_exact_grad``,
+    bessel.py:542-554). Domain: x > 0, with no scipy-style edge values."""
+    nu, x = _promote(nu, x)
+    nu, x = torch.broadcast_tensors(torch.abs(nu), x)
+    nl = torch.floor(nu + 0.5)
+    mu = nu - nl
+    k_mu, k_mu1 = _kv_pair(mu, x)
+    return order_recurrence(mu, nl, x, k_mu, k_mu1)[0]

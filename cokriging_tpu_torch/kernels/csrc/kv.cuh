@@ -12,16 +12,18 @@
 // orders (a1 = 0.25 - mu^2 == 0) run every trip.
 //
 // Every function is written once over a number type V that is either the
-// scalar T (values only, the forward kernels) or Dual<T> (value and d/dmu,
-// the gradient kernels): the dual pass is the exact forward tangent in mu of
-// the same operations, with nl pinned, which is how the reference takes
-// dK/dnu (pallas_ops.py::_kv_triple_dnu_tile). Branches and the CF2
+// scalar T (values only, the forward kernels), Dual<T> (value and d/dmu,
+// the gradient kernels and the block tangent) or Dual2<T> (value, d/dmu and
+// d^2/dmu^2, the Hessian sums): the dual pass is the exact forward tangent in
+// mu of the same operations, with nl pinned, which is how the reference takes
+// dK/dnu (pallas_ops.py::_kv_triple_dnu_tile), and the second-order pass its
+// tangent once more. Branches and the CF2
 // convergence test read the value part only, so a dual lane leaves its loop
 // at the same trip as the value lane and its tangent stops there too.
 //
 // The per-entry steps at the end (entry_x, matern_entry_tab,
-// pairs_grad_term) are the kernels' own, and tests/test_torch_kv_host.py
-// compiles them with g++ for the host.
+// pairs_grad_term, tangent_entry, hess_terms) are the kernels' own, and
+// tests/test_torch_kv_host.py compiles them with g++ for the host.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -83,12 +85,49 @@ CKT_FN Dual<T> vexp(Dual<T> a) {
   return Dual<T>(e, e * a.d);
 }
 
+// ---- second-order numbers: (value, d/dmu, d^2/dmu^2) -----------------------
+//
+// The dual of a dual in one direction, held as three values: the number type
+// of the second-order pass (matern_hess.cu's Hessian sums), whose d^2/dmu^2
+// of K_nu is the nu-nu term of the block's second order.
+
+template <typename T> struct Dual2 {
+  T v, d, dd;
+  __host__ __device__ __forceinline__ Dual2() : v(T(0)), d(T(0)), dd(T(0)) {}
+  __host__ __device__ __forceinline__ Dual2(T value) : v(value), d(T(0)), dd(T(0)) {}
+  __host__ __device__ __forceinline__ Dual2(T value, T tangent, T tangent2)
+      : v(value), d(tangent), dd(tangent2) {}
+};
+
+CKT_FN Dual2<T> operator-(Dual2<T> a) { return Dual2<T>(-a.v, -a.d, -a.dd); }
+CKT_FN Dual2<T> operator+(Dual2<T> a, Dual2<T> b) {
+  return Dual2<T>(a.v + b.v, a.d + b.d, a.dd + b.dd);
+}
+CKT_FN Dual2<T> operator+(Dual2<T> a, T b) { return Dual2<T>(a.v + b, a.d, a.dd); }
+CKT_FN Dual2<T> operator+(T a, Dual2<T> b) { return Dual2<T>(a + b.v, b.d, b.dd); }
+CKT_FN Dual2<T> operator-(Dual2<T> a, Dual2<T> b) {
+  return Dual2<T>(a.v - b.v, a.d - b.d, a.dd - b.dd);
+}
+CKT_FN Dual2<T> operator-(Dual2<T> a, T b) { return Dual2<T>(a.v - b, a.d, a.dd); }
+CKT_FN Dual2<T> operator-(T a, Dual2<T> b) { return Dual2<T>(a - b.v, -b.d, -b.dd); }
+CKT_FN Dual2<T> operator*(Dual2<T> a, Dual2<T> b) {
+  return Dual2<T>(a.v * b.v, a.d * b.v + a.v * b.d,
+                  a.dd * b.v + T(2) * (a.d * b.d) + a.v * b.dd);
+}
+CKT_FN Dual2<T> operator*(Dual2<T> a, T b) { return Dual2<T>(a.v * b, a.d * b, a.dd * b); }
+CKT_FN Dual2<T> operator*(T a, Dual2<T> b) { return Dual2<T>(a * b.v, a * b.d, a * b.dd); }
+CKT_FN Dual2<T> vexp(Dual2<T> a) {
+  const T e = vexp(a.v);
+  return Dual2<T>(e, e * a.d, e * (a.dd + a.d * a.d));
+}
+
 #undef CKT_FN
 
 // the value part, which every branch and convergence test reads
 __host__ __device__ __forceinline__ float val(float a) { return a; }
 __host__ __device__ __forceinline__ double val(double a) { return a; }
 template <typename T> __host__ __device__ __forceinline__ T val(Dual<T> a) { return a.v; }
+template <typename T> __host__ __device__ __forceinline__ T val(Dual2<T> a) { return a.v; }
 
 // ---- the order recurrence ----------------------------------------------------
 
@@ -155,12 +194,31 @@ template <typename T_> struct DualRow {
   __host__ __device__ __forceinline__ T scalar(int c) const { return r[2 * c]; }
 };
 
+// A row of the second-order table: (value, d/dmu, d^2/dmu^2) per column. Its
+// nu-only columns carry their true derivatives in nu = mu + nl (lgamma's are
+// digamma and trigamma), which the second-order Matern entry reads.
+template <typename T_> struct Dual2Row {
+  using T = T_;
+  using V = Dual2<T_>;
+  const T* r;
+  __host__ __device__ __forceinline__ V at(int c) const {
+    return V(r[3 * c], r[3 * c + 1], r[3 * c + 2]);
+  }
+  __host__ __device__ __forceinline__ T scalar(int c) const { return r[3 * c]; }
+  __host__ __device__ __forceinline__ T tangent(int c) const { return r[3 * c + 1]; }
+};
+
 // 1/a with one division for either number type
 __host__ __device__ __forceinline__ float recip(float a) { return 1.0f / a; }
 __host__ __device__ __forceinline__ double recip(double a) { return 1.0 / a; }
 template <typename T> __host__ __device__ __forceinline__ Dual<T> recip(Dual<T> a) {
   const T q = T(1) / a.v;
   return Dual<T>(q, -q * q * a.d);
+}
+template <typename T> __host__ __device__ __forceinline__ Dual2<T> recip(Dual2<T> a) {
+  const T q = T(1) / a.v;
+  const T q2 = q * q;
+  return Dual2<T>(q, -q2 * a.d, T(2) * q2 * q * (a.d * a.d) - q2 * a.dd);
 }
 
 // (2^e, 2^-e) for e the binary exponent of v, clamped to [-100, 100]
@@ -354,6 +412,78 @@ __host__ __device__ __forceinline__ bool matern_partials_tab(T a, const DualRow<
   return true;
 }
 
+// M and its first and second partials in (nu, ls) at a = sqrt(2 nu) h / ls > 0
+// from a second-order table row, from one second-order series/CF2 pass with
+// nl pinned: K_{nu-1}, K_nu, K_{nu+1} with their mu-tangents and K_nu's second
+// mu-tangent. With K_n = dK/dnu, K_x = -(K_{nu-1} + K_{nu+1}) / 2,
+// K_nx = dK_x/dnu, K_nn = d^2K/dnu^2 and K_xx = (1 + nu^2/a^2) K - K_x / a
+// (Bessel's equation), G = K_nu(a(nu, ls)) has
+//   G_n = K_n + K_x a_n,  G_l = K_x a_l,
+//   G_nn = K_nn + 2 K_nx a_n + K_xx a_n^2 + K_x a_nn,
+//   G_nl = K_nx a_l + K_xx a_n a_l + K_x a_nl,  G_ll = K_xx a_l^2 + K_x a_ll,
+// with a_n = a / (2 nu), a_l = -a / ls, a_nn = -a / (4 nu^2),
+// a_nl = -a / (2 nu ls), a_ll = 2 a / ls^2; and M = E G, E = exp(lp),
+// lp = (1 - nu) ln 2 - lgamma(nu) + nu ln a, so
+//   M_ij = E (lp_i lp_j G + lp_ij G + lp_i G_j + lp_j G_i + G_ij),
+// lp_n = -ln 2 - psi(nu) + ln a + 1/2, lp_l = -nu / ls,
+// lp_nn = -psi'(nu) + 1 / (2 nu), lp_nl = -1 / ls, lp_ll = nu / ls^2.
+// Returns false where M is not finite and > 0 (no terms), as
+// matern_partials_tab does.
+template <typename T>
+__host__ __device__ __forceinline__ bool matern_second_tab(T a, const Dual2Row<T>& t, T& m,
+                                                           T& m_n, T& m_l, T& m_nn, T& m_nl,
+                                                           T& m_ll) {
+  using V = Dual2<T>;
+  const int nl = static_cast<int>(t.scalar(tab::kNl));
+  const V mu = t.at(tab::kMu);
+  V km, km1;
+  kv_pair_tab(t, a, false, km, km1);
+  order_recurrence(mu, nl > 0 ? nl - 1 : 0, a, km, km1);
+  const T two_over_a = T(2) / a;
+  V k_prev, k_mid, k_next;
+  if (nl == 0) {
+    k_prev = km1 - (two_over_a * mu) * km;
+    k_mid = km;
+    k_next = km1;
+  } else {
+    k_prev = km;
+    k_mid = km1;
+    k_next = (two_over_a * (mu + T(nl))) * km1 + km;
+  }
+  const T nu = t.scalar(tab::kNu);
+  const T ls = t.scalar(tab::kLs);
+  const T log_a = log(a);
+  const T e = vexp((T(1) - nu) * T(kLn2) - t.scalar(tab::kLgamma) + nu * log_a);
+  const T g = k_mid.v;
+  m = e * g;
+  if (!(isfinite(m) && m > T(0))) return false;
+  const T k_x = T(-0.5) * (k_prev.v + k_next.v);
+  const T k_nx = T(-0.5) * (k_prev.d + k_next.d);
+  const T inv_a = T(1) / a;
+  const T k_xx = (T(1) + (nu * inv_a) * (nu * inv_a)) * g - k_x * inv_a;
+  const T a_n = a / (T(2) * nu);
+  const T a_l = -a / ls;
+  const T a_nn = -a_n / (T(2) * nu);
+  const T a_nl = a_l / (T(2) * nu);
+  const T a_ll = T(-2) * a_l / ls;
+  const T g_n = k_mid.d + k_x * a_n;
+  const T g_l = k_x * a_l;
+  const T g_nn = k_mid.dd + T(2) * k_nx * a_n + k_xx * a_n * a_n + k_x * a_nn;
+  const T g_nl = k_nx * a_l + k_xx * a_n * a_l + k_x * a_nl;
+  const T g_ll = k_xx * a_l * a_l + k_x * a_ll;
+  const T lp_n = -T(kLn2) - t.scalar(tab::kDigamma) + log_a + T(0.5);
+  const T lp_l = -nu / ls;
+  const T lp_nn = -t.tangent(tab::kDigamma) + T(1) / (T(2) * nu);
+  const T lp_nl = T(-1) / ls;
+  const T lp_ll = nu / (ls * ls);
+  m_n = e * (lp_n * g + g_n);
+  m_l = e * (lp_l * g + g_l);
+  m_nn = e * ((lp_n * lp_n + lp_nn) * g + T(2) * lp_n * g_n + g_nn);
+  m_nl = e * ((lp_n * lp_l + lp_nl) * g + lp_n * g_l + lp_l * g_n + g_nl);
+  m_ll = e * ((lp_l * lp_l + lp_ll) * g + T(2) * lp_l * g_l + g_ll);
+  return true;
+}
+
 // ---- the kernels' per-entry steps -------------------------------------------
 
 // x = sqrt(2 nu) |h| / ls of one entry, formed as every Matern kernel forms
@@ -391,6 +521,40 @@ __host__ __device__ __forceinline__ bool pairs_grad_term(T x, T w, const DualRow
   g_ls = w * dm_dls;
   if (!isfinite(g_nu)) g_nu = T(0);
   if (!isfinite(g_ls)) g_ls = T(0);
+  return true;
+}
+
+// The block tangent's entry (matern_hess.cu's tangent kernel): with weights
+// ws, wn and the products s wnu, s wls, the entry's
+//   ws M + wn [h == 0] + s (wnu dM/dnu + wls dM/dls),
+// M = 1 and no nu, ls term where |h| is not > 0; where M is not finite and
+// > 0 it counts as 0 with no terms; a term that is not finite counts 0.
+template <typename T>
+__host__ __device__ __forceinline__ T tangent_entry(T h, const DualRow<T>& t, T ws, T wn,
+                                                    T s_wnu, T s_wls) {
+  T x;
+  if (!entry_x(h, t, x)) return h == T(0) ? ws + wn : ws;
+  T m, dm_dnu, dm_dls;
+  if (!matern_partials_tab(x, t, m, dm_dnu, dm_dls)) return T(0);
+  T g_nu = s_wnu * dm_dnu;
+  T g_ls = s_wls * dm_dls;
+  if (!isfinite(g_nu)) g_nu = T(0);
+  if (!isfinite(g_ls)) g_ls = T(0);
+  return ws * m + g_nu + g_ls;
+}
+
+// The Hessian sums' entry at x = entry_x(h) > 0 with cotangent w (matern_hess.cu's
+// hess kernel): terms w dM/dnu, w dM/dls, w d2M/dnu2, w d2M/dnu dls,
+// w d2M/dls2 into out[0..4], each 0 where it is not finite; false where M is
+// not finite and > 0 (no terms).
+template <typename T>
+__host__ __device__ __forceinline__ bool hess_terms(T x, T w, const Dual2Row<T>& t, T* out) {
+  T m, d[5];
+  if (!matern_second_tab(x, t, m, d[0], d[1], d[2], d[3], d[4])) return false;
+  for (int k = 0; k < 5; ++k) {
+    const T term = w * d[k];
+    out[k] = isfinite(term) ? term : T(0);
+  }
   return true;
 }
 

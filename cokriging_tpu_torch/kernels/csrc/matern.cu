@@ -36,17 +36,17 @@
 #include <cuda_runtime.h>
 
 #include "kv.cuh"
-#include "partition.cuh"
+#include "tile_sum.cuh"
 
 namespace {
 
-constexpr int TILE = 64;
-constexpr int PITCH = TILE + 1;
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int ITEMS = TILE * TILE / THREADS;
-constexpr int CF2_BINS = 8;
-constexpr int N_KEYS = 1 + CF2_BINS;
+constexpr int TILE = ckt::kTile;
+constexpr int PITCH = ckt::kPitch;
+constexpr int THREADS = ckt::kTileThreads;
+constexpr int WARPS = ckt::kTileWarps;
+constexpr int ITEMS = ckt::kTileItems;
+constexpr int CF2_BINS = ckt::kCf2Bins;
+constexpr int N_KEYS = ckt::kTileKeys;
 
 // Dynamic shared memory of a block: the value row, h (then M) per entry in
 // the padded tile, the partition's counts and total, the sorted indices,
@@ -71,17 +71,8 @@ __global__ void __launch_bounds__(THREADS)
   unsigned char* s_key = reinterpret_cast<unsigned char*>(s_perm + TILE * TILE);
   for (int t = threadIdx.x; t < W; t += THREADS) s_tab[t] = table[t];
 
-  const long long t = blockIdx.x;
   int ti, tj;
-  if (symmetric) {  // linear index over the lower-triangle tiles (tj <= ti)
-    ti = static_cast<int>((sqrt(8.0 * static_cast<double>(t) + 1.0) - 1.0) * 0.5);
-    while (static_cast<long long>(ti) * (ti + 1) / 2 > t) --ti;
-    while (static_cast<long long>(ti + 1) * (ti + 2) / 2 <= t) ++ti;
-    tj = static_cast<int>(t - static_cast<long long>(ti) * (ti + 1) / 2);
-  } else {
-    ti = static_cast<int>(t / tiles_m);
-    tj = static_cast<int>(t % tiles_m);
-  }
+  ckt::tile_of(blockIdx.x, symmetric, tiles_m, ti, tj);
   __syncthreads();
   const ckt::ValueRow<T> row{s_tab};
 
@@ -129,19 +120,13 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-long long num_tiles(int n, int m, int symmetric) {
-  const long long tn = (n + TILE - 1) / TILE;
-  const long long tm = (m + TILE - 1) / TILE;
-  return symmetric ? tn * (tn + 1) / 2 : tn * tm;
-}
-
 template <typename T>
 int launch(const T* h, int n, int m, int symmetric, const T* table, int early_exit, T* out,
            cudaStream_t stream) {
   const size_t smem = fwd_smem<T>();
   cudaError_t err = ckt::allow_smem<matern_kernel<T>>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  matern_kernel<T><<<static_cast<unsigned>(num_tiles(n, m, symmetric)), THREADS, smem,
+  matern_kernel<T><<<static_cast<unsigned>(ckt::num_tiles(n, m, symmetric)), THREADS, smem,
                      stream>>>(h, n, m, symmetric, static_cast<int>((m + TILE - 1) / TILE),
                                table, early_exit, out);
   return static_cast<int>(cudaGetLastError());

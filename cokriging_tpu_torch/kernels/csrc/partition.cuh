@@ -1,7 +1,7 @@
 // A stable counting sort of one tile's entries by a small key, in shared
-// memory: the branch partition of every Matern kernel (matern.cu,
-// matern_grad.cu, and the gathered-pairs forward and gradient in
-// matern_pairs.cu).
+// memory: the branch partition of every Matern kernel (matern.cu, the
+// tiled sums of tile_sum.cuh, matern_hess.cu's tangent, and the
+// gathered-pairs forward and gradient in matern_pairs.cu).
 //
 // The Matern entry runs a serial Temme series or Steed CF2 whose length
 // depends on its pair and on x; unsorted points put both branches and many

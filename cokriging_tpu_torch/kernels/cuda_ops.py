@@ -15,9 +15,12 @@ Counterpart of ``cokriging_tpu/kernels/pallas_ops.py``:
 - ``matern_block_grad`` (``csrc/matern_grad.cu``) replaces
   ``matern_block_grad_pallas``;
 - ``matern_corr_pairs`` and ``matern_corr_pairs_grad`` (``csrc/matern_pairs.cu``)
-  replace ``matern_corr_pairs_pallas`` and ``matern_corr_pairs_grad_pallas``.
+  replace ``matern_corr_pairs_pallas`` and ``matern_corr_pairs_grad_pallas``;
+- ``matern_block_tangent`` and ``matern_block_hess`` (``csrc/matern_hess.cu``)
+  are the block's second order, the backward of ``matern_block_grad`` (the
+  reference takes it by XLA's AD of the elementwise model; no Pallas kernel).
 
-The four Matern kernels share ``csrc/kv.cuh`` (the K_nu recurrences and the
+The Matern kernels share ``csrc/kv.cuh`` (the K_nu recurrences and the
 per-entry steps) and ``csrc/partition.cuh`` (the tile sort by pair, branch
 and CF2 half-octave of x), and read their per-(nu, ls) constants from
 ``recurrence_table``, built with torch on the device of nu and ls: no host
@@ -38,13 +41,14 @@ import torch
 
 from cokriging_tpu_torch.kernels import _build
 from cokriging_tpu_torch.kernels.bessel import (
-    CF2_ITERS, SERIES_ITERS, _gam12, _kv_value, gam12_tangent,
+    CF2_ITERS, SERIES_ITERS, _gam12, _kv_value, gam12_tangent, trigamma,
 )
 
 #: Kernel launches per wrapper since the last ``reset_launch_counts()``.
 LAUNCHES = {
     "variogram_minmax": 0, "variogram_bin": 0, "variogram_bin_batch": 0, "matern_correlation": 0,
     "matern_block_grad": 0, "matern_corr_pairs": 0, "matern_corr_pairs_grad": 0,
+    "matern_block_tangent": 0, "matern_block_hess": 0,
 }
 
 _FLOATS = (torch.float32, torch.float64)
@@ -58,6 +62,7 @@ _ERROR_STRING = {
     "matern.cu": "matern_error_string",
     "matern_grad.cu": "matern_grad_error_string",
     "matern_pairs.cu": "pairs_error_string",
+    "matern_hess.cu": "hess_error_string",
 }
 
 # rows per block of the plain pair pass (bounds its (rows, m) temporaries)
@@ -65,6 +70,12 @@ _PLAIN_PAIR_ELEMS = 1 << 22
 # entries per row chunk of the plain block gradient (the reference's
 # BWD_CHUNK_ELEMS idea: the dual K_nu pass holds ~60 chunk-sized temporaries)
 _PLAIN_GRAD_ELEMS = 1 << 20
+# the same for the plain block tangent and Hessian sums, which keep the graph
+# of the elementwise model's K_nu pass (and of its tangent) per chunk, ~20 kB
+# an entry for the Hessian sums: on the card larger chunks, since each chunk
+# is thousands of small launches
+_PLAIN_TANGENT_ELEMS = {"cpu": 1 << 18, "cuda": 1 << 20}
+_PLAIN_HESS_ELEMS = {"cpu": 1 << 16, "cuda": 1 << 19}
 _LN2 = math.log(2.0)
 
 
@@ -544,7 +555,7 @@ def _check_table(name, table, shape, h):
         raise ValueError(f"{name}: table must be {shape} contiguous {h.dtype} on {h.device}")
 
 
-def recurrence_table(nu_pairs, ls_pairs, dtype, dual=False):
+def recurrence_table(nu_pairs, ls_pairs, dtype, order=0):
     """Per-(nu, ls) table of ``csrc/kv.cuh``'s table-driven recurrences, one
     row per pair, in ``dtype`` on the device of ``nu_pairs``, with no host
     read. Columns (kv.cuh ``TabLayout``): nu, ls, sqrt(2 nu), mu, nl, gam1,
@@ -555,17 +566,26 @@ def recurrence_table(nu_pairs, ls_pairs, dtype, dual=False):
     a1 come from the same torch functions, in ``dtype``, as the plain path;
     the trip columns are formed in float64 from that mu and a1.
 
-    ``dual=False`` (the forward kernels) keeps nu's sign as the plain path
-    does; ``dual=True`` (the gradient kernels) takes |nu| and stores each
+    ``order=0`` (the forward kernels) keeps nu's sign as the plain path
+    does; ``order=1`` (the gradient kernels) takes |nu| and stores each
     column with its d/dmu beside it (mu's own is 1; the gamma tangents from
-    ``gam12_tangent``), so a row holds twice the values."""
+    ``gam12_tangent``), so a row holds twice the values.
+
+    ``order=2`` (the Hessian kernel, ``csrc/matern_hess.cu``) takes |nu|
+    and stores each column as (value, d/dmu, d^2/dmu^2), three values per
+    column (kv.cuh ``Dual2Row``): the mu-only columns' first tangents as the
+    dual table's, their second tangents by autograd of ``gam12_tangent`` (the
+    gamma constants) and of pi mu / sin(pi mu) in float64, and in closed form
+    for a1 and the trip columns; the nu-only columns carry their true
+    derivatives in nu = mu + nl (sqrt(2 nu)'s, lgamma's = digamma and
+    trigamma, digamma's), nl and ls none."""
     nu = torch.as_tensor(nu_pairs, dtype=dtype).detach().reshape(-1)
     ls = torch.as_tensor(ls_pairs, dtype=dtype, device=nu.device).detach().reshape(-1)
     nu_abs = torch.abs(nu)
     nl = torch.floor(nu_abs + 0.5)
     mu = nu_abs - nl
     gam1, gam2, inv_gp, inv_gm = _gam12(mu)
-    nu_c = nu_abs if dual else nu
+    nu_c = nu_abs if order else nu
     a1 = 0.25 - mu * mu
     m = mu.double()
     pimu = math.pi * m
@@ -583,7 +603,7 @@ def recurrence_table(nu_pairs, ls_pairs, dtype, dual=False):
     series = torch.stack([r2, rm, rp], dim=2).flatten(1)
     cf2 = torch.stack([a_n, 1.0 / a_n, -a_n / i_c], dim=2).flatten(1)
     val = torch.cat([torch.stack(head, dim=1), series.to(dtype), cf2.to(dtype)], dim=1)
-    if not dual:
+    if order == 0:
         return val
     zero = torch.zeros_like(mu)
     d_gam1, d_gam2, d_gp, d_gm = gam12_tangent(mu)
@@ -597,7 +617,35 @@ def recurrence_table(nu_pairs, ls_pairs, dtype, dual=False):
     d_cf2 = torch.stack([two_mu.expand_as(a_n), -two_mu / (a_n * a_n),
                          -two_mu / i_c], dim=2).flatten(1)
     tan = torch.cat([torch.stack(d_head, dim=1), d_series.to(dtype), d_cf2.to(dtype)], dim=1)
-    return torch.stack([val, tan], dim=2).flatten(1)
+    if order == 1:
+        return torch.stack([val, tan], dim=2).flatten(1)
+    with torch.enable_grad():
+        mg = mu.detach().requires_grad_(True)
+        dd_gam1, dd_gam2, dd_gp, dd_gm = (
+            torch.autograd.grad(t.sum(), mg, retain_graph=True)[0] for t in gam12_tangent(mg))
+        pg = (math.pi * m).requires_grad_(True)
+        f = torch.where(small, 1.0 + pg * pg / 6.0, pg / torch.sin(torch.where(small, 1.0, pg)))
+        (df,) = torch.autograd.grad(f.sum(), pg, create_graph=True)
+        (ddf,) = torch.autograd.grad(df.sum(), pg)
+        ng = nu_c.detach().double().requires_grad_(True)
+        (psi2,) = torch.autograd.grad(trigamma(ng).sum(), ng)
+    sq = torch.sqrt(2.0 * nu_c)
+    psi1 = trigamma(nu_c)
+    tan[:, 0] = 1.0
+    tan[:, 2] = 1.0 / sq
+    tan[:, 9] = torch.digamma(nu_c)
+    tan[:, 10] = psi1
+    dd_head = [zero, zero, -1.0 / (sq * sq * sq), zero, zero, dd_gam1, dd_gam2,
+               -0.5 * dd_gp / (inv_gp * inv_gp) + d_gp * d_gp / (inv_gp * inv_gp * inv_gp),
+               -0.5 * dd_gm / (inv_gm * inv_gm) + d_gm * d_gm / (inv_gm * inv_gm * inv_gm),
+               psi1, psi2.to(dtype), (math.pi ** 2 * ddf).to(dtype), torch.full_like(mu, -2.0)]
+    dd_series = torch.stack([2.0 * r2 * r2 + 2.0 * two_mu * two_mu * r2 * r2 * r2,
+                             2.0 * rm * rm * rm, 2.0 * rp * rp * rp], dim=2).flatten(1)
+    dd_cf2 = torch.stack([torch.full_like(a_n, 2.0), -2.0 / (a_n * a_n)
+                          + 2.0 * two_mu * two_mu / (a_n * a_n * a_n),
+                          (-2.0 / i_c).expand_as(a_n)], dim=2).flatten(1)
+    tan2 = torch.cat([torch.stack(dd_head, dim=1), dd_series.to(dtype), dd_cf2.to(dtype)], dim=1)
+    return torch.stack([val, tan, tan2], dim=2).flatten(1)
 
 
 # ---------------------------------------------------------------------------
@@ -719,7 +767,7 @@ def matern_block_grad(scale, nugget, nu, ls, h, ct, symmetric=False, table=None)
     triangle only. ``h`` and ``ct`` may be row-strided views (unit column
     stride). CUDA tensors run ``csrc/matern_grad.cu``, with ``scale`` as a
     device value; CPU tensors the plain version. ``table``: the kernel's
-    dual row ``recurrence_table(nu, ls, h.dtype, dual=True)[0]`` on h's
+    dual row ``recurrence_table(nu, ls, h.dtype, order=1)[0]`` on h's
     device, built once by a caller that launches many times with one
     parameter set; by default it is built here, on the card. Neither way
     reads the card from the host."""
@@ -742,7 +790,7 @@ def matern_block_grad(scale, nugget, nu, ls, h, ct, symmetric=False, table=None)
     if table is None:
         table = recurrence_table(torch.as_tensor(nu, dtype=h.dtype, device=h.device),
                                  torch.as_tensor(ls, dtype=h.dtype, device=h.device), h.dtype,
-                                 dual=True)[0]
+                                 order=1)[0]
     _check_table("matern_block_grad", table, (2 * _table_width(h.dtype),), h)
     scale = torch.as_tensor(scale, dtype=torch.float64, device=h.device).detach().reshape(())
     tiles = _fn_ll("matern_grad.cu", "matern_grad_num_tiles", [_I, _I, _I])(n, m, int(symmetric))
@@ -754,6 +802,191 @@ def matern_block_grad(scale, nugget, nu, ls, h, ct, symmetric=False, table=None)
                _ptr(table), _ptr(scale), _ptr(part), _ptr(out), _stream(h.device))
     _check_rc("matern_grad.cu", rc, "matern_block_grad")
     LAUNCHES["matern_block_grad"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Matern block second order
+# ---------------------------------------------------------------------------
+
+
+def _plain_model_partials(nu, ls, hc, second):
+    """Per entry of the chunk ``hc``: the elementwise model's M and, by
+    autograd of ``cov.matern.matern_correlation`` in per-entry copies of nu
+    and ls, dM/dnu and dM/dls, and with ``second`` d2M/dnu2, d2M/dnu dls and
+    d2M/dls2 (a double backward through ``kernels.bessel.kv``); each
+    derivative 0 where M is not > 0 or not finite, h is not > 0 (the
+    kernels' masks) or the derivative is not finite."""
+    from cokriging_tpu_torch.cov.matern import matern_correlation
+
+    with torch.enable_grad():
+        nu_e = nu.expand(hc.shape).clone().requires_grad_(True)
+        ls_e = ls.expand(hc.shape).clone().requires_grad_(True)
+        mat = matern_correlation(nu_e, ls_e, hc)
+        d = list(torch.autograd.grad(mat.sum(), (nu_e, ls_e), create_graph=second))
+        if second:
+            d += list(torch.autograd.grad(d[0].sum(), (nu_e, ls_e), retain_graph=True))
+            d += list(torch.autograd.grad(d[1].sum(), (ls_e,)))
+    ok = (mat > 0.0) & (hc > 0.0)
+    return mat.detach(), [torch.where(ok & torch.isfinite(t), t, 0.0).detach() for t in d]
+
+
+def matern_block_tangent_plain(scale, nu, ls, h, w, symmetric=False):
+    """Plain torch directional derivative of the block C = scale * M(nu, ls,
+    h) + nugget * [h == 0] in (scale, nugget, nu, ls) along the weights
+    ``w`` = (w_s, w_n, w_nu, w_ls): the (n, m) matrix
+
+        w_s M + w_n [h == 0] + scale (w_nu dM/dnu + w_ls dM/dls)
+
+    in h's dtype, the cotangent the block's gradient ``matern_block_grad``
+    hands back to its own cotangent. M is the elementwise model and its
+    partials come from autograd of it (``_plain_model_partials``), in row
+    chunks; where M is not > 0 or not finite it counts as 0 with no terms,
+    as in the kernels. ``symmetric`` changes nothing in the result."""
+    if h.ndim != 2 or (symmetric and h.shape[0] != h.shape[1]):
+        raise ValueError("matern_block_tangent: h must be 2-D (square if symmetric)")
+    dt, dev = h.dtype, h.device
+    w = torch.as_tensor(w, dtype=torch.float64, device=dev).detach()
+    s = torch.as_tensor(scale, dtype=torch.float64, device=dev).detach()
+    nu = torch.abs(torch.as_tensor(nu, dtype=dt, device=dev).detach())
+    ls = torch.as_tensor(ls, dtype=dt, device=dev).detach()
+    n, m = h.shape
+    out = torch.empty((n, m), dtype=dt, device=dev)
+    rows = max(1, _PLAIN_TANGENT_ELEMS[dev.type] // max(m, 1))
+    for r0 in range(0, n, rows):
+        hc = torch.abs(h[r0:r0 + rows])
+        mat, (dnu, dls) = _plain_model_partials(nu, ls, hc, False)
+        m_val = torch.where(torch.isfinite(mat), mat, 0.0)
+        t = (w[0] * m_val + w[1] * (hc == 0.0) + s * (w[2] * dnu + w[3] * dls))
+        out[r0:r0 + rows] = t.to(dt)
+    return out
+
+
+def _symmetric_weights(ct, r0, r1, symmetric):
+    """The chunk of rows r0:r1 of the cotangent as the block's sums read it:
+    ``ct`` itself, or under ``symmetric`` the lower triangle with ct[i, j] +
+    ct[j, i] below the diagonal and ct[i, i] on it (columns up to r1)."""
+    if not symmetric:
+        return ct[r0:r1]
+    dev = ct.device
+    w = ct[r0:r1, :r1]
+    ri = torch.arange(r0, r1, device=dev)[:, None]
+    ci = torch.arange(r1, device=dev)[None, :]
+    return torch.where(ci < ri, w + ct[:r1, r0:r1].T, torch.where(ci == ri, w, 0.0))
+
+
+def matern_block_hess_plain(nu, ls, h, ct, symmetric=False, magnitude=False):
+    """Plain torch second-order sums of one Matern block against ``ct``:
+    the float64 tensor [sum ct dM/dnu, sum ct dM/dls, sum ct d2M/dnu2,
+    sum ct d2M/dnu dls, sum ct d2M/dls2] (unscaled), with which the block's
+    gradient ``matern_block_grad`` is differentiated in (scale, nu, ls).
+    The partials are autograd of the elementwise model (first and second,
+    ``_plain_model_partials``), in row chunks, each chunk's terms summed in
+    float64; ``symmetric=True`` reads the lower triangle only, as
+    ``matern_block_grad_plain`` does. ``magnitude=True`` returns (sums,
+    sums of |ct * term|): the second is the scale of the sums' rounding
+    error, which comparisons of two evaluations are stated against."""
+    if h.ndim != 2 or h.shape != ct.shape or (symmetric and h.shape[0] != h.shape[1]):
+        raise ValueError("matern_block_hess: h and ct must be one 2-D shape (square if symmetric)")
+    dt, dev = h.dtype, h.device
+    nu = torch.abs(torch.as_tensor(nu, dtype=dt, device=dev).detach())
+    ls = torch.as_tensor(ls, dtype=dt, device=dev).detach()
+    n, m = h.shape
+    out = torch.zeros(5, dtype=torch.float64, device=dev)
+    mag = torch.zeros(5, dtype=torch.float64, device=dev)
+    rows = max(1, _PLAIN_HESS_ELEMS[dev.type] // max(m, 1))
+    for r0 in range(0, n, rows):
+        r1 = min(n, r0 + rows)
+        w = _symmetric_weights(ct, r0, r1, symmetric)
+        hc = torch.abs(h[r0:r1, :w.shape[1]])
+        _, terms = _plain_model_partials(nu, ls, hc, True)
+        for k, term in enumerate(terms):
+            prod = w * term
+            out[k] += prod.sum(dtype=torch.float64)
+            mag[k] += prod.abs().sum(dtype=torch.float64)
+    return (out, mag) if magnitude else out
+
+
+def _check_block(name, h, ct, symmetric):
+    for t in (h, ct):
+        if not t.is_cuda or t.device != h.device or t.dtype != h.dtype or t.dtype not in _FLOATS:
+            raise ValueError(f"{name}: h and ct must share one CUDA device and one "
+                             "float32/float64 dtype")
+    if h.ndim != 2 or h.shape != ct.shape or (symmetric and h.shape[0] != h.shape[1]):
+        raise ValueError(f"{name}: h and ct must be one 2-D shape (square if symmetric)")
+
+
+def matern_block_tangent(scale, nu, ls, h, w, symmetric=False, table=None):
+    """The block's directional derivative along the weights ``w`` (see
+    ``matern_block_tangent_plain``): an (n, m) matrix in h's dtype.
+
+    ``symmetric=True`` (square symmetric h) evaluates the lower triangle
+    and mirrors it. CUDA tensors run ``csrc/matern_hess.cu``'s tangent
+    kernel (h contiguous; ``scale`` and ``w`` as device values, nothing
+    read back); CPU tensors the plain version. ``table``: the kernel's dual
+    row ``recurrence_table(nu, ls, h.dtype, order=1)[0]`` on h's device,
+    by default built here."""
+    if h.device.type == "cpu":
+        return matern_block_tangent_plain(scale, nu, ls, h, w, symmetric)
+    _check_block("matern_block_tangent", h, h, symmetric)
+    if not h.is_contiguous():
+        raise ValueError("matern_block_tangent: h must be contiguous")
+    n, m = h.shape
+    out = torch.empty_like(h)
+    if n == 0 or m == 0:
+        return out
+    if table is None:
+        table = recurrence_table(torch.as_tensor(nu, dtype=h.dtype, device=h.device),
+                                 torch.as_tensor(ls, dtype=h.dtype, device=h.device), h.dtype,
+                                 order=1)[0]
+    _check_table("matern_block_tangent", table, (2 * _table_width(h.dtype),), h)
+    sw = torch.cat([torch.as_tensor(scale, dtype=torch.float64, device=h.device).reshape(1),
+                    torch.as_tensor(w, dtype=torch.float64, device=h.device).reshape(4)]).detach()
+    f = _fn("matern_hess.cu", f"tangent_{_SUFFIX[h.dtype]}", [_P, _I, _I, _I, _P, _P, _P, _P])
+    with torch.cuda.device(h.device):
+        rc = f(_ptr(h), n, m, int(symmetric), _ptr(table), _ptr(sw), _ptr(out), _stream(h.device))
+    _check_rc("matern_hess.cu", rc, "matern_block_tangent")
+    LAUNCHES["matern_block_tangent"] += 1
+    return out
+
+
+def matern_block_hess(nu, ls, h, ct, symmetric=False, table=None):
+    """The block's five second-order sums against ``ct`` (see
+    ``matern_block_hess_plain``): float64 [sum ct dM/dnu, sum ct dM/dls,
+    sum ct d2M/dnu2, sum ct d2M/dnu dls, sum ct d2M/dls2].
+
+    ``symmetric=True`` (square symmetric h, any ct) evaluates the lower
+    triangle only. ``h`` and ``ct`` may be row-strided views (unit column
+    stride). CUDA tensors run ``csrc/matern_hess.cu``'s Hessian kernel and
+    its fixed-order reduce (nothing read back); CPU tensors the plain
+    version. ``table``: the kernel's second-order row
+    ``recurrence_table(nu, ls, h.dtype, order=2)[0]`` on h's device, by
+    default built here."""
+    if h.device.type == "cpu":
+        return matern_block_hess_plain(nu, ls, h, ct, symmetric)
+    _check_block("matern_block_hess", h, ct, symmetric)
+    n, m = h.shape
+    out = torch.zeros(5, dtype=torch.float64, device=h.device)
+    if n == 0 or m == 0:
+        return out
+    if h.stride(1) != 1 or h.stride(0) < m:
+        raise ValueError("matern_block_hess: h needs unit column stride")
+    if ct.stride(1) != 1 or ct.stride(0) < m:
+        ct = ct.contiguous()
+    if table is None:
+        table = recurrence_table(torch.as_tensor(nu, dtype=h.dtype, device=h.device),
+                                 torch.as_tensor(ls, dtype=h.dtype, device=h.device), h.dtype,
+                                 order=2)[0]
+    _check_table("matern_block_hess", table, (3 * _table_width(h.dtype),), h)
+    tiles = _fn_ll("matern_hess.cu", "hess_num_tiles", [_I, _I, _I])(n, m, int(symmetric))
+    part = torch.empty(5 * tiles, dtype=torch.float64, device=h.device)
+    f = _fn("matern_hess.cu", f"hess_{_SUFFIX[h.dtype]}",
+            [_P, _P, _I, _I, _LL, _LL, _I, _P, _P, _P, _P])
+    with torch.cuda.device(h.device):
+        rc = f(_ptr(h), _ptr(ct), n, m, h.stride(0), ct.stride(0), int(symmetric), _ptr(table),
+               _ptr(part), _ptr(out), _stream(h.device))
+    _check_rc("matern_hess.cu", rc, "matern_block_hess")
+    LAUNCHES["matern_block_hess"] += 1
     return out
 
 
@@ -885,7 +1118,7 @@ def matern_corr_pairs_grad(nu_pairs, ls_pairs, idx_f, h, ct, table=None):
     tensors run ``csrc/matern_pairs.cu`` (a fixed-order reduction, the same
     sums from run to run); CPU tensors the plain version. ``table``: the
     kernel's dual table ``recurrence_table(nu_pairs, ls_pairs, h.dtype,
-    dual=True)`` on h's device (|nu|, as the reference's gradient table
+    order=1)`` on h's device (|nu|, as the reference's gradient table
     takes it), built once by a caller that launches many times with one
     parameter set; by default it is built here, on the device of
     ``nu_pairs``."""
@@ -904,7 +1137,7 @@ def matern_corr_pairs_grad(nu_pairs, ls_pairs, idx_f, h, ct, table=None):
     if n == 0:
         return out
     if table is None:
-        table = recurrence_table(nu_pairs, ls_pairs, h.dtype, dual=True).to(h.device)
+        table = recurrence_table(nu_pairs, ls_pairs, h.dtype, order=1).to(h.device)
     _check_table("matern_corr_pairs_grad", table, (n_pairs, 2 * _table_width(h.dtype)), h)
     blocks = int(_fn_ll("matern_pairs.cu", "pairs_grad_blocks", [_LL])(n))
     part = torch.empty(2 * n_pairs * blocks, dtype=torch.float64, device=h.device)

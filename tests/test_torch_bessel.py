@@ -13,6 +13,13 @@ from cokriging_tpu_torch.kernels.bessel import kv
 torch.set_num_threads(1)
 
 
+# the JAX references jitted (op by op each took ~5-12 s of the CPU run),
+# each compiled once for every case of its shapes
+_jax_grads = jax.jit(jax.grad(lambda a, b: jnp.sum(jkv(a, b)), argnums=(0, 1)))
+_jax_order_grad = jax.jit(jax.grad(lambda a, b: jnp.sum(jkv(a, b))))
+_jax_lane_order_grads = jax.jit(jax.vmap(jax.grad(jkv), in_axes=(None, 0)))
+
+
 def _grid(seed=0, n=400):
     rng = np.random.default_rng(seed)
     nu = rng.uniform(0.2, 3.5, n)
@@ -44,9 +51,7 @@ def test_kv_gradients_match_jax():
     tn = torch.tensor(nu, requires_grad=True)
     tx = torch.tensor(x, requires_grad=True)
     kv(tn, tx).sum().backward()
-    gn, gx = jax.grad(lambda a, b: jnp.sum(jkv(a, b)), argnums=(0, 1))(
-        jnp.asarray(nu), jnp.asarray(x)
-    )
+    gn, gx = _jax_grads(jnp.asarray(nu), jnp.asarray(x))
     np.testing.assert_allclose(tn.grad.numpy(), np.asarray(gn), rtol=1e-8)
     np.testing.assert_allclose(tx.grad.numpy(), np.asarray(gx), rtol=1e-8)
 
@@ -58,7 +63,7 @@ def test_kv_scalar_order_gradient_broadcasts(nu):
     x = np.linspace(0.05, 12.0, 57)
     tn = torch.tensor(nu, dtype=torch.float64, requires_grad=True)
     kv(tn, torch.as_tensor(x)).sum().backward()
-    ref = jax.grad(lambda a: jnp.sum(jkv(a, jnp.asarray(x))))(nu)
+    ref = _jax_order_grad(jnp.asarray(nu), jnp.asarray(x))
     np.testing.assert_allclose(tn.grad.item(), float(ref), rtol=1e-8)
 
 
@@ -72,7 +77,7 @@ def test_order_gradient_beside_half_integers_follows_jax():
     for nu in (np.nextafter(1.5, 0.0), 1.5, np.nextafter(1.5, 2.0)):
         tn = torch.full((3,), nu, dtype=torch.float64, requires_grad=True)
         kv(tn, torch.as_tensor(x)).sum().backward()
-        jg = jax.vmap(jax.grad(jkv), in_axes=(None, 0))(nu, jnp.asarray(x))
+        jg = _jax_lane_order_grads(jnp.asarray(nu), jnp.asarray(x))
         np.testing.assert_allclose(tn.grad.numpy(), np.asarray(jg), rtol=1e-12)
         ref[nu] = tn.grad.numpy()
     fd = (sp.kv(1.5 + 1e-6, x) - sp.kv(1.5 - 1e-6, x)) / 2e-6

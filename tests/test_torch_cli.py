@@ -2,8 +2,10 @@
 package's (``python -m cokriging_tpu``), in process through ``main(argv)``, on
 the CPU in float64: ``fit`` -> ``predict`` -> ``loocv`` on the staged tables
 of tests/test_cli.py, parameter files read across the two packages,
-``fit --bootstrap`` and ``predict --joint --conditional-sims`` (their files,
-columns and shapes), and the errors for what the port does not run yet."""
+``fit --bootstrap`` and ``predict --joint --conditional-sims`` (their
+files, columns and shapes), and the parser's errors (``fit --std-errors`` is
+held against the JAX package in tests/test_torch_uncertainty.py, beside the
+JAX Hessian it shares)."""
 
 import contextlib
 import io
@@ -198,7 +200,7 @@ def test_predict_conditional_sims_writes_the_jax_packages_files(staged, fitted, 
     (["sim"], "sim/"),
     (["bench"], "benchmark"),
     (["fit", "--method", "nll", "--bootstrap", "4"], "--bootstrap requires --method wls"),
-    (["fit", "--std-errors"], "uncertainty.py"),
+    (["loocv", "--params", "x.npz", "--predictor", "cg"], "invalid choice: 'cg'"),
     (["predict", "--params", "x.npz", "--conditional-sims", "4"],
      "--conditional-sims requires --joint"),
     (["predict", "--params", "x.npz", "--joint", "--solver", "cg", "--conditional-sims", "4"],

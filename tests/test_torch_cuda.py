@@ -587,7 +587,7 @@ def test_pair_table_rows_on_card(cuda):
             assert int(table.index[i, j]) == int(table.index[j, i]) == k
             nu, ls = params.nu[i, j].to(dtype), params.len_scale[i, j].to(dtype)
             assert torch.equal(table.rows(i, j)[0], K.recurrence_table(nu, ls, dtype)[0])
-            assert torch.equal(table.rows(i, j)[1], K.recurrence_table(nu, ls, dtype, dual=True)[0])
+            assert torch.equal(table.rows(i, j)[1], K.recurrence_table(nu, ls, dtype, order=1)[0])
 
 
 # --- the table-to-map workflow on the card ---------------------------------
@@ -777,3 +777,108 @@ def test_variogram_bin_batch_matches_plain_and_single_launches(cuda, dtype, rtol
         s1, n1 = K.variogram_bin_pairs(one, edges, geodesic, covariogram, h_max)
         assert torch.equal(n1, n_k)
         torch.testing.assert_close(s_k[:, b], s1, rtol=rtol, atol=1e-12)
+
+
+# tolerances of the second-order kernels against their plain versions: the
+# tangent per entry relative to the largest |entry| (float32: the first-order
+# partials' own rounding, as the block gradient's 1e-5); the Hessian sums
+# within tol (first-order sums) and tol2 (second-order sums) of their sums
+# of |terms|, about ten times the largest reading on an H100 at these cases
+# (float32 1.3e-7 / 5.4e-7, float64 1.6e-16 / 1.0e-15)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+@pytest.mark.parametrize("nu,ls", [(0.3, 300.0), (0.5, 300.0), (1.5, 800.0), (2.7, 1500.0)])
+def test_block_tangent_kernel_matches_plain(cuda, dtype, tol, nu, ls):
+    """The block's tangent matrix against the plain version: a ragged full
+    block with exact zeros and a symmetric block (whose output is exactly
+    symmetric and equals the full evaluation)."""
+    rng = np.random.default_rng(41)
+    a = _points(rng, 300, dtype, cuda)
+    b = torch.cat([a[:7], _points(rng, 210, dtype, cuda)])
+    w = torch.tensor([0.7, -1.3, 0.4, 2.1e-3], dtype=torch.float64, device=cuda)
+    scale = torch.tensor(1.7, dtype=torch.float64, device=cuda)
+    for hh, sym in ((haversine_matrix(a, b), False), (haversine_matrix(a, a), True)):
+        before = K.launch_counts()["matern_block_tangent"]
+        got = K.matern_block_tangent(scale, nu, ls, hh, w, symmetric=sym)
+        torch.cuda.synchronize()
+        assert K.launch_counts()["matern_block_tangent"] == before + 1
+        ref = K.matern_block_tangent_plain(scale, nu, ls, hh, w, symmetric=sym)
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+        if sym:
+            assert torch.equal(got, got.T)
+            full = K.matern_block_tangent(scale, nu, ls, hh, w)
+            assert float((got - full).abs().max()) <= tol * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("dtype,tol,tol2", [(torch.float32, 1e-6, 5e-6),
+                                             (torch.float64, 1e-14, 1e-14)])
+@pytest.mark.parametrize("nu,ls", [(0.3, 300.0), (0.5, 300.0), (1.5, 800.0), (2.7, 1500.0)])
+def test_block_hess_kernel_matches_plain(cuda, dtype, tol, tol2, nu, ls):
+    """The five second-order sums against the plain version, the first two
+    within tol and the three second-order ones within tol2 of their sums of
+    |terms|: a ragged full block with exact zeros read through a row stride,
+    and a symmetric block with an asymmetric cotangent, which also equals
+    the full evaluation and repeats bit for bit."""
+    rng = np.random.default_rng(42)
+    a = _points(rng, 300, dtype, cuda)
+    b = torch.cat([a[:7], _points(rng, 210, dtype, cuda)])
+    wide = haversine_matrix(a, torch.cat([b, b]))
+    h = wide[:, :217]
+    hs = haversine_matrix(a, a)
+    bar = torch.tensor([tol, tol, tol2, tol2, tol2], dtype=torch.float64, device=cuda)
+    for hh, sym in ((h, False), (hs, True)):
+        ct = torch.as_tensor(rng.normal(size=tuple(hh.shape)), dtype=dtype, device=cuda)
+        before = K.launch_counts()["matern_block_hess"]
+        got = K.matern_block_hess(nu, ls, hh, ct, symmetric=sym)
+        torch.cuda.synchronize()
+        assert K.launch_counts()["matern_block_hess"] == before + 1
+        ref, mag = K.matern_block_hess_plain(nu, ls, hh, ct, symmetric=sym, magnitude=True)
+        assert got.dtype == torch.float64 and torch.isfinite(got).all()
+        assert bool(((got - ref).abs() <= bar * mag).all()), (got, ref, mag)
+        if sym:
+            full = K.matern_block_hess(nu, ls, hh, ct)
+            assert bool(((got - full).abs() <= bar * mag).all()), (got, full, mag)
+            assert torch.equal(got, K.matern_block_hess(nu, ls, hh, ct, symmetric=True))
+
+
+def test_block_hessian_on_card_matches_cpu_without_synchronizing(cuda):
+    """The NLL's Hessian through the block kernels (float64, 2 x 40 points)
+    equals the CPU's elementwise one, its backward passes run under
+    ``torch.cuda.set_sync_debug_mode("error")``, and a first-order gradient
+    launches only the block-gradient kernel, once per block."""
+    from cokriging_tpu_torch.cov.params import MaternParams
+    from cokriging_tpu_torch.estimate.nll import joint_distance_blocks, neg_log_likelihood
+
+    rng = np.random.default_rng(43)
+    coords = [_points(rng, 40, torch.float64, cuda) for _ in range(2)]
+    z = torch.as_tensor(rng.normal(size=80), device=cuda)
+    spec = MaternParams.default(2).spec
+    x = torch.tensor([1.2, 0.8, 1.4, 1.1, 2.0, 300, 250, 350, 0.04, 0.02, -0.5],
+                     dtype=torch.float64)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        d = joint_distance_blocks([c.to(dev) for c in coords])
+
+        def fn(flat):
+            return neg_log_likelihood(flat, d, z.to(dev), spec, analytic_grad=False)
+
+        flat = x.to(dev).requires_grad_(True)
+        before = K.launch_counts()
+        (g,) = torch.autograd.grad(fn(flat), flat)
+        grew = {k: K.launch_counts()[k] - before[k] for k in
+                ("matern_block_grad", "matern_block_tangent", "matern_block_hess")}
+        assert grew == ({"matern_block_grad": 3, "matern_block_tangent": 0,
+                         "matern_block_hess": 0} if dev == "cuda" else dict.fromkeys(grew, 0))
+        flat = x.to(dev).requires_grad_(True)
+        value = fn(flat)
+        (g1,) = torch.autograd.grad(value, flat, create_graph=True)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            rows = [torch.autograd.grad(g1[k], flat, retain_graph=True)[0] for k in range(11)]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        out[dev] = torch.stack(rows).cpu()
+    hc, hp = out["cuda"], out["cpu"]
+    assert float((hc - hp).abs().max()) <= 1e-9 * float(hp.abs().max())

@@ -1,7 +1,8 @@
 """The port's main path imports neither JAX, nor the JAX package, nor the
 optional frame/plot libraries. The frame layer (fields from data frames,
-the grids' frame wrangling, postprocessing, table I/O, the CLI) imports
-pandas only inside the functions that take or return frames."""
+the grids' frame wrangling, postprocessing, table I/O, the CLI, the
+uncertainty frames, the regional statistics) imports pandas only inside the
+functions that take or return frames."""
 
 import subprocess
 import sys
@@ -31,6 +32,13 @@ import cokriging_tpu_torch.sim.spectral
 import cokriging_tpu_torch.utils.convert
 import cokriging_tpu_torch.predict.postprocess
 import cokriging_tpu_torch.utils.io
+import cokriging_tpu_torch.estimate.uncertainty
+import cokriging_tpu_torch.stats
+import cokriging_tpu_torch.stats.spacetime
+import cokriging_tpu_torch.stats.regional
+import cokriging_tpu_torch.utils.config
+import cokriging_tpu_torch.utils.profiling
+import cokriging_tpu_torch.utils.results
 import cokriging_tpu_torch.__main__
 import cokriging_tpu_torch.cov
 import cokriging_tpu_torch.data

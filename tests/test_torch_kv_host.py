@@ -66,7 +66,48 @@ void grad_terms(const T* h, const T* w, const int* k, long n, const T* rows, T* 
   }
 }
 
+template <typename T>
+void second(const T* x, long n, const T* row, T* out, int* ok) {
+  for (long i = 0; i < n; ++i) {
+    T* o = out + 6 * i;
+    ok[i] = ckt::matern_second_tab(x[i], ckt::Dual2Row<T>{row}, o[0], o[1], o[2], o[3], o[4],
+                                   o[5]);
+  }
+}
+
+template <typename T>
+void tangents(const T* h, long n, const T* row, const T* w, T* out) {
+  for (long i = 0; i < n; ++i)
+    out[i] = ckt::tangent_entry(h[i], ckt::DualRow<T>{row}, w[0], w[1], w[2], w[3]);
+}
+
+template <typename T>
+void hess(const T* h, const T* w, long n, const T* row, T* out, int* ok) {
+  for (long i = 0; i < n; ++i) {
+    const ckt::Dual2Row<T> r{row};
+    T x;
+    for (int k = 0; k < 5; ++k) out[5 * i + k] = T(0);
+    ok[i] = ckt::entry_x(h[i], r, x) && ckt::hess_terms(x, w[i], r, out + 5 * i);
+  }
+}
+
 extern "C" {
+void second_f32(const float* x, long n, const float* r, float* o, int* ok) { second(x, n, r, o, ok); }
+void second_f64(const double* x, long n, const double* r, double* o, int* ok) {
+  second(x, n, r, o, ok);
+}
+void tangents_f32(const float* h, long n, const float* r, const float* w, float* o) {
+  tangents(h, n, r, w, o);
+}
+void tangents_f64(const double* h, long n, const double* r, const double* w, double* o) {
+  tangents(h, n, r, w, o);
+}
+void hess_f32(const float* h, const float* w, long n, const float* r, float* o, int* ok) {
+  hess(h, w, n, r, o, ok);
+}
+void hess_f64(const double* h, const double* w, long n, const double* r, double* o, int* ok) {
+  hess(h, w, n, r, o, ok);
+}
 void entries_f32(const float* h, long n, const float* r, int e, float* o) { entries(h, n, r, e, o); }
 void entries_f64(const double* h, long n, const double* r, int e, double* o) {
   entries(h, n, r, e, o);
@@ -196,7 +237,7 @@ def test_table_partials_match_plain_autograd(harness, sfx):
     for nu in _nus(sfx):
         h, x = _entries(nu, dtype)
         row = K.recurrence_table(torch.tensor([nu], dtype=dtype), torch.tensor([LS], dtype=dtype),
-                                 dtype, dual=True)[0]
+                                 dtype, order=1)[0]
         m, dnu, dls, ok = _run_partials(harness, sfx, x, row)
         nu_t = torch.full_like(h, nu).requires_grad_(True)
         ls_t = torch.full_like(h, LS).requires_grad_(True)
@@ -235,7 +276,7 @@ def test_recurrence_table_matches_float64_host(dtype, dual):
     nus = np.array([0.3, -0.5, 1.2, 1.5, 2.7])
     lss = np.array([250.0, 300.0, 800.0, 700.0, 1500.0])
     nu_t, ls_t = torch.tensor(nus, dtype=dtype), torch.tensor(lss, dtype=dtype)
-    got = K.recurrence_table(nu_t, ls_t, dtype, dual=dual).double().numpy()
+    got = K.recurrence_table(nu_t, ls_t, dtype, order=int(dual)).double().numpy()
     S, C = SERIES_ITERS[dtype], CF2_ITERS[dtype]
     width = 13 + 3 * S + 3 * C
     assert got.shape == (len(nus), 2 * width if dual else width)
@@ -395,7 +436,7 @@ def test_pairs_grad_entry_matches_plain(harness, sfx, spread):
     dtype = DTYPES[sfx]
     tol = GRAD_RTOL[sfx]
     nu, ls, h, k, w = _grad_case(sfx, np.random.default_rng(31), spread)
-    rows = K.recurrence_table(nu, ls, dtype, dual=True)
+    rows = K.recurrence_table(nu, ls, dtype, order=1)
     g_nu, g_ls, ok = _run_grad_terms(harness, sfx, h, w, k, rows)
     nu_abs = nu.abs()
     if spread == "uniform":
@@ -459,7 +500,7 @@ def test_pairs_grad_f32_distance_from_f64_is_shared_with_jax(harness):
                                          w.double(), absolute=True).numpy()
     plain32 = K.matern_corr_pairs_grad_plain(nu_abs, ls, k.float(), h, w).numpy()
     g_nu, g_ls, _ = _run_grad_terms(harness, "f32", h, w, k, K.recurrence_table(
-        nu, ls, torch.float32, dual=True))
+        nu, ls, torch.float32, order=1))
     kernel32 = torch.stack([torch.bincount(k, weights=g.double(), minlength=len(nu))
                             for g in (g_nu, g_ls)], dim=1).numpy()
     ulp = np.zeros(mag.shape, bool)
@@ -494,6 +535,110 @@ def test_pair_table_rows_match_recurrence_table(dtype):
     for k, (i, j) in enumerate(_pairs(4)):
         nu, ls = params.nu[i, j].to(dtype), params.len_scale[i, j].to(dtype)
         for got, want in ((value[k], K.recurrence_table(nu, ls, dtype)[0]),
-                          (dual[k], K.recurrence_table(nu, ls, dtype, dual=True)[0])):
+                          (dual[k], K.recurrence_table(nu, ls, dtype, order=1)[0])):
             assert got.dtype == dtype and got.shape == want.shape
             torch.testing.assert_close(got, want, rtol=rtol, atol=0.0)
+
+
+# bars of the second-order entry against autograd of the plain model,
+# relative to each column's largest |value| (float64 measured <= 6e-12;
+# float32: d2M/dnu2 cancels to ~3e-3 of its size in either evaluation, and the
+# first partials to ~1.5e-4)
+SECOND_TOL = {"f32": (1e-6, 1e-3, 1e-2), "f64": (1e-14, 1e-10, 1e-10)}
+
+
+def _second_plain(nu, h, dtype):
+    """The plain model's M and its five partials per entry (autograd,
+    ``cuda_ops._plain_model_partials``), masked as the kernels mask them."""
+    mat, d = K._plain_model_partials(torch.tensor(abs(nu), dtype=dtype),
+                                     torch.tensor(LS, dtype=dtype), h.abs(), True)
+    return mat, d
+
+
+@pytest.mark.parametrize("sfx", ["f32", "f64"])
+def test_second_order_entry_matches_plain_autograd(harness, sfx):
+    """``kv.cuh::matern_second_tab`` over a second-order table row (M, its
+    partials in nu and ls, first and second) against autograd of the
+    elementwise model, over x from 1e-3 to 50 on both branches, at nu 0.3,
+    0.5, 1.2, 1.5, 2.7 and 1.5 -+ ulp. At 1.5 -+ ulp the reference's CF2
+    tangent is truncated after one trip (ROADMAP Queue 3) and its x- and
+    nu-derivatives no longer commute: the kernel takes d/dnu of dK/dx (the
+    triple's tangent) for both mixed terms of d2M/dnu2 and for d2M/dnu dls,
+    the elementwise model (as the reference) d/dx of the truncated dK/dnu for
+    one of them, so those two columns part by up to ~11% there (a known
+    difference of the card's second order, ROADMAP Queue 3); every other
+    column holds the bar there too."""
+    dtype = DTYPES[sfx]
+    ct = ctypes.c_float if sfx == "f32" else ctypes.c_double
+    p = ctypes.POINTER(ct)
+    f = getattr(harness, f"second_{sfx}")
+    f.argtypes = [p, ctypes.c_long, p, p, ctypes.POINTER(ctypes.c_int)]
+    for nu in _nus(sfx):
+        h, x = _entries(nu, dtype)
+        row = K.recurrence_table(torch.tensor([nu], dtype=dtype), torch.tensor([LS], dtype=dtype),
+                                 dtype, order=2)[0].contiguous()
+        x = x.contiguous()
+        out = torch.zeros(x.numel(), 6, dtype=dtype)
+        ok = torch.zeros(x.numel(), dtype=torch.int32)
+        f(_ptr(x, ct), x.numel(), _ptr(row, ct), _ptr(out, ct),
+          ctypes.cast(ok.data_ptr(), ctypes.POINTER(ctypes.c_int)))
+        mat, d = _second_plain(nu, h, dtype)
+        assert bool(ok.bool().all()), nu
+        want = torch.stack([mat] + d, 1)
+        size = want.abs().max(0).values
+        rel = ((out - want).abs().max(0).values / size).tolist()
+        bars = [SECOND_TOL[sfx][0]] + [SECOND_TOL[sfx][1]] * 2 + [SECOND_TOL[sfx][2]] * 3
+        if nu != 1.5 and abs(nu - 1.5) < 1e-6:  # 1.5 -+ ulp: the truncated tangent
+            bars[3:5] = [0.15, 0.15]
+        assert all(r <= b for r, b in zip(rel, bars)), (nu, rel)
+
+
+@pytest.mark.parametrize("sfx", ["f32", "f64"])
+def test_tangent_and_hessian_entries_match_plain(harness, sfx):
+    """``matern_hess.cu``'s per-entry steps: ``tangent_entry`` (the block
+    tangent's value) against ``matern_block_tangent_plain`` and
+    ``hess_terms`` (the five weighted terms) against the plain model's
+    partials times the cotangent, at ``_masked_entries`` (h = 0, h < 0,
+    +-inf, NaN, M underflowing): where |h| is not > 0 the tangent is w_s
+    (plus w_n at h = 0) and there are no terms; where M underflows or is not
+    finite both are 0."""
+    dtype = DTYPES[sfx]
+    ct = ctypes.c_float if sfx == "f32" else ctypes.c_double
+    p = ctypes.POINTER(ct)
+    tan = getattr(harness, f"tangents_{sfx}")
+    tan.argtypes = [p, ctypes.c_long, p, p, p]
+    hes = getattr(harness, f"hess_{sfx}")
+    hes.argtypes = [p, p, ctypes.c_long, p, p, ctypes.POINTER(ctypes.c_int)]
+    rng = np.random.default_rng(17)
+    scale, w = 1.7, torch.tensor([0.7, -1.3, 0.4, 2.1e-3], dtype=torch.float64)
+    for nu in (0.3, 1.2, 1.5, 2.7):
+        h = _masked_entries(nu, dtype).contiguous()
+        cot = torch.as_tensor(rng.normal(size=h.numel()), dtype=dtype)
+        dual = K.recurrence_table(torch.tensor([nu], dtype=dtype), torch.tensor([LS], dtype=dtype),
+                                  dtype, order=1)[0].contiguous()
+        second = K.recurrence_table(torch.tensor([nu], dtype=dtype),
+                                    torch.tensor([LS], dtype=dtype), dtype,
+                                    order=2)[0].contiguous()
+        wt = torch.tensor([w[0], w[1], scale * w[2], scale * w[3]], dtype=dtype)
+        got = torch.empty_like(h)
+        tan(_ptr(h, ct), h.numel(), _ptr(dual, ct), _ptr(wt, ct), _ptr(got, ct))
+        want = K.matern_block_tangent_plain(scale, nu, LS, h[None, :], w)[0]
+        size = float(want.abs().max())
+        assert torch.isfinite(got).all()
+        assert float((got - want).abs().max()) <= SECOND_TOL[sfx][1] * size, nu
+        n_sp = 7  # 0, -0, -350, -1e-3, inf, -inf, NaN
+        assert got[-n_sp:-n_sp + 2].tolist() == [float(wt[0] + wt[1])] * 2
+        assert got[-3:-1].tolist() == [0.0, 0.0] and float(got[-1]) == float(wt[0])
+        terms = torch.zeros(h.numel(), 5, dtype=dtype)
+        ok = torch.zeros(h.numel(), dtype=torch.int32)
+        hes(_ptr(h, ct), _ptr(cot, ct), h.numel(), _ptr(second, ct), _ptr(terms, ct),
+            ctypes.cast(ok.data_ptr(), ctypes.POINTER(ctypes.c_int)))
+        _, d = _second_plain(nu, h, dtype)
+        ref = cot[:, None] * torch.stack(d, 1)
+        size = ref.abs().max(0).values
+        rel = ((terms - ref).abs().max(0).values / size).tolist()
+        bars = [SECOND_TOL[sfx][1]] * 2 + [SECOND_TOL[sfx][2]] * 3
+        assert all(r <= b for r, b in zip(rel, bars)), (nu, rel)
+        assert not bool(ok[-n_sp:][[0, 1, 4, 5, 6]].any())  # no terms at 0, inf, NaN
+        assert bool((terms[~ok.bool()] == 0).all())
+

@@ -49,10 +49,10 @@ def test_value_and_gradient_match_jax(problem, analytic, with_mvar):
     """Value rtol 1e-9 (the JAX suite's bar against its numpy oracle),
     gradient rtol 1e-6 / atol 1e-9, on both gradient branches."""
     jd, td, z, mvar = problem
-    jv, jg = jax.value_and_grad(JN.neg_log_likelihood)(
-        jnp.asarray(FLAT), jd, jnp.asarray(z), JSPEC,
-        jnp.asarray(mvar) if with_mvar else None, 1e-8, analytic_grad=analytic,
-    )
+    # the JAX reference jitted: op by op it took ~40 s of the CPU run here
+    jv, jg = jax.jit(jax.value_and_grad(lambda x, m: JN.neg_log_likelihood(
+        x, jd, jnp.asarray(z), JSPEC, m, 1e-8, analytic_grad=analytic)))(
+        jnp.asarray(FLAT), jnp.asarray(mvar) if with_mvar else None)
     x = torch.tensor(FLAT, requires_grad=True)
     tv = TN.neg_log_likelihood(
         x, td, torch.as_tensor(z), TSPEC, torch.as_tensor(mvar) if with_mvar else None,
@@ -79,20 +79,29 @@ def test_analytic_gradient_equals_plain_ad(problem, with_mvar):
     np.testing.assert_allclose(out[0][1], out[1][1], rtol=1e-7, atol=1e-10)
 
 
+@pytest.fixture(scope="module")
+def non_pd(problem):
+    """rho = 1 with colocated samples and no nugget, and the reference's
+    value there (computed once for the three cases, jitted: op by op it
+    took ~10 s of the CPU run)."""
+    jd, _, z, _ = problem
+    bad = FLAT.copy()
+    bad[[8, 9, 10]] = [0.0, 0.0, 1.0]
+    return bad, float(jax.jit(lambda x: JN.neg_log_likelihood(
+        x, jd, jnp.asarray(z), JSPEC, None, 0.0, analytic_grad=True))(jnp.asarray(bad)))
+
+
 @pytest.mark.parametrize("analytic", [True, False, None])
-def test_non_pd_point_gives_penalty_and_zero_gradient(problem, analytic):
+def test_non_pd_point_gives_penalty_and_zero_gradient(problem, non_pd, analytic):
     """rho = 1 with colocated samples and no nugget: the value is the
     reference's penalty and the gradient exactly zero (``None`` takes the
     size gate: n = 115 -> plain AD)."""
-    jd, td, z, _ = problem
-    bad = FLAT.copy()
-    bad[[8, 9, 10]] = [0.0, 0.0, 1.0]
+    _, td, z, _ = problem
+    bad, want = non_pd
     x = torch.tensor(bad, requires_grad=True)
     v = TN.neg_log_likelihood(x, td, torch.as_tensor(z), TSPEC, None, 0.0, analytic_grad=analytic)
     (g,) = torch.autograd.grad(v, x)
-    want = JN.neg_log_likelihood(jnp.asarray(bad), jd, jnp.asarray(z), JSPEC, None, 0.0,
-                                 analytic_grad=True)
-    assert v.item() == float(want) == 1e6 * (1.0 + 0.5 * 115)
+    assert v.item() == want == 1e6 * (1.0 + 0.5 * 115)
     assert torch.equal(g, torch.zeros_like(g))
     v2, g2 = TN.nll_value_and_grad(torch.as_tensor(bad), td, torch.as_tensor(z), TSPEC, None, 0.0)
     assert v2.item() == v.item() and torch.equal(g2, torch.zeros_like(g2))

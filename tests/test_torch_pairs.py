@@ -41,11 +41,21 @@ def _entries(seed, shape, n_pairs):
     return h, idx, rng.normal(size=shape)
 
 
+# the JAX references jitted (op by op each took ~2-8 s per case of the CPU
+# run)
+_jax_pairs = jax.jit(JM.matern_corr_pairs)
+
+
+@jax.jit
+def _jax_pairs_grad(nu, ls, idx, h, ct):
+    """jax.grad of the same loss."""
+    return jax.grad(lambda a, b: jnp.sum(ct * JM.matern_corr_pairs(a, b, idx, h)),
+                    argnums=(0, 1))(nu, ls)
+
+
 def _jax_loss_grad(nu, ls, idx, h, ct):
-    idx_j, h_j, ct_j = jnp.asarray(idx), jnp.asarray(h), jnp.asarray(ct)
-    return jax.grad(
-        lambda a, b: jnp.sum(ct_j * JM.matern_corr_pairs(a, b, idx_j, h_j)), argnums=(0, 1)
-    )(jnp.asarray(nu), jnp.asarray(ls))
+    return _jax_pairs_grad(jnp.asarray(nu), jnp.asarray(ls), jnp.asarray(idx), jnp.asarray(h),
+                           jnp.asarray(ct))
 
 
 @pytest.mark.parametrize("n_pairs,shape", [(1, (3, 11, 11)), (3, (7, 41, 41)), (6, (1800,))])
@@ -54,8 +64,8 @@ def test_pairs_forward_matches_jax(n_pairs, shape):
     CPU against the reference's jnp path, atol 1e-12; ragged shapes."""
     h, idx, _ = _entries(11, shape, n_pairs)
     nu, ls = NU_PAIRS[n_pairs], LS_PAIRS[:n_pairs]
-    want = np.asarray(JM.matern_corr_pairs(jnp.asarray(nu), jnp.asarray(ls),
-                                           jnp.asarray(idx), jnp.asarray(h)))
+    want = np.asarray(_jax_pairs(jnp.asarray(nu), jnp.asarray(ls), jnp.asarray(idx),
+                                 jnp.asarray(h)))
     args = (_f64(nu), _f64(ls), torch.as_tensor(idx), torch.as_tensor(h))
     for got in (K.matern_corr_pairs_plain(*args), K.matern_corr_pairs(*args),
                 TM.matern_corr_pairs(*args), TM._MaternCorrPairs.apply(*args)):
@@ -68,8 +78,8 @@ def test_pair_index_follows_the_reference_select():
     idx = np.array([0.0, 1.0, 2.0, 2.5, -1.0, 3.0, 7.0, 1.0000001])
     h = np.full(idx.shape, 400.0)
     nu, ls = [0.7, 1.5, 2.2], [250.0, 500.0, 900.0]
-    want = np.asarray(JM.matern_corr_pairs(jnp.asarray(nu), jnp.asarray(ls),
-                                           jnp.asarray(idx), jnp.asarray(h)))
+    want = np.asarray(_jax_pairs(jnp.asarray(nu), jnp.asarray(ls), jnp.asarray(idx),
+                                 jnp.asarray(h)))
     assert K.pair_index(torch.as_tensor(idx), 3).tolist() == [0, 1, 2, 0, 0, 0, 0, 0]
     got = K.matern_corr_pairs_plain(_f64(nu), _f64(ls), torch.as_tensor(idx),
                                     torch.as_tensor(h))
@@ -129,9 +139,8 @@ def test_windows_covariance_matches_gathered_and_jax():
     d = euclidean_matrix(torch.as_tensor(coords), torch.as_tensor(coords))
     params = params_from_numpy(FLAT)
     got = TM.windows_covariance(params, d, torch.as_tensor(procs), torch.as_tensor(mvar))
-    jp = JParams.from_flat(jnp.asarray(FLAT))
-    want = np.asarray(JM.windows_covariance(jp, jnp.asarray(d.numpy()), jnp.asarray(procs),
-                                            jnp.asarray(mvar)))
+    want = np.asarray(jax.jit(lambda f, *a: JM.windows_covariance(JParams.from_flat(f), *a))(
+        jnp.asarray(FLAT), jnp.asarray(d.numpy()), jnp.asarray(procs), jnp.asarray(mvar)))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-14)
     for a in range(coords.shape[0]):
         g = TM.gathered_covariance(params, d[a], torch.as_tensor(procs[a]))
@@ -150,8 +159,7 @@ def test_gathered_covariance_rectangular_matches_jax():
     d = euclidean_matrix(torch.as_tensor(ca), torch.as_tensor(cb))
     got = TM.gathered_covariance(params_from_numpy(FLAT), d, torch.as_tensor(pa),
                                  torch.as_tensor(pb))
-    want = np.asarray(JM.gathered_covariance(JParams.from_flat(jnp.asarray(FLAT)),
-                                             jnp.asarray(d.numpy()), jnp.asarray(pa),
-                                             jnp.asarray(pb)))
+    want = np.asarray(jax.jit(lambda f, *a: JM.gathered_covariance(JParams.from_flat(f), *a))(
+        jnp.asarray(FLAT), jnp.asarray(d.numpy()), jnp.asarray(pa), jnp.asarray(pb)))
     assert int((d == 0).sum()) == 5
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-14)
