@@ -183,13 +183,39 @@ Phases, in order; any failure exits nonzero without the final ok line:
     Phase (i)'s CLI fit also runs ``--std-errors``, its table held against
     ``nll_std_errors`` in this process (1e-6).
 
+(k) the sharded paths (``cokriging_tpu_torch.parallel``) on
+    ``make_mesh(4, device="cuda")``, four virtual shards of the one card, each
+    against the same call with no mesh, with the launch counts set to 0
+    before each stage and read after it (every kernel of a stage launched
+    once per shard): ``sharded_variogram_pair`` on bench.py's month,
+    marginal and cross (3000 km, 15 bins; float32 and float64; centers and
+    counts equal, means rtol 1e-5 / 1e-12; one launch per pass per shard);
+    ``sharded_local_predict`` at (d)'s land cells less one, materialized and
+    direct, and with ``cv=True`` at all 12,500 data of process 0 within 130
+    km (rtol 1e-5 / 1e-10 of the largest value); ``sharded_vecchia_nll``'s
+    value and gradient at (g)'s 2 x 60,000 windows (float64 rtol 1e-12 /
+    1e-9, float32 logged; each chunk launched once) and ``fit_vecchia(mesh=)``
+    for 10 iterations in float64 (rtol 1e-8); ``IterativeJointPredictor(
+    mesh=)`` on 2 x 2,500 of the month with nuggets 0.1 (tol 1e-10, float64,
+    rtol 1e-8) and on (g)'s 2 x 12,500 at 256 cells (40 iterations, float32:
+    the iterations equal, the gap logged); the parametric bootstrap on (i)'s
+    spectral sample (16 replicates, maxiter 60, float64) with its refit
+    sharded and stepped in lockstep, bit-equal, both walls logged. The
+    one-card mesh ``make_mesh()`` runs each path once more, bit-equal to no
+    mesh (the CG on 2 x 2,560 rows, a multiple of its 512-row tile, at tol
+    1e-4; the bootstrap at 4 replicates, maxiter 20). Its rows of the kernels line:
+    both variogram passes over one shard's sides, marginal and cross, in
+    both dtypes. Phase (c) also holds the Hessian sums of
+    ``csrc/matern_hess.cu`` against their plain versions at nu = 1.5 -+ one
+    ulp and in blocks of entries at x = 2 exactly (``phase_c_hess_edges``).
+
 Cuts of depth against the time limit: (d)'s float64 Adam fit runs 200 of
 bench.py's 600 steps (its per-step time is logged); (f) holds the
 block-gradient kernel against its plain version at the 12,500^2 cross block
 only (it times the kernel at all three).
 
 ``python3 chip_smoke.py abcg`` runs only the phases named (a and b always)
-and prints no result line. The kernels line's rows of the kernels
+and prints no result line; ``python3 chip_smoke.py k`` runs (a), (b) and (k). The kernels line's rows of the kernels
 redesigned last (the variogram passes, the block forward and the pairs
 gradient) carry their ptxas registers, static shared memory and spills from
 this run's build; a log line beside each gives the
@@ -671,6 +697,74 @@ def phase_c_matern(c1, c2, dtype, results):
         worst = max(worst, err)
     results[f"matern_correlation_{name}"] = {"max_abs_err": worst}
     log(f"(c) matern {name}: {len(cases)} blocks, max abs err {worst:.3e} (bar {atol})")
+
+
+def tie_distances(nu, ls, td):
+    """Distances h within 64 ulp of 2 ls / sqrt(2 nu) whose x = sqrt(2 nu) (h
+    / ls), formed in dtype ``td`` as the kernels and the plain model form it,
+    is 2 exactly (a CPU tensor), or None where no distance gives x == 2."""
+    import torch
+
+    nu_t, ls_t = torch.tensor(nu, dtype=td), torch.tensor(ls, dtype=td)
+    up = torch.tensor(math.inf, dtype=td)
+    h = torch.tensor(2.0 * ls / math.sqrt(2.0 * nu), dtype=td)
+    for _ in range(64):
+        h = torch.nextafter(h, -up)
+    found = []
+    for _ in range(128):
+        if float(torch.sqrt(2.0 * nu_t) * (h / ls_t)) == 2.0:
+            found.append(h.clone())
+        h = torch.nextafter(h, up)
+    return torch.stack(found) if found else None
+
+
+def phase_c_hess_edges(dtype, results):
+    """The Hessian sums of ``csrc/matern_hess.cu`` against their plain
+    versions where the reference's x-derivatives part from the true mixed
+    partials: at nu = 1.5 -+ one ulp of the dtype (CF2 lanes that stop after
+    their first trip; 48 x 64 entries at x from 2 to 40) and in blocks of
+    entries at x = 2 exactly (the branch clamps' tie) at those orders and at
+    nu = 1.2; each of the five sums within ``J_HESS_BAR`` of its sum of
+    |terms| (1e-14 / 1e-6)."""
+    import torch
+
+    from cokriging_tpu_torch.kernels import cuda_ops as K
+
+    name = np.dtype(dtype).name
+    td = getattr(torch, name)
+    ls = 700.0
+    bar = J_HESS_BAR[name][0]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    worst, cases = 0.0, []
+    for nu in ulp_nus(name)[3:] + [1.2]:
+        blocks = []
+        if nu != 1.2:
+            x = np.geomspace(2.0, 40.0, 48 * 64)
+            blocks.append(("x in [2, 40]", torch.as_tensor(x * ls / math.sqrt(2.0 * nu),
+                                                           dtype=td).reshape(48, 64)))
+        tie = tie_distances(nu, ls, td)
+        if tie is not None:
+            h = tie.repeat(-(-256 // tie.numel()))[:256].reshape(16, 16).cuda()
+            # as the kernel and the plain model form it: a true division by a
+            # tensor (a Python divisor becomes a product with its reciprocal)
+            x_card = (torch.sqrt(2.0 * torch.tensor(nu, dtype=td, device="cuda"))
+                      * (h / torch.tensor(ls, dtype=td, device="cuda")))
+            check(bool((x_card == 2.0).all()), f"(c) hess edges {name} nu={nu}: x != 2 on the card")
+            blocks.append(("x = 2", h))
+        for what, h in blocks:
+            h = h.cuda()
+            ct = torch.randn(h.shape, dtype=td, device="cuda", generator=gen)
+            got = K.matern_block_hess(nu, ls, h, ct)
+            ref, mag = K.matern_block_hess_plain(nu, ls, h, ct, magnitude=True)
+            rel = (got - ref).abs() / mag.clamp_min(1e-300)
+            check(bool(torch.isfinite(got).all()) and bool((rel <= bar).all()),
+                  f"(c) hess edges {name} nu={nu} {what}: {got.tolist()} vs plain {ref.tolist()}, "
+                  f"|terms| {mag.tolist()}, bar {bar}")
+            worst = max(worst, float(rel.max()))
+            cases.append(f"{nu!r} {what}")
+    results[f"matern_block_hess_{name}_edges"] = {"max_err": worst}
+    log(f"(c) hess edges {name}: {len(cases)} blocks ({cases}), worst |kernel - plain| / "
+        f"sum|terms| {worst:.3e} (bar {bar})")
 
 
 def phase_c_small_path():
@@ -1796,7 +1890,7 @@ def cg_sync_free(ijp, call, name):
     back[perm] = K.matern_corr_pairs(nu, ls, idx.reshape(-1)[perm], h.reshape(-1)[perm])
     check(torch.equal(back.reshape(got.shape), got),
           f"(g) {name}: the CG row tile's forward is not bit-equal under a permutation")
-    coords, procs, _ = ijp._stacked()
+    coords, procs, *_ = ijp._stacked()
     table = pair_table(ijp.params, coords.device, coords.dtype)
     v = torch.randn(coords.shape[0], 1, dtype=ijp.params.sigma.dtype, device="cuda")
     before = K.launch_counts()["matern_corr_pairs"]
@@ -2925,6 +3019,7 @@ def phase_i():
     t0 = time.perf_counter()
     phase_i_dense(stages, launches, rows)
     mod, spec, samples = phase_i_spectral(stages, launches, rows)
+    SHARED["i_spectral"] = (mod, samples)
     params, mf = phase_i_bootstrap(mod, spec, samples, stages, launches, rows)
     phase_i_conditional(mod, mf, stages, launches, rows)
     torch.cuda.empty_cache()
@@ -3385,7 +3480,397 @@ def phase_j():
     return rows
 
 
-def main(phases="abcdefghij"):
+# --- phase (k): the sharded paths on the card ---------------------------------
+
+K_SHARDS = 4  # virtual shards of the one card
+# a well-conditioned month model (nuggets 0.1) for the sharded prediction paths
+K_PARAMS = [1.0, 1.0, 1.5, 1.5, 1.5, 700.0, 700.0, 700.0, 0.1, 0.1, -0.5]
+K_LOCAL_KM = 1000.0  # (d)'s prediction radius
+K_VECCHIA_ITERS = 10
+K_CG_SMALL = 2_500  # (h)'s joint and CG LOOCV rows per process
+K_CG_TILED = 2_560  # per process: 5,120 rows, a multiple of the 512-row tile
+K_CG_CELLS = 256
+K_BOOT_REP, K_BOOT_MAXITER = 16, 60
+K_BOOT_ONE_CARD = (4, 20)  # replicates, maxiter of the one-card mesh's bootstrap
+SHARED = {}  # (i)'s spectral model and sample, which (k) reuses
+
+
+def k_stage(stages, launches, key, fn, kernels=None, exact=False):
+    """``fn`` with the launch counts set to 0 just before and read just
+    after, timed on the host clock around a synchronize; ``kernels`` maps
+    each kernel of the stage to the launches it must reach (one per shard),
+    or equal with ``exact``."""
+    import warnings
+
+    import torch
+
+    from cokriging_tpu_torch.kernels import cuda_ops as K
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = fn()
+    torch.cuda.synchronize()
+    stages[key] = time.perf_counter() - t0
+    launches[key] = {k: v for k, v in K.launch_counts().items() if v}
+    for w in caught[:2]:
+        log(f"(k) {key}: warning: {str(w.message)[:110]}")
+    for k, n in (kernels or {}).items():
+        got = launches[key].get(k, 0)
+        check(got == n if exact else got >= n,
+              f"(k) {key}: {k} launched {got} times, {'not' if exact else 'fewer than'} {n}: "
+              f"{launches[key]}")
+    return out
+
+
+def k_same(what, pairs, rtol=None, norm=False):
+    """Each (got, want) pair of arrays bit-equal (``rtol`` None) or within
+    ``rtol`` of ``want`` elementwise (``norm``: of max |want|), NaN where
+    ``want`` is NaN; returns the worst relative gap."""
+    worst = 0.0
+    for got, want in pairs:
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        check(got.shape == want.shape, f"(k) {what}: shape {got.shape}, not {want.shape}")
+        same_nan = np.array_equal(np.isnan(got), np.isnan(want))
+        ok = ~np.isnan(want)
+        scale = np.abs(want[ok]).max() if norm and ok.any() else np.abs(want[ok])
+        gap = float((np.abs(got[ok] - want[ok]) / np.maximum(scale, 1e-300)).max()) if ok.any() else 0.0
+        if rtol is None:
+            check(same_nan and np.array_equal(got, want, equal_nan=True),
+                  f"(k) {what}: not bit-equal to the call with no mesh (relative gap {gap:.3e})")
+        else:
+            check(same_nan and gap <= rtol, f"(k) {what}: relative gap {gap:.3e} (bar {rtol})")
+        worst = max(worst, gap)
+    return worst
+
+
+def k_vario_rows(mm_args, bin_args, name, kind, counts, shards):
+    """Both variogram passes over shard 0's sides of a sharded variogram (the
+    arguments the sharded call handed its first launch of each pass), timed
+    beside their plain versions (h range and counts equal, the sums' largest
+    difference), with bounds from those sides' pairs: rows of the kernels
+    line."""
+    import torch
+
+    from cokriging_tpu_torch.kernels import cuda_ops as K
+
+    np_dt = np.dtype(name)
+    sides, edges = bin_args[0], bin_args[1]
+    n_pairs = sum(a.shape[0] * (a.shape[0] - 1) // 2 if marg else a.shape[0] * b.shape[0]
+                  for a, b, marg in mm_args[0])
+    k_cmp = [K._bin_record(np.asarray(e), True, True, np_dt)[1] for e in edges]
+    n_valid = [int(v) for v in K.variogram_bin_pairs(*bin_args)[1].sum(1)]
+    rows = []
+    for kname, kern, plain, minmax in (
+        ("variogram_minmax", lambda: K.variogram_minmax_pairs(*mm_args),
+         lambda: K.variogram_minmax_pairs_plain(*mm_args), True),
+        ("variogram_bin", lambda: K.variogram_bin_pairs(*bin_args),
+         lambda: K.variogram_bin_pairs_plain(*bin_args), False),
+    ):
+        kept = {}
+        ms = cuda_time_ms(keep(kept, "kernel", kern), 20, head_start_ms=50.0)
+        plain_ms = cuda_time_ms(keep(kept, "plain", plain), 2)
+        got, want = (kept["kernel"], kept["plain"]) if minmax else (kept["kernel"][1],
+                                                                    kept["plain"][1])
+        check(torch.equal(got, want), f"(k) {kname} {name} {kind} shard: differs from the plain version")
+        err = 0.0 if minmax else float((kept["kernel"][0] - kept["plain"][0]).abs().max())
+        bound_ms, bound_by, _ = vario_bound(n_pairs, n_valid, k_cmp, 15, name, minmax)
+        rows.append(dict(
+            name=f"{kname}_{name}_k_{kind}_shard", route="cuda",
+            source="cokriging_tpu_torch/kernels/csrc/variogram.cu",
+            replaces="cokriging_tpu/kernels/pallas_ops.py:143", launches=counts.get(kname, 0),
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            max_abs_err=err, max_err=err,
+            path=f"(k) sharded_variogram_pair, {kind}, one launch per pass per shard of {shards}",
+            shape=f"shard 0's {len(sides)} side(s): {n_pairs} pairs x 15 bins", pairs=n_pairs,
+            binned=sum(n_valid), k_cmp=k_cmp))
+    return rows
+
+
+def k_variograms(mesh, one_card, stages, launches):
+    """sharded_variogram_pair on bench.py's month, marginal and cross (3000
+    km, 15 bins), against the one-variogram call: centers and counts equal,
+    means rtol 1e-5 / 1e-12; one launch per pass per shard; bit-equal on the
+    one-card mesh."""
+    from cokriging_tpu_torch.estimate.empirical import VarioConfig, empirical_variogram_pair
+    from cokriging_tpu_torch.parallel import sharded_variogram_pair
+
+    cfg = VarioConfig(max_dist=3000.0, n_bins=15)
+    passes = {"variogram_minmax": 1, "variogram_bin": 1}
+    per_shard = {k: mesh.size for k in passes}
+    rows = []
+    for dtype in (np.float32, np.float64):
+        name = np.dtype(dtype).name
+        rtol = 1e-5 if name == "float32" else 1e-12
+        c1, v1, c2, v2 = build_inputs(N_PER_PROC, dtype)
+        for kind, b, w, marg in (("marginal", c1, v1, True), ("cross", c2, v2, False)):
+            key = f"variogram_{kind}_{name}"
+            one = k_stage(stages, launches, key, lambda: empirical_variogram_pair(
+                c1, v1, b, w, cfg, marg), passes, exact=True)
+            with captured("variogram_minmax_pairs", 1) as mm, captured("variogram_bin_pairs", 1) as bp:
+                got = k_stage(stages, launches, key + "_mesh", lambda: sharded_variogram_pair(
+                    c1, v1, b, w, cfg, marg, mesh=mesh), per_shard, exact=True)
+            k_same(f"{key} centers, counts", [(got[0], one[0]), (got[2], one[2])])
+            gap = k_same(f"{key} means", [(got[1], one[1])], rtol)
+            k_same(f"{key} one-card mesh", zip(sharded_variogram_pair(
+                c1, v1, b, w, cfg, marg, mesh=one_card), one))
+            rows += k_vario_rows(mm[0], bp[0], name, kind, launches[key + "_mesh"], mesh.size)
+            log(f"(k) {key}: {int(one[2].sum())} pairs binned; {mesh.size} shards "
+                f"{stages[key + '_mesh']:.4f} s, one call {stages[key]:.4f} s; means rel gap "
+                f"{gap:.3e} (bar {rtol}); launches {launches[key + '_mesh']}")
+    return rows
+
+
+def k_local(mesh, one_card, stages, launches):
+    """sharded_local_predict at (d)'s land cells less one (not a multiple of
+    the shards), materialized and direct, and with ``cv=True`` at all 12,500
+    data of process 0 within 130 km, against the predictor's own calls
+    (rtol 1e-5 / 1e-10) and bit-equal on the one-card mesh."""
+    import torch
+
+    from cokriging_tpu_torch.cov.matern import MultivariateMatern
+    from cokriging_tpu_torch.cov.params import MaternParams
+    from cokriging_tpu_torch.data.grids import prediction_coords
+    from cokriging_tpu_torch.parallel import sharded_local_predict
+    from cokriging_tpu_torch.predict.local import LocalPredictor
+
+    pc_all = prediction_coords()[:-1]
+    check(len(pc_all) % mesh.size != 0, "(k) the land cells must not split evenly over the shards")
+    for dtype in (np.float32, np.float64):
+        name = np.dtype(dtype).name
+        rtol = 1e-5 if name == "float32" else 1e-10
+        td = getattr(torch, name)
+        c1, v1, c2, v2 = build_inputs(N_PER_PROC, dtype)
+        sub = max(1, N_PER_PROC // 200)
+        mf_d = geo_fields(((c1[::sub], v1[::sub], "Z0"), (c2[::sub], v2[::sub], "Z1")))
+        mod = MultivariateMatern(params=MaternParams.from_flat(torch.tensor(K_PARAMS, dtype=td)))
+        pc = pc_all.astype(dtype)
+        for kind, kw, kern in (("materialized", {}, "matern_correlation"),
+                               ("direct", dict(materialize_cov=False, neighbor_method="device"),
+                                "matern_corr_pairs")):
+            key = f"local_{kind}_{name}"
+            # the materialized path's kernel builds the joint covariance the
+            # shards gather from; the direct path's runs in every shard
+            need = {kern: 1 if kind == "materialized" else mesh.size}
+            holder = {}
+
+            def predictor():
+                holder["lp"] = LocalPredictor(mod, mf_d, **kw)
+                return holder["lp"]
+
+            one = k_stage(stages, launches, key, lambda: predictor()(0, pc, max_dist=K_LOCAL_KM),
+                          {kern: 1})
+            lp = holder["lp"]
+            got = k_stage(stages, launches, key + "_mesh", lambda: sharded_local_predict(
+                predictor(), 0, pc, K_LOCAL_KM, mesh=mesh), need)
+            gap = k_same(key, [(got[0], one.pred), (got[1], one.pred_err)], rtol, norm=True)
+            k_same(f"{key} one-card mesh", zip(sharded_local_predict(
+                lp, 0, pc, K_LOCAL_KM, mesh=one_card), (one.pred, one.pred_err)))
+            log(f"(k) {key}: {len(pc)} cells, finite {float(np.isfinite(one.pred).mean()):.4%}; "
+                f"{mesh.size} shards {stages[key + '_mesh']:.4f} s, one call {stages[key]:.4f} s; "
+                f"rel gap {gap:.3e} (bar {rtol}); launches {launches[key + '_mesh']}")
+        mf_full = geo_fields(((c1, v1, "Z0"), (c2, v2, "Z1")))
+        key = f"local_loocv_{name}"
+        lp = k_stage(stages, launches, key + "_covariance", lambda: LocalPredictor(mod, mf_full),
+                     {"matern_correlation": 1})
+        one = k_stage(stages, launches, key, lambda: lp.cross_validation(0, max_dist=H_LOOCV_KM))
+        got = k_stage(stages, launches, key + "_mesh", lambda: sharded_local_predict(
+            lp, 0, c1, H_LOOCV_KM, mesh=mesh, cv=True))
+        gap = k_same(key, [(got[0], one.pred), (got[1], one.pred_err)], rtol, norm=True)
+        k_same(f"{key} one-card mesh", zip(sharded_local_predict(
+            lp, 0, c1, H_LOOCV_KM, mesh=one_card, cv=True), (one.pred, one.pred_err)))
+        log(f"(k) {key}: LOOCV at {len(c1)} data, {H_LOOCV_KM:g} km, finite "
+            f"{float(np.isfinite(one.pred).mean()):.4%}; {mesh.size} shards "
+            f"{stages[key + '_mesh']:.4f} s, one call {stages[key]:.4f} s; rel gap {gap:.3e} "
+            f"(bar {rtol})")
+        del lp, one, got
+        torch.cuda.empty_cache()
+
+
+def k_vecchia(mesh, one_card, stages, launches):
+    """sharded_vecchia_nll's value and gradient at (g)'s 2 x 60,000 windows
+    (m = 20, chunk 4096) against the unsharded evaluation (float64 rtol 1e-12
+    / 1e-9 of max |gradient|; float32 logged), every chunk launched once and
+    every shard launching; bit-equal on the one-card mesh; then
+    ``fit_vecchia(mesh=)`` for 10 iterations in float64 against the
+    unsharded fit (rtol 1e-8)."""
+    import torch
+
+    from cokriging_tpu_torch.cov.params import MaternParams, ParamSpec
+    from cokriging_tpu_torch.estimate.vecchia import (
+        VecchiaLikelihood, fit_vecchia, vecchia_nll_value_and_grad,
+    )
+    from cokriging_tpu_torch.parallel import sharded_vecchia_nll
+
+    spec = ParamSpec(n_procs=2)
+    xf = torch.tensor(LARGE_INIT, dtype=torch.float64, device="cuda")
+    for dtype in (np.float64, np.float32):
+        name = np.dtype(dtype).name
+        c1, z1, c2, z2 = large_n_month(dtype)
+        lik = k_stage(stages, launches, f"vecchia_scaffold_{name}", lambda: VecchiaLikelihood(
+            [c1, c2], [z1, z2], m=VECCHIA_M, geodesic=True, chunk=VECCHIA_CHUNK))
+        n_chunks = math.ceil(lik.n / VECCHIA_CHUNK)
+        every = {"matern_corr_pairs": n_chunks, "matern_corr_pairs_grad": n_chunks}
+
+        def sharded(on):
+            x = xf.clone().requires_grad_(True)
+            v = sharded_vecchia_nll(lik, x, spec, mesh=on, chunk=VECCHIA_CHUNK)
+            return (v.detach(), *torch.autograd.grad(v, x))
+
+        key = f"vecchia_{name}"
+        v1, g1 = k_stage(stages, launches, key, lambda: vecchia_nll_value_and_grad(
+            xf, lik._win, spec, True, VECCHIA_CHUNK), every, exact=True)
+        with captured("matern_corr_pairs") as calls:
+            v4, g4 = k_stage(stages, launches, key + "_mesh", lambda: sharded(mesh), every,
+                             exact=True)
+        shard_devs = {a[3].device for a in calls}
+        check(len(calls) == n_chunks and shard_devs == set(mesh.devices),
+              f"(k) {key}: {len(calls)} launches on {shard_devs}")
+        pairs = [(v4.cpu().numpy(), v1.cpu().numpy()), (g4.cpu().numpy(), g1.cpu().numpy())]
+        if name == "float64":
+            gap_v = k_same(f"{key} value", pairs[:1], 1e-12)
+            gap_g = k_same(f"{key} gradient", pairs[1:], 1e-9, norm=True)
+        else:
+            gap_v = k_same(f"{key} value", pairs[:1], math.inf)
+            gap_g = k_same(f"{key} gradient", pairs[1:], math.inf, norm=True)
+        k_same(f"{key} one-card mesh", [(a.cpu().numpy(), b.cpu().numpy())
+                                        for a, b in zip(sharded(one_card), (v1, g1))])
+        log(f"(k) {key}: {lik.n} windows in {n_chunks} chunks over {mesh.size} shards: value "
+            f"{float(v1)}, rel gap {gap_v:.3e}, gradient gap / max|g| {gap_g:.3e}"
+            f"{' (bars 1e-12, 1e-9)' if name == 'float64' else ' (logged)'}; {mesh.size} shards "
+            f"{stages[key + '_mesh']:.4f} s, one device {stages[key]:.4f} s; scaffold "
+            f"{stages['vecchia_scaffold_' + name]:.2f} s; launches {launches[key + '_mesh']}")
+        del lik, calls
+        torch.cuda.empty_cache()
+    c1, z1, c2, z2 = large_n_month(np.float64)
+    mf = geo_fields(((c1, z1, "XCO2"), (c2, z2, "SIF")))
+    init = MaternParams.default(2, spec).with_flat(xf.cpu())
+    kw = dict(init=init, m=VECCHIA_M, maxiter=K_VECCHIA_ITERS, main=False, chunk=VECCHIA_CHUNK)
+    p1, i1 = k_stage(stages, launches, "vecchia_fit_float64", lambda: fit_vecchia(mf, **kw))
+    p4, i4 = k_stage(stages, launches, "vecchia_fit_float64_mesh", lambda: fit_vecchia(
+        mf, mesh=mesh, **kw), {"matern_corr_pairs": mesh.size, "matern_corr_pairs_grad": mesh.size})
+    gap = k_same("vecchia_fit_float64", [(p4.to_flat().cpu().numpy(), p1.to_flat().cpu().numpy())],
+                 1e-8)
+    log(f"(k) vecchia_fit_float64: {K_VECCHIA_ITERS} iterations, {i1['n_obj_evals']} / "
+        f"{i4['n_obj_evals']} evaluations, nll {i1['nll']} / {i4['nll']}; params rel gap {gap:.3e} "
+        f"(bar 1e-8); {mesh.size} shards {stages['vecchia_fit_float64_mesh']:.2f} s, one device "
+        f"{stages['vecchia_fit_float64']:.2f} s (each with its scaffold)")
+
+
+def k_cg(mesh, one_card, stages, launches):
+    """IterativeJointPredictor(mesh=) on 2 x 2,500 of bench.py's month with
+    nuggets 0.1 at 256 cells (tol 1e-10, float64; rtol 1e-8), on 2 x 2,560
+    (tol 1e-4) bit-equal on the one-card mesh, then (g)'s 2 x 12,500 at 256 cells (40
+    iterations, float32): the iterations equal, the gap logged."""
+    import torch
+
+    from cokriging_tpu_torch.cov.matern import MultivariateMatern
+    from cokriging_tpu_torch.cov.params import MaternParams
+    from cokriging_tpu_torch.data.grids import prediction_coords
+    from cokriging_tpu_torch.predict.iterative import IterativeJointPredictor
+
+    pc = prediction_coords()[:K_CG_CELLS]
+    c1, v1, c2, v2 = build_inputs(N_PER_PROC, np.float64)
+    mod = MultivariateMatern(params=MaternParams.from_flat(torch.tensor(K_PARAMS, dtype=torch.float64)))
+    pairs = {"matern_corr_pairs": mesh.size}
+
+    def cg(n, on, **kw):
+        mf = geo_fields(((c1[:n], v1[:n], "Z0"), (c2[:n], v2[:n], "Z1")))
+        p = IterativeJointPredictor(mod, mf, block=512, rhs_batch=K_CG_CELLS, mesh=on, **kw)
+        out = p(0, pc)
+        return out, p.last_diagnostics
+
+    kw = dict(tol=1e-10, maxiter=1000)
+    one, d1 = k_stage(stages, launches, "cg_float64", lambda: cg(K_CG_SMALL, None, **kw), {
+        "matern_corr_pairs": 1})
+    got, d4 = k_stage(stages, launches, "cg_float64_mesh", lambda: cg(K_CG_SMALL, mesh, **kw), pairs)
+    gap = k_same("cg_float64", [(got.pred, one.pred), (got.pred_err, one.pred_err)], 1e-8, norm=True)
+    # the one-card mesh's check at a looser tolerance: bit-equality holds at any
+    a, _ = cg(K_CG_TILED, None, tol=1e-4, maxiter=1000)
+    b, _ = cg(K_CG_TILED, one_card, tol=1e-4, maxiter=1000)
+    k_same("cg_float64 one-card mesh", [(b.pred, a.pred), (b.pred_err, a.pred_err)])
+    log(f"(k) cg_float64: 2 x {K_CG_SMALL}, {K_CG_CELLS} cells, tol 1e-10: (iterations, residual) "
+        f"{d1} / sharded {d4}; rel gap {gap:.3e} (bar 1e-8); {mesh.size} shards "
+        f"{stages['cg_float64_mesh']:.3f} s, one device {stages['cg_float64']:.3f} s; launches "
+        f"{launches['cg_float64_mesh']}")
+    # (g)'s system in float32
+    g1, z1, g2, z2 = large_n_month(np.float32)
+    mf = geo_fields(((g1[:N_CG], z1[:N_CG], "XCO2"), (g2[:N_CG], z2[:N_CG], "SIF")))
+    mod32 = MultivariateMatern(params=MaternParams.from_flat(torch.tensor(LARGE_INIT,
+                                                                          dtype=torch.float32)))
+    cells = pc.astype(np.float32)
+
+    def big(on):
+        p = IterativeJointPredictor(mod32, mf, block=512, rhs_batch=K_CG_CELLS, tol=1e-3, maxiter=40,
+                                    mesh=on)
+        return p(1, cells), p.last_diagnostics
+
+    one, d1 = k_stage(stages, launches, "cg_float32", lambda: big(None), {"matern_corr_pairs": 1})
+    got, d4 = k_stage(stages, launches, "cg_float32_mesh", lambda: big(mesh), pairs)
+    check([d[0] for d in d4] == [d[0] for d in d1], f"(k) cg_float32: iterations {d4} vs {d1}")
+    gap = k_same("cg_float32", [(got.pred, one.pred), (got.pred_err, one.pred_err)], math.inf,
+                 norm=True)
+    log(f"(k) cg_float32: 2 x {N_CG}, {K_CG_CELLS} cells, 40 iterations: (iterations, residual) "
+        f"{d1} / sharded {d4}; gap / max {gap:.3e} (logged); {mesh.size} shards "
+        f"{stages['cg_float32_mesh']:.3f} s, one device {stages['cg_float32']:.3f} s")
+
+
+def k_bootstrap(mesh, one_card, stages, launches):
+    """The parametric bootstrap on (i)'s 2 x 12,500 spectral sample (16
+    replicates, maxiter 60, float64) with its refit sharded: bit-equal to
+    the unsharded bootstrap, walls logged; on the one-card mesh (4
+    replicates, maxiter 20) bit-equal too."""
+    from cokriging_tpu_torch.estimate import bootstrap as TB
+    from cokriging_tpu_torch.estimate.empirical import VarioConfig
+    from cokriging_tpu_torch.fields.field import Field, MultiField
+
+    if "i_spectral" not in SHARED:
+        SHARED["i_spectral"] = phase_i_spectral({}, {}, [])[::2]
+    mod, samples = SHARED["i_spectral"]
+    mf = MultiField(fields=[Field.from_arrays(s[["x", "y"]].values, s[f"Z{k}"].values, f"Z{k}")
+                            for k, s in enumerate(samples)])
+    cfg = VarioConfig(max_dist=I_MAX_DIST, n_bins=15, geodesic=False)
+    passes = {"variogram_minmax": 1, "variogram_bin_batch": 1}
+
+    def boot(on, n_rep=K_BOOT_REP, maxiter=K_BOOT_MAXITER):
+        return TB.parametric_bootstrap(mod, mf, cfg, n_rep=n_rep, seed=3, maxiter=maxiter, mesh=on)
+
+    one = k_stage(stages, launches, "bootstrap", lambda: boot(None), passes)
+    got = k_stage(stages, launches, "bootstrap_mesh", lambda: boot(mesh), passes)
+    k_same("bootstrap", [(got.flats, one.flats), (got.costs, one.costs)])
+    k_same("bootstrap one-card mesh", [(a, b) for x, y in ((boot(one_card, *K_BOOT_ONE_CARD),
+                                                            boot(None, *K_BOOT_ONE_CARD)),)
+                                       for a, b in ((x.flats, y.flats), (x.costs, y.costs))])
+    log(f"(k) bootstrap: {K_BOOT_REP} replicates, maxiter {K_BOOT_MAXITER}, 2 x {I_N}: bit-equal; "
+        f"{mesh.size} shards in lockstep {stages['bootstrap_mesh']:.2f} s, unsharded "
+        f"{stages['bootstrap']:.2f} s; finite {bool(np.isfinite(one.flats).all())}")
+
+
+def phase_k():
+    """The sharded paths on the card; returns its rows of the kernels line."""
+    import torch
+
+    from cokriging_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(K_SHARDS, device="cuda")
+    one_card = make_mesh()
+    check(one_card.size == torch.cuda.device_count(), "(k) make_mesh() is not every card")
+    stages, launches = {}, {}
+    rows = k_variograms(mesh, one_card, stages, launches)
+    for part in (k_local, k_vecchia, k_cg, k_bootstrap):
+        part(mesh, one_card, stages, launches)
+        log(f"(k) {part.__name__} done, {time.perf_counter() - t0:.1f} s into (k)")
+        torch.cuda.empty_cache()
+    log(f"(k) stages (s) {json.dumps({k: round(v, 4) for k, v in stages.items()})}")
+    log(f"(k) launches per stage {json.dumps(launches)}")
+    log(f"(k) seconds {time.perf_counter() - t0:.1f}")
+    return rows
+
+
+def main(phases="abcdefghijk"):
     try:
         import torch
     except ImportError:
@@ -3424,6 +3909,8 @@ def main(phases="abcdefghij"):
         import cokriging_tpu_torch.sim.spectral  # noqa: F401
         import cokriging_tpu_torch.stats.spacetime  # noqa: F401
         import cokriging_tpu_torch.utils.io  # noqa: F401
+        import cokriging_tpu_torch.parallel  # noqa: F401
+        import cokriging_tpu_torch.data.readers  # noqa: F401
         from cokriging_tpu_torch.__main__ import _parser  # noqa: F401
         from cokriging_tpu_torch.data.grids import prediction_coords
         from cokriging_tpu_torch.kernels import _build
@@ -3451,6 +3938,7 @@ def main(phases="abcdefghij"):
                 phase_c_block_grad(c1, c2, dtype, kres)
                 phase_c_pairs(dtype, kres)
                 phase_c_partition(dtype, kres)
+                phase_c_hess_edges(dtype, kres)
             for small in (phase_c_small_path, phase_c_small_nll, phase_c_small_large_n):
                 log(f"(c) elapsed since start {time.perf_counter() - t_start:.1f} s")
                 small()
@@ -3527,6 +4015,10 @@ def main(phases="abcdefghij"):
         if "j" in phases:
             rows += phase_j()
             log(f"(j) elapsed since start {time.perf_counter() - t_start:.1f} s")
+        # (k) the sharded paths
+        if "k" in phases:
+            rows += phase_k()
+            log(f"(k) elapsed since start {time.perf_counter() - t_start:.1f} s")
     except SmokeFailure as e:
         print(f"FAILED: {e}", file=sys.stderr)
         return 1
@@ -3544,7 +4036,7 @@ def main(phases="abcdefghij"):
                 f"{recorded if recorded is not None else 'none'} ms]{extra}, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}), launches {r['launches']}; ptxas {r['ptxas']}")
     print(json.dumps({"kernels": rows}))
-    if phases != "abcdefghij":
+    if phases != "abcdefghijk":
         print(f"partial run of phases {phases}: no result")
         return 0
     print(smi)

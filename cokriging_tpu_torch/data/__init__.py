@@ -13,3 +13,4 @@ from cokriging_tpu_torch.data.grids import (  # noqa: F401
     main_coords_array,
     produce_climatology_conus,
 )
+from cokriging_tpu_torch.data.readers import prep_sif, prep_xco2, prep_evi, read_transcom  # noqa: F401

@@ -194,8 +194,10 @@ def parametric_bootstrap(
             MaternParams.
         mf: MultiField whose coordinates define the design.
         config: the VarioConfig used for the original fit.
-        mesh: not supported yet (a device mesh is ROADMAP.md Queue 1 item
-            8); anything but None raises.
+        mesh: optional ``parallel.Mesh``: the refit's replicates are
+            sharded over it (``fit_wls_batch_arrays``); the simulation and
+            the re-estimate run on ``device``. The result equals the
+            unsharded one bit for bit.
         main: use the main-grid coordinate subset instead of the full
             (augmented) coordinates.
         project_validity: project the generator onto the spectral validity
@@ -211,8 +213,9 @@ def parametric_bootstrap(
     Returns:
         BootstrapResult (``.summary()`` for SEs / percentile intervals).
     """
-    if mesh is not None:
-        raise ValueError("mesh= is not ported yet (ROADMAP.md Queue 1 item 8)")
+    from cokriging_tpu_torch.parallel.mesh import check_mesh
+
+    check_mesh(mesh)
     dev = resolve_device(device)
     params = mod.params if hasattr(mod, "params") else mod
     if project_validity:
@@ -236,6 +239,7 @@ def parametric_bootstrap(
         x0 = np.tile(x_init[None], (n_rep, 1))
     flats, costs, _ = fit_wls_batch_arrays(
         x0, np.tile(centers[None], (n_rep, 1, 1)), np.nan_to_num(means, nan=0.0),
-        np.tile(counts[None], (n_rep, 1, 1)), pairs, params.spec, maxiter=maxiter, device=dev,
+        np.tile(counts[None], (n_rep, 1, 1)), pairs, params.spec, maxiter=maxiter, mesh=mesh,
+        device=dev,
     )
     return BootstrapResult(params=params, flats=flats, costs=costs)

@@ -246,6 +246,32 @@ def _lbfgs_direction(g, S, Y, rho, head, n_filled):
     return -q
 
 
+def lockstep(steps):
+    """Drive generators that each yield the tensor they must read from
+    their device and take the read back as a numpy array: every live
+    generator runs up to its read, then the round's reads are made in order
+    and handed back, so generators on different devices keep their devices
+    busy at the same time (the shards of a device mesh). Returns each
+    generator's return value, in order."""
+    out = [None] * len(steps)
+    reads = {}
+
+    def advance(k, value):
+        try:
+            reads[k] = steps[k].send(value)
+        except StopIteration as stop:
+            out[k] = stop.value
+
+    for k in range(len(steps)):
+        advance(k, None)
+    while reads:
+        host = [(k, t.cpu().numpy()) for k, t in reads.items()]
+        reads.clear()
+        for k, arr in host:
+            advance(k, arr)
+    return out
+
+
 def sigmoid_box_lbfgs_batch(
     raw, x0, lo, hi, maxiter: int = 200, tol: float = 1e-6,
     memory_size: int = 10, n_starts: int = 1,
@@ -292,6 +318,17 @@ def sigmoid_box_lbfgs_batch(
     A cleaned gradient of exactly zero means the iterate is stranded on the
     non-PD penalty plateau; that exit reports converged=False.
     """
+    return lockstep([sigmoid_box_lbfgs_batch_steps(raw, x0, lo, hi, maxiter, tol, memory_size,
+                                                   n_starts)])[0]
+
+
+def sigmoid_box_lbfgs_batch_steps(
+    raw, x0, lo, hi, maxiter: int = 200, tol: float = 1e-6,
+    memory_size: int = 10, n_starts: int = 1,
+):
+    """``sigmoid_box_lbfgs_batch`` as a generator for ``lockstep``: it yields
+    the tensor of each iteration's one host read, takes the read back as a
+    numpy array, and returns the batch's result."""
     m = memory_size
     dt, dev = x0.dtype, x0.device
     B, d = x0.shape
@@ -332,8 +369,8 @@ def sigmoid_box_lbfgs_batch(
         active = (evals < maxiter) & (torch.sqrt(gg) >= tol) & ~fail & (n_small < 3)
         # the one host read of the iteration: who steps, who accepted its
         # last trial, and how full each history is
-        state = torch.cat([active.long(), (accepted & active).long(),
-                           torch.clamp_max(head, m)]).cpu().numpy()
+        state = yield torch.cat([active.long(), (accepted & active).long(),
+                                 torch.clamp_max(head, m)])
         idx_np = np.flatnonzero(state[:M])
         if idx_np.size == 0:
             break

@@ -480,13 +480,16 @@ def fit_vecchia(mf, init: Optional[MaternParams] = None, m: int = 30,
 
     scipy's iterate is float64; every evaluation runs in the windows' dtype
     and the parameters come back in it, so a float32 dataset stays float32
-    downstream. ``mesh`` (term-parallel evaluation across devices) comes
-    with the port's ``parallel/``.
+    downstream. ``mesh``: optional ``parallel.Mesh``; the objective and its
+    gradient then evaluate term-parallel over it
+    (``parallel.mesh.sharded_windows_nll``, the windows placed on the
+    shards once), with the unsharded evaluation's chunks.
     """
     from scipy.optimize import minimize
 
-    if mesh is not None:
-        raise NotImplementedError("fit_vecchia(mesh=...) needs the port's parallel/")
+    from cokriging_tpu_torch.parallel.mesh import check_mesh
+
+    check_mesh(mesh)
     init = init or MaternParams.default(mf.n_procs)
     spec = init.spec
     lik = _likelihood(mf, m, use_measurement_var, main, chunk, device,
@@ -495,8 +498,17 @@ def fit_vecchia(mf, init: Optional[MaternParams] = None, m: int = 30,
     lo_np, hi_np = spec.bounds()
     lo, hi = _bounds(spec, win_dt, dev)
 
-    def raw_u(u):
-        return vecchia_nll(_box_forward(u, lo, hi), *lik._win, spec, lik.geodesic, chunk)
+    if mesh is None:
+        def raw_u(u):
+            return vecchia_nll(_box_forward(u, lo, hi), *lik._win, spec, lik.geodesic, chunk)
+    else:
+        from cokriging_tpu_torch.parallel.mesh import sharded_windows_nll, vecchia_shards
+
+        shards = vecchia_shards(lik, mesh, chunk)
+
+        def raw_u(u):
+            return sharded_windows_nll(_box_forward(u, lo, hi), shards, spec, lik.geodesic,
+                                       chunk, lik.n, dev)
 
     x0 = np.clip(
         init.to_flat().detach().cpu().numpy().astype(np.float64),

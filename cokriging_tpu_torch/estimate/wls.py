@@ -419,17 +419,19 @@ def make_device_wls_fitter(pairs, spec, maxiter=300, validity_weight=0.0):
     optimum catches default and moment inits on oracle problems). With a
     leading batch axis (x0 (B, n_params), the bins (B, n_pairs, n_bins))
     all B x 3 members step together, one cost evaluation per iteration for
-    all of them, and each member's result is its fit alone.
+    all of them, and each member's result is its fit alone. ``fit.steps``
+    is the same fit as a generator for ``estimate.nll.lockstep``, which
+    steps the shards of a device mesh together.
 
     ``validity_weight`` adds the Cauchy-Schwarz ``validity_penalty``
     (scaled by the total pair count): thin monthly estimates otherwise
     minimize at |rho| = 1, where the joint model is singular.
     """
-    from cokriging_tpu_torch.estimate.nll import sigmoid_box_lbfgs_batch
+    from cokriging_tpu_torch.estimate.nll import lockstep, sigmoid_box_lbfgs_batch_steps
 
     lo_np, hi_np = spec.bounds()
 
-    def fit(x0, centers, means, counts):
+    def steps(x0, centers, means, counts):
         dt, dev = centers.dtype, centers.device
         single = centers.ndim == 2
         x0 = torch.as_tensor(x0, dtype=dt, device=dev)
@@ -440,12 +442,16 @@ def make_device_wls_fitter(pairs, spec, maxiter=300, validity_weight=0.0):
             return _wls_objective(pairs, spec, validity_weight, centers[rows], means[rows],
                                   counts[rows])(x)
 
-        out = sigmoid_box_lbfgs_batch(
+        out = yield from sigmoid_box_lbfgs_batch_steps(
             raw, x0, torch.as_tensor(lo_np, dtype=dt, device=dev),
             torch.as_tensor(hi_np, dtype=dt, device=dev), maxiter=maxiter, n_starts=3,
         )
         return tuple(o[0] for o in out) if single else out
 
+    def fit(x0, centers, means, counts):
+        return lockstep([steps(x0, centers, means, counts)])[0]
+
+    fit.steps = steps
     return fit
 
 
@@ -466,8 +472,8 @@ def fit_wls_batch(
     Args:
         estimates: list of EmpiricalVariogram with identical pairs/n_bins.
         init: shared initial MaternParams (also fixes spec/bounds).
-        mesh: not supported yet (a device mesh is ROADMAP.md Queue 1 item
-            8); anything but None raises.
+        mesh: optional ``parallel.Mesh``; the members are sharded over it
+            (see ``fit_wls_batch_arrays``).
         validity_weight: Cauchy-Schwarz penalty weight (see
             ``make_device_wls_fitter``).
         per_month_init: start each month from its own ``moment_init``
@@ -522,21 +528,34 @@ def fit_wls_batch_arrays(
         x0: (B, n_params) initial flat vectors.
         centers/means/counts: (B, n_pairs, n_bins) stacks (means must be
             NaN-free; zero-count bins are masked by the cost).
-        mesh: not supported yet (ROADMAP.md Queue 1 item 8); anything but
-            None raises.
+        mesh: optional ``parallel.Mesh``: the members split into contiguous
+            shards, each fitted on its device by the same batched fitter,
+            the shards stepped in lockstep (``estimate.nll.lockstep``) and
+            the results concatenated in order; a member's result is its fit
+            alone, so the sharded fit equals the unsharded one bit for bit.
+            ``device`` is then unused.
 
     Returns:
         (xs, costs, converged): (B, n_params) fitted flats, (B,) final
         costs, (B,) bool convergence flags, as numpy arrays.
     """
-    if mesh is not None:
-        raise ValueError("mesh= is not ported yet (ROADMAP.md Queue 1 item 8)")
-    dev = resolve_device(device)
-    c = torch.as_tensor(np.asarray(centers), device=dev)
+    from cokriging_tpu_torch.estimate.nll import lockstep
+    from cokriging_tpu_torch.parallel.mesh import check_mesh, shard_ranges
+
+    check_mesh(mesh)
     fitter = make_device_wls_fitter(tuple(pairs), spec, maxiter, validity_weight=validity_weight)
-    xs, costs, _, conv = fitter(
-        torch.as_tensor(np.asarray(x0), dtype=c.dtype, device=dev), c,
-        torch.as_tensor(np.asarray(means), dtype=c.dtype, device=dev),
-        torch.as_tensor(np.asarray(counts), device=dev).to(c.dtype),
-    )
-    return xs.cpu().numpy(), costs.cpu().numpy(), conv.cpu().numpy()
+    arrays = [np.asarray(a) for a in (x0, centers, means, counts)]
+    if mesh is None:
+        devices, ranges = [resolve_device(device)], [(0, arrays[0].shape[0])]
+    else:
+        devices, ranges = mesh.devices, shard_ranges(arrays[0].shape[0], mesh.size)
+    fits = []
+    for dev, (b0, b1) in zip(devices, ranges):
+        if b1 == b0 and fits:
+            continue
+        c = torch.as_tensor(arrays[1][b0:b1], device=dev)
+        x, m, k = (torch.as_tensor(a[b0:b1], device=dev).to(c.dtype)
+                   for a in (arrays[0], arrays[2], arrays[3]))
+        fits.append(fitter.steps(x, c, m, k))
+    out = lockstep(fits)
+    return tuple(np.concatenate([o[k].cpu().numpy() for o in out]) for k in (0, 1, 3))

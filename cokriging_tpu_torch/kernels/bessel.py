@@ -305,9 +305,14 @@ def kv_triple_from_pair(mu, nl, x, k_mu, k_mu1):
 
 def _kv_pair(mu, x):
     """(K_mu, K_{mu+1}) with both branches on clamped inputs, selected at
-    x < 2."""
-    ks_mu, ks_mu1 = _temme_series(mu, torch.clamp_max(x, 2.0))
-    kc_mu, kc_mu1 = _steed_cf2(mu, torch.clamp_min(x, 2.0))
+    x < 2. The clamps are ``torch.minimum`` / ``torch.maximum`` against a
+    tensor, as the reference's ``jnp.minimum`` / ``jnp.maximum``
+    (bessel.py:513-515): at x == 2 exactly each passes half of x's
+    gradient, so a derivative taken through the pair (K_nu's second order,
+    ``kv_exact_grad``) splits there as the reference's does."""
+    two = x.new_tensor(2.0)
+    ks_mu, ks_mu1 = _temme_series(mu, torch.minimum(x, two))
+    kc_mu, kc_mu1 = _steed_cf2(mu, torch.maximum(x, two))
     use_series = x < 2.0
     return (
         torch.where(use_series, ks_mu, kc_mu),

@@ -50,6 +50,13 @@ template <> struct Eps<double> {
   static constexpr double value = 2.220446049250313e-16;
 };
 
+// out of line on the card: a branch few lanes take keeps its registers apart
+#ifdef __CUDACC__
+#define CKT_NOINLINE __noinline__
+#else
+#define CKT_NOINLINE __attribute__((noinline))
+#endif
+
 constexpr double kPi = 3.141592653589793238462643383279502884;
 constexpr double kLn2 = 0.6931471805599453;
 
@@ -298,10 +305,12 @@ __host__ __device__ __forceinline__ void temme_series_tab(const Row& t, typename
   k_mu1 = ksum1 * (T(2) / x);
 }
 
+// one_trip, when given, is set where the lane converged on CF2's first trip.
 template <typename Row>
 __host__ __device__ __forceinline__ void steed_cf2_tab(const Row& t, typename Row::T x,
                                                        bool early_exit, typename Row::V& k_mu,
-                                                       typename Row::V& k_mu1) {
+                                                       typename Row::V& k_mu1,
+                                                       bool* one_trip = nullptr) {
   using T = typename Row::T;
   using V = typename Row::V;
   const V a1 = t.at(tab::kA1);
@@ -335,7 +344,10 @@ __host__ __device__ __forceinline__ void steed_cf2_tab(const Row& t, typename Ro
       q1 = q2 * inv;
       q2 = qnew * inv;
       c = c_n * scale;
-      if (converged) break;
+      if (converged) {
+        if (one_trip) *one_trip = i == 2;
+        break;
+      }
     }
   }
   h = a1 * h;
@@ -347,11 +359,12 @@ __host__ __device__ __forceinline__ void steed_cf2_tab(const Row& t, typename Ro
 template <typename Row>
 __host__ __device__ __forceinline__ void kv_pair_tab(const Row& t, typename Row::T x,
                                                      bool early_exit, typename Row::V& k_mu,
-                                                     typename Row::V& k_mu1) {
+                                                     typename Row::V& k_mu1,
+                                                     bool* one_trip = nullptr) {
   if (x < typename Row::T(2)) {
     temme_series_tab(t, x, k_mu, k_mu1);
   } else {
-    steed_cf2_tab(t, x, early_exit, k_mu, k_mu1);
+    steed_cf2_tab(t, x, early_exit, k_mu, k_mu1, one_trip);
   }
 }
 
@@ -412,6 +425,133 @@ __host__ __device__ __forceinline__ bool matern_partials_tab(T a, const DualRow<
   return true;
 }
 
+// ---- the x-derivative of the mu-tangent, where the reference's differs ------
+//
+// The reference differentiates K_nu twice by AD of its first-order rule: its
+// d/dx of dK/dnu is the x-derivative of the mu-tangent as computed, and its
+// d2K/dx2 the x-derivative of -(K_{nu-1} + K_{nu+1}) / 2 as computed, both
+// through the branch clamps min(x, 2) / max(x, 2) and the order recurrence.
+// On two kinds of CF2 lane that is not the true mixed partial that
+// matern_second_tab takes everywhere else (d/dnu of dK/dx, and d2K/dx2 from
+// Bessel's equation):
+//   - a lane that converges on CF2's first trip (a1 = 0.25 - mu^2 tiny but
+//     not 0, nu within a few ulp of a half-integer) truncates the tangent,
+//     and the reference then takes d/dx of the truncated tangent;
+//   - at x == 2 exactly the clamps pass half of x's gradient each, so the
+//     pair's share of every x-derivative is halved.
+// There the entry carries (value, d/dmu) pairs with their x-derivatives
+// through the pair and the recurrence: the pair's from CF2's setup and one
+// trip (first-trip lanes) or from K_mu' = (mu / x) K_mu - K_{mu+1} and
+// K_{mu+1}' = -K_mu - ((mu + 1) / x) K_{mu+1} (a converged pair), weighted
+// 1/2 at x == 2; the recurrence's own x-dependence at full weight.
+
+// x-derivatives (as (value, d/dmu) pairs) of (K_mu, K_{mu+1}) from CF2 stopped
+// after its first trip: the operations of steed_cf2_tab's setup and first trip,
+// each with its x-derivative.
+template <typename T>
+__host__ __device__ __forceinline__ void cf2_first_trip_dx(const Dual2Row<T>& t, T x,
+                                                           Dual<T>& k0_x, Dual<T>& k1_x) {
+  using D = Dual<T>;
+  const D a1(t.scalar(tab::kA1), t.tangent(tab::kA1));
+  const D mu(t.scalar(tab::kMu), t.tangent(tab::kMu));
+  const int col = TabLayout<T>::cf2;
+  const D a_n(t.scalar(col), t.tangent(col));
+  const D r_a(t.scalar(col + 1), t.tangent(col + 1));
+  const D r_c(t.scalar(col + 2), t.tangent(col + 2));
+  // setup: b = 2 (1 + x), d = h = delh = 1 / b, q = c = a1, s = 1 + a1 d
+  const T b = T(2) * (T(1) + x);
+  const T d = T(1) / b;
+  const T d_x = T(-2) * d * d;
+  const D s0 = T(1) + a1 * d;
+  const D s0_x = a1 * d_x;
+  // trip 2: q1 = 0, q2 = 1
+  const D c_n = a1 * r_c;
+  const D qnew = -b * r_a;
+  const D qnew_x = T(-2) * r_a;
+  const D q = a1 + c_n * qnew;
+  const D q_x = c_n * qnew_x;
+  const T b2 = b + T(2);
+  const D den = b2 + a_n * d;
+  const D den_x = T(2) + a_n * d_x;
+  const D d2 = recip(den);
+  const D d2_x = -(d2 * d2) * den_x;
+  const D delh = (b2 * d2 - T(1)) * d;
+  const D delh_x = (T(2) * d2 + b2 * d2_x) * d + (b2 * d2 - T(1)) * d_x;
+  const D h_x = d_x + delh_x;
+  const D h = d + delh;
+  const D s = s0 + q * delh;
+  const D s_x = s0_x + q_x * delh + q * delh_x;
+  // K_mu = F(x) / s, F = sqrt(pi / (2 x)) exp(-x); K_{mu+1} = K_mu g / x,
+  // g = mu + x + 1/2 - a1 h
+  const T inv_x = T(1) / x;
+  const T f = sqrt(T(kPi) / (T(2) * x)) * vexp(-x);
+  const T f_x = f * (T(-0.5) * inv_x - T(1));
+  const D inv_s = recip(s);
+  const D inv_s_x = -(inv_s * inv_s) * s_x;
+  const D k0 = f * inv_s;
+  k0_x = f_x * inv_s + f * inv_s_x;
+  const D g = mu + x + T(0.5) - a1 * h;
+  const D g_x = T(1) - a1 * h_x;
+  k1_x = (k0_x * g + k0 * g_x) * inv_x - (k0 * g) * (inv_x * inv_x);
+}
+
+// (d2K/dx2, d/dx of dK/dnu) as the reference takes them at nu = mu + nl, from
+// the pair (k0, k1) = (K_mu, K_{mu+1}) with its mu-tangents, the pair's
+// x-derivatives (k0_x, k1_x) and their weight w (1/2 at x == 2, else 1).
+template <typename T>
+__host__ __device__ __forceinline__ void reference_x_partials(Dual<T> mu, int nl, T x,
+                                                              Dual<T> k0, Dual<T> k1,
+                                                              Dual<T> k0_x, Dual<T> k1_x, T w,
+                                                              T& k_xx, T& k_xn) {
+  using D = Dual<T>;
+  const T two_over_x = T(2) / x;
+  const T two_over_x_x = -two_over_x / x;
+  k0_x = w * k0_x;
+  k1_x = w * k1_x;
+  for (int i = 1; i <= (nl > 0 ? nl - 1 : 0); ++i) {
+    const D coef = mu + T(i);
+    const D next = coef * two_over_x * k1 + k0;
+    const D next_x = coef * (two_over_x * k1_x + two_over_x_x * k1) + k0_x;
+    k0 = k1;
+    k0_x = k1_x;
+    k1 = next;
+    k1_x = next_x;
+  }
+  D prev_x, mid_x, next_x;
+  if (nl == 0) {
+    prev_x = k1_x - (two_over_x * mu) * k0_x - (two_over_x_x * mu) * k0;
+    mid_x = k0_x;
+    next_x = k1_x;
+  } else {
+    const D coef = mu + T(nl);
+    prev_x = k0_x;
+    mid_x = k1_x;
+    next_x = (two_over_x * coef) * k1_x + (two_over_x_x * coef) * k1 + k0_x;
+  }
+  k_xx = T(-0.5) * (prev_x.v + next_x.v);
+  k_xn = mid_x.d;
+}
+
+// The reference's (d2K/dx2, d/dx of dK/dnu) on a lane where they differ from
+// the true partials, from the pair (km, km1) with its mu-tangents: the pair's
+// x-derivatives from CF2's first trip (one_trip) or from the converged
+// pair's identities, weighted 1/2 at x == 2.
+template <typename T>
+__host__ __device__ CKT_NOINLINE void reference_x_lane(const Dual2Row<T>& t, T a, int nl,
+                                                       bool one_trip, Dual2<T> km, Dual2<T> km1,
+                                                       T& k_xx, T& k_xn) {
+  const Dual<T> mu(t.scalar(tab::kMu), t.tangent(tab::kMu)), p0(km.v, km.d), p1(km1.v, km1.d);
+  Dual<T> p0_x, p1_x;
+  if (one_trip) {
+    cf2_first_trip_dx(t, a, p0_x, p1_x);
+  } else {
+    const T inv_a = T(1) / a;
+    p0_x = (mu * inv_a) * p0 - p1;
+    p1_x = -p0 - ((mu + T(1)) * inv_a) * p1;
+  }
+  reference_x_partials(mu, nl, a, p0, p1, p0_x, p1_x, a == T(2) ? T(0.5) : T(1), k_xx, k_xn);
+}
+
 // M and its first and second partials in (nu, ls) at a = sqrt(2 nu) h / ls > 0
 // from a second-order table row, from one second-order series/CF2 pass with
 // nl pinned: K_{nu-1}, K_nu, K_{nu+1} with their mu-tangents and K_nu's second
@@ -437,7 +577,13 @@ __host__ __device__ __forceinline__ bool matern_second_tab(T a, const Dual2Row<T
   const int nl = static_cast<int>(t.scalar(tab::kNl));
   const V mu = t.at(tab::kMu);
   V km, km1;
-  kv_pair_tab(t, a, false, km, km1);
+  bool one_trip = false;
+  kv_pair_tab(t, a, false, km, km1, &one_trip);
+  // the lanes where the reference's x-derivatives part from the true ones
+  // (see cf2_first_trip_dx): they take the pair's x-derivatives here
+  const bool ref_x = one_trip || a == T(2);
+  T k_xx_ref = T(0), k_xn_ref = T(0);
+  if (ref_x) reference_x_lane(t, a, nl, one_trip, km, km1, k_xx_ref, k_xn_ref);
   order_recurrence(mu, nl > 0 ? nl - 1 : 0, a, km, km1);
   const T two_over_a = T(2) / a;
   V k_prev, k_mid, k_next;
@@ -458,9 +604,11 @@ __host__ __device__ __forceinline__ bool matern_second_tab(T a, const Dual2Row<T
   m = e * g;
   if (!(isfinite(m) && m > T(0))) return false;
   const T k_x = T(-0.5) * (k_prev.v + k_next.v);
+  // d/dnu of dK/dx; d/dx of dK/dnu, which equals it but where ref_x holds
   const T k_nx = T(-0.5) * (k_prev.d + k_next.d);
+  const T k_xn = ref_x ? k_xn_ref : k_nx;
   const T inv_a = T(1) / a;
-  const T k_xx = (T(1) + (nu * inv_a) * (nu * inv_a)) * g - k_x * inv_a;
+  const T k_xx = ref_x ? k_xx_ref : (T(1) + (nu * inv_a) * (nu * inv_a)) * g - k_x * inv_a;
   const T a_n = a / (T(2) * nu);
   const T a_l = -a / ls;
   const T a_nn = -a_n / (T(2) * nu);
@@ -468,8 +616,8 @@ __host__ __device__ __forceinline__ bool matern_second_tab(T a, const Dual2Row<T
   const T a_ll = T(-2) * a_l / ls;
   const T g_n = k_mid.d + k_x * a_n;
   const T g_l = k_x * a_l;
-  const T g_nn = k_mid.dd + T(2) * k_nx * a_n + k_xx * a_n * a_n + k_x * a_nn;
-  const T g_nl = k_nx * a_l + k_xx * a_n * a_l + k_x * a_nl;
+  const T g_nn = k_mid.dd + (k_nx + k_xn) * a_n + k_xx * a_n * a_n + k_x * a_nn;
+  const T g_nl = k_xn * a_l + k_xx * a_n * a_l + k_x * a_nl;
   const T g_ll = k_xx * a_l * a_l + k_x * a_ll;
   const T lp_n = -T(kLn2) - t.scalar(tab::kDigamma) + log_a + T(0.5);
   const T lp_l = -nu / ls;

@@ -20,7 +20,9 @@
 // (matern_partials_tab over a dual row, as matern_grad.cu does) and the Hessian
 // kernel its second-order pass (matern_second_tab over a Dual2Row: K_nu with
 // its first and second mu-tangents with nl pinned, K_{nu+-1} with their
-// first; d2K/dx2 from Bessel's equation). Masks as matern_grad.cu's: M is 1
+// first; d2K/dx2 from Bessel's equation, or where the reference's AD takes
+// other x-derivatives, on CF2 lanes that stop after their first trip and at
+// x == 2, those: kv.cuh's reference_x_lane). Masks as matern_grad.cu's: M is 1
 // where |h| is not > 0, and the nu and ls terms count only where M is finite
 // and > 0 and the term is finite.
 //

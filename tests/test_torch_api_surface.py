@@ -12,13 +12,11 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-SUBPACKAGES = ["kernels", "cov", "estimate", "predict", "fields", "data", "sim", "stats"]
+SUBPACKAGES = ["kernels", "cov", "estimate", "predict", "fields", "data", "sim", "stats",
+               "parallel"]
 
 #: JAX names the port does not have yet -> the ROADMAP.md Queue 1 item
-TO_COME = {
-    "data": {"prep_sif": 10, "prep_xco2": 10, "prep_evi": 10, "read_transcom": 10},
-    "utils.io": {"save_dataset": 10, "load_dataset": 10},
-}
+TO_COME = {}
 
 #: module-level names of the JAX API that live outside the __init__ exports
 MODULES = {
@@ -40,6 +38,7 @@ MODULES = {
     "utils.profiling": ["trace", "Timer"],
     "utils.results": ["record_manifest", "results_dir", "save_figure"],
     "utils.config": ["compute_dtype", "EARTH_RADIUS_KM"],
+    "data.readers": ["read_transcom_binary", "open_mf"],
 }
 
 

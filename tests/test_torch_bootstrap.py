@@ -203,7 +203,7 @@ def test_summary_and_mesh(setup):
                                                        "bias", "q025", "q975"]
     pd.testing.assert_frame_equal(got, want, check_exact=False, rtol=1e-12)
     np.testing.assert_allclose(got.attrs["covariance"], want.attrs["covariance"], rtol=1e-12)
-    with pytest.raises(ValueError, match="item 8"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         TB.parametric_bootstrap(tmod, tmf, VarioConfig(0.9, 10, geodesic=False), mesh=object(),
                                 device="cpu")
 

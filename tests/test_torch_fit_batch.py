@@ -202,9 +202,9 @@ def test_adam_fitter_batched_matches_jax_and_each_member(months):
 
 def test_mesh_is_not_ported_and_empty_batches(months):
     _, tests, (c, m, n), pairs = months
-    with pytest.raises(ValueError, match="item 8"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         TW.fit_wls_batch(tests, mesh=object(), device="cpu")
-    with pytest.raises(ValueError, match="item 8"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         TW.fit_wls_batch_arrays(INIT[None], c[:1], m[:1], n[:1], pairs, ParamSpec(),
                                 mesh=object(), device="cpu")
     out = TW.fit_wls_batch([], device="cpu")

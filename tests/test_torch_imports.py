@@ -1,8 +1,9 @@
 """The port's main path imports neither JAX, nor the JAX package, nor the
 optional frame/plot libraries. The frame layer (fields from data frames,
-the grids' frame wrangling, postprocessing, table I/O, the CLI, the
-uncertainty frames, the regional statistics) imports pandas only inside the
-functions that take or return frames."""
+the grids' frame wrangling, postprocessing, table and NetCDF I/O, the
+granule readers, the CLI, the uncertainty frames, the regional statistics)
+imports pandas and h5py only inside the functions that take or return
+frames or files; the device mesh (``parallel/``) imports neither."""
 
 import subprocess
 import sys
@@ -46,13 +47,16 @@ import cokriging_tpu_torch.estimate
 import cokriging_tpu_torch.fields
 import cokriging_tpu_torch.kernels
 import cokriging_tpu_torch.predict
+import cokriging_tpu_torch.parallel
+import cokriging_tpu_torch.parallel.mesh
+import cokriging_tpu_torch.data.readers
 from cokriging_tpu_torch.__main__ import _parser
 _parser()
 from cokriging_tpu_torch.data.grids import prediction_coords
 prediction_coords()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "cokriging_tpu", "pandas",
-                                    "matplotlib", "optax"))
+                                    "matplotlib", "optax", "h5py"))
 print(",".join(bad))
 """
 

@@ -115,7 +115,7 @@ def test_non_convergence_warns_and_options_raise(setup):
     with pytest.warns(UserWarning, match="did not converge"):
         frame = ijp(0, pc[:5], postprocess=True)
     pd.testing.assert_frame_equal(frame, out.to_dataframe())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         IterativeJointPredictor(mod, _mf(coords, values), mesh=object(), device="cpu")
 
 

@@ -555,42 +555,65 @@ def _second_plain(nu, h, dtype):
     return mat, d
 
 
+def _tie_entries(nu, dtype):
+    """Distances h within 64 ulp of 2 LS / sqrt(2 nu) whose x = sqrt(2 nu) h /
+    LS, formed as ``_entries`` (and the kernels) form it, is 2 exactly, and
+    that x; None where no distance gives x == 2 (float32 at nu = 1.5 and
+    1.5 - ulp: no float32 h / LS does)."""
+    nu_t, ls_t = torch.tensor(nu, dtype=dtype), torch.tensor(LS, dtype=dtype)
+    toward = torch.tensor(math.inf, dtype=dtype)
+    h = torch.tensor(2.0 * LS / math.sqrt(2.0 * nu), dtype=dtype)
+    for _ in range(64):
+        h = torch.nextafter(h, -toward)
+    found = []
+    for _ in range(128):
+        if float(torch.sqrt(2.0 * nu_t) * (h / ls_t)) == 2.0:
+            found.append(h.clone())
+        h = torch.nextafter(h, toward)
+    if not found:
+        return None
+    h = torch.stack(found)
+    return h, torch.sqrt(2.0 * nu_t) * (h / ls_t)
+
+
 @pytest.mark.parametrize("sfx", ["f32", "f64"])
 def test_second_order_entry_matches_plain_autograd(harness, sfx):
     """``kv.cuh::matern_second_tab`` over a second-order table row (M, its
     partials in nu and ls, first and second) against autograd of the
-    elementwise model, over x from 1e-3 to 50 on both branches, at nu 0.3,
-    0.5, 1.2, 1.5, 2.7 and 1.5 -+ ulp. At 1.5 -+ ulp the reference's CF2
-    tangent is truncated after one trip (ROADMAP Queue 3) and its x- and
-    nu-derivatives no longer commute: the kernel takes d/dnu of dK/dx (the
-    triple's tangent) for both mixed terms of d2M/dnu2 and for d2M/dnu dls,
-    the elementwise model (as the reference) d/dx of the truncated dK/dnu for
-    one of them, so those two columns part by up to ~11% there (a known
-    difference of the card's second order, ROADMAP Queue 3); every other
-    column holds the bar there too."""
+    elementwise model, over x from 1e-3 to 50 on both branches and at x = 2
+    exactly, at nu 0.3, 0.5, 1.2, 1.5, 2.7 and 1.5 -+ ulp. Two kinds of
+    entry take the reference's x-derivatives, which differ there from the
+    true mixed partials: at 1.5 -+ ulp the reference's CF2 tangent is
+    truncated after one trip, and it takes d/dx of the truncated dK/dnu for
+    one mixed term of d2M/dnu2 and for d2M/dnu dls; at x = 2 its branch
+    clamps pass half of x's gradient each. The elementwise model follows the
+    reference there (``tests/test_torch_kv_second.py``), and the entry
+    holds every column's bar."""
     dtype = DTYPES[sfx]
     ct = ctypes.c_float if sfx == "f32" else ctypes.c_double
     p = ctypes.POINTER(ct)
     f = getattr(harness, f"second_{sfx}")
     f.argtypes = [p, ctypes.c_long, p, p, ctypes.POINTER(ctypes.c_int)]
+    ties = 0
     for nu in _nus(sfx):
-        h, x = _entries(nu, dtype)
         row = K.recurrence_table(torch.tensor([nu], dtype=dtype), torch.tensor([LS], dtype=dtype),
                                  dtype, order=2)[0].contiguous()
-        x = x.contiguous()
-        out = torch.zeros(x.numel(), 6, dtype=dtype)
-        ok = torch.zeros(x.numel(), dtype=torch.int32)
-        f(_ptr(x, ct), x.numel(), _ptr(row, ct), _ptr(out, ct),
-          ctypes.cast(ok.data_ptr(), ctypes.POINTER(ctypes.c_int)))
-        mat, d = _second_plain(nu, h, dtype)
-        assert bool(ok.bool().all()), nu
-        want = torch.stack([mat] + d, 1)
-        size = want.abs().max(0).values
-        rel = ((out - want).abs().max(0).values / size).tolist()
-        bars = [SECOND_TOL[sfx][0]] + [SECOND_TOL[sfx][1]] * 2 + [SECOND_TOL[sfx][2]] * 3
-        if nu != 1.5 and abs(nu - 1.5) < 1e-6:  # 1.5 -+ ulp: the truncated tangent
-            bars[3:5] = [0.15, 0.15]
-        assert all(r <= b for r, b in zip(rel, bars)), (nu, rel)
+        cases = [_entries(nu, dtype), _tie_entries(nu, dtype)]
+        ties += cases[1] is not None
+        for h, x in filter(None, cases):
+            x = x.contiguous()
+            out = torch.zeros(x.numel(), 6, dtype=dtype)
+            ok = torch.zeros(x.numel(), dtype=torch.int32)
+            f(_ptr(x, ct), x.numel(), _ptr(row, ct), _ptr(out, ct),
+              ctypes.cast(ok.data_ptr(), ctypes.POINTER(ctypes.c_int)))
+            mat, d = _second_plain(nu, h, dtype)
+            assert bool(ok.bool().all()), nu
+            want = torch.stack([mat] + d, 1)
+            size = want.abs().max(0).values
+            rel = ((out - want).abs().max(0).values / size).tolist()
+            bars = [SECOND_TOL[sfx][0]] + [SECOND_TOL[sfx][1]] * 2 + [SECOND_TOL[sfx][2]] * 3
+            assert all(r <= b for r, b in zip(rel, bars)), (nu, float(x.max()), rel)
+    assert ties >= 5  # x == 2 at all seven orders in float64, five in float32
 
 
 @pytest.mark.parametrize("sfx", ["f32", "f64"])

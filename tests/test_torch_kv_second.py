@@ -9,10 +9,10 @@ graph-building one.
 Inputs are a grid of orders and arguments on both branches (x < 2: the
 Temme series; x >= 2: CF2), negative orders (|nu| symmetry) and, as a case
 of its own, nu = 1.5 and one ulp either side, where the reference's CF2
-tangent is truncated (ROADMAP Queue 3) and the port follows it. x = 2
-exactly is left out: there the reference's ``jnp.minimum`` / ``jnp.maximum``
-branch clamps split the x-derivative of the tangent between both branches,
-and the port's clamps do not (a tie of measure zero).
+tangent is truncated and the port follows it. x = 2 exactly is on the grid:
+there the branch clamps (``jnp.minimum`` / ``jnp.maximum`` in the reference,
+``torch.minimum`` / ``torch.maximum`` in the port) pass half of x's gradient
+each, which halves the pair's share of the x-derivatives of the partials.
 """
 
 import jax
@@ -28,7 +28,7 @@ from cokriging_tpu_torch.kernels import bessel as TB
 torch.set_num_threads(1)
 
 NUS = [0.3, 0.45, 0.7, 1.2, 1.37, 2.6, 3.3, -0.8, 0.5, 2.5]
-XS = [0.002, 0.05, 0.5, 0.9, 1.9, 1.999, 2.1, 3.0, 7.0, 15.0, 25.0]
+XS = [0.002, 0.05, 0.5, 0.9, 1.9, 1.999, 2.0, 2.1, 3.0, 7.0, 15.0, 25.0]
 HALF = [1.5, float(np.nextafter(1.5, 0.0)), float(np.nextafter(1.5, 2.0))]
 # relative to each point's largest |second derivative|: the two packages
 # take the same derivatives of the same recurrences in another operation
@@ -100,6 +100,37 @@ def test_first_order_backward_equals_the_graph_building_one():
     graph = torch.autograd.grad(TB.kv(nu, xx).sum(), (nu, xx), create_graph=True)
     for a, b in zip(fast, graph):
         np.testing.assert_allclose(b.detach().numpy(), a.numpy(), rtol=1e-13, atol=0)
+
+
+def _clamped_pair(mu, x):
+    """The pair with clamps that pass x's whole gradient at x == 2
+    (``torch.clamp_max`` / ``torch.clamp_min``), as the port had them
+    before its clamps split the tie."""
+    ks_mu, ks_mu1 = TB._temme_series(mu, torch.clamp_max(x, 2.0))
+    kc_mu, kc_mu1 = TB._steed_cf2(mu, torch.clamp_min(x, 2.0))
+    use_series = x < 2.0
+    return torch.where(use_series, ks_mu, kc_mu), torch.where(use_series, ks_mu1, kc_mu1)
+
+
+def test_first_order_backward_is_bit_equal_with_either_clamp(monkeypatch):
+    """kv's value and first-order backward (dK/dx from the recurrence,
+    dK/dnu the mu-tangent) never go through the clamps' x-gradient, so they
+    are bit for bit the same with clamps that split the tie at x = 2 and
+    with clamps that do not, on the whole grid (x = 2 and the half-integer
+    orders included)."""
+    n, x = _grid(NUS + HALF, XS)
+
+    def value_and_grads():
+        nu = torch.tensor(n, requires_grad=True)
+        xx = torch.tensor(x, requires_grad=True)
+        k = TB.kv(nu, xx)
+        return (k.detach(), *torch.autograd.grad(k.sum(), (nu, xx)))
+
+    split = value_and_grads()
+    monkeypatch.setattr(TB, "_kv_pair", _clamped_pair)
+    whole = value_and_grads()
+    for a, b in zip(split, whole):
+        assert torch.equal(a, b)
 
 
 def test_kv_ratio_and_exact_grad_match_jax():

@@ -230,7 +230,7 @@ def test_fit_vecchia_matches_jax(data, jax_fit):
     np.testing.assert_allclose(float(p.rho[0, 1]), float(jp.rho[0, 1]), atol=0.1)
     assert float(p.rho[0, 1]) < -0.2
     assert info["n_obj_evals"] == len(info["nll_trace"]) and info["m"] == 6 and info["n"] == 180
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         TV.fit_vecchia(_fields(coords, values, Field, MultiField), mesh=object(), device="cpu")
 
 
