@@ -138,10 +138,10 @@ Phases, in order; any failure exits nonzero without the final ok line:
     stage times: the batched bin pass's counts equal to the reference
     pass's, its sums to 200 single-replicate launches of the existing pass
     (rtol 1e-12 / 1e-5) and to its plain version on 8 replicates and on
-    all 200, 8 replicates refit alone equal to their batched refits (rtol
-    1e-8), every refit finite and in its box, each parameter's 95% interval
-    logged beside the truth; the batched pass and refit once more in float32
-    on the first 50 replicates cast (one refit alone, rtol 1e-5); conditional simulation from the first 2 x 2,500
+    all 200, the first 2 replicates refit alone equal to their batched
+    refits (rtol 1e-8), every refit finite and in its box, each parameter's
+    95% interval logged beside the truth; the batched pass and refit once more
+    in float32 on the first 50 replicates cast (2 refit alone, rtol 1e-5); conditional simulation from the first 2 x 2,500
     observations at the 32 x 32 sub-grid, 100 draws, in float32 and float64
     (pred and pred_err equal to ``__call__``'s, sample means within 5
     standard errors, root root^T equal to the posterior covariance); and
@@ -164,8 +164,8 @@ Phases, in order; any failure exits nonzero without the final ok line:
     path must run), symmetric to round-off before symmetrization (1e-10 of
     max|H|) and equal to ``observed_information``; both new kernels held
     against their plain versions at the Hessian's own blocks (the Hessian
-    sums at all three 2,500^2 blocks, each within 1e-14 of its sum of
-    |terms| in float64 and 1e-6 in float32, ``J_HESS_BAR``; the tangent
+    sums at the first of its three 2,500^2 blocks, each within 1e-14 of its
+    sum of |terms| in float64 and 1e-6 in float32, ``J_HESS_BAR``; the tangent
     within 1e-12 / 1e-5 of its largest entry) and timed there; at the fit with its nuggets raised to 0.1, each
     column against a central (or, beside the positive-definite wall,
     one-sided) difference of the card's exact gradient (1e-4 of the
@@ -199,7 +199,7 @@ Phases, in order; any failure exits nonzero without the final ok line:
     mesh=)`` on 2 x 2,500 of the month with nuggets 0.1 (tol 1e-10, float64,
     rtol 1e-8) and on (g)'s 2 x 12,500 at 256 cells (40 iterations, float32:
     the iterations equal, the gap logged); the parametric bootstrap on (i)'s
-    spectral sample (16 replicates, maxiter 60, float64) with its refit
+    spectral sample (8 replicates, maxiter 60, float64) with its refit
     sharded and stepped in lockstep, bit-equal, both walls logged. The
     one-card mesh ``make_mesh()`` runs each path once more, bit-equal to no
     mesh (the CG on 2 x 2,560 rows, a multiple of its 512-row tile, at tol
@@ -209,13 +209,38 @@ Phases, in order; any failure exits nonzero without the final ok line:
     ``csrc/matern_hess.cu`` against their plain versions at nu = 1.5 -+ one
     ulp and in blocks of entries at x = 2 exactly (``phase_c_hess_edges``).
 
+(l) the last modules: the serving export (``utils/export.py``) of (d)'s
+    month (its ~202 data per field, process 0, 1000 km, the 6,256 land cells)
+    under (k)'s model ``K_PARAMS``: ``LocalPredictor(materialize_cov=False)``
+    exported on the card at the live predictor's batch size, saved to bytes
+    and loaded, serving every cell batch by batch (the last batch padded) in
+    float32 and float64, bit-equal to the live predictor on the same batches,
+    the pairs kernel launched once per served batch through the registered op
+    ``cokriging_tpu_torch::matern_corr_pairs``; fresh runtime inputs (the
+    flat vector x 1.1, process 0's values x 0.5) bit-equal to the live
+    predictor on them; the f64 artifact within 1e-9 of the largest value of
+    the CPU predictor at 256 cells; the export, load, served and live walls;
+    the op's host cost per call against the bare launch; then
+    ``python -m cokriging_tpu_torch sim --device cuda`` at the experiment's
+    sizes (exit 0 with its Vecchia assertion, only ``torch_*`` files, the
+    JAX manifest's statistics keys; its statistics logged beside the JAX
+    manifest's); ``entry("cuda")``'s joint-cokriging step against the same
+    step on the CPU (f64, 1e-10 of the largest value) and
+    ``dryrun_multichip(4, device="cuda")`` on four virtual shards of the
+    card. Its rows of the kernels line: the pairs forward at one served
+    batch, both dtypes.
+
 Cuts of depth against the time limit: (d)'s float64 Adam fit runs 200 of
 bench.py's 600 steps (its per-step time is logged); (f) holds the
 block-gradient kernel against its plain version at the 12,500^2 cross block
-only (it times the kernel at all three).
+only (it times the kernel at all three); (i) refits 4 replicates alone (2 per
+dtype, in 4 worker processes), not 16; (j) holds the Hessian sums against
+their plain version at the first of the three blocks only (the kernel's time
+at all three is logged); (k)'s bootstrap runs 8 replicates, not 16.
 
 ``python3 chip_smoke.py abcg`` runs only the phases named (a and b always)
-and prints no result line; ``python3 chip_smoke.py k`` runs (a), (b) and (k). The kernels line's rows of the kernels
+and prints no result line; ``python3 chip_smoke.py k`` runs (a), (b) and (k), ``python3
+chip_smoke.py l`` (a), (b) and (l). The kernels line's rows of the kernels
 redesigned last (the variogram passes, the block forward and the pairs
 gradient) carry their ptxas registers, static shared memory and spills from
 this run's build; a log line beside each gives the
@@ -2475,8 +2500,8 @@ I_CHECK_REP = 8  # replicates held against the plain batched pass
 # replicates refit alone against their batched refits, per dtype: each such
 # refit is a host-bound run of ~200 iterations (~20 s f64 on the card alone),
 # so they run side by side in worker processes
-I_SINGLE_REP = 8
-I_REFIT_WORKERS = 8
+I_SINGLE_REP = 2
+I_REFIT_WORKERS = 4
 # the float32 repeat of the batched pass and refit: the first 50 replicates
 I_REP_F32 = 50
 I_FIT_MAXITER = 60  # the WLS fit before the bootstrap (tests/test_cli.py's)
@@ -3157,9 +3182,10 @@ def j_hessian(mf, params, dtype_name, rows, stages, launches):
 
 def j_kernel_rows(dtype_name, hess_calls, tan_calls, counts):
     """Both second-order kernels against their plain versions at the
-    Hessian's own launches (the Hessian sums at its three blocks; the tangent
-    at each block's first launch with nonzero weights), each timed there;
-    their rows of the kernels line."""
+    Hessian's own launches (the Hessian sums at the first of its three
+    blocks, timed at all three; the tangent at each block's first launch
+    with nonzero weights), each timed there; their rows of the kernels line
+    (the Hessian sums' at the first block, where the plain version ran)."""
     import torch
 
     from cokriging_tpu_torch.kernels import cuda_ops as K
@@ -3167,14 +3193,20 @@ def j_kernel_rows(dtype_name, hess_calls, tan_calls, counts):
     hess_calls = [[t.detach() if torch.is_tensor(t) else t for t in a] for a in hess_calls]
     tan_calls = [[t.detach() if torch.is_tensor(t) else t for t in a] for a in tan_calls]
     f32 = dtype_name == "float32"
-    hess = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, max_err=0.0)
+    hess = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, max_err=0.0, ms_all_blocks=0.0)
     bar = torch.tensor(J_HESS_BAR[dtype_name], dtype=torch.float64, device="cuda")
     blocks = []
     check(len(hess_calls) == 3, f"(j) {dtype_name}: {len(hess_calls)} Hessian-sum launches")
     for k, (nu, ls, h, ct, sym) in enumerate(hess_calls):
         kept = {}
-        hess["ms"] += cuda_time_ms(keep(kept, "kernel", lambda: K.matern_block_hess(
+        ms = cuda_time_ms(keep(kept, "kernel", lambda: K.matern_block_hess(
             nu, ls, h, ct, symmetric=sym)), 3)
+        hess["ms_all_blocks"] += ms
+        if k:  # the plain sums only at the first block (a cut against the time limit)
+            check(bool(torch.isfinite(kept["kernel"]).all()),
+                  f"(j) Hessian sums {dtype_name} block {k}: {kept['kernel'].tolist()}")
+            continue
+        hess["ms"] = ms
         # the plain sums and their sums of |terms| from one timed pass
         hess["plain_ms"] += cuda_time_ms(keep(kept, "plain", lambda: K.matern_block_hess_plain(
             nu, ls, h, ct, symmetric=sym, magnitude=True)), 1, warm=False)
@@ -3213,12 +3245,13 @@ def j_kernel_rows(dtype_name, hess_calls, tan_calls, counts):
         del kept
         torch.cuda.empty_cache()
     hb = bound_of([matern_bound(a[2], float(a[0]), float(a[1]), a[4], grad=True,
-                                ops=MATERN_HESS_OPS, n_out=5) for a in hess_calls])
+                                ops=MATERN_HESS_OPS, n_out=5) for a in hess_calls[:1]])
     tb = bound_of([matern_bound(a[3], float(a[1]), float(a[2]), a[5], grad=True,
                                 ops=MATERN_TANGENT_OPS, n_out=0) for a in tan_calls])
     shape = "Hessian blocks 2500^2 sym + 2500^2 + 2500^2 sym"
-    log(f"(j) {dtype_name}: Hessian sums at the three blocks {hess['ms']:.3f} ms, plain "
-        f"{hess['plain_ms']:.1f} ms, worst |kernel - plain| / sum|terms| {hess['max_err']:.3e}; "
+    log(f"(j) {dtype_name}: Hessian sums at the first block {hess['ms']:.3f} ms (at the three "
+        f"{hess['ms_all_blocks']:.3f} ms), plain {hess['plain_ms']:.1f} ms, worst |kernel - "
+        f"plain| / sum|terms| {hess['max_err']:.3e}; "
         f"tangent at {len(tan_calls)} blocks {tan['ms']:.3f} ms, plain {tan['plain_ms']:.1f} ms, "
         f"worst err / max|entry| {tan['max_err']:.3e}")
     replaces = "cokriging_tpu/estimate/uncertainty.py:75-79 (jax.hessian; no Pallas kernel)"
@@ -3226,7 +3259,8 @@ def j_kernel_rows(dtype_name, hess_calls, tan_calls, counts):
         dict(name=f"matern_block_hess_{dtype_name}", route="cuda",
              source="cokriging_tpu_torch/kernels/csrc/matern_hess.cu", replaces=replaces,
              launches=counts.get("matern_block_hess", 0), bound_ms=hb[0], bound_by=hb[1],
-             library_ms=None, path="(j) observed information", shape=shape,
+             library_ms=None, path="(j) observed information",
+             shape="the first Hessian block, 2500^2 sym (ms_all_blocks: all three)",
              bars=J_HESS_BAR[dtype_name], blocks=blocks, **hess),
         dict(name=f"matern_block_tangent_{dtype_name}", route="cuda",
              source="cokriging_tpu_torch/kernels/csrc/matern_hess.cu", replaces=replaces,
@@ -3490,7 +3524,7 @@ K_VECCHIA_ITERS = 10
 K_CG_SMALL = 2_500  # (h)'s joint and CG LOOCV rows per process
 K_CG_TILED = 2_560  # per process: 5,120 rows, a multiple of the 512-row tile
 K_CG_CELLS = 256
-K_BOOT_REP, K_BOOT_MAXITER = 16, 60
+K_BOOT_REP, K_BOOT_MAXITER = 8, 60
 K_BOOT_ONE_CARD = (4, 20)  # replicates, maxiter of the one-card mesh's bootstrap
 SHARED = {}  # (i)'s spectral model and sample, which (k) reuses
 
@@ -3870,7 +3904,358 @@ def phase_k():
     return rows
 
 
-def main(phases="abcdefghijk"):
+# --- phase (l): the serving export, the simulation experiment, the entry ------
+
+L_CPU_CELLS = 256  # cells at which the card's f64 artifact is held against the CPU
+L_FRESH = (1.1, 0.5)  # fresh runtime inputs: the flat vector x 1.1, process 0's values x 0.5
+L_DISPATCH_CALLS = 2000  # calls per timing of the pairs op's dispatch against its launch
+L_CG_LAUNCHES = 3921  # (g)'s CG launches per prediction (PERF.md section 6)
+# the JAX simulation manifest's statistics keys, which the port's manifest carries
+L_SIM_KEYS = ("truth_flat", "wls_flat", "nll_flat", "vecchia_flat", "mspe", "loocv_coverage_95",
+              "loocv_z_std", "stage_s")
+
+
+def l_month(dtype, scale0=1.0):
+    """(d)'s month as (d)'s predictor takes it (every 62nd of the 2 x 12,500
+    observations, ~202 per field), process 0's values times ``scale0``."""
+    c1, v1, c2, v2 = build_inputs(N_PER_PROC, dtype)
+    sub = max(1, N_PER_PROC // 200)
+    return geo_fields(((c1[::sub], v1[::sub] * dtype(scale0), "Z0"), (c2[::sub], v2[::sub], "Z1")))
+
+
+def l_predictor(dtype, scale=(1.0, 1.0), device=None):
+    """The direct-assembly local predictor of (d)'s month under (k)'s model
+    (the flat vector times ``scale[0]``, process 0's values times
+    ``scale[1]``)."""
+    import torch
+
+    from cokriging_tpu_torch.cov.matern import MultivariateMatern
+    from cokriging_tpu_torch.cov.params import MaternParams
+    from cokriging_tpu_torch.predict.local import LocalPredictor
+
+    td = getattr(torch, np.dtype(dtype).name)
+    flat = torch.tensor(K_PARAMS, dtype=td) * scale[0]
+    return LocalPredictor(MultivariateMatern(params=MaternParams.from_flat(flat)),
+                          l_month(dtype, scale[1]), materialize_cov=False,
+                          neighbor_method="device", device=device)
+
+
+def l_same(what, got, want):
+    """Bit-equal (NaN where NaN) outputs; the largest gap otherwise, for the
+    failure message."""
+    for k, (g, w) in enumerate(zip(got, want)):
+        g, w = np.asarray(g), np.asarray(w)
+        same = g.shape == w.shape and np.array_equal(g, w, equal_nan=g.dtype.kind == "f")
+        gap = float(np.nanmax(np.abs(g.astype(np.float64) - w))) if g.shape == w.shape else None
+        check(same, f"(l) {what}: output {k} not bit-equal to the live predictor (largest gap {gap})")
+
+
+def l_dispatch(stages):
+    """Host microseconds per call of the pairs forward through the
+    registered op against its bare ctypes launch (the wrapper before the op
+    existed), one entry, in turns bare / op / op / bare."""
+    import torch
+
+    from cokriging_tpu_torch.kernels import cuda_ops as K
+
+    nu = torch.tensor([1.5], dtype=torch.float32, device="cuda")
+    ls = torch.tensor([500.0], dtype=torch.float32, device="cuda")
+    h = torch.full((1,), 100.0, dtype=torch.float32, device="cuda")
+    idx = torch.zeros_like(h)
+    table = K.recurrence_table(nu, ls, torch.float32)
+    runs = {"bare": lambda: K._pairs_forward_launch(nu, ls, idx, h, table, True),
+            "op": lambda: K.matern_corr_pairs(nu, ls, idx, h, table=table)}
+    us = {"bare": [], "op": []}
+    for kind in ("bare", "op", "op", "bare"):
+        runs[kind]()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(L_DISPATCH_CALLS):
+            runs[kind]()
+        torch.cuda.synchronize()
+        us[kind].append(1e6 * (time.perf_counter() - t0) / L_DISPATCH_CALLS)
+    extra = min(us["op"]) - min(us["bare"])
+    stages["dispatch_us"] = us
+    log(f"(l) pairs forward, host us per call (one entry, {L_DISPATCH_CALLS} calls, bare / op / op / "
+        f"bare): {us['bare'][0]:.2f} / {us['op'][0]:.2f} / {us['op'][1]:.2f} / {us['bare'][1]:.2f}; "
+        f"the op adds {extra:.2f} us per launch, {extra * L_CG_LAUNCHES / 1e6:.4f} s over (g)'s "
+        f"{L_CG_LAUNCHES} CG launches")
+
+
+def l_cpu_cells(n):
+    """The cells at which the card's f64 artifact is held against the CPU."""
+    return np.linspace(0, n - 1, L_CPU_CELLS).astype(int)
+
+
+def l_export_job(dtype_name):
+    """(worker process) One dtype's artifact of (d)'s month exported on the
+    card at the live predictor's batch size: (bytes, export seconds, batch,
+    widths)."""
+    import torch
+
+    from cokriging_tpu_torch.data.grids import prediction_coords
+    from cokriging_tpu_torch.utils.export import export_program, make_local_prediction_fn
+
+    dtype = np.dtype(dtype_name).type
+    lp = l_predictor(dtype)
+    pc = prediction_coords().astype(dtype)
+    module, (flat, _, *values) = make_local_prediction_fn(lp, 0, pc, max_dist=K_LOCAL_KM)
+    batch = lp._batch_size(module.k_each, len(pc))
+    first = np.concatenate([pc, np.repeat(pc[-1:], max(0, batch - len(pc)), axis=0)])[:batch]
+    t0 = time.perf_counter()
+    blob = export_program(module, (flat, torch.as_tensor(first, device="cuda"), *values),
+                          platforms=["cuda"])
+    return blob, time.perf_counter() - t0, batch, module.k_each
+
+
+def l_cpu_job(_):
+    """(worker process) The float64 live predictor on the CPU at
+    ``l_cpu_cells``: (pred, pred_err, n_neighbors, seconds)."""
+    import torch
+
+    from cokriging_tpu_torch.data.grids import prediction_coords
+
+    torch.set_num_threads(2)
+    pc = prediction_coords()
+    t0 = time.perf_counter()
+    out = l_predictor(np.float64, device="cpu")(0, pc[l_cpu_cells(len(pc))], max_dist=K_LOCAL_KM)
+    return out.pred, out.pred_err, out.n_neighbors, time.perf_counter() - t0
+
+
+def l_served(stages, rows, exported, cpu_out):
+    """1. The served artifact of (d)'s month: ``LocalPredictor(
+    materialize_cov=False)`` on the card, ``exported`` at the live
+    predictor's batch size (bytes from ``l_export_job``), loaded, serving all
+    land cells batch by batch (the last batch padded) in both dtypes, each
+    bit-equal to the live predictor on the same batches, the pairs kernel
+    launched once per served batch; fresh runtime inputs against the live
+    predictor on them; the f64 artifact against the CPU predictor
+    (``cpu_out``) at ``L_CPU_CELLS`` cells (1e-9 of the largest value). Rows
+    of the kernels line: the pairs forward at one served batch's launch."""
+    import torch
+
+    from cokriging_tpu_torch.data.grids import prediction_coords
+    from cokriging_tpu_torch.kernels import cuda_ops as K
+    from cokriging_tpu_torch.utils.export import load_program, make_local_prediction_fn
+
+    pc_all = prediction_coords()
+    for dtype in (np.float32, np.float64):
+        name = np.dtype(dtype).name
+        atol = 5e-6 if name == "float32" else 1e-12
+        blob, stages[f"export_{name}"], batch, k_each = exported[name]
+        lp = l_predictor(dtype)
+        pc = pc_all.astype(dtype)
+        n = len(pc)
+        _, (flat, _, *values) = make_local_prediction_fn(lp, 0, pc[:1], max_dist=K_LOCAL_KM)
+        n_pad = -(-n // batch) * batch
+        check(lp._batch_size(k_each, n_pad) == batch, "(l) padding changed the batch size")
+        pc_pad = np.concatenate([pc, np.repeat(pc[-1:], n_pad - n, axis=0)])
+        pcs = torch.as_tensor(pc_pad, device="cuda")
+        check(tuple(k_each) == tuple(lp._neighborhood_widths(pcs, K_LOCAL_KM)),
+              f"(l) {name}: the exported widths are not the live predictor's")
+        t0 = time.perf_counter()
+        fn = load_program(blob)
+        stages[f"load_{name}"] = time.perf_counter() - t0
+
+        def serve(flat, values):
+            outs = [fn(flat, pcs[s:s + batch], *values) for s in range(0, n_pad, batch)]
+            return [torch.cat([o[k] for o in outs]).cpu().numpy() for k in range(3)]
+
+        t0 = time.perf_counter()
+        serve(flat, values)  # the loaded program's first call
+        stages[f"first_served_{name}"] = time.perf_counter() - t0
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = serve(flat, values)
+        stages[f"served_{name}"] = time.perf_counter() - t0
+        served = K.launch_counts()["matern_corr_pairs"]
+        check(served == n_pad // batch, f"(l) {name}: {served} pairs launches in "
+              f"{n_pad // batch} served batches")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        live = lp(0, pc, max_dist=K_LOCAL_KM)
+        stages[f"live_{name}"] = time.perf_counter() - t0
+        with captured("matern_corr_pairs", 1) as calls:
+            live_pad = lp(0, pc_pad, max_dist=K_LOCAL_KM)
+        l_same(f"{name} served", got, (live_pad.pred, live_pad.pred_err, live_pad.n_neighbors))
+        tail = max(float(np.nanmax(np.abs(g[:n].astype(np.float64) - w)))
+                   for g, w in zip(got[:2], (live.pred, live.pred_err)))
+        finite = float(np.isfinite(got[0][:n]).mean())
+        check(finite > 0.99, f"(l) {name}: only {finite:.2%} finite served predictions")
+        # fresh runtime inputs through the same artifact
+        f_flat, f_scale = L_FRESH
+        fresh = serve(flat * f_flat, (values[0] * f_scale, *values[1:]))
+        live_fresh = l_predictor(dtype, L_FRESH)(0, pc_pad, max_dist=K_LOCAL_KM)
+        l_same(f"{name} served on fresh inputs", fresh,
+               (live_fresh.pred, live_fresh.pred_err, live_fresh.n_neighbors))
+        check(not np.allclose(fresh[0][:n], got[0][:n], equal_nan=True),
+              f"(l) {name}: fresh inputs did not change the served predictions")
+        log(f"(l) {name}: served {n} cells in {n_pad // batch} batches of {batch} (widths "
+            f"{tuple(k_each)}), bit-equal to the live predictor, fresh inputs too; finite "
+            f"{finite:.4%}; export {stages[f'export_{name}']:.2f} s (a worker process), load "
+            f"{stages[f'load_{name}']:.2f} s, artifact {len(blob)} bytes; served "
+            f"{stages[f'served_{name}']:.4f} s, live {stages[f'live_{name}']:.4f} s; pairs launches "
+            f"{served}; largest gap to the unpadded live call {tail:.3e}")
+        if name == "float64":
+            idx = l_cpu_cells(n)
+            stages["cpu_live_float64"] = cpu_out[3]
+            for k, w in enumerate(cpu_out[:2]):
+                g = got[k][idx]
+                check(np.array_equal(np.isfinite(g), np.isfinite(w)), "(l) f64 vs CPU: NaN lanes")
+                gap = float(np.nanmax(np.abs(g - w))) / float(np.nanmax(np.abs(w)))
+                check(gap <= 1e-9, f"(l) the card's f64 artifact vs the CPU predictor, output {k}: "
+                      f"{gap:.3e} of the largest value (bar 1e-9)")
+                log(f"(l) f64 artifact on the card vs the CPU predictor at {L_CPU_CELLS} cells, "
+                    f"output {k}: {gap:.3e} of the largest value")
+            check(np.array_equal(got[2][idx], cpu_out[2]), "(l) f64 vs CPU: neighborhood sizes")
+        err, ms, plain_ms = pairs_forward_check(calls, atol, f"one {name} served batch")
+        a = calls[0]
+        bound = bound_of([pairs_bound([(a[3], a[2])], a[0].tolist(), a[1].tolist())])
+        rows.append(dict(
+            name=f"matern_corr_pairs_{name}_served", route="cuda",
+            source="cokriging_tpu_torch/kernels/csrc/matern_pairs.cu",
+            replaces="cokriging_tpu/kernels/pallas_ops.py:631", launches=served, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+            max_abs_err=err, max_err=err,
+            path="(l) the served local-prediction artifact (torch.export), through the "
+                 "registered op cokriging_tpu_torch::matern_corr_pairs",
+            shape=f"one served batch {tuple(a[3].shape)}"))
+        log(f"(l) {name}: pairs at one served batch {tuple(a[3].shape)}: {ms:.3f} ms, plain "
+            f"{plain_ms:.1f} ms, bound {bound[0]:.4f} ms ({bound[1]}), max abs err {err:.3e}")
+        del fn, blob, lp, calls
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def l_sim_started():
+    """2. ``python -m cokriging_tpu_torch sim --device cuda`` at the
+    experiment's sizes, started in a subprocess with its results in a
+    temporary directory; killed if still running when the block ends."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        env = {**os.environ, "PYTHONPATH": str(HERE), "COKRIGING_RESULTS_DIR": tmp}
+        env.pop("COKRIGING_NO_RECORD", None)
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "cokriging_tpu_torch", "sim", "--device",
+                                 "cuda"], cwd=HERE, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        try:
+            yield dict(proc=proc, tmp=Path(tmp), t0=t0)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def l_sim(sim, stages):
+    """The sim subprocess's end: exit 0 (the Vecchia assertion inside), only
+    ``torch_*`` names written, the JAX manifest's statistics keys; its
+    statistics logged beside the JAX manifest's (the same realization: the
+    experiment reproduces the JAX script's draws)."""
+    out, err = sim["proc"].communicate(timeout=900)
+    stages["sim_cli"] = time.perf_counter() - sim["t0"]
+    check(sim["proc"].returncode == 0, f"(l) sim --device cuda: exit {sim['proc'].returncode}: "
+          f"{out[-1500:]} {err[-1500:]}")
+    tmp = sim["tmp"]
+    written = sorted(str(p.relative_to(tmp)) for p in tmp.rglob("*") if p.is_file())
+    check(written and all(Path(w).name.startswith("torch_") for w in written),
+          f"(l) sim wrote {written}")
+    manifest = json.loads((tmp / "torch_simulation_experiment.json").read_text())
+    missing = [k for k in L_SIM_KEYS if k not in manifest]
+    check(not missing, f"(l) the sim manifest lacks {missing}")
+    check(manifest["vecchia_rho_gap"] < 0.25, f"(l) sim: Vecchia rho gap {manifest['vecchia_rho_gap']}")
+    jax_path = HERE / "results" / "simulation_experiment.json"
+    ref = json.loads(jax_path.read_text()) if jax_path.exists() else {}
+    log(f"(l) sim --device cuda: {stages['sim_cli']:.1f} s in all (beside the export workers); "
+        f"device {manifest.get('device_name')} at {manifest.get('power_limit')}, dtype "
+        f"{manifest['dtype']}, figures written: {manifest['figures']}; stage seconds "
+        f"{json.dumps(manifest['stage_s'])}")
+    log(f"(l) sim: WLS {manifest['wls_flat']}, NLL {manifest['nll_flat']}, Vecchia "
+        f"{manifest['vecchia_flat']} (rho gap {manifest['vecchia_rho_gap']}), truth "
+        f"{manifest['truth_flat']}; JAX manifest: WLS {ref.get('wls_flat')}, NLL "
+        f"{ref.get('nll_flat')}, Vecchia {ref.get('vecchia_flat')}")
+    log(f"(l) sim: MSPE cokriging / kriging {manifest['mspe']} (JAX manifest {ref.get('mspe')}); "
+        f"LOOCV 95% coverage {manifest['loocv_coverage_95']} (JAX {ref.get('loocv_coverage_95')}), "
+        f"z std {manifest['loocv_z_std']} (JAX {ref.get('loocv_z_std')}); written {written}")
+
+
+def l_entry(stages):
+    """3. ``entry("cuda")``'s joint-cokriging step against the same step on
+    the CPU on the same arguments (f64; the prediction within 1e-10 of its
+    largest value, the variance, whose round-off at cells that hold data the
+    square root lifts, within 1e-10 of its largest value), the Matern kernel
+    launched; then ``dryrun_multichip(4, device="cuda")`` on four virtual
+    shards of the card, its OK line printed and every kernel of its path
+    launched."""
+    import io
+
+    import torch
+
+    from cokriging_tpu_torch.entry import dryrun_multichip, entry
+    from cokriging_tpu_torch.kernels import cuda_ops as K
+
+    fn, args = entry("cuda")
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    card = [o.cpu().numpy() for o in fn(*args)]
+    stages["entry_card"] = time.perf_counter() - t0
+    launches = K.launch_counts()
+    check(launches["matern_correlation"] > 0, f"(l) entry launched no Matern kernel: {launches}")
+    t0 = time.perf_counter()
+    host = [o.numpy() for o in fn(*[a.cpu() for a in args])]
+    stages["entry_cpu"] = time.perf_counter() - t0
+    gaps = [float(np.max(np.abs(card[0] - host[0]))) / float(np.max(np.abs(host[0]))),
+            float(np.max(np.abs(card[1] ** 2 - host[1] ** 2))) / float(np.max(host[1] ** 2))]
+    check(all(np.isfinite(c).all() for c in card) and max(gaps) <= 1e-10,
+          f"(l) entry on the card vs the CPU: pred / variance {gaps} of the largest value")
+    log(f"(l) entry: {tuple(card[0].shape)} predictions, card {stages['entry_card']:.3f} s vs CPU "
+        f"{stages['entry_cpu']:.3f} s, pred / variance gap {gaps[0]:.3e} / {gaps[1]:.3e} of the "
+        f"largest value; launches {launches}")
+    buf = io.StringIO()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        dryrun_multichip(4, device="cuda")
+    torch.cuda.synchronize()
+    stages["dryrun_4"] = time.perf_counter() - t0
+    launches = K.launch_counts()
+    line = buf.getvalue().strip().splitlines()[-1] if buf.getvalue().strip() else ""
+    check(line.startswith("dryrun_multichip OK on 4 devices"), f"(l) dryrun printed {buf.getvalue()!r}")
+    need = ("variogram_minmax", "variogram_bin", "matern_correlation", "matern_corr_pairs",
+            "matern_corr_pairs_grad")
+    check(all(launches[k] > 0 for k in need), f"(l) dryrun: a kernel of its path never ran: {launches}")
+    log(f"(l) {line} ({stages['dryrun_4']:.1f} s; launches {launches})")
+
+
+def phase_l():
+    """The serving export, the simulation experiment and the entry points on
+    the card; returns its rows of the kernels line. The host-bound steps run
+    side by side: the two exports (tracing) and the CPU predictor in spawned
+    worker processes and the ``sim`` subprocess, while this process runs the
+    entry points; the served artifacts are timed after all of them end."""
+    import multiprocessing
+
+    t0 = time.perf_counter()
+    stages, rows = {}, []
+    l_dispatch(stages)
+    with multiprocessing.get_context("spawn").Pool(3) as pool, l_sim_started() as sim:
+        exports = {name: pool.apply_async(l_export_job, (name,)) for name in ("float32", "float64")}
+        cpu = pool.apply_async(l_cpu_job, (None,))
+        l_entry(stages)
+        l_sim(sim, stages)
+        exported = {name: r.get(timeout=900) for name, r in exports.items()}
+        cpu_out = cpu.get(timeout=900)
+    log(f"(l) workers and sim done, {time.perf_counter() - t0:.1f} s into (l)")
+    l_served(stages, rows, exported, cpu_out)
+    log(f"(l) stages (s) {json.dumps({k: v if isinstance(v, dict) else round(v, 4) for k, v in stages.items()})}")
+    log(f"(l) seconds {time.perf_counter() - t0:.1f}")
+    return rows
+
+
+def main(phases="abcdefghijkl"):
     try:
         import torch
     except ImportError:
@@ -3911,6 +4296,9 @@ def main(phases="abcdefghijk"):
         import cokriging_tpu_torch.utils.io  # noqa: F401
         import cokriging_tpu_torch.parallel  # noqa: F401
         import cokriging_tpu_torch.data.readers  # noqa: F401
+        import cokriging_tpu_torch.entry  # noqa: F401
+        import cokriging_tpu_torch.experiments.simulation_experiment  # noqa: F401
+        import cokriging_tpu_torch.utils.export  # noqa: F401
         from cokriging_tpu_torch.__main__ import _parser  # noqa: F401
         from cokriging_tpu_torch.data.grids import prediction_coords
         from cokriging_tpu_torch.kernels import _build
@@ -4019,6 +4407,10 @@ def main(phases="abcdefghijk"):
         if "k" in phases:
             rows += phase_k()
             log(f"(k) elapsed since start {time.perf_counter() - t_start:.1f} s")
+        # (l) the serving export, the simulation experiment, the entry points
+        if "l" in phases:
+            rows += phase_l()
+            log(f"(l) elapsed since start {time.perf_counter() - t_start:.1f} s")
     except SmokeFailure as e:
         print(f"FAILED: {e}", file=sys.stderr)
         return 1
@@ -4036,7 +4428,7 @@ def main(phases="abcdefghijk"):
                 f"{recorded if recorded is not None else 'none'} ms]{extra}, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}), launches {r['launches']}; ptxas {r['ptxas']}")
     print(json.dumps({"kernels": rows}))
-    if phases != "abcdefghijk":
+    if phases != "abcdefghijkl":
         print(f"partial run of phases {phases}: no result")
         return 0
     print(smi)

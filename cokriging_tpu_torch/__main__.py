@@ -9,22 +9,22 @@ arguments, defaults, output files and printed summaries:
                neighborhoods, or exact joint: dense or matrix-free CG)
     loocv      leave-one-out cross-validation diagnostics
                (MSPE/MAPE/coverage; local or joint predictor)
+    sim        the simulation experiment (recovery + coverage validation,
+               ``experiments/simulation_experiment.py``)
 
 ``fit --bootstrap N`` adds the parametric bootstrap of a WLS fit
 (``<out>.bootstrap.csv``), ``fit --std-errors`` the standard errors from
 the exact NLL's Hessian (``<out>.std_errors.csv``), ``predict --joint
 --conditional-sims N`` the conditional realizations (``<out>.samples.npz``).
 ``--device`` (default ``cuda``) picks where the work runs; ``--device cpu``
-runs on the host. ``sim`` and ``bench`` need modules the port does not have
-yet and stop with an error that names the ROADMAP item that ports them.
+runs on the host. ``bench`` is not ported yet and stops with an error that
+names the ROADMAP item that ports it.
 """
 
 import argparse
 import sys
 
 _NOT_YET = {
-    "sim": "the simulation experiment writes figures, which need the port's plot/ "
-           "(ROADMAP.md Queue 1 item 13); its simulators are ported (sim/)",
     "bench": "the port's benchmark script is a benchmark PR's work (ROADMAP.md Queue 1, "
              "note for a benchmark PR)",
 }
@@ -47,7 +47,9 @@ def _parser():
     parser = argparse.ArgumentParser(prog="cokriging_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
-    sub.add_parser("sim", help="run the simulation validation experiment (not ported yet)")
+    p_sim = sub.add_parser("sim", help="run the simulation validation experiment")
+    p_sim.add_argument("--device", default="cuda",
+                       help="device the work runs on (default cuda; cpu for the host)")
     sub.add_parser("bench", help="run the north-star benchmark (not ported yet)")
 
     p_fit = sub.add_parser("fit", help="fit one month of staged data by WLS")
@@ -264,7 +266,7 @@ def _loocv(args, mf):
 def main(argv=None):
     parser = _parser()
     args = parser.parse_args(argv)
-    if args.cmd in ("sim", "bench"):
+    if args.cmd in _NOT_YET:
         parser.error(_NOT_YET[args.cmd])
     if args.cmd == "fit" and args.bootstrap and args.method != "wls":
         parser.error("--bootstrap requires --method wls")
@@ -277,6 +279,11 @@ def main(argv=None):
     from cokriging_tpu_torch.utils.config import resolve_device
 
     resolve_device(args.device)  # raise now, before the tables load, without a card
+    if args.cmd == "sim":
+        from cokriging_tpu_torch.experiments import simulation_experiment
+
+        simulation_experiment.main(device=args.device)
+        return
     mf = _multifield(parser, args)
     {"fit": _fit, "predict": _predict, "loocv": _loocv}[args.cmd](args, mf)
 

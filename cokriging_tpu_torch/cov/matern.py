@@ -39,7 +39,7 @@ from cokriging_tpu_torch.kernels.bessel import kv, lgamma
 _LN2 = math.log(2.0)
 
 
-def matern_correlation(nu, len_scale, h):
+def matern_correlation(nu, len_scale, h, order_steps=None):
     r"""Matern correlation :math:`\rho(h)` in log space (src/model.py:354-385).
 
     .. math::
@@ -47,7 +47,8 @@ def matern_correlation(nu, len_scale, h):
                   (\sqrt{2\nu} h/\ell)^{\nu} K_\nu(\sqrt{2\nu} h/\ell)
 
     Elementwise over broadcast ``nu``, ``len_scale`` and ``h``;
-    differentiable in all three.
+    differentiable in all three. ``order_steps``: K_nu's fixed order
+    recurrence count for a traced program (``kernels.bessel.kv``), or None.
     """
     h = torch.as_tensor(h)
     if not h.is_floating_point():
@@ -59,7 +60,7 @@ def matern_correlation(nu, len_scale, h):
     hs = torch.where(positive, h, 1.0) / len_scale
     arg = torch.sqrt(2.0 * nu) * hs
     log_pref = (1.0 - nu) * _LN2 - lgamma(nu) + nu * torch.log(arg)
-    corr = torch.exp(log_pref) * kv(nu, arg)
+    corr = torch.exp(log_pref) * kv(nu, arg, order_steps)
     corr = torch.where(torch.isfinite(corr), corr, 0.0)
     corr = torch.clamp_min(corr, 0.0)
     return torch.where(positive, corr, 1.0)
@@ -394,25 +395,32 @@ def matern_corr_pairs(nu_pairs, ls_pairs, idx_f, h, table=None):
     one of ``n_pairs`` values, selected per entry by the float index plane
     ``idx_f`` (0.0 .. n_pairs - 1.0; any other value selects pair 0).
 
-    On a CUDA tensor this is ``_MaternCorrPairs``: the gathered-pairs kernel
+    Where nothing will differentiate it, this is the registered op
+    ``kernels.cuda_ops.matern_corr_pairs``: the gathered-pairs kernel on a
+    CUDA tensor, the plain version on the CPU (the path that the live
+    predictors and a program traced by ``torch.export`` share). Under
+    autograd, on a CUDA tensor it is ``_MaternCorrPairs``: the kernel
     forward and, when ``nu_pairs`` or ``ls_pairs`` require grad, its
-    gradient kernel backward (h gets no gradient there). On the CPU it is
-    the plain per-entry select through the elementwise
-    ``matern_correlation`` under ordinary autograd, which is what the
-    reference runs off the TPU. ``table``: a ``PairTable`` holding the
-    kernels' tables of these pairs, or None to build them per launch (the
-    dual one also where the ``PairTable`` has none).
+    gradient kernel backward (h gets no gradient there); on the CPU the
+    plain per-entry select through the elementwise ``matern_correlation``
+    under ordinary autograd, which is what the reference runs off the TPU.
+    ``table``: a ``PairTable`` holding the kernels' tables of these pairs,
+    or None to build them per launch (the dual one also where the
+    ``PairTable`` has none).
     """
-    from cokriging_tpu_torch.kernels.cuda_ops import matern_corr_pairs_plain
+    from cokriging_tpu_torch.kernels import cuda_ops
 
     h = torch.as_tensor(h)
     nu_pairs = torch.as_tensor(nu_pairs, device=h.device)
     ls_pairs = torch.as_tensor(ls_pairs, device=h.device)
-    if not h.is_cuda:
-        return matern_corr_pairs_plain(nu_pairs, ls_pairs, idx_f, h)
-    if torch.is_grad_enabled() and h.requires_grad:
-        raise ValueError("matern_corr_pairs: the kernels on the card give h no gradient")
     tables = (None, None) if table is None else (table.value, table.dual)
+    if not (torch.is_grad_enabled()
+            and (nu_pairs.requires_grad or ls_pairs.requires_grad or h.requires_grad)):
+        return cuda_ops.matern_corr_pairs(nu_pairs, ls_pairs, idx_f, h, table=tables[0])
+    if not h.is_cuda:
+        return cuda_ops.matern_corr_pairs_plain(nu_pairs, ls_pairs, idx_f, h)
+    if h.requires_grad:
+        raise ValueError("matern_corr_pairs: the kernels on the card give h no gradient")
     return _MaternCorrPairs.apply(nu_pairs, ls_pairs, idx_f, h, *tables)
 
 

@@ -271,11 +271,18 @@ def _steed_cf2(mu, x):
     return k_mu, k_mu1
 
 
-def order_recurrence(mu, nl, x, k_mu, k_mu1):
+def order_recurrence(mu, nl, x, k_mu, k_mu1, steps=None):
     """Upward recurrence K_{r+1} = (2r/x) K_r + K_{r-1}, r = mu + i, up to
-    order mu + nl (elementwise nl; masked steps keep their lanes)."""
+    order mu + nl (elementwise nl; masked steps keep their lanes).
+
+    ``steps``: the trip count, by default max(nl) read from the data. A
+    traced program (``utils.export``) passes a fixed count >= max(nl)
+    instead; the masked extra trips change no bit."""
     two_over_x = 2.0 / x
-    nl_max = int(torch.max(nl)) if torch.is_tensor(nl) else int(nl)
+    if steps is not None:
+        nl_max = int(steps)
+    else:
+        nl_max = int(torch.max(nl)) if torch.is_tensor(nl) else int(nl)
     for i in range(1, nl_max + 1):
         fi = float(i)
         step = fi <= nl
@@ -287,11 +294,11 @@ def order_recurrence(mu, nl, x, k_mu, k_mu1):
     return k_mu, k_mu1
 
 
-def kv_triple_from_pair(mu, nl, x, k_mu, k_mu1):
+def kv_triple_from_pair(mu, nl, x, k_mu, k_mu1, steps=None):
     """(K_{nu-1}, K_nu, K_{nu+1}) at nu = mu + nl from one (K_mu, K_{mu+1})
     pair: upward recurrence, with one downward step when nl == 0."""
     km, km1 = order_recurrence(
-        mu, torch.clamp_min(nl - 1.0, 0.0), x, k_mu, k_mu1
+        mu, torch.clamp_min(nl - 1.0, 0.0), x, k_mu, k_mu1, steps
     )
     nu = mu + nl
     up_next = (2.0 * nu / x) * km1 + km
@@ -331,8 +338,9 @@ def _sum_to(g, shape):
     return g.sum(dim=dims, keepdim=True).reshape(shape)
 
 
-def _kv_value(nu, x, with_grads):
-    """K_|nu|(x) and, when ``with_grads``, (dK/dnu, dK/dx) on x > 0."""
+def _kv_value(nu, x, with_grads, order_steps=None):
+    """K_|nu|(x) and, when ``with_grads``, (dK/dnu, dK/dx) on x > 0;
+    ``order_steps`` as ``order_recurrence``'s ``steps``."""
     nu, x = torch.broadcast_tensors(torch.abs(nu), x)
     pos = x > 0.0
     x_safe = torch.where(pos, x, 1.0)
@@ -341,7 +349,7 @@ def _kv_value(nu, x, with_grads):
     bad = torch.full_like(x, torch.nan).masked_fill(x == 0.0, torch.inf)
     if not with_grads:
         k_mu, k_mu1 = _kv_pair(mu, x_safe)
-        k, _ = order_recurrence(mu, nl, x_safe, k_mu, k_mu1)
+        k, _ = order_recurrence(mu, nl, x_safe, k_mu, k_mu1, order_steps)
         return torch.where(pos, k, bad), None, None
     # one pass gives the value triple and, by differentiating that same
     # pass in mu with nl pinned, the exact dK/dnu (reference _kv_jvp,
@@ -349,7 +357,7 @@ def _kv_value(nu, x, with_grads):
     with torch.enable_grad():
         m = mu.detach().requires_grad_(True)
         k_mu, k_mu1 = _kv_pair(m, x_safe)
-        k_prev, k_mid, k_next = kv_triple_from_pair(m, nl, x_safe, k_mu, k_mu1)
+        k_prev, k_mid, k_next = kv_triple_from_pair(m, nl, x_safe, k_mu, k_mu1, order_steps)
         (dk_dnu,) = torch.autograd.grad(k_mid.sum(), m)
     k_prev, k_mid, k_next = k_prev.detach(), k_mid.detach(), k_next.detach()
     dk_dx = -0.5 * (k_prev + k_next)
@@ -418,20 +426,24 @@ def _promote(nu, x):
     return nu.to(device=device, dtype=dtype), x.to(device=device, dtype=dtype)
 
 
-def kv(nu, x):
+def kv(nu, x, order_steps=None):
     r"""Modified Bessel function of the second kind, :math:`K_\nu(x)`.
 
     Matches ``scipy.special.kv`` on ``x > 0``, ``0 < |nu| <= 30``;
     ``x == 0`` gives ``inf`` and ``x < 0`` gives ``nan``, like scipy.
     Differentiable in both arguments, to any order (see the module
-    docstring).
+    docstring). ``order_steps``: a fixed trip count of the order
+    recurrence, at least floor(|nu| + 0.5) everywhere (a traced program's;
+    see ``order_recurrence``), or None to read it from ``nu``.
     """
     nu, x = _promote(nu, x)
     needs = torch.is_grad_enabled() and (nu.requires_grad or x.requires_grad)
-    with torch.no_grad():
-        k, dk_dnu, dk_dx = _kv_value(nu, x, needs)
     if not needs:
-        return k
+        # nothing to record: no grad-mode switch either (a traced program
+        # would split its graph at one)
+        return _kv_value(nu, x, False, order_steps)[0]
+    with torch.no_grad():
+        k, dk_dnu, dk_dx = _kv_value(nu, x, needs, order_steps)
     return _Kv.apply(nu, x, k, dk_dnu, dk_dx)
 
 

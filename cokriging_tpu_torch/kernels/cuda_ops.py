@@ -1076,22 +1076,9 @@ def matern_corr_pairs_grad_plain(nu_pairs, ls_pairs, idx_f, h, ct, absolute=Fals
     return out
 
 
-def matern_corr_pairs(nu_pairs, ls_pairs, idx_f, h, table=None, early_exit=True):
-    """Matern correlation over gathered entries of any shape: entry e takes
-    pair ``pair_index(idx_f)[e]`` of ``nu_pairs``/``ls_pairs`` (see
-    ``matern_corr_pairs_plain``). Forward only. CUDA tensors run
-    ``csrc/matern_pairs.cu`` on the flat arrays (``h`` contiguous; ``idx_f``
-    in h's dtype is read as it is); CPU tensors the plain version.
-
-    ``table``: the kernel's ``recurrence_table(nu_pairs, ls_pairs, h.dtype)``
-    on h's device, built once by a caller that launches many times with one
-    parameter set; by default it is built here, on the device of
-    ``nu_pairs``. Neither way reads the card from the host. ``early_exit=False`` runs the CF2 trips of
-    half-integer orders that the kernel skips (they change no bit), for
-    checks."""
-    if h.device.type == "cpu":
-        return matern_corr_pairs_plain(nu_pairs, ls_pairs, idx_f, h)
-    nu_pairs, ls_pairs = torch.as_tensor(nu_pairs), torch.as_tensor(ls_pairs)
+def _pairs_forward_launch(nu_pairs, ls_pairs, idx_f, h, table, early_exit):
+    """One launch of ``csrc/matern_pairs.cu``'s forward on CUDA tensors (the
+    CUDA implementation of the registered op; see ``matern_corr_pairs``)."""
     n_pairs = _check_pairs("matern_corr_pairs", nu_pairs, ls_pairs, idx_f, h)
     h = h.contiguous()
     idx = idx_f.to(h.dtype).contiguous()
@@ -1109,6 +1096,49 @@ def matern_corr_pairs(nu_pairs, ls_pairs, idx_f, h, table=None, early_exit=True)
     _check_rc("matern_pairs.cu", rc, "matern_corr_pairs")
     LAUNCHES["matern_corr_pairs"] += 1
     return out
+
+
+def _pairs_op_cpu(nu_pairs, ls_pairs, idx_f, h, table, early_exit):
+    return matern_corr_pairs_plain(nu_pairs, ls_pairs, idx_f, h)
+
+
+# ``cokriging_tpu_torch::matern_corr_pairs``: the plain version on CPU tensors,
+# ``_pairs_forward_launch`` on CUDA ones, an empty tensor shaped as h under
+# tracing. Defined through ``torch.library.Library`` rather than
+# ``torch.library.custom_op``, whose Python wrapper costs several times the
+# dispatch per call (PERF.md section 6), and the CG matvec launches thousands.
+_LIB = torch.library.Library("cokriging_tpu_torch", "DEF")
+_LIB.define("matern_corr_pairs(Tensor nu_pairs, Tensor ls_pairs, Tensor idx_f, Tensor h, "
+            "Tensor? table, bool early_exit) -> Tensor")
+_LIB.impl("matern_corr_pairs", _pairs_op_cpu, "CPU")
+_LIB.impl("matern_corr_pairs", _pairs_forward_launch, "CUDA")
+
+
+@torch.library.register_fake("cokriging_tpu_torch::matern_corr_pairs", lib=_LIB)
+def _pairs_op_fake(nu_pairs, ls_pairs, idx_f, h, table, early_exit):
+    return torch.empty_like(h, memory_format=torch.contiguous_format)
+
+
+def matern_corr_pairs(nu_pairs, ls_pairs, idx_f, h, table=None, early_exit=True):
+    """Matern correlation over gathered entries of any shape: entry e takes
+    pair ``pair_index(idx_f)[e]`` of ``nu_pairs``/``ls_pairs`` (see
+    ``matern_corr_pairs_plain``). Forward only. It is the registered op
+    ``torch.ops.cokriging_tpu_torch.matern_corr_pairs``, so the live path
+    and a program traced by ``torch.export`` (``utils.export``) run one piece
+    of code: on CUDA tensors ``csrc/matern_pairs.cu`` over the flat arrays
+    (``h`` made contiguous; ``idx_f`` in h's dtype is read as it is), on CPU
+    tensors the plain version; the op's fake implementation gives an empty
+    tensor shaped as ``h``.
+
+    ``table``: the kernel's ``recurrence_table(nu_pairs, ls_pairs, h.dtype)``
+    on h's device, built once by a caller that launches many times with one
+    parameter set; by default it is built here, on the device of
+    ``nu_pairs``. Neither way reads the card from the host. ``early_exit=False`` runs the CF2 trips of
+    half-integer orders that the kernel skips (they change no bit), for
+    checks."""
+    return torch.ops.cokriging_tpu_torch.matern_corr_pairs(
+        torch.as_tensor(nu_pairs), torch.as_tensor(ls_pairs), idx_f, torch.as_tensor(h), table,
+        bool(early_exit))
 
 
 def matern_corr_pairs_grad(nu_pairs, ls_pairs, idx_f, h, ct, table=None):

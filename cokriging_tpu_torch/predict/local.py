@@ -40,10 +40,9 @@ import numpy as np
 import torch
 
 from cokriging_tpu_torch.cov.matern import (
-    covariance,
-    cross_covariance,
     gathered_covariance,
     joint_covariance_from_coords,
+    matern_correlation,
     pair_table,
 )
 from cokriging_tpu_torch.kernels.distance import distance_matrix
@@ -138,9 +137,25 @@ def _lane_procs(k_each, device):
                       for j, k in enumerate(k_each)])
 
 
+def _prediction_cov(params, i, d, procs, order_steps=None):
+    """Covariance between process i at the prediction locations and each
+    neighborhood lane, lane k of process ``procs[k]`` at distance
+    ``d[..., k]`` (src/point_prediction.py:115-125): sigma_i^2 M_ii(d) plus
+    the nugget at d == 0 on lanes of process i, rho_ij sigma_i sigma_j
+    M_ij(d) on the others; one Matern pass over all lanes, each with its
+    pair's (nu, len_scale). ``order_steps``: K_nu's fixed order recurrence
+    count for a traced program (``utils.export``), or None."""
+    own = procs == i
+    corr = matern_correlation(params.nu[i][procs], params.len_scale[i][procs], d, order_steps)
+    amp = torch.where(own, params.sigma[i] ** 2,
+                      params.rho[i][procs] * params.sigma[i] * params.sigma[procs])
+    return amp * corr + torch.where(own & (d == 0.0), params.nugget[i], 0.0)
+
+
 def _solve_local(params, a, cvec, z, mask, i, dtype):
     """(pred, err, n_nb) of a batch of masked local systems ``a`` w = cvec."""
-    c0 = covariance(params, i, torch.zeros(1, dtype=dtype, device=a.device))[0]
+    # the covariance at h = 0: M(0) = 1 and the nugget
+    c0 = (params.sigma[i] ** 2).to(dtype) + params.nugget[i].to(dtype)
     w, solved = spd_solve(a, cvec)
     pred = torch.sum(w * z, dim=1)
     var = c0 - torch.sum(w * cvec, dim=1)
@@ -151,12 +166,16 @@ def _solve_local(params, a, cvec, z, mask, i, dtype):
 
 
 def _local_predict_batch(params, coords, values, joint_cov, pcoords, max_dist,
-                         i, geodesic, k_each, n_valid, dtype, table=None, cv=False):
+                         i, geodesic, k_each, n_valid, dtype, table=None, cv=False,
+                         procs=None, order_steps=None):
     """Local prediction at every row of ``pcoords``: (pred, err, n_nb).
     ``joint_cov=None`` assembles each local system from the gathered
     neighborhood coordinates instead of gathering it from the joint
-    covariance (``table``: the parameters' ``pair_table`` for it); ``cv``
-    withholds the zero-distance lanes of process i."""
+    covariance (``table``: the parameters' ``pair_table`` for it; ``procs``:
+    the lanes' process ids, ``_lane_procs(k_each)``, by default made here);
+    ``cv`` withholds the zero-distance lanes of process i. ``n_valid`` holds
+    ints or 0-d tensors; ``order_steps`` is K_nu's fixed order recurrence
+    count for a traced program (``utils.export``), or None."""
     p = len(coords)
     offsets = np.concatenate([[0], np.cumsum([c.shape[0] for c in coords])])[:-1]
     dev = pcoords.device
@@ -176,26 +195,20 @@ def _local_predict_batch(params, coords, values, joint_cov, pcoords, max_dist,
     mask = torch.cat(mask_parts, dim=1)
     m2 = mask[:, :, None] & mask[:, None, :]
     eye = torch.eye(mask.shape[1], dtype=dtype, device=dev)
+    if procs is None:
+        procs = _lane_procs(k_each, dev)
     if joint_cov is None:
         # the same conventions as the joint matrix, from gathered coordinates
         gc = torch.cat([coords[j][idx_local[j]] for j in range(p)], dim=1)
         a = gathered_covariance(
-            params, distance_matrix(gc, gc, geodesic), _lane_procs(k_each, dev), table=table
+            params, distance_matrix(gc, gc, geodesic), procs, table=table
         ).to(dtype)
     else:
         idx = torch.cat([idx_local[j] + int(offsets[j]) for j in range(p)], dim=1)
         a = joint_cov[idx[:, :, None], idx[:, None, :]]
     a = torch.where(m2, a, eye)
 
-    # prediction covariance vector (src/point_prediction.py:115-125)
-    cvec = torch.cat(
-        [
-            covariance(params, i, dist_parts[j]) if j == i
-            else cross_covariance(params, i, j, dist_parts[j])
-            for j in range(p)
-        ],
-        dim=1,
-    ) * mask
+    cvec = _prediction_cov(params, i, torch.cat(dist_parts, dim=1), procs, order_steps) * mask
     z = torch.cat([values[j][idx_local[j]] for j in range(p)], dim=1) * mask
     return _solve_local(params, a, cvec, z, mask, i, dtype)
 
@@ -218,11 +231,7 @@ def _local_predict_gathered(params, gc, gz, pid, mask, s0, i, geodesic, dtype, t
         m2, gathered_covariance(params, distance_matrix(gc, gc, geodesic), pid,
                                 table=table).to(dtype), eye
     )
-    cvec = torch.zeros_like(dvec)
-    for j in range(params.n_procs):
-        cj = covariance(params, i, dvec) if j == i else cross_covariance(params, i, j, dvec)
-        cvec = torch.where(pid == j, cj, cvec)
-    cvec = cvec * mask
+    cvec = _prediction_cov(params, i, dvec, pid) * mask
     return _solve_local(params, a, cvec, gz * mask, mask, i, dtype)
 
 

@@ -13,7 +13,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 SUBPACKAGES = ["kernels", "cov", "estimate", "predict", "fields", "data", "sim", "stats",
-               "parallel"]
+               "parallel", "plot"]
 
 #: JAX names the port does not have yet -> the ROADMAP.md Queue 1 item
 TO_COME = {}
@@ -39,6 +39,8 @@ MODULES = {
     "utils.results": ["record_manifest", "results_dir", "save_figure"],
     "utils.config": ["compute_dtype", "EARTH_RADIUS_KM"],
     "data.readers": ["read_transcom_binary", "open_mf"],
+    "utils.export": ["export_program", "load_program", "make_local_prediction_fn",
+                     "export_local_prediction"],
 }
 
 

@@ -3,9 +3,10 @@ package's (``python -m cokriging_tpu``), in process through ``main(argv)``, on
 the CPU in float64: ``fit`` -> ``predict`` -> ``loocv`` on the staged tables
 of tests/test_cli.py, parameter files read across the two packages,
 ``fit --bootstrap`` and ``predict --joint --conditional-sims`` (their
-files, columns and shapes), and the parser's errors (``fit --std-errors`` is
+files, columns and shapes), the parser's errors (``fit --std-errors`` is
 held against the JAX package in tests/test_torch_uncertainty.py, beside the
-JAX Hessian it shares)."""
+JAX Hessian it shares) and the dispatch of ``sim`` to the simulation
+experiment."""
 
 import contextlib
 import io
@@ -197,7 +198,6 @@ def test_predict_conditional_sims_writes_the_jax_packages_files(staged, fitted, 
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["sim"], "sim/"),
     (["bench"], "benchmark"),
     (["fit", "--method", "nll", "--bootstrap", "4"], "--bootstrap requires --method wls"),
     (["loocv", "--params", "x.npz", "--predictor", "cg"], "invalid choice: 'cg'"),
@@ -215,6 +215,23 @@ def test_parser_errors_name_what_is_missing(staged, argv, match, capsys):
         torch_main(argv)
     assert e.value.code == 2
     assert re.search(re.escape(match), capsys.readouterr().err)
+
+
+def test_sim_runs_the_experiment_on_the_device_asked(monkeypatch):
+    """``sim --device cpu`` dispatches to the simulation experiment's
+    ``main`` with that device; without ``--device`` it asks for the card."""
+    from cokriging_tpu_torch.experiments import simulation_experiment
+
+    calls = []
+    monkeypatch.setattr(simulation_experiment, "main", lambda **kw: calls.append(kw))
+    torch_main(["sim", "--device", "cpu"])
+    assert calls == [{"device": "cpu"}]
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        torch_main(["sim"])
+    assert len(calls) == 1
 
 
 def test_default_device_is_the_card(staged, monkeypatch):

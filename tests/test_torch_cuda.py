@@ -882,3 +882,51 @@ def test_block_hessian_on_card_matches_cpu_without_synchronizing(cuda):
         out[dev] = torch.stack(rows).cpu()
     hc, hp = out["cuda"], out["cpu"]
     assert float((hc - hp).abs().max()) <= 1e-9 * float(hp.abs().max())
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 5e-6), (torch.float64, 1e-12)])
+def test_registered_pairs_op_matches_plain(cuda, dtype, atol):
+    """``torch.ops.cokriging_tpu_torch.matern_corr_pairs`` on CUDA tensors
+    is the kernel (one launch, counted), equal to the plain version within
+    the forward's bar; on their CPU copies it is the plain version."""
+    rng = np.random.default_rng(19)
+    (nu, ls), t = _pairs_case(rng, 3, dtype, cuda)
+    nu, ls = nu.to(cuda), ls.to(cuda)
+    before = K.launch_counts()["matern_corr_pairs"]
+    got = torch.ops.cokriging_tpu_torch.matern_corr_pairs(nu, ls, t["idx"], t["h"], None, True)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["matern_corr_pairs"] == before + 1
+    ref = K.matern_corr_pairs_plain(nu, ls, t["idx"], t["h"])
+    torch.testing.assert_close(got, ref, rtol=0.0, atol=atol)
+    host = torch.ops.cokriging_tpu_torch.matern_corr_pairs(
+        nu.cpu(), ls.cpu(), t["idx"].cpu(), t["h"].cpu(), None, True)
+    assert torch.equal(host, K.matern_corr_pairs_plain(nu.cpu(), ls.cpu(), t["idx"].cpu(),
+                                                       t["h"].cpu()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_served_artifact_on_card_matches_live_predictor(cuda, dtype):
+    """A local predictor's direct-assembly forward exported on the card
+    (``utils.export``), saved and loaded, equals the live predictor bit for
+    bit, and its calls launch the pairs kernel through the registered op."""
+    from cokriging_tpu_torch.cov.matern import MultivariateMatern
+    from cokriging_tpu_torch.cov.params import MaternParams
+    from cokriging_tpu_torch.predict.local import LocalPredictor
+    from cokriging_tpu_torch.utils.export import export_local_prediction, load_program
+    from cokriging_tpu_torch.utils.export import make_local_prediction_fn
+
+    mf = _frame_fields(150, 5).astype(dtype)
+    mod = MultivariateMatern(params=MaternParams.from_flat(torch.tensor(_CV_FLAT)))
+    lp = LocalPredictor(mod, mf, device=cuda, materialize_cov=False, neighbor_method="device")
+    rng = np.random.default_rng(2)
+    pc = np.column_stack([rng.uniform(31.0, 44.0, 64), rng.uniform(-109.0, -91.0, 64)])
+    fn = load_program(export_local_prediction(lp, 0, pc, max_dist=600.0, platforms=["cuda"]))
+    _, args = make_local_prediction_fn(lp, 0, pc, max_dist=600.0)
+    before = K.launch_counts()["matern_corr_pairs"]
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["matern_corr_pairs"] > before
+    live = lp(0, pc.astype(np.dtype(str(dtype).replace("torch.", ""))), max_dist=600.0)
+    for g, w in zip(got, (live.pred, live.pred_err, live.n_neighbors)):
+        np.testing.assert_array_equal(g.cpu().numpy(), w)
+    assert np.isfinite(live.pred).all()

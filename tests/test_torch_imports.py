@@ -3,7 +3,10 @@ optional frame/plot libraries. The frame layer (fields from data frames,
 the grids' frame wrangling, postprocessing, table and NetCDF I/O, the
 granule readers, the CLI, the uncertainty frames, the regional statistics)
 imports pandas and h5py only inside the functions that take or return
-frames or files; the device mesh (``parallel/``) imports neither."""
+frames or files; the device mesh (``parallel/``), the serving export, the
+entry points and the simulation experiment's module import neither, nor
+matplotlib (``plot/`` loads it, and nothing on the array path imports
+``plot/``)."""
 
 import subprocess
 import sys
@@ -50,6 +53,9 @@ import cokriging_tpu_torch.predict
 import cokriging_tpu_torch.parallel
 import cokriging_tpu_torch.parallel.mesh
 import cokriging_tpu_torch.data.readers
+import cokriging_tpu_torch.utils.export
+import cokriging_tpu_torch.entry
+import cokriging_tpu_torch.experiments.simulation_experiment
 from cokriging_tpu_torch.__main__ import _parser
 _parser()
 from cokriging_tpu_torch.data.grids import prediction_coords
