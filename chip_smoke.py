@@ -134,7 +134,8 @@ Phases, in order; any failure exits nonzero without the final ok line:
     the model's blocks to 1e-10 of the sill; ``sample_ensemble(16)``, then
     2 x 12,500 observations), on them the WLS fit (maxiter 60) projected onto
     the validity region and the parametric bootstrap as ``examples/uncertainty_demo.py:77``
-    runs it (200 replicates, maxiter 200; variograms to 30 in 15 bins) with
+    runs it (200 replicates; variograms to 30 in 15 bins; maxiter cut from
+    200 to 100) with
     stage times: the batched bin pass's counts equal to the reference
     pass's, its sums to 200 single-replicate launches of the existing pass
     (rtol 1e-12 / 1e-5) and to its plain version on 8 replicates and on
@@ -162,11 +163,16 @@ Phases, in order; any failure exits nonzero without the final ok line:
     second-order pair of ``csrc/matern_hess.cu``), timed, with the launch
     counts set to 0 just before and read just after (every kernel of the
     path must run), symmetric to round-off before symmetrization (1e-10 of
-    max|H|) and equal to ``observed_information``; both new kernels held
+    max|H|) and equal to ``observed_information``, with exactly one build of
+    the second-order rows (``recurrence_table(..., order=2)`` for the three
+    process pairs, counted beside the launches); both new kernels held
     against their plain versions at the Hessian's own blocks (the Hessian
     sums at the first of its three 2,500^2 blocks, each within 1e-14 of its
-    sum of |terms| in float64 and 1e-6 in float32, ``J_HESS_BAR``; the tangent
-    within 1e-12 / 1e-5 of its largest entry) and timed there; at the fit with its nuggets raised to 0.1, each
+    sum of |terms| in float64 and 1e-6 in float32, ``J_HESS_BAR``, and
+    bit-equal at each block to a launch that builds its row itself; the tangent
+    within 1e-12 / 1e-5 of its largest entry) and timed there (the Hessian
+    sums alone with the path's rows, as launches that build their rows, and
+    the one row build alone); at the fit with its nuggets raised to 0.1, each
     column against a central (or, beside the positive-definite wall,
     one-sided) difference of the card's exact gradient (1e-4 of the
     column's largest entry), and the float32 information against the
@@ -199,7 +205,7 @@ Phases, in order; any failure exits nonzero without the final ok line:
     mesh=)`` on 2 x 2,500 of the month with nuggets 0.1 (tol 1e-10, float64,
     rtol 1e-8) and on (g)'s 2 x 12,500 at 256 cells (40 iterations, float32:
     the iterations equal, the gap logged); the parametric bootstrap on (i)'s
-    spectral sample (8 replicates, maxiter 60, float64) with its refit
+    spectral sample (8 replicates, maxiter 30, float64) with its refit
     sharded and stepped in lockstep, bit-equal, both walls logged. The
     one-card mesh ``make_mesh()`` runs each path once more, bit-equal to no
     mesh (the CG on 2 x 2,560 rows, a multiple of its 512-row tile, at tol
@@ -325,6 +331,15 @@ REDESIGNED = {
     "matern_correlation_float64_nll_nu1.37": ("matern.cu", "matern_kernelId", None),
     "matern_corr_pairs_grad_float32_vecchia": ("matern_pairs.cu", "pairs_grad_kernelIf", 2.857),
     "matern_corr_pairs_grad_float64_vecchia": ("matern_pairs.cu", "pairs_grad_kernelId", 12.276),
+    # the batched bin pass (its walk kernel; 50 replicates in float32, 200 in
+    # float64, as (i) runs them; recorded before: one kernel over every pair
+    # and replicate) and the Hessian sums, whose earlier row timed three
+    # launches that each built their row (47.35 / 56.36 ms at the three
+    # blocks): no time of the first block alone was recorded
+    "variogram_bin_batch_float32_i": ("variogram.cu", "batch_walk_kernelIfLb0ELi16E", 26.17),
+    "variogram_bin_batch_float64_i": ("variogram.cu", "batch_walk_kernelIdLb0ELi16E", 58.61),
+    "matern_block_hess_float32": ("matern_hess.cu", "HessStepIfE", None),
+    "matern_block_hess_float64": ("matern_hess.cu", "HessStepIdE", None),
 }
 # the same record for one 12,500^2 symmetric block, and for the Vecchia window
 # set in one gradient launch (that one built its table in the call)
@@ -2490,11 +2505,12 @@ I_SPEC_BOUNDS = dict(sigma_bounds=(0.2, 3.0), nu_bounds=(0.4, 3.0), len_scale_bo
 I_SPEC_GRID = 1024
 I_ENSEMBLE = 16
 # the bootstrap (examples/uncertainty_demo.py:77: 200 replicates, maxiter
-# 200) at bench.py's n on the spectral field's sample; the variograms to 30
-# (six length scales of the truth's 5) in 15 bins
+# 200; cut to maxiter 100 for the script's time limit) at bench.py's n on
+# the spectral field's sample; the variograms to 30 (six length scales of
+# the truth's 5) in 15 bins
 I_N = N_PER_PROC
 I_REP = 200
-I_MAXITER = 200
+I_MAXITER = 100
 I_MAX_DIST = 30.0
 I_CHECK_REP = 8  # replicates held against the plain batched pass
 # replicates refit alone against their batched refits, per dtype: each such
@@ -3157,6 +3173,11 @@ def j_hessian(mf, params, dtype_name, rows, stages, launches):
     for k in ("matern_correlation", "matern_block_grad", "matern_block_tangent",
               "matern_block_hess"):
         check(counts.get(k, 0) > 0, f"(j) {dtype_name}: no {k} launch in the Hessian: {counts}")
+    # the second-order rows of all three process pairs, built once per Hessian
+    # (the first block's double backward) and shared by the three blocks
+    check(counts.get("recurrence_table_order2", 0) == 1,
+          f"(j) {dtype_name}: {counts.get('recurrence_table_order2', 0)} second-order row "
+          f"builds in one Hessian, not 1")
     raw = raw.detach().double().cpu().numpy()
     scale = float(np.abs(raw).max())
     asym = float(np.abs(raw - raw.T).max()) / scale
@@ -3185,7 +3206,12 @@ def j_kernel_rows(dtype_name, hess_calls, tan_calls, counts):
     Hessian's own launches (the Hessian sums at the first of its three
     blocks, timed at all three; the tangent at each block's first launch
     with nonzero weights), each timed there; their rows of the kernels line
-    (the Hessian sums' at the first block, where the plain version ran)."""
+    (the Hessian sums' at the first block, where the plain version ran).
+    The Hessian sums are timed alone, with the second-order row the path
+    handed them (``ms``, ``ms_all_blocks``), and as a launch that builds its
+    row first (``ms_with_row_build_all_blocks``, how this row was timed
+    before the rows were built once per Hessian); the one build of all three
+    pairs' rows is timed alone (``row_build_ms``)."""
     import torch
 
     from cokriging_tpu_torch.kernels import cuda_ops as K
@@ -3193,15 +3219,28 @@ def j_kernel_rows(dtype_name, hess_calls, tan_calls, counts):
     hess_calls = [[t.detach() if torch.is_tensor(t) else t for t in a] for a in hess_calls]
     tan_calls = [[t.detach() if torch.is_tensor(t) else t for t in a] for a in tan_calls]
     f32 = dtype_name == "float32"
-    hess = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, max_err=0.0, ms_all_blocks=0.0)
+    hess = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, max_err=0.0, ms_all_blocks=0.0,
+                ms_with_row_build_all_blocks=0.0)
     bar = torch.tensor(J_HESS_BAR[dtype_name], dtype=torch.float64, device="cuda")
     blocks = []
     check(len(hess_calls) == 3, f"(j) {dtype_name}: {len(hess_calls)} Hessian-sum launches")
-    for k, (nu, ls, h, ct, sym) in enumerate(hess_calls):
+    check(all(len(a) == 6 and torch.is_tensor(a[5]) for a in hess_calls),
+          f"(j) {dtype_name}: a Hessian-sum launch of the path built its own row")
+    td = hess_calls[0][2].dtype
+    nu_pairs = torch.stack([torch.as_tensor(a[0], dtype=td, device="cuda") for a in hess_calls])
+    ls_pairs = torch.stack([torch.as_tensor(a[1], dtype=td, device="cuda") for a in hess_calls])
+    hess["row_build_ms"] = cuda_time_ms(lambda: K.recurrence_table(nu_pairs, ls_pairs, td,
+                                                                   order=2), 3)
+    for k, (nu, ls, h, ct, sym, row) in enumerate(hess_calls):
         kept = {}
         ms = cuda_time_ms(keep(kept, "kernel", lambda: K.matern_block_hess(
-            nu, ls, h, ct, symmetric=sym)), 3)
+            nu, ls, h, ct, symmetric=sym, table=row)), 3)
         hess["ms_all_blocks"] += ms
+        hess["ms_with_row_build_all_blocks"] += cuda_time_ms(keep(
+            kept, "built", lambda: K.matern_block_hess(nu, ls, h, ct, symmetric=sym)), 3)
+        check(torch.equal(kept["kernel"], kept["built"]),
+              f"(j) Hessian sums {dtype_name} block {k}: the path's row and a row built in the "
+              f"launch give other sums: {kept['kernel'].tolist()} / {kept['built'].tolist()}")
         if k:  # the plain sums only at the first block (a cut against the time limit)
             check(bool(torch.isfinite(kept["kernel"]).all()),
                   f"(j) Hessian sums {dtype_name} block {k}: {kept['kernel'].tolist()}")
@@ -3246,19 +3285,25 @@ def j_kernel_rows(dtype_name, hess_calls, tan_calls, counts):
         torch.cuda.empty_cache()
     hb = bound_of([matern_bound(a[2], float(a[0]), float(a[1]), a[4], grad=True,
                                 ops=MATERN_HESS_OPS, n_out=5) for a in hess_calls[:1]])
+    hb_all = bound_of([matern_bound(a[2], float(a[0]), float(a[1]), a[4], grad=True,
+                                    ops=MATERN_HESS_OPS, n_out=5) for a in hess_calls])
+    hess["bound_ms_all_blocks"] = hb_all[0]
     tb = bound_of([matern_bound(a[3], float(a[1]), float(a[2]), a[5], grad=True,
                                 ops=MATERN_TANGENT_OPS, n_out=0) for a in tan_calls])
     shape = "Hessian blocks 2500^2 sym + 2500^2 + 2500^2 sym"
-    log(f"(j) {dtype_name}: Hessian sums at the first block {hess['ms']:.3f} ms (at the three "
-        f"{hess['ms_all_blocks']:.3f} ms), plain {hess['plain_ms']:.1f} ms, worst |kernel - "
-        f"plain| / sum|terms| {hess['max_err']:.3e}; "
+    log(f"(j) {dtype_name}: Hessian sums alone at the first block {hess['ms']:.3f} ms (at the "
+        f"three {hess['ms_all_blocks']:.3f} ms; each launch building its row "
+        f"{hess['ms_with_row_build_all_blocks']:.3f} ms; the one second-order row build of the "
+        f"three pairs alone {hess['row_build_ms']:.3f} ms), plain {hess['plain_ms']:.1f} ms, worst "
+        f"|kernel - plain| / sum|terms| {hess['max_err']:.3e}; "
         f"tangent at {len(tan_calls)} blocks {tan['ms']:.3f} ms, plain {tan['plain_ms']:.1f} ms, "
         f"worst err / max|entry| {tan['max_err']:.3e}")
     replaces = "cokriging_tpu/estimate/uncertainty.py:75-79 (jax.hessian; no Pallas kernel)"
     return [
         dict(name=f"matern_block_hess_{dtype_name}", route="cuda",
              source="cokriging_tpu_torch/kernels/csrc/matern_hess.cu", replaces=replaces,
-             launches=counts.get("matern_block_hess", 0), bound_ms=hb[0], bound_by=hb[1],
+             launches=counts.get("matern_block_hess", 0),
+             row_builds=counts.get("recurrence_table_order2", 0), bound_ms=hb[0], bound_by=hb[1],
              library_ms=None, path="(j) observed information",
              shape="the first Hessian block, 2500^2 sym (ms_all_blocks: all three)",
              bars=J_HESS_BAR[dtype_name], blocks=blocks, **hess),
@@ -3524,7 +3569,7 @@ K_VECCHIA_ITERS = 10
 K_CG_SMALL = 2_500  # (h)'s joint and CG LOOCV rows per process
 K_CG_TILED = 2_560  # per process: 5,120 rows, a multiple of the 512-row tile
 K_CG_CELLS = 256
-K_BOOT_REP, K_BOOT_MAXITER = 8, 60
+K_BOOT_REP, K_BOOT_MAXITER = 8, 30
 K_BOOT_ONE_CARD = (4, 20)  # replicates, maxiter of the one-card mesh's bootstrap
 SHARED = {}  # (i)'s spectral model and sample, which (k) reuses
 
@@ -3852,8 +3897,8 @@ def k_cg(mesh, one_card, stages, launches):
 
 
 def k_bootstrap(mesh, one_card, stages, launches):
-    """The parametric bootstrap on (i)'s 2 x 12,500 spectral sample (16
-    replicates, maxiter 60, float64) with its refit sharded: bit-equal to
+    """The parametric bootstrap on (i)'s 2 x 12,500 spectral sample (8
+    replicates, maxiter 30, float64) with its refit sharded: bit-equal to
     the unsharded bootstrap, walls logged; on the one-card mesh (4
     replicates, maxiter 20) bit-equal too."""
     from cokriging_tpu_torch.estimate import bootstrap as TB

@@ -122,22 +122,22 @@ class _ScaledMaternBlock(torch.autograd.Function):
     with scalar-only cotangents (the reference's ``_make_scaled_cvjp``,
     cokriging_tpu/cov/matern.py:180-293): the backward returns the four
     scalar gradients and none for ``h``, which is data. On a CUDA tensor the
-    forward is the Matern kernel and the backward the block-gradient kernel
-    (``value_row``, ``dual_row``: the pair's rows of a ``pair_table``, or
-    None to build them per launch); on the CPU both are their plain
-    versions. ``symmetric`` (marginal self-distance blocks) lets both
+    forward is the Matern kernel and the backward the block-gradient kernel,
+    both reading pair ``k``'s rows of ``table``, a ``pair_table`` (or, with
+    ``table`` None, building them per launch); on the CPU both are their
+    plain versions. ``symmetric`` (marginal self-distance blocks) lets both
     evaluate the lower triangle only. The backward is the differentiable
     ``_ScaledMaternBlockGrad``, so a Hessian runs through the block."""
 
     @staticmethod
-    def forward(ctx, scale, nugget, nu, ls, h, symmetric, value_row=None, dual_row=None):
+    def forward(ctx, scale, nugget, nu, ls, h, symmetric, table=None, k=None):
         from cokriging_tpu_torch.kernels.cuda_ops import matern_correlation_block
 
         ctx.save_for_backward(scale, nugget, nu, ls, h)
         ctx.symmetric = symmetric
-        ctx.dual_row = dual_row
+        ctx.table, ctx.k = table, k
         out = matern_correlation_block(nu.detach(), ls.detach(), h, symmetric=symmetric,
-                                       table=value_row)
+                                       table=None if table is None else table.value[k])
         out.mul_(scale)
         return out.add_(torch.where(h == 0.0, nugget.to(out.dtype), 0.0))
 
@@ -145,7 +145,7 @@ class _ScaledMaternBlock(torch.autograd.Function):
     def backward(ctx, ct):
         scale, nugget, nu, ls, h = ctx.saved_tensors
         g = _ScaledMaternBlockGrad.apply(scale, nugget, nu, ls, h, ct.to(h.dtype), ctx.symmetric,
-                                         ctx.dual_row)
+                                         ctx.table, ctx.k)
         return (g[0].to(scale.dtype), g[1].to(nugget.dtype), g[2].to(nu.dtype),
                 g[3].to(ls.dtype), None, None, None, None)
 
@@ -162,17 +162,21 @@ class _ScaledMaternBlockGrad(torch.autograd.Function):
     4 x 4 contraction of the five second-order sums of ``matern_block_hess``
     (sum ct dM/dnu, sum ct dM/dls and the three sums of ct times M's second
     partials) with v; nugget gets 0. On a CUDA tensor both are the kernels
-    of ``csrc/matern_hess.cu``, on the CPU their plain versions. The
-    backward is not differentiable again."""
+    of ``csrc/matern_hess.cu``, on the CPU their plain versions. All read
+    pair ``k``'s rows of ``table`` where it has them (the second-order row
+    built once for every block of a ``pair_table``, ``SecondRows``) and
+    build theirs per launch where not. The backward is not differentiable
+    again."""
 
     @staticmethod
-    def forward(ctx, scale, nugget, nu, ls, h, ct, symmetric, dual_row=None):
+    def forward(ctx, scale, nugget, nu, ls, h, ct, symmetric, table=None, k=None):
         from cokriging_tpu_torch.kernels.cuda_ops import matern_block_grad
 
         ctx.save_for_backward(scale, nu, ls, h, ct)
         ctx.symmetric = symmetric
-        ctx.dual_row = dual_row
-        return matern_block_grad(scale, nugget, nu, ls, h, ct, symmetric, table=dual_row)
+        ctx.dual_row = None if table is None or table.dual is None else table.dual[k]
+        ctx.second = None if table is None or table.second is None else (table.second, k)
+        return matern_block_grad(scale, nugget, nu, ls, h, ct, symmetric, table=ctx.dual_row)
 
     @staticmethod
     @once_differentiable
@@ -186,7 +190,9 @@ class _ScaledMaternBlockGrad(torch.autograd.Function):
         if need[0] or need[2] or need[3]:
             # the sums do not depend on v: one launch serves every row of a Hessian
             if not hasattr(ctx, "sums"):
-                ctx.sums = matern_block_hess(nu, ls, h, ct, ctx.symmetric)
+                ctx.sums = matern_block_hess(
+                    nu, ls, h, ct, ctx.symmetric,
+                    table=None if ctx.second is None else ctx.second[0].row(ctx.second[1]))
             a_nu, a_ls, h_nn, h_nl, h_ll = ctx.sums
             s = scale.to(torch.float64)
             g_s = (v[2] * a_nu + v[3] * a_ls).to(scale.dtype)
@@ -196,7 +202,7 @@ class _ScaledMaternBlockGrad(torch.autograd.Function):
             g_ct = matern_block_tangent(scale, nu, ls, h, v, ctx.symmetric,
                                         table=ctx.dual_row).to(ct.dtype)
         g_n = torch.zeros_like(scale) if need[1] else None
-        return g_s, g_n, g_nu, g_ls, None, g_ct, None, None
+        return g_s, g_n, g_nu, g_ls, None, g_ct, None, None, None
 
 
 def _needs_grad(params: MaternParams) -> bool:
@@ -248,15 +254,16 @@ def block_covariance(params: MaternParams, dists, h_grad: bool = True, table=Non
             else:
                 scale = params.rho[i, j] * params.sigma[i] * params.sigma[j]
                 nugget = torch.zeros((), dtype=scale.dtype, device=scale.device)
-            value_row, dual_row = table.rows(i, j) if on_card else (None, None)
+            k = table.number(i, j) if on_card else None
             if needs_grad and (on_card or not h_grad):
                 blocks[(i, j)] = _ScaledMaternBlock.apply(
                     scale, nugget, params.nu[i, j], params.len_scale[i, j], h, i == j,
-                    value_row, dual_row,
+                    table if on_card else None, k,
                 )
                 continue
             m = matern_correlation_block(
-                params.nu[i, j], params.len_scale[i, j], h, symmetric=(i == j), table=value_row
+                params.nu[i, j], params.len_scale[i, j], h, symmetric=(i == j),
+                table=table.value[k] if on_card else None,
             )
             blocks[(i, j)] = scale * m
             if i == j:
@@ -323,17 +330,44 @@ class PairTable(NamedTuple):
     order), and on a CUDA device the kernels' recurrence tables
     (``kernels.cuda_ops.recurrence_table``), one row per pair: ``value`` for
     the forward kernels, ``dual`` for the gradient kernels (None where no
-    gradient was asked for; both None off the card)."""
+    gradient was asked for; both None off the card), and ``second`` the
+    Hessian sums' second-order rows, built on first use (``SecondRows``;
+    None where ``dual`` is)."""
 
     index: torch.Tensor
     value: Optional[torch.Tensor]
     dual: Optional[torch.Tensor]
+    second: Optional["SecondRows"] = None
+
+    def number(self, i: int, j: int) -> int:
+        """The pair number of processes (i, j), worked out on the host
+        (``index`` stays on the device)."""
+        return _pair_number(min(i, j), max(i, j), self.index.shape[0])
 
     def rows(self, i: int, j: int):
-        """(value row, dual row or None) of the process pair (i, j), its
-        number worked out on the host (``index`` stays on the device)."""
-        k = _pair_number(min(i, j), max(i, j), self.index.shape[0])
+        """(value row, dual row or None) of the process pair (i, j)."""
+        k = self.number(i, j)
         return self.value[k], None if self.dual is None else self.dual[k]
+
+
+class SecondRows:
+    """The process pairs' second-order rows of the Hessian sums
+    (``recurrence_table(..., order=2)``, ~500-900 small torch operations),
+    built in one call for every pair on the first request, which is the first
+    block's double backward of a Hessian, and then shared by every block of
+    the covariance: one build per Hessian, none where nothing asks for
+    one."""
+
+    def __init__(self, nu_pairs, ls_pairs, dtype):
+        self._args = (nu_pairs, ls_pairs, dtype)
+        self._table = None
+
+    def row(self, k: int):
+        if self._table is None:
+            from cokriging_tpu_torch.kernels.cuda_ops import recurrence_table
+
+            self._table = recurrence_table(*self._args, order=2)
+        return self._table[k]
 
 
 def pair_table(params: MaternParams, device, dtype, grad: Optional[bool] = None) -> PairTable:
@@ -347,21 +381,24 @@ def pair_table(params: MaternParams, device, dtype, grad: Optional[bool] = None)
     r = torch.arange(p, device=device)
     index = _pair_number(torch.minimum(r[:, None], r[None, :]),
                          torch.maximum(r[:, None], r[None, :]), p)
-    value = dual = None
-    if device.type == "cuda":
-        value, dual = _kernel_tables(params, device, dtype,
-                                     _needs_grad(params) if grad is None else grad)
-    return PairTable(index, value, dual)
+    if device.type != "cuda":
+        return PairTable(index, None, None)
+    return PairTable(index, *_kernel_tables(params, device, dtype,
+                                            _needs_grad(params) if grad is None else grad))
 
 
 def _kernel_tables(params: MaternParams, device, dtype, grad: bool):
-    """(value table, dual table or None) of the process pairs in pair
-    order, built with torch on ``device`` from the parameters' values."""
+    """(value table, dual table, ``SecondRows``) of the process pairs in
+    pair order, built with torch on ``device`` from the parameters' values;
+    the last two None unless ``grad``."""
     from cokriging_tpu_torch.kernels.cuda_ops import recurrence_table
 
     nu_pairs, ls_pairs = (t.detach().to(device) for t in _pair_stacks(params))
     value = recurrence_table(nu_pairs, ls_pairs, dtype)
-    return value, recurrence_table(nu_pairs, ls_pairs, dtype, order=1) if grad else None
+    if not grad:
+        return value, None, None
+    return (value, recurrence_table(nu_pairs, ls_pairs, dtype, order=1),
+            SecondRows(nu_pairs, ls_pairs, dtype))
 
 
 class _MaternCorrPairs(torch.autograd.Function):

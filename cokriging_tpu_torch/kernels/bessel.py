@@ -99,6 +99,96 @@ def gam12_tangent(mu):
     return d_gam1, d_gam2, d_gp, d_gm
 
 
+def _horner_values(z, top, coefs):
+    """acc_0 = top, acc_k = acc_{k-1} z + coefs[k-1]: the values of the
+    Taylor polynomials above, with their operations."""
+    accs = [torch.full_like(z, top)]
+    for c in coefs:
+        accs.append(accs[-1] * z + c)
+    return accs
+
+
+def _horner_back(accs, z, g):
+    """The terms a reverse pass of the Horner chain ``accs`` in ``z`` adds
+    into z's gradient, from the gradient ``g`` of its last value (any
+    shape that broadcasts against it: one seed per leading row), in the
+    order it adds them: last step first, g acc_{k-1}, then g <- g z."""
+    terms = []
+    for acc in accs[-2::-1]:
+        terms.append(g * acc)
+        g = g * z
+    return terms
+
+
+def _fold(total, terms):
+    for t in terms:
+        total = total + t
+    return total
+
+
+def gam12_second(mu, gam12=None, tangent=None, tri=None):
+    """d^2/dmu^2 of ``_gam12``: (ddgam1, ddgam2, ddinv_gp, ddinv_gm), for the
+    kernels' second-order table (``cuda_ops.recurrence_table(order=2)``);
+    ``gam12``, ``tangent`` and (f64) ``tri``: ``_gam12(mu)``,
+    ``gam12_tangent(mu)`` and ``trigamma`` at (1 + mu, 1 - mu), where the
+    caller has them.
+
+    Formed with no graph from the operations that reverse-mode AD of
+    ``gam12_tangent`` performs, in the order its engine adds them into mu's
+    gradient, so each equals ``torch.autograd.grad`` of that tangent bit for
+    bit at a fraction of its operations. f32 walks the reverse of the Taylor
+    polynomials' Horner chains, each chain once for the three outputs that
+    read it (one seed per row of a stacked tensor); f64 takes d psi =
+    trigamma (``_Digamma``'s derivative) and d lgamma = digamma
+    (``_Lgamma``'s)."""
+    gam1, _, inv_gp, inv_gm = _gam12(mu) if gam12 is None else gam12
+    d_gam1 = (gam12_tangent(mu) if tangent is None else tangent)[0]
+    small = torch.abs(mu) < 1e-3
+    two_mu = 2.0 * torch.where(small, 1.0, mu)
+    # d_gam1 = ((d_gm - d_gp) - 2 gam1) / two_mu and gam1 = (inv_gm - inv_gp)
+    # / two_mu: the quotients' backward (grad / d, -grad (q / d) / d) and
+    # two_mu's (x 2), away from the small branch
+    g_n = 1.0 / two_mu
+    c_den = (-(d_gam1 / two_mu)) * 2.0
+    g_direct = (-g_n) * 2.0
+    g_n2 = g_direct / two_mu
+    c_den2 = (-g_direct * (gam1 / two_mu)) * 2.0
+    if mu.dtype == torch.float32:
+        n = len(_INV_GAMMA1P_COEF)
+        pm = torch.stack([mu, -mu])[:, None]  # the chains in mu and in -mu
+        one = torch.ones_like(mu)
+        d_acc = _horner_values(pm, (n - 1) * _INV_GAMMA1P_COEF[-1],
+                               [k * _INV_GAMMA1P_COEF[k] for k in range(n - 2, 0, -1)])
+        i_acc = _horner_values(pm, _INV_GAMMA1P_COEF[-1], _INV_GAMMA1P_COEF[-2::-1])
+        # rows: dd_gp / dd_gm, dd_gam2, dd_gam1's terms; the -mu chains' seeds
+        # carry their outer negation, their folds the inner one
+        d_terms = _horner_back(d_acc, pm, torch.stack([
+            torch.stack([one, 0.5 * one, -g_n]), torch.stack([-one, -0.5 * one, -g_n])]))
+        d_m = -_fold(d_terms[0][1], [t[1] for t in d_terms[1:]])
+        i_terms = _horner_back(i_acc, pm, torch.stack([-g_n2, g_n2])[:, None])
+        i_m = -_fold(i_terms[0][1, 0], [t[1, 0] for t in i_terms[1:]])
+        dd_gp, dd_gam2, dd_gam1 = _fold(torch.stack([torch.zeros_like(mu), d_m[1], c_den + d_m[2]]),
+                                        [t[0] for t in d_terms]).unbind(0)
+        dd_gm = d_m[0]
+        dd_gam1 = _fold(dd_gam1, [c_den2, i_m] + [t[0, 0] for t in i_terms])
+    else:
+        dig_p, dig_m = torch.digamma(1.0 + mu), torch.digamma(1.0 - mu)
+        tri_p, tri_m = trigamma(torch.stack([1.0 + mu, 1.0 - mu])) if tri is None else tri
+        a_p, b_p = (-inv_gp) * tri_p, (dig_p * inv_gp) * dig_p
+        a_m, b_m = -(inv_gm * tri_m), (dig_m * inv_gm) * dig_m
+        dd_gp, dd_gm = a_p + b_p, a_m + b_m
+        dd_gam2 = 0.5 * (((a_m + a_p) + b_m) + b_p)
+        g_m = (g_n * dig_m) + g_n2
+        g_p = ((-g_n) * (-dig_p)) + (-g_n2)
+        dd_gam1 = _fold(c_den, [-((g_n * inv_gm) * tri_m), (g_n * inv_gp) * tri_p, c_den2,
+                                (g_m * inv_gm) * dig_m, -((g_p * inv_gp) * dig_p)])
+    dd_gam1 = torch.where(small, torch.full_like(mu, -2.0 * _A3), dd_gam1)
+    return dd_gam1, dd_gam2, dd_gp, dd_gm
+
+
+_TRIGAMMA_SERIES = (-691.0 / 2730.0, 5.0 / 66.0, -1.0 / 30.0, 1.0 / 42.0, -1.0 / 30.0, 1.0 / 6.0)
+
+
 def trigamma(x):
     """psi'(x) for x > 0, to float64 round-off: the recurrence psi'(x) =
     psi'(x + 1) + 1/x^2 shifts every lane to x >= 10 in ten branch-free
@@ -113,9 +203,42 @@ def trigamma(x):
     ix = 1.0 / x
     ix2 = ix * ix
     series = ix2 * (7.0 / 6.0)
-    for c in (-691.0 / 2730.0, 5.0 / 66.0, -1.0 / 30.0, 1.0 / 42.0, -1.0 / 30.0, 1.0 / 6.0):
+    for c in _TRIGAMMA_SERIES:
         series = ix2 * (c + series)
     return acc + ix + 0.5 * ix2 + ix * series
+
+
+def tetragamma(x):
+    """psi''(x) for x > 0: d/dx of ``trigamma``, formed with no graph from
+    the operations reverse-mode AD of ``trigamma`` performs, in the order
+    its engine adds them, so it equals ``torch.autograd.grad`` of
+    ``trigamma`` bit for bit (the kernels' second-order table)."""
+    xs, small = [x], []
+    for _ in range(10):
+        small.append(x < 10.0)
+        x = torch.where(small[-1], x + 1.0, x)
+        xs.append(x)
+    r = x.reciprocal()
+    ix = r * 1.0
+    ix2 = ix * ix
+    us, series = [], ix2 * (7.0 / 6.0)
+    for c in _TRIGAMMA_SERIES:
+        us.append(c + series)
+        series = ix2 * us[-1]
+    # out = ((acc + ix) + 0.5 ix2) + ix series, from its last operation back
+    g, g_ix2 = ix, [0.5 * torch.ones_like(x)]
+    for u in us[::-1]:
+        g_ix2.append(g * u)
+        g = g * ix2
+    g_ix2.append(g * (7.0 / 6.0))
+    c = _fold(g_ix2[0], g_ix2[1:]) * ix
+    grad = -((_fold(series, [torch.ones_like(x), c, c]) * 1.0) * (r * r))
+    # each shift step: where's two branches (one of them 0), then x * x twice
+    for xk, s in zip(xs[-2::-1], small[::-1]):
+        rk = (xk * xk).reciprocal()
+        ck = (-(s.to(x.dtype) * 1.0)) * (rk * rk) * xk
+        grad = ((torch.where(s, 0.0, grad) + torch.where(s, grad, 0.0)) + ck) + ck
+    return grad
 
 
 class _Digamma(torch.autograd.Function):

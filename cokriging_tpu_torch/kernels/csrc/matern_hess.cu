@@ -46,6 +46,32 @@
 // per-tile partials in double and a fixed-order second launch, no atomics,
 // the same sums from run to run. scale and the weights are device values:
 // nothing is read back.
+//
+// The Hessian sums on this card (chip_smoke phase (j)'s three 2,500^2
+// blocks, NVIDIA H100 80GB HBM3 at 700 W): alone they take 0.85 / 3.48 ms
+// f32 / f64, 4.9x / 2.7x the operations bound there (0.174 / 1.280 ms),
+// with about half of the FP32 / FP64 pipe's issue slots used
+// (tools/torch_hess_timing.py: 0.78 / 3.81-3.85 ms at nu = 1.37). Each
+// launch used to build its own second-order row, ~700-1,400 small torch
+// operations launched from the host (19-33 ms a build), which was most of
+// the 47 / 56 ms the three launches took. Now the caller builds the rows of
+// all a covariance's pairs once per Hessian (cov.matern.SecondRows; closed
+// forms in place of autograd, 5-14 ms a build) and hands each launch its
+// row. The kernel itself is unchanged: its row stays in shared memory,
+// where every lane of a warp reads the same column (a broadcast). Measured
+// and not kept: the row in constant memory (copied on the launch's stream;
+// float32 the same time, float64 30% slower at 166 registers); x re-formed
+// from h instead of kept in shared memory, so that a float64 block takes
+// 55 KB and three fit on an SM, with a launch bound of three blocks (80
+// registers, 256 B of spills): float64 3-4% slower with either bound, and
+// float32 at four or five blocks (64 or 48 registers) 4-8% slower;
+// kv.cuh's reference_x_lane returning its pair by value instead of through
+// references: the same time, 128 / 64 registers with 4 / 24 B of spills
+// (f64 / f32), and other bits in the d2M/dnu dls sums (the compiler
+// contracts that term differently). The registers, which the Dual2 state of
+// the series and CF2 needs (124 / 64 in float64 / float32: two / four
+// blocks of 256 threads per SM), bound the occupancy, and more resident
+// warps bought with spills do not pay.
 #include <cuda_runtime.h>
 
 #include "kv.cuh"

@@ -167,6 +167,159 @@ __host__ __device__ __forceinline__ int bin_slot(T h, bool valid, const BinLooku
   return valid ? s : n_win;
 }
 
+// ---- the replicate-batched pass's walk -------------------------------------
+//
+// variogram.cu's batched pass bins a strip of BATCH_STRIP rows against
+// chunks of BATCH_CHUNK columns. Its slot pass sorts each chunk's pairs of
+// slot < n_win by slot (pair index e = r BATCH_CHUNK + c, row-major within a
+// slot) into `perm`, with slot s at perm[seg[s] .. seg[s + 1]); the dropped
+// slot takes no entry.
+
+constexpr int BATCH_STRIP = 64;                         // rows of a strip
+constexpr int BATCH_CHUNK = 64;                         // columns of a chunk
+constexpr int BATCH_PAIRS = BATCH_STRIP * BATCH_CHUNK;  // pairs of a chunk
+constexpr int BATCH_SEG = 32;                           // seg offsets kept per chunk
+constexpr int BATCH_RATIO = BATCH_STRIP / BATCH_CHUNK;   // chunks of a strip's height
+constexpr int BATCH_SPAN = 8;           // chunks of a strip per walk block
+constexpr long long BATCH_LIST = 8192;  // chunks of sorted entries per round (64 MB)
+constexpr long long BATCH_SLOTS = 2048; // (strip, span) partials per round
+
+// (x, y) = (p[0], p[1]): on the card one vector load (p is 2-aligned).
+__host__ __device__ __forceinline__ void load2(const float* p, float& x, float& y) {
+#ifdef __CUDA_ARCH__
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  x = v.x;
+  y = v.y;
+#else
+  x = p[0];
+  y = p[1];
+#endif
+}
+__host__ __device__ __forceinline__ void load2(const double* p, double& x, double& y) {
+#ifdef __CUDA_ARCH__
+  const double2 v = *reinterpret_cast<const double2*>(p);
+  x = v.x;
+  y = v.y;
+#else
+  x = p[0];
+  y = p[1];
+#endif
+}
+
+// One thread's sums over one chunk for the two adjacent replicates pos and
+// pos + 1 (pos even): for each slot s < n_win, the clouds of the entries
+// perm[seg[s] + first], perm[seg[s] + first + step], ..., with the row values
+// row_v[r * width + pos + j] and the column values col_v[c * width + pos + j],
+// added in that order in double into one register per replicate and then
+// into hist[j][s]. NB >= n_win: hist's length, a constant, so hist stays in
+// registers. Every lane of a warp walks the same entries, so the loop bounds
+// and the slot are the warp's own.
+template <typename T, bool COV, int NB>
+__host__ __device__ __forceinline__ void walk_chunk(const unsigned short* perm,
+                                                    const unsigned short* seg, int n_win,
+                                                    int first, int step, const T* row_v,
+                                                    const T* col_v, int pos, int width,
+                                                    double (&hist)[2][NB]) {
+#pragma unroll
+  for (int s = 0; s < NB; ++s) {
+    if (s < n_win) {
+      double acc0 = 0.0, acc1 = 0.0;
+      for (int q = seg[s] + first; q < seg[s + 1]; q += step) {
+        const int e = perm[q];
+        T a0, a1, v0, v1;
+        load2(row_v + (e / BATCH_CHUNK) * width + pos, a0, a1);
+        load2(col_v + (e % BATCH_CHUNK) * width + pos, v0, v1);
+        acc0 += static_cast<double>(cloud<T, COV>(a0, v0));
+        acc1 += static_cast<double>(cloud<T, COV>(a1, v1));
+      }
+      hist[0][s] += acc0;
+      hist[1][s] += acc1;
+    }
+  }
+}
+
+// ---- the batched pass's rounds ---------------------------------------------
+//
+// The pass runs over the strips of all its variograms in flat order
+// (variogram by variogram; dims holds {n, m, marginal, first strip} per
+// variogram) in rounds: a round's slot pass writes the sorted entries of its
+// strips' chunks to a list that the next round reuses, so the list's scratch
+// stays within BATCH_LIST chunks however many points there are, and its walk
+// writes one partial per (strip, span of BATCH_SPAN chunks, replicate, slot),
+// within BATCH_SLOTS (strip, span) places. A round takes strips in order
+// while both fit (the first always), so the rounds, and with them the order
+// in which a replicate's partials are added, depend on the strips' shapes
+// only, not on the number of replicates or the card.
+
+// Chunks of strip s of a variogram of nc column chunks (from the strip's
+// first row for a marginal one), and the chunks of its earlier strips.
+__host__ __device__ __forceinline__ void strip_chunks(long long nc, bool marginal, long long s,
+                                                      int& count, long long& before) {
+  if (marginal) {
+    count = static_cast<int>(nc - BATCH_RATIO * s);
+    before = s * nc - BATCH_RATIO * s * (s - 1) / 2;
+  } else {
+    count = static_cast<int>(nc);
+    before = s * nc;
+  }
+}
+
+struct BatchRound {
+  long long s_lo, s_hi;  // flat strips [s_lo, s_hi)
+  long long c_lo, c_hi;  // their chunks, flat
+  int max_chunks;        // the most chunks of one of its strips
+  int max_spans;         // the most spans of one of its strips
+};
+
+// The round from flat strip s_lo (< the strips of all variograms).
+inline BatchRound batch_round(int count, const long long* dims, long long s_lo,
+                              long long list_cap, long long slot_cap) {
+  BatchRound R{s_lo, s_lo, 0, 0, 0, 0};
+  long long strip0 = 0, chunk0 = 0;
+  bool started = false;
+  for (int p = 0; p < count; ++p) {
+    const long long ns = (dims[4 * p] + BATCH_STRIP - 1) / BATCH_STRIP;
+    const long long nc = (dims[4 * p + 1] + BATCH_CHUNK - 1) / BATCH_CHUNK;
+    const bool marginal = dims[4 * p + 2] != 0;
+    for (long long s = s_lo > strip0 ? s_lo - strip0 : 0; s < ns; ++s) {
+      int c;
+      long long before;
+      strip_chunks(nc, marginal, s, c, before);
+      const int spans = (c + BATCH_SPAN - 1) / BATCH_SPAN;
+      const int max_spans = spans > R.max_spans ? spans : R.max_spans;
+      if (!started) {
+        R.c_lo = R.c_hi = chunk0 + before;
+        started = true;
+      } else if (R.c_hi + c - R.c_lo > list_cap ||
+                 (R.s_hi - R.s_lo + 1) * max_spans > slot_cap) {
+        return R;
+      }
+      R.s_hi = strip0 + s + 1;
+      R.c_hi += c;
+      R.max_chunks = c > R.max_chunks ? c : R.max_chunks;
+      R.max_spans = max_spans;
+    }
+    strip0 += ns;
+    chunk0 += marginal ? ns * nc - BATCH_RATIO * ns * (ns - 1) / 2 : ns * nc;
+  }
+  return R;
+}
+
+// The list chunks and partial places that the rounds of these variograms
+// take at the most (written to out[0], out[1]; at least 1 each).
+inline void batch_scratch(int count, const long long* dims, long long* out) {
+  long long strips = 0;
+  for (int p = 0; p < count; ++p) strips += (dims[4 * p] + BATCH_STRIP - 1) / BATCH_STRIP;
+  out[0] = out[1] = 1;
+  for (long long s = 0; s < strips;) {
+    const BatchRound R = batch_round(count, dims, s, BATCH_LIST, BATCH_SLOTS);
+    const long long slots = (R.s_hi - R.s_lo) * R.max_spans;
+    if (R.c_hi - R.c_lo > out[0]) out[0] = R.c_hi - R.c_lo;
+    if (slots > out[1]) out[1] = slots;
+    s = R.s_hi;
+  }
+}
+
 // ---- the upper-triangle tile map ------------------------------------------
 
 // Tile t of a marginal pair's nr x nr tile grid, row by row over the tiles

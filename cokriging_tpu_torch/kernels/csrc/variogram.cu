@@ -40,23 +40,6 @@
 // one window of at most MAX_BINS bins (plus the dropped slot); the caller
 // walks the windows, one bin launch per window.
 //
-// The replicate-batched bin pass (bin_batch_kernel) bins B value replicates
-// over one set of pairs: the parametric bootstrap's re-estimate, which the
-// reference runs as jnp (cokriging_tpu/estimate/bootstrap.py::
-// _batched_bin_program, :93-176). A block takes a strip of STRIP rows of one
-// variogram and a group of BNT replicates, one per thread. Per chunk of
-// CHUNK columns its threads first compute each pair's h and histogram slot
-// once, into shared memory (and, in the first replicate group, its count);
-// then every thread walks the chunk's pairs for its own replicate: the row
-// value from device memory (values are (n, B), so a warp's loads are
-// contiguous), the column values in registers, the pair's slot a broadcast
-// read, and the cloud added into the thread's own histogram column (no
-// atomics; all lanes of a warp share the slot, so the column reads and
-// writes are contiguous). Each thread's column is its replicate's partial of
-// the strip; a second launch adds each variogram's strip partials in a fixed
-// order. What bounds it: the shared-memory read-modify-write of a double per
-// pair and replicate, beside ~9 instructions for the cloud and the slot.
-//
 // What bounds it: instruction issue, and in pass 2 the shared-memory pipe
 // beside it. No pair reads device memory (a block reads 2 x TILE points). A
 // pair costs 11 explicitly rounded operations for h; pass 1 adds ~6 compares
@@ -66,6 +49,55 @@
 // shared-memory wavefronts per warp of pairs). The floating-point rate is
 // not the limit: a bound taken at 67 TFLOP/s counts a fused multiply-add as
 // two operations, and these passes have none.
+//
+// The replicate-batched bin pass bins B value replicates over one set of
+// pairs: the parametric bootstrap's re-estimate, which the reference runs as
+// jnp (cokriging_tpu/estimate/bootstrap.py::_batched_bin_program, :93-176;
+// no TPU kernel). What bounds it on this card: each binned pair costs ~5
+// operations per replicate (the cloud, its conversion and its add), but only
+// ~21% of the pairs are binned at the bootstrap's h_max (6.7e7 of 3.1e8 in
+// chip_smoke (i)), and a pair's slot is the same for every replicate. The
+// earlier design (one block of 64 replicates per strip, every thread adding
+// every pair's cloud into its shared-memory histogram column) spent its time
+// on a read-modify-write of a double per pair and replicate, dropped pairs
+// included, each waiting on the store before it: 60.4 / 26.1 / 54.8 ms f64
+// at 200 replicates / f32 at 50 / f32 at 200, as slow in f32 as in f64.
+// The design now (batch_slot_kernel, batch_walk_kernel, the reduces), in
+// rounds of strips (vario.cuh batch_round: a round takes strips in order
+// while its chunks fit one list of BATCH_LIST = 8,192 chunks and its
+// (strip, span) places BATCH_SLOTS = 2,048), each round:
+//   - the slot pass, once per (strip, chunk) for all replicates: a chunk's
+//     pairs get their slot; those of slot < n_win are sorted by slot with
+//     partition.cuh's stable counting sort and written to the chunk's list
+//     with the slot offsets (the dropped slot takes no entry; the counts are
+//     the offsets' differences);
+//   - the walk, per (strip, span of BATCH_SPAN = 8 chunks, 64 replicates):
+//     the strip's row values in shared memory, per chunk its column values
+//     and its list; each of the block's four warps adds the clouds of every
+//     fourth entry of each slot into registers (two adjacent replicates per
+//     thread, vector loads), so no replicate touches a dropped pair and no
+//     add waits on a store; the warps' sums are added in warp order into
+//     the block's partial;
+//   - fixed-order sums: per strip over its spans, then per variogram over
+//     its strips onto the earlier rounds' sum; and the counts.
+// The rounds, and so the order in which a replicate's partials are added,
+// depend on the strips' shapes only: a replicate's sums are the same bits
+// whatever the number of replicates or the card. Scratch: the list (8 KB of
+// u16 entries and 64 B of offsets per chunk, at most 64.5 MB) and the
+// partials (at most 2,048 x 8 B per replicate and bin), reused by every
+// round; chip_smoke (i)'s 77,028 chunks take ten rounds.
+// Measured (tools/torch_bin_batch_timing.py, NVIDIA H100 80GB HBM3 at 700 W,
+// (i)'s shapes, parent in the same call): 16.5-16.7 / 5.0-5.2 / 12.8-13.0 ms
+// f64 at 200 replicates / f32 at 50 / f32 at 200 against 59.6-59.9 / 26.0-26.3
+// / 54.5-54.7; of the device time the slot pass 1.2 ms, the walk 14.3 / 2.9
+// / 10.6 ms at about half of the shared-memory pipe's rate (two values and
+// one list entry read per binned pair and pair of replicates), the sums and
+// counts 0.15-0.23 ms. Shared memory per walk block: (64 + 64) x 64 values
+// (64 / 32 KB f64 / f32), 8 KB of list and 64 B of offsets, the warps' sums
+// over the values at the end; 128 threads, at most 128 registers (four
+// blocks by registers, three by shared memory in f64). Slot blocks: 256
+// threads, 14-18 KB static.
+#include "partition.cuh"
 #include "vario.cuh"
 
 namespace {
@@ -89,6 +121,7 @@ template <typename T> struct Pairs {
   int m[MAX_PAIRS];
   int marginal[MAX_PAIRS];
   long long tile0[MAX_PAIRS + 1];  // first tile of each variogram; then the total
+  long long chunk0[MAX_PAIRS + 1];  // the batched pass: first chunk of each variogram
   int count;
 };
 
@@ -403,144 +436,264 @@ __global__ void bin_reduce_kernel(const __grid_constant__ Pairs<T> P,
 
 // ---- replicate-batched pass 2 ---------------------------------------------
 
-constexpr int BNT = 64;     // threads, one replicate each, per block of the batched pass
-constexpr int STRIP = 64;   // rows of a strip
-constexpr int CHUNK = 32;   // columns of a chunk (two 16-byte rows of slots)
+using ckv::BATCH_CHUNK;
+using ckv::BATCH_PAIRS;
+using ckv::BATCH_SEG;
+using ckv::BATCH_SPAN;
+using ckv::BATCH_STRIP;
 
-// The variogram and first row of flat strip s (`tile0` holds first strips).
+constexpr int BST = 256;  // threads of a slot block
+constexpr int BRW = 64;   // replicates of a walk block, two per lane of a warp
+constexpr int WT = 128;   // threads of a walk block
+constexpr int BSPLIT = WT / 32;  // walkers per replicate (the warps), each a share of every slot
+
+// Chunks of strip s of variogram p and the chunks of its earlier strips.
 template <typename T>
-__device__ __forceinline__ int2 strip_at(const Pairs<T>& P, long long s) {
-  int p = 0;
-  while (p + 1 < P.count && P.tile0[p + 1] <= s) ++p;
-  return make_int2(p, static_cast<int>((s - P.tile0[p]) * STRIP));
+__device__ __forceinline__ void strip_chunks(const Pairs<T>& P, int p, int s, int& count,
+                                             long long& before) {
+  ckv::strip_chunks((P.m[p] + BATCH_CHUNK - 1) / BATCH_CHUNK, P.marginal[p] != 0, s, count,
+                    before);
 }
 
-template <typename T, bool GEO, bool COV, int K>
-__global__ void __launch_bounds__(BNT) bin_batch_kernel(const __grid_constant__ Pairs<T> P,
-                                                        const unsigned char* __restrict__ records,
-                                                        int rec_used, int n_win, T h_max,
-                                                        int n_rep,
-                                                        double* __restrict__ part_sums,
-                                                        long long* __restrict__ part_counts) {
-  // Dynamic shared memory: the histogram's sums [n_win + 1][BNT], its counts
-  // [n_win + 1][BNT] (the first replicate group only), the record. va / vb
-  // are (n, n_rep) / (m, n_rep) row-major.
-  constexpr int F = GEO ? 5 : 2;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  double* hsum = reinterpret_cast<double*>(smem_raw);
-  unsigned* hcnt = reinterpret_cast<unsigned*>(hsum + (n_win + 1) * BNT);
-  unsigned char* srec = reinterpret_cast<unsigned char*>(hcnt + (n_win + 1) * BNT);
-  __shared__ __align__(16) T srow[STRIP * F];
-  __shared__ __align__(16) T scol[CHUNK * F];
-  __shared__ __align__(16) unsigned char sslot[STRIP * CHUNK];
+// The variogram, its strip number and the strip's first row of flat strip
+// t (`tile0` holds first strips).
+template <typename T>
+__device__ __forceinline__ int3 strip_at(const Pairs<T>& P, long long t) {
+  int p = 0;
+  while (p + 1 < P.count && P.tile0[p + 1] <= t) ++p;
+  const int s = static_cast<int>(t - P.tile0[p]);
+  return make_int3(p, s, s * BATCH_STRIP);
+}
 
-  const int2 at = strip_at(P, blockIdx.x);
-  const int pair = at.x, r0 = at.y;
+// The slot pass of a round (ckv::batch_round) from flat strip s_lo and
+// chunk c_lo: block (strip s_lo + x, k) finds the histogram slot of each
+// pair of the strip's k-th chunk once for every replicate, sorts the pairs
+// of slot < n_win by slot (partition.cuh's stable counting sort; the dropped
+// slot takes no key) and writes them to the chunk's entries of `list`
+// and its slot offsets to `seg` (BATCH_PAIRS and BATCH_SEG per chunk from
+// c_lo; seg[n_win] is the chunk's binned count).
+template <typename T, bool GEO, int K>
+__global__ void __launch_bounds__(BST) batch_slot_kernel(const __grid_constant__ Pairs<T> P,
+                                                         long long s_lo, long long c_lo,
+                                                         const unsigned char* __restrict__ records,
+                                                         int rec_used, int n_win, T h_max,
+                                                         unsigned short* __restrict__ list,
+                                                         unsigned short* __restrict__ seg) {
+  constexpr int F = GEO ? 5 : 2;
+  extern __shared__ __align__(16) unsigned char srec[];
+  __shared__ __align__(16) T srow[BATCH_STRIP * F];
+  __shared__ __align__(16) T scol[BATCH_CHUNK * F];
+  __shared__ unsigned char skey[BATCH_PAIRS];
+  __shared__ unsigned short sperm[BATCH_PAIRS];
+  __shared__ int scnt[(BST / 32) * ckv::MAX_BINS];
+  __shared__ int stotal[4];
+
+  const int3 at = strip_at(P, s_lo + blockIdx.x);
+  const int pair = at.x, r0 = at.z;
+  int count;
+  long long before;
+  strip_chunks(P, pair, at.y, count, before);
+  const int k = blockIdx.y;
+  if (k >= count) return;
   const int tid = threadIdx.x;
   const int n = P.n[pair], m = P.m[pair];
   const bool marginal = P.marginal[pair] != 0;
-  const bool counting = blockIdx.y == 0;
-  const int b = blockIdx.y * BNT + tid;
-  const bool live = b < n_rep;
+  const int c0 = (marginal ? r0 : 0) + k * BATCH_CHUNK;
+  const long long chunk = P.chunk0[pair] + before + k - c_lo;
   const T* __restrict__ fa = P.fa[pair];
   const T* __restrict__ fb = P.fb[pair];
-  const T* __restrict__ va = P.va[pair];
-  const T* __restrict__ vb = P.vb[pair];
 
   const uint4* rec = reinterpret_cast<const uint4*>(records + static_cast<size_t>(pair) *
                                                                   Record<T>::bytes);
-  for (int k = tid; k < rec_used / 16; k += BNT) reinterpret_cast<uint4*>(srec)[k] = rec[k];
-  for (int k = tid; k < (n_win + 1) * BNT; k += BNT) {
-    hsum[k] = 0.0;
-    hcnt[k] = 0;
+  for (int i = tid; i < rec_used / 16; i += BST) reinterpret_cast<uint4*>(srec)[i] = rec[i];
+  for (int i = tid; i < BATCH_STRIP * F; i += BST) {
+    const int row = r0 + i / F;
+    srow[i] = row < n ? fa[static_cast<size_t>(row) * F + i % F] : nan_of<T>();
   }
-  for (int k = tid; k < STRIP * F; k += BNT) {
-    const int row = r0 + k / F;
-    srow[k] = row < n ? fa[static_cast<size_t>(row) * F + k % F] : nan_of<T>();
+  for (int i = tid; i < BATCH_CHUNK * F; i += BST) {
+    const int col = c0 + i / F;
+    scol[i] = col < m ? fb[static_cast<size_t>(col) * F + i % F] : nan_of<T>();
   }
   __syncthreads();
   const BinLookup<T> L = ckv::lookup_of<T>(srec);
-  const int rows = n - r0 < STRIP ? n - r0 : STRIP;
-  // a marginal strip's pairs lie right of its first row (STRIP is a
-  // multiple of CHUNK, so its chunks start there)
-  for (int c0 = marginal ? r0 : 0; c0 < m; c0 += CHUNK) {
-    __syncthreads();  // the previous chunk's slots are consumed
-    for (int k = tid; k < CHUNK * F; k += BNT) {
-      const int col = c0 + k / F;
-      scol[k] = col < m ? fb[static_cast<size_t>(col) * F + k % F] : nan_of<T>();
+  for (int q = tid; q < BATCH_PAIRS; q += BST) {
+    const int r = q / BATCH_CHUNK, c = q % BATCH_CHUNK;
+    const T h = ckv::h_pair<T, GEO>(srow + r * F, scol + c * F);
+    bool valid = h <= h_max;
+    if (marginal) valid = valid && r0 + r < c0 + c;
+    const int sl = ckv::bin_slot<K>(h, valid, L, n_win);
+    skey[q] = sl < n_win ? static_cast<unsigned char>(sl) : ckt::kNoKey;
+  }
+  const int total = ckt::stable_partition<BST / 32, BATCH_PAIRS / BST>(skey, BATCH_PAIRS, n_win,
+                                                                      sperm, scnt, stotal);
+  unsigned short* out = list + chunk * BATCH_PAIRS;
+  for (int q = tid; q < total; q += BST) out[q] = sperm[q];
+  // warp 0's row of the partition's counts holds each slot's first entry
+  if (tid < n_win) seg[chunk * BATCH_SEG + tid] = static_cast<unsigned short>(scnt[tid]);
+  if (tid == 0) seg[chunk * BATCH_SEG + n_win] = static_cast<unsigned short>(total);
+}
+
+// The walk of a round: block (strip s_lo + x, span y, replicate group z of
+// BRW) keeps the strip's row values of its replicates in shared memory, and
+// per chunk of its span (chunks y BATCH_SPAN .. + BATCH_SPAN - 1 of the
+// strip) stages the column values and the chunk's sorted entries; lane l of
+// warp w adds the clouds of every BSPLIT-th entry of each slot from the w-th
+// into its registers for the replicates z BRW + 2 l and + 1
+// (ckv::walk_chunk). At the end the warps' sums are added in warp order in
+// shared memory into the block's partial per replicate and slot, written to
+// part_sums[((x max_spans + y) n_rep + replicate) n_win + slot]. va / vb are
+// (n, n_rep) / (m, n_rep) row-major.
+template <typename T, bool COV, int NB>
+__global__ void __launch_bounds__(WT, 4) batch_walk_kernel(const __grid_constant__ Pairs<T> P,
+                                                         long long s_lo, long long c_lo,
+                                                         const unsigned short* __restrict__ list,
+                                                         const unsigned short* __restrict__ seg,
+                                                         int n_win, int n_rep, int max_spans,
+                                                         double* __restrict__ part_sums) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* srow_v = reinterpret_cast<T*>(smem_raw);
+  T* scol_v = srow_v + BATCH_STRIP * BRW;
+  unsigned short* sperm = reinterpret_cast<unsigned short*>(scol_v + BATCH_CHUNK * BRW);
+  unsigned short* sseg = sperm + BATCH_PAIRS;
+  double* sred = reinterpret_cast<double*>(smem_raw);  // BRW x NB, over srow_v at the end
+
+  const int3 at = strip_at(P, s_lo + blockIdx.x);
+  const int pair = at.x, r0 = at.z;
+  int count;
+  long long before;
+  strip_chunks(P, pair, at.y, count, before);
+  const int k_lo = blockIdx.y * BATCH_SPAN;
+  if (k_lo >= count) return;
+  const int k_hi = count < k_lo + BATCH_SPAN ? count : k_lo + BATCH_SPAN;
+  const int tid = threadIdx.x;
+  const int pos = 2 * (tid % 32), split = tid / 32;
+  const int g0 = blockIdx.z * BRW;
+  const int n = P.n[pair], m = P.m[pair];
+  const bool marginal = P.marginal[pair] != 0;
+  const T* __restrict__ va = P.va[pair];
+  const T* __restrict__ vb = P.vb[pair];
+
+  for (int i = tid; i < BATCH_STRIP * BRW; i += WT) {
+    const int row = r0 + i / BRW, bb = g0 + i % BRW;
+    srow_v[i] = (row < n && bb < n_rep) ? va[static_cast<size_t>(row) * n_rep + bb] : T(0);
+  }
+  double hist[2][NB];
+#pragma unroll
+  for (int s = 0; s < NB; ++s) hist[0][s] = hist[1][s] = 0.0;
+  for (int k = k_lo; k < k_hi; ++k) {
+    const int c0 = (marginal ? r0 : 0) + k * BATCH_CHUNK;
+    const long long chunk = P.chunk0[pair] + before + k - c_lo;
+    const int total = seg[chunk * BATCH_SEG + n_win];
+    __syncthreads();  // the previous chunk's values and entries are consumed
+    for (int i = tid; i < BATCH_CHUNK * BRW; i += WT) {
+      const int col = c0 + i / BRW, bb = g0 + i % BRW;
+      scol_v[i] = (col < m && bb < n_rep) ? vb[static_cast<size_t>(col) * n_rep + bb] : T(0);
     }
+    for (int i = tid; i <= n_win; i += WT) sseg[i] = seg[chunk * BATCH_SEG + i];
+    const unsigned short* entries = list + chunk * BATCH_PAIRS;
+    for (int i = tid; i < total; i += WT) sperm[i] = entries[i];
     __syncthreads();
-    // each pair's slot, once for all replicates
-    for (int q = tid; q < STRIP * CHUNK; q += BNT) {
-      const int r = q / CHUNK, c = q % CHUNK;
-      const T h = ckv::h_pair<T, GEO>(srow + r * F, scol + c * F);
-      bool valid = h <= h_max;
-      if (marginal) valid = valid && r0 + r < c0 + c;
-      const int s = ckv::bin_slot<K>(h, valid, L, n_win);
-      sslot[q] = static_cast<unsigned char>(s);
-      if (counting) hcnt[s * BNT + tid] += 1;
-    }
-    __syncthreads();
-    T cv[CHUNK];
+    ckv::walk_chunk<T, COV, NB>(sperm, sseg, n_win, split, BSPLIT, srow_v, scol_v, pos, BRW,
+                                hist);
+  }
+  for (int w = 0; w < BSPLIT; ++w) {
+    __syncthreads();  // w == 0: every walker is done with the values
+    if (split == w) {
 #pragma unroll
-    for (int c = 0; c < CHUNK; ++c) {
-      const int col = c0 + c;
-      cv[c] = (live && col < m) ? vb[static_cast<size_t>(col) * n_rep + b] : T(0);
-    }
-    for (int r = 0; r < rows; ++r) {
-      const T a = live ? va[static_cast<size_t>(r0 + r) * n_rep + b] : T(0);
-      const uint4* slots = reinterpret_cast<const uint4*>(sslot + r * CHUNK);
+      for (int j = 0; j < 2; ++j) {
 #pragma unroll
-      for (int w = 0; w < CHUNK / 16; ++w) {
-        const uint4 pk = slots[w];
-        const unsigned word[4] = {pk.x, pk.y, pk.z, pk.w};
-#pragma unroll
-        for (int k = 0; k < 16; ++k) {
-          const int s = (word[k / 4] >> (8 * (k % 4))) & 0xff;
-          hsum[s * BNT + tid] += static_cast<double>(ckv::cloud<T, COV>(a, cv[w * 16 + k]));
+        for (int s = 0; s < NB; ++s) {
+          if (s < n_win) {
+            double& r = sred[(pos + j) * n_win + s];
+            r = w == 0 ? hist[j][s] : r + hist[j][s];
+          }
         }
       }
     }
   }
   __syncthreads();
-  if (live) {
-    for (int k = 0; k < n_win; ++k)
-      part_sums[(static_cast<size_t>(blockIdx.x) * n_rep + b) * n_win + k] = hsum[k * BNT + tid];
-  }
-  if (counting) {
-    // per-bin strip counts in a fixed order: warp w takes bins w, w + BNT / 32, ...
-    const int lane = tid & 31;
-    for (int k = tid >> 5; k < n_win; k += BNT / 32) {
-      long long c = 0;
-      for (int t = lane; t < BNT; t += 32) c += hcnt[k * BNT + t];
-      for (int o = 16; o > 0; o >>= 1) c += __shfl_down_sync(0xffffffffu, c, o);
-      if (lane == 0) part_counts[static_cast<size_t>(blockIdx.x) * n_win + k] = c;
-    }
-  }
+  double* out = part_sums +
+      ((static_cast<size_t>(blockIdx.x) * max_spans + blockIdx.y) * n_rep + g0) * n_win;
+  const int width = (n_rep - g0 < BRW ? n_rep - g0 : BRW) * n_win;
+  for (int i = tid; i < width; i += WT) out[i] = sred[i];
+}
+
+// One thread per (strip s_lo + t, replicate b, bin of the window): the
+// strip's span partials added in span order, written over its first span's.
+template <typename T>
+__global__ void batch_strip_sum_kernel(const __grid_constant__ Pairs<T> P, long long s_lo,
+                                       int n_strips, int max_spans,
+                                       double* __restrict__ part_sums, int n_win, int n_rep) {
+  const long long per = static_cast<long long>(n_rep) * n_win;
+  const long long o = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (o >= n_strips * per) return;
+  const long long t = o / per, rest = o % per;
+  const int3 at = strip_at(P, s_lo + t);
+  int count;
+  long long before;
+  strip_chunks(P, at.x, at.y, count, before);
+  const int spans = (count + BATCH_SPAN - 1) / BATCH_SPAN;
+  double* first = part_sums + t * max_spans * per + rest;
+  double s = *first;
+  for (int y = 1; y < spans; ++y) s += first[y * per];
+  *first = s;
 }
 
 // One thread per output (p, b, bin of the window): variogram p's strip
-// partials of replicate b added in a fixed order into sums[(p n_rep + b)
-// stride + bin]; the b == 0 threads add the counts into counts[p stride + bin].
+// partials of replicate b in the round's strips [s_lo, s_hi), in strip
+// order, added into sums[(p n_rep + b) stride + bin]: from 0 in the round
+// that holds p's first strip, else onto the earlier rounds' sum; the first
+// round also writes 0 for a variogram whose strips come later or that has
+// none.
 template <typename T>
-__global__ void bin_batch_reduce_kernel(const __grid_constant__ Pairs<T> P,
-                                        const double* __restrict__ part_sums,
-                                        const long long* __restrict__ part_counts, int n_win,
-                                        int n_rep, double* __restrict__ sums,
-                                        long long* __restrict__ counts, int stride) {
+__global__ void batch_sum_kernel(const __grid_constant__ Pairs<T> P, long long s_lo,
+                                 long long s_hi, int max_spans,
+                                 const double* __restrict__ part_sums, int n_win, int n_rep,
+                                 double* __restrict__ sums, int stride) {
   const long long o = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (o >= static_cast<long long>(P.count) * n_rep * n_win) return;
   const int k = static_cast<int>(o % n_win);
   const int b = static_cast<int>((o / n_win) % n_rep);
   const int p = static_cast<int>(o / (static_cast<long long>(n_win) * n_rep));
-  double s = 0.0;
+  const long long lo = s_lo > P.tile0[p] ? s_lo : P.tile0[p];
+  const long long hi = s_hi < P.tile0[p + 1] ? s_hi : P.tile0[p + 1];
+  if (lo >= hi && s_lo > 0) return;
+  double* out = sums + (static_cast<size_t>(p) * n_rep + b) * stride + k;
+  double s = P.tile0[p] >= s_lo ? 0.0 : *out;
+  for (long long t = lo; t < hi; ++t)
+    s += part_sums[((t - s_lo) * max_spans * n_rep + b) * n_win + k];
+  *out = s;
+}
+
+// Block (bin, p): variogram p's pair count of the window's bin over the
+// round's chunks [c_lo, c_hi), the sum of the slot pass's segment lengths
+// (integers: exact), into counts[p stride + bin] as batch_sum_kernel does.
+template <typename T>
+__global__ void batch_count_kernel(const __grid_constant__ Pairs<T> P, long long s_lo,
+                                   long long s_hi, long long c_lo, long long c_hi,
+                                   const unsigned short* __restrict__ seg,
+                                   long long* __restrict__ counts, int stride) {
+  __shared__ long long sc[RED_THREADS];
+  const int k = blockIdx.x;
+  const int p = blockIdx.y;
+  const long long lo = s_lo > P.tile0[p] ? s_lo : P.tile0[p];
+  const long long hi = s_hi < P.tile0[p + 1] ? s_hi : P.tile0[p + 1];
+  if (lo >= hi && s_lo > 0) return;
+  const long long ch_lo = c_lo > P.chunk0[p] ? c_lo : P.chunk0[p];
+  const long long ch_hi = c_hi < P.chunk0[p + 1] ? c_hi : P.chunk0[p + 1];
   long long c = 0;
-  for (long long st = P.tile0[p]; st < P.tile0[p + 1]; ++st) {
-    s += part_sums[(st * n_rep + b) * n_win + k];
-    if (b == 0) c += part_counts[st * n_win + k];
+  for (long long ch = ch_lo + threadIdx.x; ch < ch_hi; ch += RED_THREADS)
+    c += seg[(ch - c_lo) * BATCH_SEG + k + 1] - seg[(ch - c_lo) * BATCH_SEG + k];
+  sc[threadIdx.x] = c;
+  __syncthreads();
+  for (int w = RED_THREADS / 2; w > 0; w >>= 1) {
+    if (threadIdx.x < w) sc[threadIdx.x] += sc[threadIdx.x + w];
+    __syncthreads();
   }
-  sums[(static_cast<size_t>(p) * n_rep + b) * stride + k] = s;
-  if (b == 0) counts[static_cast<size_t>(p) * stride + k] = c;
+  if (threadIdx.x == 0) {
+    long long& out = counts[static_cast<size_t>(p) * stride + k];
+    out = (P.tile0[p] >= s_lo ? 0 : out) + sc[0];
+  }
 }
 
 // ---- host side ------------------------------------------------------------
@@ -647,12 +800,13 @@ int bin(int count, const void* const* ptrs, const long long* dims,
 }
 
 // The batched pass's descriptor: as make_pairs, but `tile0` holds each
-// variogram's first strip of STRIP rows.
+// variogram's first strip of BATCH_STRIP rows and `chunk0` its first chunk
+// (ckv::strip_chunks' count per strip).
 template <typename T>
 cudaError_t make_strips(Pairs<T>& P, int count, const void* const* ptrs, const long long* dims) {
   if (count < 1 || count > MAX_PAIRS) return cudaErrorInvalidValue;
   P.count = count;
-  long long strips = 0;
+  long long strips = 0, chunks = 0;
   for (int p = 0; p < count; ++p) {
     const T* const* q = reinterpret_cast<const T* const*>(ptrs + static_cast<size_t>(p) * 4);
     P.fa[p] = q[0];
@@ -664,68 +818,121 @@ cudaError_t make_strips(Pairs<T>& P, int count, const void* const* ptrs, const l
     P.m[p] = static_cast<int>(m);
     P.marginal[p] = static_cast<int>(dims[4 * p + 2]);
     P.tile0[p] = dims[4 * p + 3];
+    P.chunk0[p] = chunks;
     if (P.tile0[p] != strips || (P.marginal[p] && n != m)) return cudaErrorInvalidValue;
-    strips += (n + STRIP - 1) / STRIP;
+    const long long ns = (n + BATCH_STRIP - 1) / BATCH_STRIP;
+    const long long nc = (m + BATCH_CHUNK - 1) / BATCH_CHUNK;
+    strips += ns;
+    chunks += P.marginal[p] ? ns * nc - ckv::BATCH_RATIO * ns * (ns - 1) / 2 : ns * nc;
   }
   P.tile0[count] = strips;
+  P.chunk0[count] = chunks;
   return strips < (1ll << 31) ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <typename T, bool GEO, bool COV>
-void launch_bin_batch(const Pairs<T>& P, dim3 grid, size_t smem, cudaStream_t stream,
-                      const unsigned char* records, int rec_used, int n_win, int k_cmp, T h_max,
-                      int n_rep, double* part_sums, long long* part_counts) {
+template <typename T, bool GEO>
+void launch_batch_slot(const Pairs<T>& P, const ckv::BatchRound& R, size_t smem,
+                       cudaStream_t stream, const unsigned char* records, int rec_used,
+                       int n_win, int k_cmp, T h_max, unsigned short* list,
+                       unsigned short* seg) {
+  const dim3 grid(static_cast<unsigned>(R.s_hi - R.s_lo), static_cast<unsigned>(R.max_chunks));
   if (k_cmp == 1) {
-    bin_batch_kernel<T, GEO, COV, 1><<<grid, BNT, smem, stream>>>(
-        P, records, rec_used, n_win, h_max, n_rep, part_sums, part_counts);
+    batch_slot_kernel<T, GEO, 1><<<grid, BST, smem, stream>>>(P, R.s_lo, R.c_lo, records,
+                                                              rec_used, n_win, h_max, list, seg);
   } else {
-    bin_batch_kernel<T, GEO, COV, 0><<<grid, BNT, smem, stream>>>(
-        P, records, rec_used, n_win, h_max, n_rep, part_sums, part_counts);
+    batch_slot_kernel<T, GEO, 0><<<grid, BST, smem, stream>>>(P, R.s_lo, R.c_lo, records,
+                                                              rec_used, n_win, h_max, list, seg);
   }
 }
 
-// Bins one window of every variogram for n_rep replicates; part_sums /
-// part_counts: (strips, n_rep, n_win) / (strips, n_win) scratch; sums /
-// counts: (count, n_rep, stride) / (count, stride) arrays of all the bins.
+template <typename T, bool COV, int NB>
+cudaError_t launch_batch_walk(const Pairs<T>& P, const ckv::BatchRound& R, cudaStream_t stream,
+                              const unsigned short* list, const unsigned short* seg, int n_win,
+                              int n_rep, double* part_sums) {
+  constexpr size_t smem = sizeof(T) * (BATCH_STRIP + BATCH_CHUNK) * BRW +
+                          sizeof(unsigned short) * (BATCH_PAIRS + BATCH_SEG);
+  static_assert(sizeof(double) * BRW * NB <= sizeof(T) * (BATCH_STRIP + BATCH_CHUNK) * BRW,
+                "the walkers' reduce fits over the staged values");
+  const cudaError_t err = ckt::allow_smem<batch_walk_kernel<T, COV, NB>>(smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>(R.s_hi - R.s_lo), static_cast<unsigned>(R.max_spans),
+                  static_cast<unsigned>((n_rep + BRW - 1) / BRW));
+  batch_walk_kernel<T, COV, NB><<<grid, WT, smem, stream>>>(P, R.s_lo, R.c_lo, list, seg, n_win,
+                                                             n_rep, R.max_spans, part_sums);
+  return cudaGetLastError();
+}
+
+template <typename T, bool COV>
+cudaError_t launch_batch_walk(const Pairs<T>& P, const ckv::BatchRound& R, cudaStream_t stream,
+                              const unsigned short* list, const unsigned short* seg, int n_win,
+                              int n_rep, double* part_sums) {
+  return n_win <= 16 ? launch_batch_walk<T, COV, 16>(P, R, stream, list, seg, n_win, n_rep,
+                                                     part_sums)
+                     : launch_batch_walk<T, COV, ckv::MAX_BINS>(P, R, stream, list, seg, n_win,
+                                                                n_rep, part_sums);
+}
+
+// Bins one window of every variogram for n_rep replicates, round by round
+// (ckv::batch_round). list / seg: list_cap * BATCH_PAIRS / BATCH_SEG unsigned
+// shorts of scratch and part_sums slot_cap * n_rep * n_win doubles, at least
+// what ckv::batch_scratch gives; sums / counts: (count, n_rep, stride) /
+// (count, stride) arrays of all the bins.
 template <typename T>
 int bin_batch(int count, const void* const* ptrs, const long long* dims,
               const unsigned char* records, int max_cells, int n_win, int max_k_cmp,
-              int geodesic, int covariogram, T h_max, int n_rep, double* part_sums,
-              long long* part_counts, double* sums, long long* counts, int stride, int bin0,
-              cudaStream_t stream) {
+              int geodesic, int covariogram, T h_max, int n_rep, long long list_cap,
+              long long slot_cap, unsigned short* list, unsigned short* seg, double* part_sums,
+              double* sums, long long* counts, int stride, int bin0, cudaStream_t stream) {
   if (n_win < 1 || n_win > ckv::MAX_BINS || bin0 < 0 || bin0 + n_win > stride ||
-      max_cells < 1 || max_cells > ckv::MAX_CELLS || n_rep < 1)
+      max_cells < 1 || max_cells > ckv::MAX_CELLS || n_rep < 1 || n_win + 1 > BATCH_SEG)
     return static_cast<int>(cudaErrorInvalidValue);
   const int rec_used = Record<T>::used(max_cells);
   Pairs<T> P;
   cudaError_t err = make_strips(P, count, ptrs, dims);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long strips = P.tile0[count];
-  if (strips > 0) {
-    const dim3 grid(static_cast<unsigned>(strips), static_cast<unsigned>((n_rep + BNT - 1) / BNT));
-    const size_t smem = static_cast<size_t>(n_win + 1) * BNT * (sizeof(double) + sizeof(unsigned)) +
-                        rec_used;
-    if (geodesic && covariogram) {
-      launch_bin_batch<T, true, true>(P, grid, smem, stream, records, rec_used, n_win, max_k_cmp,
-                                      h_max, n_rep, part_sums, part_counts);
-    } else if (geodesic) {
-      launch_bin_batch<T, true, false>(P, grid, smem, stream, records, rec_used, n_win,
-                                       max_k_cmp, h_max, n_rep, part_sums, part_counts);
-    } else if (covariogram) {
-      launch_bin_batch<T, false, true>(P, grid, smem, stream, records, rec_used, n_win,
-                                       max_k_cmp, h_max, n_rep, part_sums, part_counts);
-    } else {
-      launch_bin_batch<T, false, false>(P, grid, smem, stream, records, rec_used, n_win,
-                                        max_k_cmp, h_max, n_rep, part_sums, part_counts);
+  const long long outs = static_cast<long long>(count) * n_rep * n_win;
+  long long s_lo = 0;
+  do {
+    ckv::BatchRound R{0, 0, 0, 0, 0, 0};
+    if (strips > 0) {
+      R = ckv::batch_round(count, dims, s_lo, ckv::BATCH_LIST, ckv::BATCH_SLOTS);
+      if (R.c_hi - R.c_lo > list_cap || (R.s_hi - R.s_lo) * R.max_spans > slot_cap)
+        return static_cast<int>(cudaErrorInvalidValue);
+      if (geodesic) {
+        launch_batch_slot<T, true>(P, R, rec_used, stream, records, rec_used, n_win, max_k_cmp,
+                                   h_max, list, seg);
+      } else {
+        launch_batch_slot<T, false>(P, R, rec_used, stream, records, rec_used, n_win, max_k_cmp,
+                                    h_max, list, seg);
+      }
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+      err = covariogram
+                ? launch_batch_walk<T, true>(P, R, stream, list, seg, n_win, n_rep, part_sums)
+                : launch_batch_walk<T, false>(P, R, stream, list, seg, n_win, n_rep, part_sums);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      const int n_strips = static_cast<int>(R.s_hi - R.s_lo);
+      const long long strip_outs = static_cast<long long>(n_strips) * n_rep * n_win;
+      batch_strip_sum_kernel<T><<<static_cast<unsigned>((strip_outs + RED_THREADS - 1) /
+                                                        RED_THREADS),
+                                  RED_THREADS, 0, stream>>>(P, R.s_lo, n_strips, R.max_spans,
+                                                            part_sums, n_win, n_rep);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
     }
+    batch_sum_kernel<T><<<static_cast<unsigned>((outs + RED_THREADS - 1) / RED_THREADS),
+                          RED_THREADS, 0, stream>>>(P, R.s_lo, R.s_hi, R.max_spans, part_sums,
+                                                    n_win, n_rep, sums + bin0, stride);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const long long outs = static_cast<long long>(count) * n_rep * n_win;
-  bin_batch_reduce_kernel<T><<<static_cast<unsigned>((outs + RED_THREADS - 1) / RED_THREADS),
-                               RED_THREADS, 0, stream>>>(P, part_sums, part_counts, n_win, n_rep,
-                                                         sums + bin0, counts + bin0, stride);
-  return static_cast<int>(cudaGetLastError());
+    batch_count_kernel<T><<<dim3(n_win, count), RED_THREADS, 0, stream>>>(
+        P, R.s_lo, R.s_hi, R.c_lo, R.c_hi, seg, counts + bin0, stride);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    s_lo = R.s_hi;
+  } while (s_lo < strips);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -766,24 +973,32 @@ int vario_bin_f64(int count, const void* const* ptrs, const long long* dims,
                      static_cast<cudaStream_t>(stream));
 }
 
+// out[0], out[1]: the list chunks and partial places that vario_bin_batch_*
+// needs for these variograms (dims as it takes them).
+void vario_batch_scratch(int count, const long long* dims, long long* out) {
+  ckv::batch_scratch(count, dims, out);
+}
+
 int vario_bin_batch_f32(int count, const void* const* ptrs, const long long* dims,
                         const unsigned char* records, int max_cells, int n_win, int max_k_cmp,
-                        int geodesic, int covariogram, float h_max, int n_rep,
-                        double* part_sums, long long* part_counts, double* sums,
-                        long long* counts, int stride, int bin0, void* stream) {
+                        int geodesic, int covariogram, float h_max, int n_rep, long long list_cap,
+                        long long slot_cap, unsigned short* list, unsigned short* seg,
+                        double* part_sums, double* sums, long long* counts, int stride, int bin0,
+                        void* stream) {
   return bin_batch<float>(count, ptrs, dims, records, max_cells, n_win, max_k_cmp, geodesic,
-                          covariogram, h_max, n_rep, part_sums, part_counts, sums, counts,
-                          stride, bin0, static_cast<cudaStream_t>(stream));
+                          covariogram, h_max, n_rep, list_cap, slot_cap, list, seg, part_sums, sums,
+                          counts, stride, bin0, static_cast<cudaStream_t>(stream));
 }
 
 int vario_bin_batch_f64(int count, const void* const* ptrs, const long long* dims,
                         const unsigned char* records, int max_cells, int n_win, int max_k_cmp,
-                        int geodesic, int covariogram, double h_max, int n_rep,
-                        double* part_sums, long long* part_counts, double* sums,
-                        long long* counts, int stride, int bin0, void* stream) {
+                        int geodesic, int covariogram, double h_max, int n_rep, long long list_cap,
+                        long long slot_cap, unsigned short* list, unsigned short* seg,
+                        double* part_sums, double* sums, long long* counts, int stride, int bin0,
+                        void* stream) {
   return bin_batch<double>(count, ptrs, dims, records, max_cells, n_win, max_k_cmp, geodesic,
-                           covariogram, h_max, n_rep, part_sums, part_counts, sums, counts,
-                           stride, bin0, static_cast<cudaStream_t>(stream));
+                           covariogram, h_max, n_rep, list_cap, slot_cap, list, seg, part_sums, sums,
+                           counts, stride, bin0, static_cast<cudaStream_t>(stream));
 }
 
 const char* vario_error_string(int code) {

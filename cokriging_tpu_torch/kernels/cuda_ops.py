@@ -41,7 +41,8 @@ import torch
 
 from cokriging_tpu_torch.kernels import _build
 from cokriging_tpu_torch.kernels.bessel import (
-    CF2_ITERS, SERIES_ITERS, _gam12, _kv_value, gam12_tangent, trigamma,
+    CF2_ITERS, SERIES_ITERS, _gam12, _kv_value, gam12_second, gam12_tangent, tetragamma,
+    trigamma,
 )
 
 #: Kernel launches per wrapper since the last ``reset_launch_counts()``.
@@ -49,6 +50,9 @@ LAUNCHES = {
     "variogram_minmax": 0, "variogram_bin": 0, "variogram_bin_batch": 0, "matern_correlation": 0,
     "matern_block_grad": 0, "matern_corr_pairs": 0, "matern_corr_pairs_grad": 0,
     "matern_block_tangent": 0, "matern_block_hess": 0,
+    # not a kernel: builds of the second-order table (~500 small torch
+    # launches each on the card), one per Hessian on the live path
+    "recurrence_table_order2": 0,
 }
 
 _FLOATS = (torch.float32, torch.float64)
@@ -155,8 +159,11 @@ VARIO_MAX_BINS = 24
 _EDGE_CAP = 2 * (VARIO_MAX_BINS + 1)
 _MAX_CELLS = 1024
 _SLOT_CAP = 32
-#: Rows per strip of the batched bin pass (``csrc/variogram.cu`` ``STRIP``).
+#: Rows per strip of the batched bin pass (``csrc/vario.cuh`` ``BATCH_STRIP``),
+#: and its chunks' pairs and slot offsets (``BATCH_PAIRS``, ``BATCH_SEG``).
 VARIO_STRIP = 64
+_BATCH_PAIRS = 64 * 64
+_BATCH_SEG = 32
 
 
 def h_block(fa, fb, geodesic):
@@ -459,8 +466,10 @@ def variogram_bin_batch(sides, h_edges, geodesic, covariogram, h_max):
     n_bins) float64 and counts (P, n_bins) int64. CUDA tensors run
     ``csrc/variogram.cu``'s batched form: per window of ``VARIO_MAX_BINS``
     bins one launch over all the variograms' pairs and replicates (per
-    ``VARIO_MAX_PAIRS`` variograms), each pair's bin found once for all
-    replicates, and one reduce; CPU tensors the plain version."""
+    ``VARIO_MAX_PAIRS`` variograms), in rounds of strips: a slot pass that
+    bins each pair once for all replicates and sorts each chunk's binned
+    pairs by slot, a walk of those lists per replicate, and the reduces;
+    CPU tensors the plain version."""
     if sides and sides[0][0].device.type == "cpu":
         return variogram_bin_batch_plain(sides, h_edges, geodesic, covariogram, h_max)
     if not sides:
@@ -483,15 +492,24 @@ def variogram_bin_batch(sides, h_edges, geodesic, covariogram, h_max):
                          "variogram")
     T = _CT[dtype]
     f = _fn("variogram.cu", f"vario_bin_batch_{_SUFFIX[dtype]}",
-            [_I, _P, _P, _P, _I, _I, _I, _I, _I, T, _I, _P, _P, _P, _P, _I, _I, _P])
+            [_I, _P, _P, _P, _I, _I, _I, _I, _I, T, _I, _LL, _LL, _P, _P, _P, _P, _P, _I, _I, _P])
+    scratch_of = _build.load("variogram.cu").vario_batch_scratch
+    scratch_of.argtypes, scratch_of.restype = [_I, _P, _P], None
     sums = torch.empty((len(sides), B, n_bins), dtype=torch.float64, device=device)
     counts = torch.empty((len(sides), n_bins), dtype=torch.int64, device=device)
     window = min(n_bins, VARIO_MAX_BINS)
     for g0 in range(0, len(sides), VARIO_MAX_PAIRS):
         group = flat[g0:g0 + VARIO_MAX_PAIRS]
         ptrs, dims, strips = _vario_strip_args(group)
-        part_sums = torch.empty(max(strips, 1) * B * window, dtype=torch.float64, device=device)
-        part_counts = torch.empty(max(strips, 1) * window, dtype=torch.int64, device=device)
+        # the scratch of one round of strips (csrc/vario.cuh batch_round),
+        # reused by the next: at most 8,192 chunks of sorted entries (64 MB
+        # and 0.5 MB of offsets) and 2,048 partials per replicate and bin,
+        # whatever the number of points
+        cap = (_LL * 2)()
+        scratch_of(len(group), dims, cap)
+        entries = torch.empty(cap[0] * _BATCH_PAIRS, dtype=torch.int16, device=device)
+        seg = torch.empty(cap[0] * _BATCH_SEG, dtype=torch.int16, device=device)
+        part_sums = torch.empty(cap[1] * B * window, dtype=torch.float64, device=device)
         for bin0 in range(0, n_bins, window):
             n_win = min(window, n_bins - bin0)
             recs = [_bin_record(e[bin0:bin0 + n_win + 1], bin0 == 0, bin0 + n_win == n_bins,
@@ -501,8 +519,9 @@ def variogram_bin_batch(sides, h_edges, geodesic, covariogram, h_max):
             with torch.cuda.device(device):
                 rc = f(len(group), ptrs, dims, _ptr(records), max(r[2] for r in recs), n_win,
                        max(r[1] for r in recs), int(geodesic), int(covariogram),
-                       T(float(h_max)), B, _ptr(part_sums), _ptr(part_counts), _ptr(sums[g0]),
-                       _ptr(counts[g0]), n_bins, bin0, _stream(device))
+                       T(float(h_max)), B, cap[0], cap[1], _ptr(entries), _ptr(seg),
+                       _ptr(part_sums), _ptr(sums[g0]), _ptr(counts[g0]), n_bins, bin0,
+                       _stream(device))
             _check_rc("variogram.cu", rc, "variogram_bin_batch")
             if strips:
                 LAUNCHES["variogram_bin_batch"] += 1
@@ -555,6 +574,27 @@ def _check_table(name, table, shape, h):
         raise ValueError(f"{name}: table must be {shape} contiguous {h.dtype} on {h.device}")
 
 
+def _fact_second(p, small):
+    """d^2/dp^2 of pi mu / sin(pi mu) at p = pi mu (1/3 where |p| < 1e-4,
+    the series branch): the operations of the double reverse pass of
+    ``torch.autograd.grad`` through ``where(small, 1 + p^2 / 6, p /
+    sin(where(small, 1, p)))``, in its engine's order, so it equals that
+    pass bit for bit without building it."""
+    s = torch.sin(torch.where(small, 1.0, p))
+    c = torch.cos(torch.where(small, 1.0, p))
+    g_q = torch.where(small, 0.0, torch.ones_like(p))
+    q = p / s
+    q_s = q / s
+    g_q_s = c * (-g_q)
+    g_quot = g_q_s / s
+    # sin's gradient: from the cosine's backward, then the three quotients'
+    g_s = (((-g_q_s) * ((q / s) / s) + (-torch.ones_like(p)) * ((g_q / s) / s))
+           + (-g_quot) * ((p / s) / s))
+    g_w = (-((-g_q) * q_s)) * s + g_s * c
+    sixth = torch.where(small, torch.full_like(p, 1.0 / 6.0), 0.0)
+    return ((sixth + sixth) + g_quot / s) + torch.where(small, 0.0, g_w)
+
+
 def recurrence_table(nu_pairs, ls_pairs, dtype, order=0):
     """Per-(nu, ls) table of ``csrc/kv.cuh``'s table-driven recurrences, one
     row per pair, in ``dtype`` on the device of ``nu_pairs``, with no host
@@ -574,11 +614,17 @@ def recurrence_table(nu_pairs, ls_pairs, dtype, order=0):
     ``order=2`` (the Hessian kernel, ``csrc/matern_hess.cu``) takes |nu|
     and stores each column as (value, d/dmu, d^2/dmu^2), three values per
     column (kv.cuh ``Dual2Row``): the mu-only columns' first tangents as the
-    dual table's, their second tangents by autograd of ``gam12_tangent`` (the
-    gamma constants) and of pi mu / sin(pi mu) in float64, and in closed form
-    for a1 and the trip columns; the nu-only columns carry their true
-    derivatives in nu = mu + nl (sqrt(2 nu)'s, lgamma's = digamma and
-    trigamma, digamma's), nl and ls none."""
+    dual table's, their second tangents in closed form: for the gamma
+    constants, pi mu / sin(pi mu) (float64) and digamma's derivative
+    (``tetragamma``, float64) the operations reverse-mode AD of their first
+    tangents performs, in its order (``bessel.gam12_second``,
+    ``_fact_second``), so the rows equal that AD's bit for bit with no graph
+    built; a1's and the trip columns' directly. The nu-only columns carry
+    their true derivatives in nu = mu + nl (sqrt(2 nu)'s, lgamma's = digamma
+    and trigamma, digamma's), nl and ls none. Rows are elementwise in the
+    pairs, so one call for every pair gives each pair's own row; each call
+    adds one to ``LAUNCHES["recurrence_table_order2"]`` (a build is several
+    hundred small torch operations, launches of their own on the card)."""
     nu = torch.as_tensor(nu_pairs, dtype=dtype).detach().reshape(-1)
     ls = torch.as_tensor(ls_pairs, dtype=dtype, device=nu.device).detach().reshape(-1)
     nu_abs = torch.abs(nu)
@@ -619,18 +665,14 @@ def recurrence_table(nu_pairs, ls_pairs, dtype, order=0):
     tan = torch.cat([torch.stack(d_head, dim=1), d_series.to(dtype), d_cf2.to(dtype)], dim=1)
     if order == 1:
         return torch.stack([val, tan], dim=2).flatten(1)
-    with torch.enable_grad():
-        mg = mu.detach().requires_grad_(True)
-        dd_gam1, dd_gam2, dd_gp, dd_gm = (
-            torch.autograd.grad(t.sum(), mg, retain_graph=True)[0] for t in gam12_tangent(mg))
-        pg = (math.pi * m).requires_grad_(True)
-        f = torch.where(small, 1.0 + pg * pg / 6.0, pg / torch.sin(torch.where(small, 1.0, pg)))
-        (df,) = torch.autograd.grad(f.sum(), pg, create_graph=True)
-        (ddf,) = torch.autograd.grad(df.sum(), pg)
-        ng = nu_c.detach().double().requires_grad_(True)
-        (psi2,) = torch.autograd.grad(trigamma(ng).sum(), ng)
+    LAUNCHES["recurrence_table_order2"] += 1
     sq = torch.sqrt(2.0 * nu_c)
-    psi1 = trigamma(nu_c)
+    # one trigamma pass for nu and, in float64, the gamma constants' 1 +- mu
+    tri = trigamma(torch.stack([nu_c, 1.0 + mu, 1.0 - mu]) if dtype == torch.float64 else nu_c)
+    psi1 = tri[0] if dtype == torch.float64 else tri
+    dd_gam1, dd_gam2, dd_gp, dd_gm = gam12_second(
+        mu, (gam1, gam2, inv_gp, inv_gm), (d_gam1, d_gam2, d_gp, d_gm),
+        (tri[1], tri[2]) if dtype == torch.float64 else None)
     tan[:, 0] = 1.0
     tan[:, 2] = 1.0 / sq
     tan[:, 9] = torch.digamma(nu_c)
@@ -638,7 +680,8 @@ def recurrence_table(nu_pairs, ls_pairs, dtype, order=0):
     dd_head = [zero, zero, -1.0 / (sq * sq * sq), zero, zero, dd_gam1, dd_gam2,
                -0.5 * dd_gp / (inv_gp * inv_gp) + d_gp * d_gp / (inv_gp * inv_gp * inv_gp),
                -0.5 * dd_gm / (inv_gm * inv_gm) + d_gm * d_gm / (inv_gm * inv_gm * inv_gm),
-               psi1, psi2.to(dtype), (math.pi ** 2 * ddf).to(dtype), torch.full_like(mu, -2.0)]
+               psi1, tetragamma(nu_c.double()).to(dtype),
+               (math.pi ** 2 * _fact_second(pimu, small)).to(dtype), torch.full_like(mu, -2.0)]
     dd_series = torch.stack([2.0 * r2 * r2 + 2.0 * two_mu * two_mu * r2 * r2 * r2,
                              2.0 * rm * rm * rm, 2.0 * rp * rp * rp], dim=2).flatten(1)
     dd_cf2 = torch.stack([torch.full_like(a_n, 2.0), -2.0 / (a_n * a_n)

@@ -841,6 +841,125 @@ def test_block_hess_kernel_matches_plain(cuda, dtype, tol, tol2, nu, ls):
             assert torch.equal(got, K.matern_block_hess(nu, ls, hh, ct, symmetric=True))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("geodesic,covariogram", [(True, False), (False, True)])
+@pytest.mark.parametrize("n_rep", [1, 63, 64, 65, 200])
+def test_variogram_bin_batch_replicate_groups_and_windows(cuda, dtype, geodesic, covariogram,
+                                                          n_rep):
+    """The batched bin pass at ragged strips (130 and 67 points), at 1, 63,
+    64, 65 and 200 replicates (one to four groups of 64, full and ragged)
+    and 40 bins (two windows, two launches): counts equal to the plain
+    version's, sums within rtol 1e-5 / 1e-12 of it, and two runs bit-equal."""
+    rng = np.random.default_rng(12)
+    rtol = 1e-5 if dtype == torch.float32 else 1e-12
+    np_dt = np.dtype(str(dtype).replace("torch.", ""))
+    pts = [_points(rng, n, dtype, cuda) for n in (130, 67)]
+    if not geodesic:
+        pts = [p / 10.0 for p in pts]
+    feats = [E.point_features(p, geodesic) for p in pts]
+    vals = [torch.as_tensor(rng.normal(size=(n_rep, p.shape[0])), dtype=dtype, device=cuda)
+            for p in pts]
+    pairs = ((0, 0), (0, 1), (1, 1))
+    max_d = 2000.0 if geodesic else 3.0
+    h_max = float(E._h_of_d(np_dt.type(max_d), geodesic))
+    h_snap = float(E._h_of_d(np_dt.type(1e-6), geodesic))
+    mm = K.variogram_minmax_pairs([(feats[i], feats[j], i == j) for i, j in pairs], geodesic,
+                                  h_max, h_snap).cpu().numpy()
+    edges = [E._device_bins(lo, hi, geodesic, np_dt.type(1e-6), 40, np_dt)[1] for lo, hi in mm]
+    sides = [(feats[i], feats[j], vals[i], vals[j], i == j) for i, j in pairs]
+    before = K.launch_counts()["variogram_bin_batch"]
+    s_k, n_k = K.variogram_bin_batch(sides, edges, geodesic, covariogram, h_max)
+    assert K.launch_counts()["variogram_bin_batch"] == before + 2
+    s_2, n_2 = K.variogram_bin_batch(sides, edges, geodesic, covariogram, h_max)
+    s_p, n_p = K.variogram_bin_batch_plain(sides, edges, geodesic, covariogram, h_max)
+    torch.cuda.synchronize()
+    assert s_k.shape == (3, n_rep, 40) and torch.equal(n_k, n_p) and int(n_k.sum()) > 0
+    assert torch.equal(s_k, s_2) and torch.equal(n_k, n_2)
+    torch.testing.assert_close(s_k, s_p, rtol=rtol, atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_variogram_bin_batch_rounds_and_replicate_prefix(cuda, dtype):
+    """The batched bin pass where its strips take several rounds (a
+    marginal variogram of 12,000 points, ~17,800 chunks, with its cross
+    variogram against 3,000 points): counts equal to the plain version's and
+    sums within rtol 1e-5 / 1e-12 of it at 3 replicates; at 70 replicates
+    (two groups of 64) the first 3 replicates' sums are those of the
+    3-replicate call bit for bit, since the order of a replicate's sums
+    depends on the strips' shapes only."""
+    rng = np.random.default_rng(13)
+    rtol = 1e-5 if dtype == torch.float32 else 1e-12
+    np_dt = np.dtype(str(dtype).replace("torch.", ""))
+    pts = [_points(rng, n, dtype, cuda) / 10.0 for n in (12_000, 3_000)]
+    feats = [E.point_features(p, False) for p in pts]
+    vals = [torch.as_tensor(rng.normal(size=(70, p.shape[0])), dtype=dtype, device=cuda)
+            for p in pts]
+    pairs = ((0, 0), (0, 1))
+    h_max = float(E._h_of_d(np_dt.type(1.5), False))
+    h_snap = float(E._h_of_d(np_dt.type(1e-6), False))
+    mm = K.variogram_minmax_pairs([(feats[i], feats[j], i == j) for i, j in pairs], False,
+                                  h_max, h_snap).cpu().numpy()
+    edges = [E._device_bins(lo, hi, False, np_dt.type(1e-6), 12, np_dt)[1] for lo, hi in mm]
+
+    def sides(b):
+        return [(feats[i], feats[j], vals[i][:b], vals[j][:b], i == j) for i, j in pairs]
+
+    s_3, n_3 = K.variogram_bin_batch(sides(3), edges, False, False, h_max)
+    s_70, n_70 = K.variogram_bin_batch(sides(70), edges, False, False, h_max)
+    s_p, n_p = K.variogram_bin_batch_plain(sides(3), edges, False, False, h_max)
+    torch.cuda.synchronize()
+    assert torch.equal(n_3, n_p) and torch.equal(n_70, n_p) and int(n_p.sum()) > 0
+    torch.testing.assert_close(s_3, s_p, rtol=rtol, atol=1e-12)
+    assert torch.equal(s_70[:, :3], s_3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nu", [1.37, "1.5-ulp", 1.5, 0.2])
+def test_block_hess_sums_with_and_without_a_prebuilt_row_bit_equal(cuda, dtype, nu):
+    """The Hessian sums with the pair's second-order row built beforehand
+    (``recurrence_table(..., order=2)[0]``, as the live path hands it in)
+    equal the sums that build it in the call, bit for bit: a symmetric and
+    a ragged full block with exact zeros."""
+    np_dt = np.dtype(str(dtype).replace("torch.", ""))
+    if nu == "1.5-ulp":
+        nu = float(np.nextafter(np_dt.type(1.5), np_dt.type(0)))
+    rng = np.random.default_rng(44)
+    a = _points(rng, 300, dtype, cuda)
+    b = torch.cat([a[:7], _points(rng, 210, dtype, cuda)])
+    row = K.recurrence_table(torch.tensor(nu, dtype=dtype, device=cuda),
+                             torch.tensor(800.0, dtype=dtype, device=cuda), dtype, order=2)[0]
+    for hh, sym in ((haversine_matrix(a, a), True), (haversine_matrix(a, b), False)):
+        ct = torch.as_tensor(rng.normal(size=tuple(hh.shape)), dtype=dtype, device=cuda)
+        got = K.matern_block_hess(nu, 800.0, hh, ct, symmetric=sym, table=row)
+        want = K.matern_block_hess(nu, 800.0, hh, ct, symmetric=sym)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all() and torch.equal(got, want)
+
+
+def test_one_second_order_row_build_per_hessian(cuda):
+    """A Hessian of the NLL through the block kernels (float64, 2 x 40
+    points, ``torch.autograd.functional.hessian``) builds the second-order
+    rows once, for every process pair together, and launches the Hessian
+    sums once per block (3)."""
+    from cokriging_tpu_torch.cov.params import MaternParams
+    from cokriging_tpu_torch.estimate.nll import joint_distance_blocks, neg_log_likelihood
+
+    rng = np.random.default_rng(45)
+    d = joint_distance_blocks([_points(rng, 40, torch.float64, cuda) for _ in range(2)])
+    z = torch.as_tensor(rng.normal(size=80), device=cuda)
+    spec = MaternParams.default(2).spec
+    x = torch.tensor([1.2, 0.8, 1.4, 1.1, 2.0, 300, 250, 350, 0.04, 0.02, -0.5],
+                     dtype=torch.float64, device=cuda)
+    before = K.launch_counts()
+    hess = torch.autograd.functional.hessian(
+        lambda f: neg_log_likelihood(f, d, z, spec, analytic_grad=False), x)
+    torch.cuda.synchronize()
+    grew = {k: K.launch_counts()[k] - before[k] for k in
+            ("recurrence_table_order2", "matern_block_hess")}
+    assert grew == {"recurrence_table_order2": 1, "matern_block_hess": 3}
+    assert torch.isfinite(hess).all()
+
+
 def test_block_hessian_on_card_matches_cpu_without_synchronizing(cuda):
     """The NLL's Hessian through the block kernels (float64, 2 x 40 points)
     equals the CPU's elementwise one, its backward passes run under

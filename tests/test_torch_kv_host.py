@@ -530,7 +530,7 @@ def test_pair_table_rows_match_recurrence_table(dtype):
                          0.02, 0.01, 0.03, 0.04, -0.3, 0.2, -0.1, 0.4, 0.1, -0.5],
                         dtype=torch.float64)
     params = MaternParams.from_flat(flat, n_procs=4)
-    value, dual = _kernel_tables(params, "cpu", dtype, True)
+    value, dual, _ = _kernel_tables(params, "cpu", dtype, True)
     rtol = 4 * torch.finfo(dtype).eps
     for k, (i, j) in enumerate(_pairs(4)):
         nu, ls = params.nu[i, j].to(dtype), params.len_scale[i, j].to(dtype)
@@ -665,3 +665,69 @@ def test_tangent_and_hessian_entries_match_plain(harness, sfx):
         assert not bool(ok[-n_sp:][[0, 1, 4, 5, 6]].any())  # no terms at 0, inf, NaN
         assert bool((terms[~ok.bool()] == 0).all())
 
+
+
+def _autograd_second_columns(nu_pairs, dtype):
+    """The second tangents of the gamma constants' columns (gam1, gam2,
+    0.5 Gamma(1 +- mu)), of digamma's column and of pi mu / sin(pi mu) as
+    the second-order table took them by autograd before their closed
+    forms: ``torch.autograd.grad`` of ``gam12_tangent``, of ``trigamma``
+    (float64) and a double backward of pi mu / sin(pi mu) (float64)."""
+    import math
+
+    from cokriging_tpu_torch.kernels.bessel import _gam12, gam12_tangent, trigamma
+
+    nu = torch.abs(torch.as_tensor(nu_pairs, dtype=dtype))
+    mu = nu - torch.floor(nu + 0.5)
+    _, _, inv_gp, inv_gm = _gam12(mu)
+    _, _, d_gp, d_gm = gam12_tangent(mu)
+    m = mu.double()
+    small = (math.pi * m).abs() < 1e-4
+    with torch.enable_grad():
+        mg = mu.detach().requires_grad_(True)
+        dd_gam1, dd_gam2, dd_gp, dd_gm = (
+            torch.autograd.grad(t.sum(), mg, retain_graph=True)[0] for t in gam12_tangent(mg))
+        pg = (math.pi * m).requires_grad_(True)
+        f = torch.where(small, 1.0 + pg * pg / 6.0, pg / torch.sin(torch.where(small, 1.0, pg)))
+        (df,) = torch.autograd.grad(f.sum(), pg, create_graph=True)
+        (ddf,) = torch.autograd.grad(df.sum(), pg)
+        ng = nu.detach().double().requires_grad_(True)
+        (psi2,) = torch.autograd.grad(trigamma(ng).sum(), ng)
+    return {5: dd_gam1, 6: dd_gam2,
+            7: -0.5 * dd_gp / (inv_gp * inv_gp) + d_gp * d_gp / (inv_gp * inv_gp * inv_gp),
+            8: -0.5 * dd_gm / (inv_gm * inv_gm) + d_gm * d_gm / (inv_gm * inv_gm * inv_gm),
+            10: psi2.to(dtype), 11: (math.pi ** 2 * ddf).to(dtype)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_second_order_rows_in_one_call_match_autograd_rows(dtype):
+    """``recurrence_table(..., order=2)`` for six (nu, ls) pairs in one call
+    (nu = 1.5 -+ one ulp of the dtype, 1.5, 0.2, 1.37, 3.5): each row equals
+    the row of its pair alone, and the closed-form second tangents of the
+    gamma constants, of digamma and of pi mu / sin(pi mu) equal the ones
+    autograd gave the table before (``_autograd_second_columns``), bit for
+    bit (the bar the rows are held to is 1e-15 relative; they meet it
+    exactly). Every call counts one second-order build."""
+    np_dt = np.dtype(str(dtype).removeprefix("torch."))
+    nus = [float(np.nextafter(np_dt.type(1.5), np_dt.type(0))),
+           float(np.nextafter(np_dt.type(1.5), np_dt.type(2))), 1.5, 0.2, 1.37, 3.5]
+    nu_t = torch.tensor(nus, dtype=dtype)
+    ls_t = torch.tensor([700.0, 300.0, 1500.0, 800.0, 450.0, 2000.0], dtype=dtype)
+    before = K.LAUNCHES["recurrence_table_order2"]
+    rows = K.recurrence_table(nu_t, ls_t, dtype, order=2)
+    assert K.LAUNCHES["recurrence_table_order2"] == before + 1
+    assert rows.shape == (6, 3 * (13 + 3 * SERIES_ITERS[dtype] + 3 * CF2_ITERS[dtype]))
+    for k in range(6):
+        assert torch.equal(K.recurrence_table(nu_t[k], ls_t[k], dtype, order=2)[0], rows[k])
+    ref = _autograd_second_columns(nu_t, dtype)
+    for col, want in ref.items():
+        got = rows[:, 3 * col + 2]
+        assert got.dtype == dtype
+        assert torch.equal(got, want.to(dtype)), (col, got, want)
+        assert bool((((got - want).abs()) <= 1e-15 * want.abs()).all())
+    # the first tangents are the dual table's, but for the nu-only columns
+    dual = K.recurrence_table(nu_t, ls_t, dtype, order=1)
+    same = [c for c in range(dual.shape[1] // 2) if c not in (0, 2, 9, 10)]
+    for c in same:
+        assert torch.equal(rows[:, 3 * c], dual[:, 2 * c])
+        assert torch.equal(rows[:, 3 * c + 1], dual[:, 2 * c + 1])

@@ -59,7 +59,66 @@ template <typename T> void layout(int* out) {
   out[3] = ckv::Record<T>::bytes;
 }
 
+template <typename T, bool COV, int NB>
+void walks(const unsigned short* perm, const unsigned short* seg, int n_chunks, int n_win,
+           int steps, const T* row_v, const T* col_v, int width, double* out) {
+  for (int w = 0; w < steps; ++w)
+    for (int pos = 0; pos < width; pos += 2) {
+      double hist[2][NB] = {};
+      for (int k = 0; k < n_chunks; ++k)
+        ckv::walk_chunk<T, COV, NB>(perm + k * ckv::BATCH_PAIRS, seg + k * ckv::BATCH_SEG, n_win,
+                                    w, steps, row_v, col_v + k * ckv::BATCH_CHUNK * width, pos,
+                                    width, hist);
+      for (int j = 0; j < 2; ++j)
+        for (int s = 0; s < NB; ++s) out[(w * width + pos + j) * NB + s] = hist[j][s];
+    }
+}
+
+template <typename T>
+void walk(const unsigned short* perm, const unsigned short* seg, int n_chunks, int n_win,
+          int steps, const T* row_v, const T* col_v, int width, int cov, int nb, double* out) {
+  if (nb == 16) {
+    (cov ? walks<T, true, 16> : walks<T, false, 16>)(perm, seg, n_chunks, n_win, steps, row_v,
+                                                     col_v, width, out);
+  } else {
+    (cov ? walks<T, true, ckv::MAX_BINS> : walks<T, false, ckv::MAX_BINS>)(
+        perm, seg, n_chunks, n_win, steps, row_v, col_v, width, out);
+  }
+}
+
 extern "C" {
+void walk_f32(const unsigned short* p, const unsigned short* s, int k, int w, int st,
+              const float* r, const float* c, int wd, int cov, int nb, double* o) {
+  walk(p, s, k, w, st, r, c, wd, cov, nb, o);
+}
+void walk_f64(const unsigned short* p, const unsigned short* s, int k, int w, int st,
+              const double* r, const double* c, int wd, int cov, int nb, double* o) {
+  walk(p, s, k, w, st, r, c, wd, cov, nb, o);
+}
+void batch_constants(int* o) {
+  o[0] = ckv::BATCH_STRIP;
+  o[1] = ckv::BATCH_CHUNK;
+  o[2] = ckv::BATCH_PAIRS;
+  o[3] = ckv::BATCH_SEG;
+}
+// the rounds of the batched pass, 6 numbers each (s_lo, s_hi, c_lo, c_hi,
+// max_chunks, max_spans); returns their number
+int batch_rounds(int count, const long long* dims, long long* o, long long* caps) {
+  long long strips = 0;
+  for (int p = 0; p < count; ++p) strips += (dims[4 * p] + ckv::BATCH_STRIP - 1) / ckv::BATCH_STRIP;
+  int r = 0;
+  for (long long s = 0; s < strips; ++r) {
+    const ckv::BatchRound R = ckv::batch_round(count, dims, s, ckv::BATCH_LIST, ckv::BATCH_SLOTS);
+    const long long v[6] = {R.s_lo, R.s_hi, R.c_lo, R.c_hi, R.max_chunks, R.max_spans};
+    for (int k = 0; k < 6; ++k) o[6 * r + k] = v[k];
+    s = R.s_hi;
+  }
+  caps[0] = ckv::BATCH_SPAN;
+  caps[1] = ckv::BATCH_LIST;
+  caps[2] = ckv::BATCH_SLOTS;
+  ckv::batch_scratch(count, dims, caps + 3);
+  return r;
+}
 void h_f32(const float* a, long n, const float* b, long m, int geo, float* o) {
   geo ? hs<float, true>(a, n, b, m, o) : hs<float, false>(a, n, b, m, o);
 }
@@ -279,3 +338,139 @@ def test_three_process_variograms_match_all_pairs_program(dtype):
     np.testing.assert_array_equal(tn, np.asarray(jn))
     np.testing.assert_allclose(tc, np.asarray(jc), rtol=1e-4 if dtype == np.float32 else 1e-12)
     np.testing.assert_allclose(tm, np.asarray(jm), rtol=1e-5)
+
+
+def test_batch_constants_match_header(lib):
+    got = (ctypes.c_int * 4)()
+    lib.batch_constants(got)
+    assert list(got) == [K.VARIO_STRIP, K._BATCH_PAIRS // K.VARIO_STRIP, K._BATCH_PAIRS,
+                         K._BATCH_SEG]
+
+
+def _walk_case(rng, np_dt, n_win, n_chunks, width, integer):
+    """A strip's chunks as the batched pass's slot pass leaves them: each
+    pair's slot (n_win: dropped), the binned pairs stably sorted by slot
+    (``perm``, ``seg``), and row / column values of ``width`` replicates."""
+    strip, chunk = K.VARIO_STRIP, K._BATCH_PAIRS // K.VARIO_STRIP
+    # ~85% of the pairs dropped, as beyond h_max in the bootstrap's month
+    slots = np.where(rng.uniform(size=(n_chunks, strip * chunk)) < 0.85, n_win,
+                     rng.integers(0, n_win, size=(n_chunks, strip * chunk)))
+    perm = np.zeros((n_chunks, K._BATCH_PAIRS), dtype=np.uint16)
+    seg = np.zeros((n_chunks, K._BATCH_SEG), dtype=np.uint16)
+    for k in range(n_chunks):
+        order = np.argsort(slots[k], kind="stable")
+        kept = order[slots[k][order] < n_win]
+        perm[k, :kept.size] = kept
+        seg[k, :n_win + 1] = np.searchsorted(slots[k][kept], np.arange(n_win + 1))
+    if integer:  # clouds and sums exact in either dtype: any order gives the same bits
+        row_v = rng.integers(-8, 9, size=(strip, width)).astype(np_dt)
+        col_v = rng.integers(-8, 9, size=(n_chunks * chunk, width)).astype(np_dt)
+    else:
+        row_v = rng.normal(size=(strip, width)).astype(np_dt)
+        col_v = rng.normal(size=(n_chunks * chunk, width)).astype(np_dt)
+    return slots, perm, seg, row_v, col_v
+
+
+def _pair_order_sums(slots, row_v, col_v, n_win, cov):
+    """Per (replicate, slot) the clouds of the pairs in pair order (chunk,
+    row, column), each formed in the values' dtype and added in float64,
+    with the sum of their magnitudes."""
+    strip, chunk = K.VARIO_STRIP, K._BATCH_PAIRS // K.VARIO_STRIP
+    width = row_v.shape[1]
+    sums = np.zeros((width, n_win))
+    mags = np.zeros((width, n_win))
+    for k in range(slots.shape[0]):
+        for e in range(strip * chunk):
+            s = slots[k, e]
+            if s == n_win:
+                continue
+            a, v = row_v[e // chunk], col_v[k * chunk + e % chunk]
+            cl = a * v if cov else (a.dtype.type(0.5) * (a - v)) * (a - v)
+            sums[:, s] += cl.astype(np.float64)
+            mags[:, s] += np.abs(cl.astype(np.float64))
+    return sums, mags
+
+
+def _run_walk(lib, sfx, perm, seg, n_win, steps, row_v, col_v, cov, nb):
+    n_chunks, width = perm.shape[0], row_v.shape[1]
+    out = np.zeros((steps, width, nb))
+    p, sg = np.ascontiguousarray(perm), np.ascontiguousarray(seg)
+    r, c = np.ascontiguousarray(row_v), np.ascontiguousarray(col_v)
+    getattr(lib, f"walk_{sfx}")(p.ctypes.data_as(ctypes.c_void_p), sg.ctypes.data_as(
+        ctypes.c_void_p), n_chunks, n_win, steps, r.ctypes.data_as(ctypes.c_void_p),
+        c.ctypes.data_as(ctypes.c_void_p), width, int(cov), nb,
+        out.ctypes.data_as(ctypes.c_void_p))
+    return out
+
+
+@pytest.mark.parametrize("sfx", ["f32", "f64"])
+@pytest.mark.parametrize("cov", [False, True])
+@pytest.mark.parametrize("n_win,steps", [(15, 8), (24, 1), (6, 3)])
+def test_slot_sorted_walk_matches_pair_order_sums(lib, sfx, cov, n_win, steps):
+    """``vario.cuh::walk_chunk``, the batched pass's walk of slot-sorted
+    chunks for two adjacent replicates at once (each walker every
+    ``steps``-th entry of a slot, over two chunks, six replicates), against
+    the clouds added in pair order: equal to the last
+    bit on integer-valued replicates (every sum exact, so any order agrees:
+    each binned pair counted once, in its slot, with its row and column
+    values) and, on random values, within 1e-15 of the sum of |cloud| per
+    slot and replicate; the dropped slot adds nothing."""
+    np_dt = DTYPES[sfx][1]
+    nb = 16 if n_win <= 16 else K.VARIO_MAX_BINS
+    rng = np.random.default_rng(40 + n_win + steps + int(cov))
+    for integer in (True, False):
+        slots, perm, seg, row_v, col_v = _walk_case(rng, np_dt, n_win, 2, 6, integer)
+        want, mag = _pair_order_sums(slots, row_v, col_v, n_win, cov)
+        out = _run_walk(lib, sfx, perm, seg, n_win, steps, row_v, col_v, cov, nb)
+        assert not out[:, :, n_win:].any()
+        got = out.sum(axis=0)[:, :n_win]
+        if integer:
+            assert np.array_equal(got, want)
+        else:
+            assert np.all(np.abs(got - want) <= 1e-15 * mag)
+
+
+@pytest.mark.parametrize("sizes", [
+    [(12_500, 12_500, 1), (12_500, 12_500, 0), (12_500, 12_500, 1)],  # the bootstrap's three
+    [(50_000, 50_000, 1), (50_000, 40_000, 0)],  # the list's and the partials' caps bind
+    [(70, 70, 1), (0, 5, 0), (130, 1, 0), (64, 64, 1)],  # ragged, an empty variogram
+])
+def test_batch_rounds_cover_the_strips_within_their_scratch(lib, sizes):
+    """``vario.cuh::batch_round``, the batched pass's rounds of strips:
+    every strip once, in order, each round's chunks contiguous and its
+    count, most chunks and most spans of a strip those of its strips; a
+    round stays within the list's and the partials' caps (a single strip
+    may exceed them) and stops only where its next strip would not fit; and
+    ``batch_scratch`` is the largest round's need. The rounds depend on the
+    shapes only, so the order of a replicate's sums does not move with the
+    number of replicates."""
+    dims, per_strip = [], []
+    for n, m, marginal in sizes:
+        dims += [n, m, marginal, len(per_strip)]
+        ns, nc = -(-n // K.VARIO_STRIP), -(-m // (K._BATCH_PAIRS // K.VARIO_STRIP))
+        per_strip += [nc - s if marginal else nc for s in range(ns)]
+    c_dims = (ctypes.c_longlong * len(dims))(*dims)
+    out = (ctypes.c_longlong * (6 * (len(per_strip) + 1)))()
+    caps = (ctypes.c_longlong * 5)()
+    lib.batch_rounds.restype = ctypes.c_int
+    n_rounds = lib.batch_rounds(len(sizes), c_dims, out, caps)
+    span, list_cap, slot_cap, need_list, need_slots = list(caps)
+    rounds = np.frombuffer(out, dtype=np.int64)[:6 * n_rounds].reshape(n_rounds, 6)
+    chunk0 = np.concatenate([[0], np.cumsum(per_strip)])
+    spans = [-(-c // span) for c in per_strip]
+    assert rounds[0, 0] == 0 and rounds[-1, 1] == len(per_strip)
+    assert (rounds[1:, 0] == rounds[:-1, 1]).all()
+    for k, (s_lo, s_hi, c_lo, c_hi, max_c, max_sp) in enumerate(rounds):
+        assert s_hi > s_lo
+        assert (c_lo, c_hi) == (chunk0[s_lo], chunk0[s_hi])
+        assert max_c == max(per_strip[s_lo:s_hi]) and max_sp == max(spans[s_lo:s_hi])
+        if s_hi - s_lo > 1:
+            assert c_hi - c_lo <= list_cap and (s_hi - s_lo) * max_sp <= slot_cap
+        if s_hi < len(per_strip):
+            grown_sp = max(max_sp, spans[s_hi])
+            assert (chunk0[s_hi + 1] - c_lo > list_cap
+                    or (s_hi - s_lo + 1) * grown_sp > slot_cap)
+    assert need_list == max(1, (rounds[:, 3] - rounds[:, 2]).max())
+    assert need_slots == max(1, ((rounds[:, 1] - rounds[:, 0]) * rounds[:, 5]).max())
+    assert need_list <= max(list_cap, max(per_strip)) and need_slots <= max(
+        slot_cap, max(spans))
