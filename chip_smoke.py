@@ -165,14 +165,20 @@ Phases, in order; any failure exits nonzero without the final ok line:
     path must run), symmetric to round-off before symmetrization (1e-10 of
     max|H|) and equal to ``observed_information``, with exactly one build of
     the second-order rows (``recurrence_table(..., order=2)`` for the three
-    process pairs, counted beside the launches); both new kernels held
-    against their plain versions at the Hessian's own blocks (the Hessian
-    sums at the first of its three 2,500^2 blocks, each within 1e-14 of its
-    sum of |terms| in float64 and 1e-6 in float32, ``J_HESS_BAR``, and
-    bit-equal at each block to a launch that builds its row itself; the tangent
-    within 1e-12 / 1e-5 of its largest entry) and timed there (the Hessian
-    sums alone with the path's rows, as launches that build their rows, and
-    the one row build alone); at the fit with its nuggets raised to 0.1, each
+    process pairs, counted beside the launches), exactly 3 launches of the
+    tangent's partials (one per block) and 33 of its combine (one per row and
+    block), and the Hessian's peak device memory; the second-order kernels
+    held against their plain versions at the Hessian's own blocks (the
+    Hessian sums at the first of its three 2,500^2 blocks, each within 1e-14
+    of its sum of |terms| in float64 and 1e-6 in float32, ``J_HESS_BAR``,
+    and bit-equal at each block to a launch that builds its row itself; the
+    tangent's partials at each block, each field within 1e-12 / 1e-5 of its
+    largest entry; the combine at each block's first row of nonzero weights
+    within the same bars of the plain tangent over the plain partials) and
+    timed there (the Hessian sums alone with the path's rows, as launches
+    that build their rows, and the one row build alone; the Hessian's whole
+    tangent work, 3 partials and 33 combines, as the path launched it); at
+    the fit with its nuggets raised to 0.1, each
     column against a central (or, beside the positive-definite wall,
     one-sided) difference of the card's exact gradient (1e-4 of the
     column's largest entry), and the float32 information against the
@@ -340,6 +346,13 @@ REDESIGNED = {
     "variogram_bin_batch_float64_i": ("variogram.cu", "batch_walk_kernelIdLb0ELi16E", 58.61),
     "matern_block_hess_float32": ("matern_hess.cu", "HessStepIfE", None),
     "matern_block_hess_float64": ("matern_hess.cu", "HessStepIdE", None),
+    # the block tangent's partials (recorded before: the fused tangent's three
+    # launches, one per block, that the partials' three replace) and its
+    # combine (new: no earlier kernel did only this)
+    "matern_block_partials_float32": ("matern_hess.cu", "partials_kernelIf", 0.63),
+    "matern_block_partials_float64": ("matern_hess.cu", "partials_kernelId", 2.93),
+    "matern_block_tangent_float32": ("matern_hess.cu", "tangent_combine_kernelIf", None),
+    "matern_block_tangent_float64": ("matern_hess.cu", "tangent_combine_kernelId", None),
 }
 # the same record for one 12,500^2 symmetric block, and for the Vecchia window
 # set in one gradient launch (that one built its table in the call)
@@ -1030,13 +1043,13 @@ def entry_ops(x, nu, dtype, grad=False, ops=None):
             + cf2_x.numel() * o["cf2_setup"] + trips * o["cf2_trip"])
 
 
-def matern_bound(h, nu, ls, symmetric, grad=False, ops=None, n_out=4):
+def matern_bound(h, nu, ls, symmetric, grad=False, ops=None, n_out=4, n_fields=1):
     """Least times for one Matern block (``grad``: for its block gradient,
     or with ``ops`` one of the gradient-like second-order kernels: the
-    Hessian sums, ``n_out`` = 5 doubles out, or the tangent, ``n_out`` = 0
-    and the block written): (bytes / HBM rate, operations / peak rate) in ms
-    over the entries this block's data needs, counted in row chunks;
-    ``bound_of`` combines them."""
+    Hessian sums, ``n_out`` = 5 doubles out, or the tangent's partials,
+    ``n_out`` = 0 and ``n_fields`` = 3 whole n x m fields written): (bytes /
+    HBM rate, operations / peak rate) in ms over the entries this block's
+    data needs, counted in row chunks; ``bound_of`` combines them."""
     import torch
 
     name = str(h.dtype).replace("torch.", "")
@@ -1051,10 +1064,11 @@ def matern_bound(h, nu, ls, symmetric, grad=False, ops=None, n_out=4):
             mask &= torch.arange(m, device=h.device)[None, :] <= ri
         n_ops += entry_ops(math.sqrt(2 * nu) * hc[mask] / ls, nu, h.dtype, grad, ops)
     n_entries = n * (n + 1) // 2 if symmetric else h.numel()
-    # forward and tangent: h read where evaluated, the block written;
-    # gradient and Hessian sums: h read where evaluated, the cotangent read
-    # whole, n_out doubles written
-    nbytes = (n_entries + h.numel()) * h.element_size() + (8 * n_out if grad else 0)
+    # forward and the tangent's partials: h read where evaluated, the block
+    # (n_fields of them) written; gradient and Hessian sums: h read where
+    # evaluated, the cotangent read whole, n_out doubles written
+    nbytes = ((n_entries + n_fields * h.numel()) * h.element_size()
+              + (8 * n_out if grad else 0))
     return nbytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_OPS_PER_S[name] * 1e3
 
 
@@ -3077,11 +3091,15 @@ def phase_i():
 # csrc/kv.cuh's Dual2<T>: an add 3, a product 10, a product with a scalar 3,
 # a reciprocal 8, an exponential 6): the Hessian kernel's second-order
 # series and CF2 trips, recurrence step and matern_second_tab's own
-# arithmetic; the tangent kernel runs the block gradient's dual pass and
-# weights its three terms.
+# arithmetic; the tangent's partials kernel runs the block gradient's dual
+# pass without its cotangent weighting (matern_grad.cu's GradStep: three
+# products, three adds, two finiteness tests, -8) and stores the partials
+# unweighted; the combine weights them: a compare, three products, two
+# finiteness tests, two adds.
 MATERN_HESS_OPS = {"prefactor": 90, "series_setup": 140, "series_trip": 59,
                    "cf2_setup": 70, "cf2_trip": 110, "recurrence_step": 19}
-MATERN_TANGENT_OPS = dict(MATERN_GRAD_OPS, prefactor=MATERN_GRAD_OPS["prefactor"] + 8)
+MATERN_PARTIALS_OPS = dict(MATERN_GRAD_OPS, prefactor=MATERN_GRAD_OPS["prefactor"] - 8)
+COMBINE_OPS = 8
 J_STRIDE = 5  # (f)'s maximum-likelihood subsample of bench.py's month: 2 x 2,500
 J_JITTER = 1e-6
 J_FD_STEP = 1e-5  # central-difference step, of each parameter's box width
@@ -3161,18 +3179,27 @@ def j_hessian(mf, params, dtype_name, rows, stages, launches):
     with torch.no_grad():
         value = float(fn(flat).detach())
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2**20
     K.reset_launch_counts()
     t0 = time.perf_counter()
     with captured("matern_block_hess") as hess_calls, \
+            captured("matern_block_partials") as part_calls, \
             captured("matern_block_tangent") as all_tan_calls:
         raw = torch.autograd.functional.hessian(fn, flat)
     torch.cuda.synchronize()
     stages[f"hessian_{dtype_name}_s"] = time.perf_counter() - t0
+    stages[f"hessian_{dtype_name}_peak_mb"] = torch.cuda.max_memory_allocated() / 2**20
+    stages[f"hessian_{dtype_name}_base_mb"] = base_mb
     counts = {k: v for k, v in K.launch_counts().items() if v}
     launches[f"hessian_{dtype_name}"] = counts
-    for k in ("matern_correlation", "matern_block_grad", "matern_block_tangent",
-              "matern_block_hess"):
+    for k in ("matern_correlation", "matern_block_grad", "matern_block_partials",
+              "matern_block_tangent", "matern_block_hess"):
         check(counts.get(k, 0) > 0, f"(j) {dtype_name}: no {k} launch in the Hessian: {counts}")
+    # the tangent's partials once per block (3), one combine per row and block
+    check(counts.get("matern_block_partials") == 3 and counts.get("matern_block_tangent") == 33,
+          f"(j) {dtype_name}: {counts.get('matern_block_partials')} tangent-partials and "
+          f"{counts.get('matern_block_tangent')} combine launches in one Hessian, not 3 and 33")
     # the second-order rows of all three process pairs, built once per Hessian
     # (the first block's double backward) and shared by the three blocks
     check(counts.get("recurrence_table_order2", 0) == 1,
@@ -3182,6 +3209,7 @@ def j_hessian(mf, params, dtype_name, rows, stages, launches):
     scale = float(np.abs(raw).max())
     asym = float(np.abs(raw - raw.T).max()) / scale
     log(f"(j) {dtype_name}: NLL {value} at the fit; raw Hessian in {stages[f'hessian_{dtype_name}_s']:.3f} s, "
+        f"peak memory {stages[f'hessian_{dtype_name}_peak_mb']:.1f} MiB ({base_mb:.1f} before), "
         f"launches {counts}, max|H| {scale:.6g}, asymmetry {asym:.3e} (bar {J_SYM_BAR[dtype_name]})")
     check(np.isfinite(raw).all() and asym <= J_SYM_BAR[dtype_name],
           f"(j) {dtype_name}: Hessian not finite or not symmetric: {asym}")
@@ -3191,22 +3219,37 @@ def j_hessian(mf, params, dtype_name, rows, stages, launches):
     stages[f"observed_information_{dtype_name}_s"] = time.perf_counter() - t0
     gap = float(np.abs(info - 0.5 * (raw + raw.T)).max()) / scale
     check(gap <= 1e-12, f"(j) {dtype_name}: observed_information off the raw Hessian: {gap}")
-    # per block (by its distances) the first tangent launch of nonzero weights
+    # per block (by its partials) the first combine of nonzero weights
     tan_calls, seen = [], set()
     for a in all_tan_calls:
-        if a[3].data_ptr() not in seen and bool((a[4] != 0).any()):
-            seen.add(a[3].data_ptr())
+        if a[2].data_ptr() not in seen and bool((a[1] != 0).any()):
+            seen.add(a[2].data_ptr())
             tan_calls.append(a)
-    rows += j_kernel_rows(dtype_name, hess_calls, tan_calls, counts)
+    rows += j_kernel_rows(dtype_name, hess_calls, part_calls, tan_calls, all_tan_calls, counts,
+                          stages)
     return info
 
 
-def j_kernel_rows(dtype_name, hess_calls, tan_calls, counts):
-    """Both second-order kernels against their plain versions at the
+def combine_bound(h):
+    """(bytes / HBM rate, operations / peak rate) in ms of one combine of
+    the tangent's partials over the block of h's shape: three fields read
+    and the tangent written whole, the five weight doubles read."""
+    name = str(h.dtype).replace("torch.", "")
+    return ((4 * h.numel() * h.element_size() + 40) / PEAK_BYTES_PER_S * 1e3,
+            COMBINE_OPS * h.numel() / PEAK_OPS_PER_S[name] * 1e3)
+
+
+def j_kernel_rows(dtype_name, hess_calls, part_calls, tan_calls, all_tan_calls, counts, stages):
+    """The second-order kernels against their plain versions at the
     Hessian's own launches (the Hessian sums at the first of its three
-    blocks, timed at all three; the tangent at each block's first launch
-    with nonzero weights), each timed there; their rows of the kernels line
-    (the Hessian sums' at the first block, where the plain version ran).
+    blocks, timed at all three; the tangent's partials at each of the three
+    blocks; the combine at each block's first launch with nonzero weights,
+    against the plain tangent over the block's plain partials, so one
+    autograd pass serves both checks), each timed there; their rows of the
+    kernels line (the Hessian sums' at the first block, where the plain
+    version ran). The Hessian's tangent work as the path launched it, its 3
+    partials and 33 combines, is timed once more as one
+    (``per_hessian_ms``), with the bound of that work beside it.
     The Hessian sums are timed alone, with the second-order row the path
     handed them (``ms``, ``ms_all_blocks``), and as a launch that builds its
     row first (``ms_with_row_build_all_blocks``, how this row was timed
@@ -3216,8 +3259,11 @@ def j_kernel_rows(dtype_name, hess_calls, tan_calls, counts):
 
     from cokriging_tpu_torch.kernels import cuda_ops as K
 
-    hess_calls = [[t.detach() if torch.is_tensor(t) else t for t in a] for a in hess_calls]
-    tan_calls = [[t.detach() if torch.is_tensor(t) else t for t in a] for a in tan_calls]
+    def detached(calls):
+        return [[t.detach() if torch.is_tensor(t) else t for t in a] for a in calls]
+
+    hess_calls, part_calls = detached(hess_calls), detached(part_calls)
+    tan_calls, all_tan_calls = detached(tan_calls), detached(all_tan_calls)
     f32 = dtype_name == "float32"
     hess = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, max_err=0.0, ms_all_blocks=0.0,
                 ms_with_row_build_all_blocks=0.0)
@@ -3266,38 +3312,78 @@ def j_kernel_rows(dtype_name, hess_calls, tan_calls, counts):
               f"{kept['plain'].tolist()}, |terms| {mag.tolist()}, bars {J_HESS_BAR[dtype_name]}")
         del kept
         torch.cuda.empty_cache()
-    tan = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, max_err=0.0)
-    for k, a in enumerate(tan_calls):
-        scale, nu, ls, h, w, sym = a[:6]
-        table = a[6] if len(a) > 6 else None
+    tan_bar = 1e-5 if f32 else 1e-12
+    part = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, max_err=0.0)
+    plain_parts = {}
+    check(len(part_calls) == 3, f"(j) {dtype_name}: {len(part_calls)} tangent-partials launches")
+    # the first row builds each block's partials just before its combine, so
+    # the first three combines read the three launches' buffers in order
+    block_of = {a[2].data_ptr(): k for k, a in enumerate(all_tan_calls[:3])}
+    check(len(block_of) == 3 and {a[2].data_ptr() for a in all_tan_calls} == set(block_of),
+          f"(j) {dtype_name}: the combines do not read the three blocks' partials")
+    for k, (nu, ls, h, sym, table) in enumerate(part_calls):
         kept = {}
-        tan["ms"] += cuda_time_ms(keep(kept, "kernel", lambda: K.matern_block_tangent(
-            scale, nu, ls, h, w, symmetric=sym, table=table)), 3)
+        part["ms"] += cuda_time_ms(keep(kept, "kernel", lambda: K.matern_block_partials(
+            nu, ls, h, sym, table)), 3)
+        part["plain_ms"] += cuda_time_ms(keep(kept, "plain", lambda: K.matern_block_partials_plain(
+            nu, ls, h, symmetric=sym)), 1, warm=False)
+        err = [float((kept["kernel"][f] - kept["plain"][f]).abs().max()) for f in range(3)]
+        rel = [e / float(kept["plain"][f].abs().max()) for f, e in enumerate(err)]
+        part["max_abs_err"] = max(part["max_abs_err"], max(err))
+        part["max_err"] = max(part["max_err"], max(rel))
+        check(bool(torch.isfinite(kept["kernel"]).all()) and max(rel) <= tan_bar,
+              f"(j) tangent partials {dtype_name} block {k}: err / max|entry| per field {rel}")
+        plain_parts[k] = kept["plain"]
+        del kept
+    tan = dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, max_err=0.0)
+    for a in tan_calls:
+        scale, w, parts = a
+        k = block_of[parts.data_ptr()]
+        kept = {}
+        # a head start: the host's time per call is close to the kernel's
+        tan["ms"] += cuda_time_ms(keep(kept, "kernel", lambda: K.matern_block_tangent(*a)), 3,
+                                  head_start_ms=2.0)
         tan["plain_ms"] += cuda_time_ms(keep(kept, "plain", lambda: K.matern_block_tangent_plain(
-            scale, nu, ls, h, w, symmetric=sym)), 1, warm=False)
+            scale, w, plain_parts[k])), 1, warm=False)
         err = float((kept["kernel"] - kept["plain"]).abs().max())
         size = float(kept["plain"].abs().max())
-        check(bool(torch.isfinite(kept["kernel"]).all()) and err <= (1e-5 if f32 else 1e-12) * size,
+        check(bool(torch.isfinite(kept["kernel"]).all()) and err <= tan_bar * size,
               f"(j) tangent {dtype_name} block {k}: err {err} of {size}")
         tan["max_abs_err"] = max(tan["max_abs_err"], err)
         tan["max_err"] = max(tan["max_err"], err / size)
         del kept
-        torch.cuda.empty_cache()
+    del plain_parts
+    torch.cuda.empty_cache()
+    # the Hessian's tangent work as the path launched it: 3 partials, 33 combines
+    tan["per_hessian_ms"] = cuda_time_ms(lambda: (
+        [K.matern_block_partials(*a) for a in part_calls],
+        [K.matern_block_tangent(*a) for a in all_tan_calls]), 3)
+    tan["all_combines_ms"] = cuda_time_ms(
+        lambda: [K.matern_block_tangent(*a) for a in all_tan_calls], 3, head_start_ms=10.0)
+    tan["hessian_peak_mb"] = stages[f"hessian_{dtype_name}_peak_mb"]
+    pb = bound_of([matern_bound(a[2], float(a[0]), float(a[1]), a[3], grad=True,
+                                ops=MATERN_PARTIALS_OPS, n_out=0, n_fields=3) for a in part_calls])
+    cb = bound_of([combine_bound(a[2][0]) for a in tan_calls])
+    tan["per_hessian_bound_ms"] = (pb[0]
+                                   + bound_of([combine_bound(a[2][0]) for a in all_tan_calls])[0])
+    stages[f"tangent_per_hessian_{dtype_name}_ms"] = tan["per_hessian_ms"]
     hb = bound_of([matern_bound(a[2], float(a[0]), float(a[1]), a[4], grad=True,
                                 ops=MATERN_HESS_OPS, n_out=5) for a in hess_calls[:1]])
     hb_all = bound_of([matern_bound(a[2], float(a[0]), float(a[1]), a[4], grad=True,
                                     ops=MATERN_HESS_OPS, n_out=5) for a in hess_calls])
     hess["bound_ms_all_blocks"] = hb_all[0]
-    tb = bound_of([matern_bound(a[3], float(a[1]), float(a[2]), a[5], grad=True,
-                                ops=MATERN_TANGENT_OPS, n_out=0) for a in tan_calls])
     shape = "Hessian blocks 2500^2 sym + 2500^2 + 2500^2 sym"
     log(f"(j) {dtype_name}: Hessian sums alone at the first block {hess['ms']:.3f} ms (at the "
         f"three {hess['ms_all_blocks']:.3f} ms; each launch building its row "
         f"{hess['ms_with_row_build_all_blocks']:.3f} ms; the one second-order row build of the "
         f"three pairs alone {hess['row_build_ms']:.3f} ms), plain {hess['plain_ms']:.1f} ms, worst "
         f"|kernel - plain| / sum|terms| {hess['max_err']:.3e}; "
-        f"tangent at {len(tan_calls)} blocks {tan['ms']:.3f} ms, plain {tan['plain_ms']:.1f} ms, "
-        f"worst err / max|entry| {tan['max_err']:.3e}")
+        f"tangent partials at 3 blocks {part['ms']:.3f} ms (bound {pb[0]:.3f}), plain "
+        f"{part['plain_ms']:.1f} ms, worst err / max|entry| {part['max_err']:.3e}; combine at "
+        f"{len(tan_calls)} blocks {tan['ms']:.3f} ms (bound {cb[0]:.3f}), plain "
+        f"{tan['plain_ms']:.1f} ms, worst err / max|entry| {tan['max_err']:.3e}; the Hessian's "
+        f"tangent work (3 partials + {len(all_tan_calls)} combines) {tan['per_hessian_ms']:.3f} ms "
+        f"(the combines {tan['all_combines_ms']:.3f}; bound {tan['per_hessian_bound_ms']:.3f})")
     replaces = "cokriging_tpu/estimate/uncertainty.py:75-79 (jax.hessian; no Pallas kernel)"
     return [
         dict(name=f"matern_block_hess_{dtype_name}", route="cuda",
@@ -3307,11 +3393,17 @@ def j_kernel_rows(dtype_name, hess_calls, tan_calls, counts):
              library_ms=None, path="(j) observed information",
              shape="the first Hessian block, 2500^2 sym (ms_all_blocks: all three)",
              bars=J_HESS_BAR[dtype_name], blocks=blocks, **hess),
+        dict(name=f"matern_block_partials_{dtype_name}", route="cuda",
+             source="cokriging_tpu_torch/kernels/csrc/matern_hess.cu", replaces=replaces,
+             launches=counts.get("matern_block_partials", 0), bound_ms=pb[0], bound_by=pb[1],
+             library_ms=None, path="(j) observed information",
+             shape=f"{shape}, one launch per block", bar=tan_bar, **part),
         dict(name=f"matern_block_tangent_{dtype_name}", route="cuda",
              source="cokriging_tpu_torch/kernels/csrc/matern_hess.cu", replaces=replaces,
              launches=counts.get("matern_block_tangent", 0), launches_timed=len(tan_calls),
-             bound_ms=tb[0], bound_by=tb[1], library_ms=None, path="(j) observed information",
-             shape=f"{shape}, each block's first launch of nonzero weights", **tan),
+             bound_ms=cb[0], bound_by=cb[1], library_ms=None, path="(j) observed information",
+             shape=f"{shape}, each block's first combine of nonzero weights", bar=tan_bar,
+             **tan),
     ]
 
 

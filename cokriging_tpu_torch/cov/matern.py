@@ -158,13 +158,17 @@ class _ScaledMaternBlockGrad(torch.autograd.Function):
     kernel (``matern_block_grad``; the only launch of a first-order
     backward). The backward, for a cotangent v of g, gives ct the block's
     tangent along v (``matern_block_tangent``: v_s M + v_n [h == 0] +
-    scale (v_nu dM/dnu + v_ls dM/dls)) and (scale, nugget, nu, ls) the
-    4 x 4 contraction of the five second-order sums of ``matern_block_hess``
-    (sum ct dM/dnu, sum ct dM/dls and the three sums of ct times M's second
-    partials) with v; nugget gets 0. On a CUDA tensor both are the kernels
-    of ``csrc/matern_hess.cu``, on the CPU their plain versions. All read
-    pair ``k``'s rows of ``table`` where it has them (the second-order row
-    built once for every block of a ``pair_table``, ``SecondRows``) and
+    scale (v_nu dM/dnu + v_ls dM/dls), combined from M and its two partials,
+    ``matern_block_partials``) and (scale, nugget, nu, ls) the 4 x 4
+    contraction of the five second-order sums of ``matern_block_hess`` (sum
+    ct dM/dnu, sum ct dM/dls and the three sums of ct times M's second
+    partials) with v; nugget gets 0. Neither the partials nor the sums
+    depend on v: the first row of a Hessian builds them, kept on ``ctx``
+    (freed with the graph), and every row reuses them; the partials hold 3 n
+    m values of h's dtype per block that long. On a CUDA tensor all are the
+    kernels of ``csrc/matern_hess.cu``, on the CPU their plain versions. All
+    read pair ``k``'s rows of ``table`` where it has them (the second-order
+    row built once for every block of a ``pair_table``, ``SecondRows``) and
     build theirs per launch where not. The backward is not differentiable
     again."""
 
@@ -181,10 +185,13 @@ class _ScaledMaternBlockGrad(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, v):
-        from cokriging_tpu_torch.kernels.cuda_ops import matern_block_hess, matern_block_tangent
+        from cokriging_tpu_torch.kernels.cuda_ops import (
+            matern_block_hess, matern_block_partials, matern_block_tangent,
+        )
 
         scale, nu, ls, h, ct = ctx.saved_tensors
         v = v.to(torch.float64)
+        s = scale.to(torch.float64)
         g_s = g_nu = g_ls = g_ct = None
         need = ctx.needs_input_grad
         if need[0] or need[2] or need[3]:
@@ -194,13 +201,15 @@ class _ScaledMaternBlockGrad(torch.autograd.Function):
                     nu, ls, h, ct, ctx.symmetric,
                     table=None if ctx.second is None else ctx.second[0].row(ctx.second[1]))
             a_nu, a_ls, h_nn, h_nl, h_ll = ctx.sums
-            s = scale.to(torch.float64)
             g_s = (v[2] * a_nu + v[3] * a_ls).to(scale.dtype)
             g_nu = (v[0] * a_nu + s * (v[2] * h_nn + v[3] * h_nl)).to(nu.dtype)
             g_ls = (v[0] * a_ls + s * (v[2] * h_nl + v[3] * h_ll)).to(ls.dtype)
         if need[5]:
-            g_ct = matern_block_tangent(scale, nu, ls, h, v, ctx.symmetric,
-                                        table=ctx.dual_row).to(ct.dtype)
+            # nor do M and its partials: one launch builds them for every
+            # row, and each row combines them with its v
+            if not hasattr(ctx, "partials"):
+                ctx.partials = matern_block_partials(nu, ls, h, ctx.symmetric, table=ctx.dual_row)
+            g_ct = matern_block_tangent(s, v, ctx.partials).to(ct.dtype)
         g_n = torch.zeros_like(scale) if need[1] else None
         return g_s, g_n, g_nu, g_ls, None, g_ct, None, None, None
 

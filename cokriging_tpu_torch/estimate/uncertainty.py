@@ -45,7 +45,11 @@ def observed_information(
     Evaluated on ``device`` (the card unless ``device="cpu"``) in the dtype
     of the field values, through the plain-AD NLL (``analytic_grad=False``):
     the analytic d(nll)/dC backward bounds memory at large n and defines no
-    second order.
+    second order. Memory: besides the graph of the NLL, the Hessian keeps
+    each covariance block's tangent partials (three n_i x n_j fields per
+    block i <= j, ``matern_block_partials``) until it returns, 2.25 N^2
+    values of the field values' dtype for two processes of N / 2
+    observations each (11.25 GB at N = 25,000 in float64).
     """
     dev = resolve_device(device)
     _, dists, z, mvar = _fit_inputs(mf, params, use_measurement_var, main, dev)

@@ -22,8 +22,9 @@
 // at the same trip as the value lane and its tangent stops there too.
 //
 // The per-entry steps at the end (entry_x, matern_entry_tab,
-// pairs_grad_term, tangent_entry, hess_terms) are the kernels' own, and
-// tests/test_torch_kv_host.py compiles them with g++ for the host.
+// pairs_grad_term, tangent_partials / tangent_combine, hess_terms) are the
+// kernels' own, and tests/test_torch_kv_host.py compiles them with g++ for
+// the host.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -672,23 +673,50 @@ __host__ __device__ __forceinline__ bool pairs_grad_term(T x, T w, const DualRow
   return true;
 }
 
-// The block tangent's entry (matern_hess.cu's tangent kernel): with weights
-// ws, wn and the products s wnu, s wls, the entry's
-//   ws M + wn [h == 0] + s (wnu dM/dnu + wls dM/dls),
-// M = 1 and no nu, ls term where |h| is not > 0; where M is not finite and
-// > 0 it counts as 0 with no terms; a term that is not finite counts 0.
+// The block tangent's partials of one entry (matern_hess.cu's partials
+// kernel), stored raw, once per Hessian: m = M and dm_dnu, dm_dls its
+// partials where M is finite and > 0; otherwise m is a code and both
+// partials 0: kTangentAtZero where h == 0 (M = 1, the nugget's entry),
+// kTangentNotPos where |h| is not > 0 otherwise (NaN: M = 1), and 0 where
+// M is not finite and > 0 (the entry counts as 0). The codes are negative,
+// so m > 0 holds exactly where the partials are the entry's own. x can be
+// 0, or NaN, for an h that is not 0 (a subnormal h): so the step, not h,
+// decides the case.
+constexpr double kTangentAtZero = -1.0;
+constexpr double kTangentNotPos = -2.0;
+
 template <typename T>
-__host__ __device__ __forceinline__ T tangent_entry(T h, const DualRow<T>& t, T ws, T wn,
-                                                    T s_wnu, T s_wls) {
+__host__ __device__ __forceinline__ void tangent_partials(T h, const DualRow<T>& t, T& m,
+                                                          T& dm_dnu, T& dm_dls) {
+  dm_dnu = dm_dls = T(0);
   T x;
-  if (!entry_x(h, t, x)) return h == T(0) ? ws + wn : ws;
-  T m, dm_dnu, dm_dls;
-  if (!matern_partials_tab(x, t, m, dm_dnu, dm_dls)) return T(0);
-  T g_nu = s_wnu * dm_dnu;
-  T g_ls = s_wls * dm_dls;
-  if (!isfinite(g_nu)) g_nu = T(0);
-  if (!isfinite(g_ls)) g_ls = T(0);
-  return ws * m + g_nu + g_ls;
+  if (!entry_x(h, t, x)) {
+    m = h == T(0) ? static_cast<T>(kTangentAtZero) : static_cast<T>(kTangentNotPos);
+  } else if (!matern_partials_tab(x, t, m, dm_dnu, dm_dls)) {
+    m = dm_dnu = dm_dls = T(0);
+  }
+}
+
+// The block tangent's value at one entry from its partials (matern_hess.cu's
+// combine kernel, once per Hessian row): with weights ws, wn and the
+// products s wnu, s wls,
+//   ws M + wn [h == 0] + s (wnu dM/dnu + wls dM/dls),
+// ws + wn at h == 0, ws where |h| is not > 0 otherwise, 0 where M is not
+// finite and > 0; a weighted partial that is not finite counts 0 (the
+// masks hang on the row's weights, so they are taken here and not when the
+// partials are stored).
+template <typename T>
+__host__ __device__ __forceinline__ T tangent_combine(T m, T dm_dnu, T dm_dls, T ws, T wn,
+                                                      T s_wnu, T s_wls) {
+  if (m > T(0)) {
+    T g_nu = s_wnu * dm_dnu;
+    T g_ls = s_wls * dm_dls;
+    if (!isfinite(g_nu)) g_nu = T(0);
+    if (!isfinite(g_ls)) g_ls = T(0);
+    return ws * m + g_nu + g_ls;
+  }
+  if (m == static_cast<T>(kTangentAtZero)) return ws + wn;
+  return m == static_cast<T>(kTangentNotPos) ? ws : T(0);
 }
 
 // The Hessian sums' entry at x = entry_x(h) > 0 with cotangent w (matern_hess.cu's

@@ -16,9 +16,12 @@ Counterpart of ``cokriging_tpu/kernels/pallas_ops.py``:
   ``matern_block_grad_pallas``;
 - ``matern_corr_pairs`` and ``matern_corr_pairs_grad`` (``csrc/matern_pairs.cu``)
   replace ``matern_corr_pairs_pallas`` and ``matern_corr_pairs_grad_pallas``;
-- ``matern_block_tangent`` and ``matern_block_hess`` (``csrc/matern_hess.cu``)
-  are the block's second order, the backward of ``matern_block_grad`` (the
-  reference takes it by XLA's AD of the elementwise model; no Pallas kernel).
+- ``matern_block_partials``, ``matern_block_tangent`` and ``matern_block_hess``
+  (``csrc/matern_hess.cu``) are the block's second order, the backward of
+  ``matern_block_grad`` (the reference takes it by XLA's AD of the
+  elementwise model; no Pallas kernel): the tangent's partials once per
+  block and Hessian, one combine of them per Hessian row, and the Hessian
+  sums.
 
 The Matern kernels share ``csrc/kv.cuh`` (the K_nu recurrences and the
 per-entry steps) and ``csrc/partition.cuh`` (the tile sort by pair, branch
@@ -49,7 +52,7 @@ from cokriging_tpu_torch.kernels.bessel import (
 LAUNCHES = {
     "variogram_minmax": 0, "variogram_bin": 0, "variogram_bin_batch": 0, "matern_correlation": 0,
     "matern_block_grad": 0, "matern_corr_pairs": 0, "matern_corr_pairs_grad": 0,
-    "matern_block_tangent": 0, "matern_block_hess": 0,
+    "matern_block_partials": 0, "matern_block_tangent": 0, "matern_block_hess": 0,
     # not a kernel: builds of the second-order table (~500 small torch
     # launches each on the card), one per Hessian on the live path
     "recurrence_table_order2": 0,
@@ -874,33 +877,78 @@ def _plain_model_partials(nu, ls, hc, second):
     return mat.detach(), [torch.where(ok & torch.isfinite(t), t, 0.0).detach() for t in d]
 
 
-def matern_block_tangent_plain(scale, nu, ls, h, w, symmetric=False):
+# the codes of kv.cuh's tangent_partials in the M field where the partials
+# are not the entry's own: h == 0, |h| not > 0 otherwise (NaN); 0 where M is
+# not finite and > 0
+_TANGENT_AT_ZERO = -1.0
+_TANGENT_NOT_POS = -2.0
+
+
+def _partials_buffer(h):
+    """An uninitialized (3, n, m) view in h's dtype on h's device whose
+    fields start 16 bytes apart from one another (field stride rounded up),
+    so that the combine kernel reads each with 16-byte loads."""
+    n, m = h.shape
+    per = 16 // h.element_size()
+    ld = -(-(n * m) // per) * per
+    return torch.empty((3, ld), dtype=h.dtype, device=h.device)[:, :n * m].view(3, n, m)
+
+
+def matern_block_partials_plain(nu, ls, h, symmetric=False):
+    """Plain torch partials of the block tangent (see
+    ``matern_block_partials``): a contiguous (3, n, m) tensor in h's dtype,
+    M and the autograd partials dM/dnu, dM/dls of the elementwise model
+    (``_plain_model_partials``, in row chunks), with the kernel's codes in
+    the M field: -1 where h == 0, -2 where |h| is not > 0 otherwise, M
+    itself (0 where it is not > 0) elsewhere; both partials 0 where M is not
+    > 0 or |h| is not > 0, and where they are not finite (the kernel keeps
+    those raw; the combine masks either way). ``symmetric`` changes nothing
+    in the result."""
+    if h.ndim != 2 or (symmetric and h.shape[0] != h.shape[1]):
+        raise ValueError("matern_block_partials: h must be 2-D (square if symmetric)")
+    dt, dev = h.dtype, h.device
+    nu = torch.abs(torch.as_tensor(nu, dtype=dt, device=dev).detach())
+    ls = torch.as_tensor(ls, dtype=dt, device=dev).detach()
+    n, m = h.shape
+    out = torch.empty((3, n, m), dtype=dt, device=dev)
+    rows = max(1, _PLAIN_TANGENT_ELEMS[dev.type] // max(m, 1))
+    for r0 in range(0, n, rows):
+        hc = torch.abs(h[r0:r0 + rows])
+        mat, (dnu, dls) = _plain_model_partials(nu, ls, hc, False)
+        out[0, r0:r0 + rows] = torch.where(
+            hc > 0.0, mat, torch.where(hc == 0.0, _TANGENT_AT_ZERO, _TANGENT_NOT_POS))
+        out[1, r0:r0 + rows] = dnu
+        out[2, r0:r0 + rows] = dls
+    return out
+
+
+def matern_block_tangent_plain(scale, w, partials):
     """Plain torch directional derivative of the block C = scale * M(nu, ls,
     h) + nugget * [h == 0] in (scale, nugget, nu, ls) along the weights
     ``w`` = (w_s, w_n, w_nu, w_ls): the (n, m) matrix
 
         w_s M + w_n [h == 0] + scale (w_nu dM/dnu + w_ls dM/dls)
 
-    in h's dtype, the cotangent the block's gradient ``matern_block_grad``
-    hands back to its own cotangent. M is the elementwise model and its
-    partials come from autograd of it (``_plain_model_partials``), in row
-    chunks; where M is not > 0 or not finite it counts as 0 with no terms,
-    as in the kernels. ``symmetric`` changes nothing in the result."""
-    if h.ndim != 2 or (symmetric and h.shape[0] != h.shape[1]):
-        raise ValueError("matern_block_tangent: h must be 2-D (square if symmetric)")
-    dt, dev = h.dtype, h.device
+    in the dtype of ``partials``, the cotangent the block's gradient
+    ``matern_block_grad`` hands back to its own cotangent. ``partials``: the
+    block's three fields (``matern_block_partials_plain(nu, ls, h)``: M and
+    its autograd partials, with the kernel's codes); where M is not > 0 or
+    not finite it counts as 0 with no terms, as in the kernels."""
+    if partials.ndim != 3 or partials.shape[0] != 3:
+        raise ValueError("matern_block_tangent: partials must be the block's (3, n, m) fields")
+    dt, dev = partials.dtype, partials.device
     w = torch.as_tensor(w, dtype=torch.float64, device=dev).detach()
     s = torch.as_tensor(scale, dtype=torch.float64, device=dev).detach()
-    nu = torch.abs(torch.as_tensor(nu, dtype=dt, device=dev).detach())
-    ls = torch.as_tensor(ls, dtype=dt, device=dev).detach()
-    n, m = h.shape
+    _, n, m = partials.shape
     out = torch.empty((n, m), dtype=dt, device=dev)
     rows = max(1, _PLAIN_TANGENT_ELEMS[dev.type] // max(m, 1))
     for r0 in range(0, n, rows):
-        hc = torch.abs(h[r0:r0 + rows])
-        mat, (dnu, dls) = _plain_model_partials(nu, ls, hc, False)
-        m_val = torch.where(torch.isfinite(mat), mat, 0.0)
-        t = (w[0] * m_val + w[1] * (hc == 0.0) + s * (w[2] * dnu + w[3] * dls))
+        code, dnu, dls = partials[:, r0:r0 + rows]
+        ok = code > 0.0
+        m_val = torch.where(code < 0.0, 1.0, code)
+        dnu = torch.where(ok & torch.isfinite(dnu), dnu, 0.0)
+        dls = torch.where(ok & torch.isfinite(dls), dls, 0.0)
+        t = (w[0] * m_val + w[1] * (code == _TANGENT_AT_ZERO) + s * (w[2] * dnu + w[3] * dls))
         out[r0:r0 + rows] = t.to(dt)
     return out
 
@@ -959,35 +1007,74 @@ def _check_block(name, h, ct, symmetric):
         raise ValueError(f"{name}: h and ct must be one 2-D shape (square if symmetric)")
 
 
-def matern_block_tangent(scale, nu, ls, h, w, symmetric=False, table=None):
-    """The block's directional derivative along the weights ``w`` (see
-    ``matern_block_tangent_plain``): an (n, m) matrix in h's dtype.
+def matern_block_partials(nu, ls, h, symmetric=False, table=None):
+    """The block tangent's partials (kv.cuh ``tangent_partials``): a (3, n,
+    m) tensor in h's dtype, the fields M, dM/dnu and dM/dls, each stored
+    raw, with codes in the M field where the partials are not the entry's
+    own (see ``matern_block_partials_plain``). They depend on (nu, ls, h)
+    alone, so a Hessian builds them once per block and combines them per
+    row (``matern_block_tangent``).
 
     ``symmetric=True`` (square symmetric h) evaluates the lower triangle
-    and mirrors it. CUDA tensors run ``csrc/matern_hess.cu``'s tangent
-    kernel (h contiguous; ``scale`` and ``w`` as device values, nothing
-    read back); CPU tensors the plain version. ``table``: the kernel's dual
-    row ``recurrence_table(nu, ls, h.dtype, order=1)[0]`` on h's device,
-    by default built here."""
+    and mirrors it, so every field is whole. CUDA tensors run
+    ``csrc/matern_hess.cu``'s partials kernel (h contiguous; the fields of
+    the result 16 bytes aligned, one row stride apart); CPU tensors the
+    plain version. ``table``: the kernel's dual row ``recurrence_table(nu,
+    ls, h.dtype, order=1)[0]`` on h's device, by default built here."""
     if h.device.type == "cpu":
-        return matern_block_tangent_plain(scale, nu, ls, h, w, symmetric)
-    _check_block("matern_block_tangent", h, h, symmetric)
+        return matern_block_partials_plain(nu, ls, h, symmetric)
+    _check_block("matern_block_partials", h, h, symmetric)
     if not h.is_contiguous():
-        raise ValueError("matern_block_tangent: h must be contiguous")
+        raise ValueError("matern_block_partials: h must be contiguous")
     n, m = h.shape
-    out = torch.empty_like(h)
+    out = _partials_buffer(h)
     if n == 0 or m == 0:
         return out
     if table is None:
         table = recurrence_table(torch.as_tensor(nu, dtype=h.dtype, device=h.device),
                                  torch.as_tensor(ls, dtype=h.dtype, device=h.device), h.dtype,
                                  order=1)[0]
-    _check_table("matern_block_tangent", table, (2 * _table_width(h.dtype),), h)
-    sw = torch.cat([torch.as_tensor(scale, dtype=torch.float64, device=h.device).reshape(1),
-                    torch.as_tensor(w, dtype=torch.float64, device=h.device).reshape(4)]).detach()
-    f = _fn("matern_hess.cu", f"tangent_{_SUFFIX[h.dtype]}", [_P, _I, _I, _I, _P, _P, _P, _P])
+    _check_table("matern_block_partials", table, (2 * _table_width(h.dtype),), h)
+    f = _fn("matern_hess.cu", f"partials_{_SUFFIX[h.dtype]}", [_P, _I, _I, _I, _P, _LL, _P, _P])
     with torch.cuda.device(h.device):
-        rc = f(_ptr(h), n, m, int(symmetric), _ptr(table), _ptr(sw), _ptr(out), _stream(h.device))
+        rc = f(_ptr(h), n, m, int(symmetric), _ptr(table), out.stride(0), _ptr(out),
+               _stream(h.device))
+    _check_rc("matern_hess.cu", rc, "matern_block_partials")
+    LAUNCHES["matern_block_partials"] += 1
+    return out
+
+
+def matern_block_tangent(scale, w, partials):
+    """The block's directional derivative along the weights ``w`` (see
+    ``matern_block_tangent_plain``): an (n, m) matrix in the dtype of
+    ``partials``, the block's ``matern_block_partials``, built once for all
+    the weights of a Hessian.
+
+    CUDA tensors run ``csrc/matern_hess.cu``'s combine kernel over them
+    (``scale`` and ``w`` read as float64 device values, nothing read back);
+    CPU tensors the plain version."""
+    if partials.device.type == "cpu":
+        return matern_block_tangent_plain(scale, w, partials)
+    dt, dev = partials.dtype, partials.device
+    if (partials.ndim != 3 or partials.shape[0] != 3 or dt not in _FLOATS
+            or partials.stride(2) != 1 or partials.stride(1) != partials.shape[2]
+            or partials.stride(0) < partials.shape[1] * partials.shape[2]):
+        raise ValueError("matern_block_tangent: partials must be the block's (3, n, m) fields, "
+                         "each row-major")
+    _, n, m = partials.shape
+    out = torch.empty((n, m), dtype=dt, device=dev)
+    if n == 0 or m == 0:
+        return out
+    scale = torch.as_tensor(scale, dtype=torch.float64, device=dev).detach()
+    w = torch.as_tensor(w, dtype=torch.float64, device=dev).detach().contiguous()
+    if scale.numel() != 1 or w.numel() != 4:
+        raise ValueError("matern_block_tangent: scale must be one value and w four")
+    ld = partials.stride(0)
+    vec = (partials.data_ptr() % 16 == 0 and ld * partials.element_size() % 16 == 0
+           and out.data_ptr() % 16 == 0)
+    f = _fn("matern_hess.cu", f"combine_{_SUFFIX[dt]}", [_P, _LL, _LL, _I, _P, _P, _P, _P])
+    with torch.cuda.device(dev):
+        rc = f(_ptr(partials), ld, n * m, int(vec), _ptr(scale), _ptr(w), _ptr(out), _stream(dev))
     _check_rc("matern_hess.cu", rc, "matern_block_tangent")
     LAUNCHES["matern_block_tangent"] += 1
     return out

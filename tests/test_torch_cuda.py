@@ -7,6 +7,8 @@ Run on a machine with an NVIDIA card:
 Without a card every test here skips (the check is made in a fixture).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -779,35 +781,79 @@ def test_variogram_bin_batch_matches_plain_and_single_launches(cuda, dtype, rtol
         torch.testing.assert_close(s_k[:, b], s1, rtol=rtol, atol=1e-12)
 
 
+def _partial_scales(nu, ls, h):
+    """Per field of the tangent's partials the size of its rounding error:
+    1 for M (at most 1), and for dM/dnu = M dlp/dnu + e^lp (dK/dnu + dK/dx
+    da/dnu) and dM/dls = -M nu/ls + e^lp dK/dx da/dls the largest sum over
+    the block of the absolute values of the parts each adds up (from the
+    plain K_nu and its partials), as the kernels' sums are held to their
+    sums of |terms|: dM/dnu cancels, so its own largest entry is no scale of
+    its error."""
+    from cokriging_tpu_torch.kernels.bessel import _kv_value
+
+    nu = torch.as_tensor(nu, dtype=torch.float64, device=h.device)
+    ls = torch.as_tensor(ls, dtype=torch.float64, device=h.device)
+    hc = h.double().abs()
+    pos = hc > 0.0
+    a = torch.sqrt(2.0 * nu) * torch.where(pos, hc, 1.0) / ls
+    k, dk_dnu, dk_dx = _kv_value(nu, a, True)
+    e = torch.exp((1.0 - nu) * math.log(2.0) - torch.lgamma(nu) + nu * torch.log(a))
+    m = e * k
+    dlp = -math.log(2.0) - torch.digamma(nu) + torch.log(a) + 0.5
+    s_nu = (m * dlp).abs() + (e * dk_dnu).abs() + (e * dk_dx * a / (2.0 * nu)).abs()
+    s_ls = (m * nu / ls).abs() + (e * dk_dx * a / ls).abs()
+    return [1.0] + [float(t[pos & torch.isfinite(t)].max()) for t in (s_nu, s_ls)]
+
+
 # tolerances of the second-order kernels against their plain versions: the
 # tangent per entry relative to the largest |entry| (float32: the first-order
-# partials' own rounding, as the block gradient's 1e-5); the Hessian sums
+# partials' own rounding, as the block gradient's 1e-5), and its partials
+# per field relative to ``_partial_scales``; the Hessian sums
 # within tol (first-order sums) and tol2 (second-order sums) of their sums
 # of |terms|, about ten times the largest reading on an H100 at these cases
 # (float32 1.3e-7 / 5.4e-7, float64 1.6e-16 / 1.0e-15)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
 @pytest.mark.parametrize("nu,ls", [(0.3, 300.0), (0.5, 300.0), (1.5, 800.0), (2.7, 1500.0)])
 def test_block_tangent_kernel_matches_plain(cuda, dtype, tol, nu, ls):
-    """The block's tangent matrix against the plain version: a ragged full
-    block with exact zeros and a symmetric block (whose output is exactly
-    symmetric and equals the full evaluation)."""
+    """The block tangent's two kernels against their plain versions: the
+    partials (one launch) field by field (within tol of ``_partial_scales``),
+    and the combine of them (one launch) against the plain tangent over the
+    plain partials; a ragged full block with exact zeros and a symmetric
+    block (whose partials and tangent are exactly symmetric and equal the
+    full evaluation). The combine's 16-byte pass and its one-entry pass
+    (partials not 16-byte aligned) give the same bits, and it takes its
+    scale and weights as host values as well."""
     rng = np.random.default_rng(41)
     a = _points(rng, 300, dtype, cuda)
     b = torch.cat([a[:7], _points(rng, 210, dtype, cuda)])
     w = torch.tensor([0.7, -1.3, 0.4, 2.1e-3], dtype=torch.float64, device=cuda)
     scale = torch.tensor(1.7, dtype=torch.float64, device=cuda)
+    names = ("matern_block_partials", "matern_block_tangent")
     for hh, sym in ((haversine_matrix(a, b), False), (haversine_matrix(a, a), True)):
-        before = K.launch_counts()["matern_block_tangent"]
-        got = K.matern_block_tangent(scale, nu, ls, hh, w, symmetric=sym)
+        before = K.launch_counts()
+        parts = K.matern_block_partials(nu, ls, hh, symmetric=sym)
+        got = K.matern_block_tangent(scale, w, parts)
         torch.cuda.synchronize()
-        assert K.launch_counts()["matern_block_tangent"] == before + 1
-        ref = K.matern_block_tangent_plain(scale, nu, ls, hh, w, symmetric=sym)
+        assert {k: K.launch_counts()[k] - before[k] for k in names} == dict.fromkeys(names, 1)
+        plain = K.matern_block_partials_plain(nu, ls, hh, symmetric=sym)
+        assert parts.shape == plain.shape and parts.dtype == dtype
+        assert torch.isfinite(parts).all()
+        scales = _partial_scales(nu, ls, hh)
+        for k in range(3):
+            assert float((parts[k] - plain[k]).abs().max()) <= tol * scales[k], k
+        ref = K.matern_block_tangent_plain(scale, w, plain)
         assert got.dtype == dtype and torch.isfinite(got).all()
         assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+        n, m = hh.shape
+        odd = torch.empty(3 * n * m + 1, dtype=dtype, device=cuda)[1:].view(3, n, m)
+        odd.copy_(parts)
+        assert torch.equal(K.matern_block_tangent(scale, w, odd), got)
+        assert torch.equal(K.matern_block_tangent(1.7, w.tolist(), parts), got)
         if sym:
-            assert torch.equal(got, got.T)
-            full = K.matern_block_tangent(scale, nu, ls, hh, w)
-            assert float((got - full).abs().max()) <= tol * float(ref.abs().max())
+            assert torch.equal(parts, parts.transpose(1, 2)) and torch.equal(got, got.T)
+            full = K.matern_block_partials(nu, ls, hh)
+            for k in range(3):
+                assert float((parts[k] - full[k]).abs().max()) <= tol * scales[k], k
 
 
 @pytest.mark.parametrize("dtype,tol,tol2", [(torch.float32, 1e-6, 5e-6),
@@ -963,8 +1009,10 @@ def test_one_second_order_row_build_per_hessian(cuda):
 def test_block_hessian_on_card_matches_cpu_without_synchronizing(cuda):
     """The NLL's Hessian through the block kernels (float64, 2 x 40 points)
     equals the CPU's elementwise one, its backward passes run under
-    ``torch.cuda.set_sync_debug_mode("error")``, and a first-order gradient
-    launches only the block-gradient kernel, once per block."""
+    ``torch.cuda.set_sync_debug_mode("error")``, a first-order gradient
+    launches only the block-gradient kernel, once per block, and the
+    Hessian's 11 rows build the tangent's partials once per block (3) and
+    combine them once per row and block (33)."""
     from cokriging_tpu_torch.cov.params import MaternParams
     from cokriging_tpu_torch.estimate.nll import joint_distance_blocks, neg_log_likelihood
 
@@ -984,20 +1032,27 @@ def test_block_hessian_on_card_matches_cpu_without_synchronizing(cuda):
         flat = x.to(dev).requires_grad_(True)
         before = K.launch_counts()
         (g,) = torch.autograd.grad(fn(flat), flat)
-        grew = {k: K.launch_counts()[k] - before[k] for k in
-                ("matern_block_grad", "matern_block_tangent", "matern_block_hess")}
-        assert grew == ({"matern_block_grad": 3, "matern_block_tangent": 0,
-                         "matern_block_hess": 0} if dev == "cuda" else dict.fromkeys(grew, 0))
+        names = ("matern_block_grad", "matern_block_partials", "matern_block_tangent",
+                 "matern_block_hess")
+        grew = {k: K.launch_counts()[k] - before[k] for k in names}
+        assert grew == ({"matern_block_grad": 3, "matern_block_partials": 0,
+                         "matern_block_tangent": 0, "matern_block_hess": 0}
+                        if dev == "cuda" else dict.fromkeys(grew, 0))
         flat = x.to(dev).requires_grad_(True)
         value = fn(flat)
         (g1,) = torch.autograd.grad(value, flat, create_graph=True)
         if dev == "cuda":
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
+        before = K.launch_counts()
         try:
             rows = [torch.autograd.grad(g1[k], flat, retain_graph=True)[0] for k in range(11)]
         finally:
             torch.cuda.set_sync_debug_mode(0)
+        # the tangent's partials once per block, one combine per row and block
+        grew = {k: K.launch_counts()[k] - before[k] for k in names[1:3]}
+        assert grew == ({"matern_block_partials": 3, "matern_block_tangent": 33}
+                        if dev == "cuda" else dict.fromkeys(grew, 0))
         out[dev] = torch.stack(rows).cpu()
     hc, hp = out["cuda"], out["cpu"]
     assert float((hc - hp).abs().max()) <= 1e-9 * float(hp.abs().max())

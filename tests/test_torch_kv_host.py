@@ -4,7 +4,9 @@ of every Matern kernel), compiled for the host with ``g++`` and a stub
 and its autograd partials; the kernels' own per-entry steps (the block
 forward's masked h -> x -> M and the pairs gradient's masked, weighted
 terms) against ``matern_correlation_block_plain`` and
-``matern_corr_pairs_grad_plain``; and the recurrence tables they read
+``matern_corr_pairs_grad_plain``; the block tangent's split steps (its
+stored partials and their combine) against the fused entry and
+``matern_block_partials_plain``; and the recurrence tables they read
 against a float64 numpy computation and against ``cov.matern``'s
 per-parameter-set tables.
 
@@ -75,10 +77,49 @@ void second(const T* x, long n, const T* row, T* out, int* ok) {
   }
 }
 
+// the block tangent's value as matern_hess.cu's two kernels give it: the
+// partials step, then the combine
 template <typename T>
 void tangents(const T* h, long n, const T* row, const T* w, T* out) {
-  for (long i = 0; i < n; ++i)
-    out[i] = ckt::tangent_entry(h[i], ckt::DualRow<T>{row}, w[0], w[1], w[2], w[3]);
+  for (long i = 0; i < n; ++i) {
+    T m, dm_dnu, dm_dls;
+    ckt::tangent_partials(h[i], ckt::DualRow<T>{row}, m, dm_dnu, dm_dls);
+    out[i] = ckt::tangent_combine(m, dm_dnu, dm_dls, w[0], w[1], w[2], w[3]);
+  }
+}
+
+// the block tangent's fused entry (tangent_entry) as matern_hess.cu ran it
+// before the partials were stored once per Hessian: the reference of the
+// split steps
+template <typename T>
+T fused_tangent(T h, const ckt::DualRow<T>& t, T ws, T wn, T s_wnu, T s_wls) {
+  T x;
+  if (!ckt::entry_x(h, t, x)) return h == T(0) ? ws + wn : ws;
+  T m, dm_dnu, dm_dls;
+  if (!ckt::matern_partials_tab(x, t, m, dm_dnu, dm_dls)) return T(0);
+  T g_nu = s_wnu * dm_dnu;
+  T g_ls = s_wls * dm_dls;
+  if (!isfinite(g_nu)) g_nu = T(0);
+  if (!isfinite(g_ls)) g_ls = T(0);
+  return ws * m + g_nu + g_ls;
+}
+
+// per entry the partials step's three fields, then per weight row k (ws,
+// wn, s wnu, s wls) the combine of those fields and the fused entry
+template <typename T>
+void tangent_steps(const T* h, long n, const T* row, const T* w, long n_w, T* parts, T* split,
+                   T* fused) {
+  const ckt::DualRow<T> r{row};
+  for (long i = 0; i < n; ++i) ckt::tangent_partials(h[i], r, parts[3 * i], parts[3 * i + 1],
+                                                     parts[3 * i + 2]);
+  for (long k = 0; k < n_w; ++k) {
+    const T* q = w + 4 * k;
+    for (long i = 0; i < n; ++i) {
+      const T* p = parts + 3 * i;
+      split[k * n + i] = ckt::tangent_combine(p[0], p[1], p[2], q[0], q[1], q[2], q[3]);
+      fused[k * n + i] = fused_tangent(h[i], r, q[0], q[1], q[2], q[3]);
+    }
+  }
 }
 
 template <typename T>
@@ -101,6 +142,14 @@ void tangents_f32(const float* h, long n, const float* r, const float* w, float*
 }
 void tangents_f64(const double* h, long n, const double* r, const double* w, double* o) {
   tangents(h, n, r, w, o);
+}
+void tangent_steps_f32(const float* h, long n, const float* r, const float* w, long n_w,
+                       float* p, float* a, float* b) {
+  tangent_steps(h, n, r, w, n_w, p, a, b);
+}
+void tangent_steps_f64(const double* h, long n, const double* r, const double* w, long n_w,
+                       double* p, double* a, double* b) {
+  tangent_steps(h, n, r, w, n_w, p, a, b);
 }
 void hess_f32(const float* h, const float* w, long n, const float* r, float* o, int* ok) {
   hess(h, w, n, r, o, ok);
@@ -618,8 +667,9 @@ def test_second_order_entry_matches_plain_autograd(harness, sfx):
 
 @pytest.mark.parametrize("sfx", ["f32", "f64"])
 def test_tangent_and_hessian_entries_match_plain(harness, sfx):
-    """``matern_hess.cu``'s per-entry steps: ``tangent_entry`` (the block
-    tangent's value) against ``matern_block_tangent_plain`` and
+    """``matern_hess.cu``'s per-entry steps: ``tangent_partials`` and then
+    ``tangent_combine`` (the block tangent's value) against
+    ``matern_block_tangent_plain`` and
     ``hess_terms`` (the five weighted terms) against the plain model's
     partials times the cotangent, at ``_masked_entries`` (h = 0, h < 0,
     +-inf, NaN, M underflowing): where |h| is not > 0 the tangent is w_s
@@ -645,7 +695,8 @@ def test_tangent_and_hessian_entries_match_plain(harness, sfx):
         wt = torch.tensor([w[0], w[1], scale * w[2], scale * w[3]], dtype=dtype)
         got = torch.empty_like(h)
         tan(_ptr(h, ct), h.numel(), _ptr(dual, ct), _ptr(wt, ct), _ptr(got, ct))
-        want = K.matern_block_tangent_plain(scale, nu, LS, h[None, :], w)[0]
+        want = K.matern_block_tangent_plain(scale, w,
+                                            K.matern_block_partials_plain(nu, LS, h[None, :]))[0]
         size = float(want.abs().max())
         assert torch.isfinite(got).all()
         assert float((got - want).abs().max()) <= SECOND_TOL[sfx][1] * size, nu
@@ -665,6 +716,95 @@ def test_tangent_and_hessian_entries_match_plain(harness, sfx):
         assert not bool(ok[-n_sp:][[0, 1, 4, 5, 6]].any())  # no terms at 0, inf, NaN
         assert bool((terms[~ok.bool()] == 0).all())
 
+
+
+def _tangent_steps(harness, sfx, h, dual, wt):
+    """The harness's ``tangent_steps``: (the partials, (n, 3); per weight row
+    the combine of them and the fused entry, (k, n) each)."""
+    ct = ctypes.c_float if sfx == "f32" else ctypes.c_double
+    p = ctypes.POINTER(ct)
+    f = getattr(harness, f"tangent_steps_{sfx}")
+    f.argtypes = [p, ctypes.c_long, p, p, ctypes.c_long, p, p, p]
+    h, wt = h.contiguous(), wt.contiguous()
+    parts = torch.empty(h.numel(), 3, dtype=h.dtype)
+    outs = [torch.empty(wt.shape[0], h.numel(), dtype=h.dtype) for _ in range(2)]
+    f(_ptr(h, ct), h.numel(), _ptr(dual, ct), _ptr(wt, ct), wt.shape[0], _ptr(parts, ct),
+      *(_ptr(o, ct) for o in outs))
+    return parts, outs
+
+
+def _tangent_case(sfx, nu, rng):
+    """``_masked_entries`` at nu, random distances over 0 .. 4,000 km,
+    subnormal h of both signs, and weight rows (ws, wn,
+    s wnu, s wls) in the dtype: ordinary ones, ones whose products with the
+    partials overflow to +-inf or meet inf * 0, and signed zeros."""
+    dtype = DTYPES[sfx]
+    fi = torch.finfo(dtype)
+    tiny = [fi.tiny / 4, fi.tiny * fi.eps, fi.tiny]
+    h = torch.cat([_masked_entries(nu, dtype), torch.as_tensor(rng.uniform(0.0, 4e3, 200), dtype=dtype),
+                   torch.tensor(tiny + [-t for t in tiny], dtype=dtype)])
+    inf, big = math.inf, float(fi.max) / 2
+    wt = torch.tensor([[0.7, -1.3, 1.7 * 0.4, 1.7 * 2.1e-3], [-2.5, 0.3, big, -big],
+                       [1.0, 2.0, inf, -inf], [-0.0, 0.0, -0.0, 0.0], [0.0, -0.0, big, 1e-3]],
+                      dtype=dtype)
+    return h, wt
+
+
+@pytest.mark.parametrize("sfx", ["f32", "f64"])
+def test_tangent_combine_of_partials_is_the_fused_entry(harness, sfx):
+    """``kv.cuh``'s split block tangent: ``tangent_combine`` of the stored
+    partials (``tangent_partials``) equals the fused entry matern_hess.cu
+    ran before the split (``tangent_entry``) bit for bit, in every case
+    (h = 0 and -0: ws + wn; NaN: ws; +-inf, M underflowing, and M not
+    finite at a subnormal h: 0; at nu = 0.3 a subnormal h has M ~ 1 and NaN
+    partials, which the combine masks) and under weights whose products
+    with a partial overflow or meet inf * 0 (the per-row masks), at nu 0.3,
+    1.2, 1.5 -+ ulp and 2.7."""
+    dtype = DTYPES[sfx]
+    ft = np.float32 if sfx == "f32" else np.float64
+    bits = torch.int32 if sfx == "f32" else torch.int64
+    rng = np.random.default_rng(23)
+    for nu in (0.3, 1.2, float(np.nextafter(ft(1.5), ft(0))), float(np.nextafter(ft(1.5), ft(2))),
+               2.7):
+        h, wt = _tangent_case(sfx, nu, rng)
+        dual = K.recurrence_table(torch.tensor([nu], dtype=dtype), torch.tensor([LS], dtype=dtype),
+                                  dtype, order=1)[0].contiguous()
+        parts, (split, fused) = _tangent_steps(harness, sfx, h, dual, wt)
+        assert torch.equal(split.view(bits), fused.view(bits)), nu
+        # every case of the codes is reached, and the masks bite
+        code = parts[:, 0]
+        assert {float(c) for c in code[code <= 0]} == {-1.0, -2.0, 0.0}, nu
+        assert bool((parts[code <= 0, 1:] == 0).all())
+        raw = parts[code > 0, 1:]
+        assert bool(torch.isinf(wt[1:3, 2:] * raw[torch.isfinite(raw)].abs().max()).any())
+        assert torch.isfinite(split).all()
+
+
+@pytest.mark.parametrize("sfx", ["f32", "f64"])
+def test_tangent_partials_match_plain(harness, sfx):
+    """The partials step against ``matern_block_partials_plain`` field by
+    field at the cases of the split test: the codes equal where the plain
+    version has one (h = 0 -> -1, NaN -> -2, M not > 0 -> 0), and M,
+    dM/dnu, dM/dls within the tangent's bars (1e-3 / 1e-10 of each field's
+    largest |entry|)."""
+    dtype = DTYPES[sfx]
+    ft = np.float32 if sfx == "f32" else np.float64
+    rng = np.random.default_rng(29)
+    for nu in (0.3, 1.2, float(np.nextafter(ft(1.5), ft(2))), 2.7):
+        h, wt = _tangent_case(sfx, nu, rng)
+        dual = K.recurrence_table(torch.tensor([nu], dtype=dtype), torch.tensor([LS], dtype=dtype),
+                                  dtype, order=1)[0].contiguous()
+        parts, _ = _tangent_steps(harness, sfx, h, dual, wt[:1])
+        want = K.matern_block_partials_plain(nu, LS, h[None, :])[:, 0].T
+        coded = want[:, 0] < 0
+        assert torch.equal(parts[coded], want[coded]), nu
+        # the kernel's partials are raw (NaN at a subnormal h, where M is 1);
+        # the plain version's are 0 where not finite
+        assert torch.isfinite(parts[:, 0]).all()
+        parts = torch.where(torch.isfinite(parts), parts, 0.0)
+        size = want.abs().max(0).values
+        rel = ((parts - want).abs().max(0).values / size).tolist()
+        assert all(r <= SECOND_TOL[sfx][1] for r in rel), (nu, rel)
 
 
 def _autograd_second_columns(nu_pairs, dtype):

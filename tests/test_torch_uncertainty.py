@@ -135,7 +135,8 @@ def test_plain_second_order_versions_match_autograd_of_the_block():
         return t[0] * matern_correlation(t[2], t[3], h) + t[1] * (h == 0.0)
 
     _, jvp = torch.autograd.functional.jvp(block, theta, w)
-    tangent = K.matern_block_tangent_plain(theta[0], theta[2], theta[3], h, w, symmetric=True)
+    tangent = K.matern_block_tangent_plain(
+        theta[0], w, K.matern_block_partials_plain(theta[2], theta[3], h, symmetric=True))
     assert float((tangent - jvp).abs().max()) <= 1e-12 * float(jvp.abs().max())
 
     def sums(t):
@@ -148,6 +149,70 @@ def test_plain_second_order_versions_match_autograd_of_the_block():
         assert float((got[2:] - want).abs().max()) <= 1e-12 * float(want.abs().max())
         g = K.matern_block_grad_plain(theta[0], theta[1], theta[2], theta[3], h, ct, sym)
         np.testing.assert_allclose(got[:2].numpy(), (g[2:] / theta[0]).numpy(), rtol=1e-12)
+
+
+def test_plain_partials_match_autograd_of_the_block():
+    """``matern_block_partials_plain``: the M field is the elementwise
+    model where h > 0 and the code -1 at h == 0 (colocated points), and the
+    two partial fields are the JVPs of the model along nu and along ls,
+    within 1e-12 of each field's largest |entry|."""
+    rng = np.random.default_rng(9)
+    c = torch.tensor(rng.uniform(0.0, 1.0, (12, 2)))
+    c[3] = c[1]
+    h = torch.cdist(c, c)
+    nu, ls = torch.tensor(1.37, dtype=torch.float64), torch.tensor(0.3, dtype=torch.float64)
+    got = K.matern_block_partials_plain(nu, ls, h, symmetric=True)
+    assert got.shape == (3, 12, 12) and got.dtype == torch.float64
+    pos = h > 0.0
+    np.testing.assert_array_equal(got[0][~pos].numpy(), -1.0)
+    want = [matern_correlation(nu, ls, h)]
+    for t in ((1.0, 0.0), (0.0, 1.0)):
+        _, d = torch.autograd.functional.jvp(lambda a, b: matern_correlation(a, b, h), (nu, ls),
+                                             tuple(torch.tensor(v, dtype=torch.float64)
+                                                   for v in t))
+        want.append(torch.where(pos, d, 0.0))
+    for k, w in enumerate(want):
+        assert float((got[k][pos] - w[pos]).abs().max()) <= 1e-12 * float(w.abs().max()), k
+    assert bool((got[1:, ~pos] == 0).all())
+
+
+def test_block_hessian_builds_partials_once_and_combines_per_row(monkeypatch):
+    """A CPU Hessian through the block Function builds each block's tangent
+    partials once (3 builds for its 3 blocks) and runs one combine per row
+    and block (33), and equals bit for bit the Hessian whose every row
+    recomputes the plain tangent from h."""
+    coords, values = _data(n=10, seed=8)
+    dists = joint_distance_blocks([torch.tensor(c) for c in coords], geodesic=False)
+    z = torch.tensor(np.concatenate(values))
+    x = torch.tensor(OFF_HALF, dtype=torch.float64)
+    partials, tangent = K.matern_block_partials, K.matern_block_tangent
+    calls = {"partials": 0, "tangent": 0}
+    built = {}  # the arguments of each build, by the buffer it returned
+
+    def count_partials(*a, **kw):
+        calls["partials"] += 1
+        out = partials(*a, **kw)
+        built[id(out)] = (a, kw)
+        return out
+
+    def count_tangent(scale, w, parts):
+        calls["tangent"] += 1
+        assert id(parts) in built
+        return tangent(scale, w, parts)
+
+    monkeypatch.setattr(K, "matern_block_partials", count_partials)
+    monkeypatch.setattr(K, "matern_block_tangent", count_tangent)
+    hess = torch.autograd.functional.hessian(lambda f: _block_nll(f, dists, z, False), x)
+    assert calls == {"partials": 3, "tangent": 33}
+
+    def per_row(scale, w, parts):  # the tangent rebuilt from h at every row
+        a, kw = built[id(parts)]
+        return tangent(scale, w, partials(*a, **kw))
+
+    monkeypatch.setattr(K, "matern_block_tangent", per_row)
+    again = torch.autograd.functional.hessian(lambda f: _block_nll(f, dists, z, False), x)
+    assert torch.isfinite(hess).all()
+    assert torch.equal(hess.view(torch.int64), again.view(torch.int64))
 
 
 def _frames_equal(t, j):
