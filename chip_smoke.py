@@ -48,10 +48,16 @@ Phases, in order; any failure exits nonzero without the final ok line:
 (d) the main path at the benchmark's size (bench.py's workload: 2 x 12,500
     synthetic CONUS observations, variograms, a 600-step Adam WLS fit from
     the moment initializer, local cokriging at every 0.5-degree land cell),
-    float32 then float64: a warm-up run (10 Adam steps), then a timed run on
-    fresh noise with
-    the launch counts set to 0 just before it and read just after; every
-    kernel must have run, the fit must lie in its bounds, and the
+    float32 then float64. The float32 half is the port's ``bench``
+    (``cokriging_tpu_torch.bench.main("cuda")``, in this process): a warm-up
+    run (10 Adam steps), a timed run on fresh noise with the launch counts set
+    to 0 just before it and read just after, then its NLL axis (float64, the
+    point of (f), a warm-up and three timed evaluations); its JSON line is
+    logged and checked (``d_bench``: bench.py's five keys and metric, a
+    finite positive wall and rate, no timed NLL value at the penalty, 3 + 3
+    launches per evaluation). The float64 half runs the same warm-up and
+    timed month itself. In both, every kernel must have run, the fit must
+    lie in its bounds, and the
     predictions must follow the reference's semantics (> 99% finite when
     the fitted joint covariance is positive definite; in any case > 99%
     finite for the same month with rho = 0, see ``check_predictions``; the
@@ -263,7 +269,6 @@ The last line is ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
-import hashlib
 import importlib.util
 import json
 import math
@@ -277,11 +282,9 @@ import numpy as np
 
 HERE = Path(__file__).resolve().parent
 N_PER_PROC = 12_500
-MAXITER = 600
 # the float64 Adam fit of (d) is cut to this many steps (its per-step time is
-# reported; float32 keeps bench.py's 600)
+# reported; float32, the port's ``bench``, keeps bench.py's 600)
 MAXITER_F64 = 200
-WARMUP_MAXITER = 10  # the warm-up run of phase (d): its steps only warm up
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W):
 # 3.35 TB/s of HBM3, 67 TFLOP/s float32 and 34 TFLOP/s float64 outside the
@@ -388,88 +391,15 @@ def nvidia_smi_line():
     return lines[0] if out.returncode == 0 and lines else "nvidia-smi failed"
 
 
-# --- bench.py's synthetic CONUS month (bench.py:87-120) -------------------
-
-
-def synthetic_month(rng, n):
-    lat = rng.uniform(24.0, 50.0, n)
-    lon = rng.uniform(-124.0, -67.0, n)
-    coords = np.column_stack([lat, lon])
-    signal = (
-        np.sin(np.deg2rad(lat) * 6.0)
-        + 0.5 * np.cos(np.deg2rad(lon) * 4.0)
-        + 0.3 * np.sin(np.deg2rad(lat * 2 + lon))
-    )
-    return coords, signal
+# --- bench.py's month and the port's main path (cokriging_tpu_torch/bench.py) ---
 
 
 def build_inputs(n, dtype, noise_seed=1):
-    rng = np.random.default_rng(0)
-    c1, s1 = synthetic_month(rng, n)
-    c2, s2 = synthetic_month(rng, n)
-    nrng = np.random.default_rng(noise_seed)
-    v1 = s1 + nrng.normal(scale=0.4, size=n)
-    v2 = -0.6 * s2 + nrng.normal(scale=0.4, size=n)
-    v1 = (v1 - v1.mean()) / v1.std()
-    v2 = (v2 - v2.mean()) / v2.std()
-    return c1.astype(dtype), v1.astype(dtype), c2.astype(dtype), v2.astype(dtype)
+    """bench.py's synthetic CONUS month at ``n`` observations per process
+    (``cokriging_tpu_torch.bench.build_inputs``)."""
+    from cokriging_tpu_torch import bench
 
-
-# --- the port's main path (bench.py run_pipeline) --------------------------
-
-
-def run_pipeline(c1, v1, c2, v2, pred_coords, dtype, device, maxiter=MAXITER,
-                 nu_start=None):
-    import torch
-
-    from cokriging_tpu_torch.cov.matern import MultivariateMatern
-    from cokriging_tpu_torch.estimate.empirical import (
-        EmpiricalVariogram, VarioConfig, empirical_variograms_device,
-    )
-    from cokriging_tpu_torch.estimate.wls import fit_wls, moment_init
-    from cokriging_tpu_torch.fields.field import Field, MultiField
-    from cokriging_tpu_torch.predict.local import LocalPredictor
-
-    def sync():
-        if torch.device(device).type == "cuda":
-            torch.cuda.synchronize()
-
-    times = {}
-    sync()
-    t0 = time.perf_counter()
-    cfg = VarioConfig(max_dist=3_000.0, n_bins=15, geodesic=True)
-    pairs, centers, means, counts = empirical_variograms_device(
-        [c1, c2], [v1, v2], cfg, device=device
-    )
-    est = EmpiricalVariogram(
-        config=cfg, pairs=pairs, bin_centers=centers.astype(dtype),
-        bin_means=means.astype(dtype), bin_counts=counts.astype(dtype),
-    )
-    sync()
-    t1 = time.perf_counter()
-    init = moment_init(est)
-    if nu_start is not None:
-        flat = init.to_flat().clone()
-        flat[2:5] = nu_start
-        init = init.with_flat(flat)
-    params, result = fit_wls(est, init=init, method="adam", maxiter=maxiter, device=device)
-    sync()
-    t2 = time.perf_counter()
-    sub = max(1, len(c1) // 200)
-    f1 = Field.from_arrays(c1[::sub], v1[::sub], "Z0")
-    f1.geodesic = True
-    f2 = Field.from_arrays(c2[::sub], v2[::sub], "Z1")
-    f2.geodesic = True
-    torch_dtype = getattr(torch, np.dtype(dtype).name)
-    mod = MultivariateMatern(params=params.astype(torch_dtype))
-    lp = LocalPredictor(mod, MultiField(fields=[f1, f2]), device=device)
-    out = lp(0, pred_coords, max_dist=1_000.0)
-    sync()
-    t3 = time.perf_counter()
-    times.update(variograms_s=t1 - t0, fit_s=t2 - t1, predict_s=t3 - t2, total_s=t3 - t0,
-                 counts_per_pair=counts.sum(axis=1).tolist(),
-                 counts_sha256=hashlib.sha256(np.ascontiguousarray(counts).tobytes()).hexdigest())
-    return params, result, out, times, lp
+    return bench.build_inputs(dtype, noise_seed, n=n)
 
 
 # --- phase helpers ---------------------------------------------------------
@@ -824,6 +754,7 @@ def phase_c_small_path():
     """The whole path at 400 points per process on the card against the
     same code on the CPU, float64, from nu = 1.4 (off the half-integer
     orders, where the reference's dK/dnu jumps)."""
+    from cokriging_tpu_torch.bench import run_pipeline
     from cokriging_tpu_torch.data.grids import prediction_coords
 
     c1, v1, c2, v2 = build_inputs(400, np.float64)
@@ -936,12 +867,60 @@ def phase_c_small_nll():
         f.geodesic = True
     mod = MultivariateMatern(params=MaternParams.from_flat(torch.as_tensor(flat)))
     pc = prediction_coords()[::10]
-    out = {dev: JointPredictor(mod, MultiField(fields=fields), device=dev)(0, pc)
+    out = {dev: JointPredictor(mod, MultiField(fields=fields), device=dev)(0, pc, postprocess=False)
            for dev in ("cuda", "cpu")}
     err = float(max(np.max(np.abs(out["cuda"].pred - out["cpu"].pred)),
                     np.max(np.abs(out["cuda"].pred_err - out["cpu"].pred_err))))
     check(np.isfinite(out["cpu"].pred).all() and err <= 1e-8, f"small joint prediction: abs err {err}")
     log(f"(c) small joint prediction card vs CPU f64: {len(pc)} cells, abs err {err:.3e}")
+
+
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "nll_evals_per_sec")
+
+
+def d_bench():
+    """Phase (d)'s float32 half: the port's ``bench`` in this process
+    (``cokriging_tpu_torch.bench.main("cuda")``: its warm-up, its timed month
+    with the launch counts set to 0 just before it and read just after, and
+    its float64 NLL axis). Its JSON line is captured, logged and checked
+    (bench.py's five keys and metric, a finite positive time and rate, the
+    rounding of ``vs_baseline``, no penalty among the timed NLL values, 3 + 3
+    launches per timed evaluation); returns ``main``'s results."""
+    import io
+
+    import torch
+
+    from cokriging_tpu_torch import bench as B
+    from cokriging_tpu_torch.estimate.nll import _penalty
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = B.main("cuda")
+    secs = time.perf_counter() - t0
+    printed = buf.getvalue().splitlines()
+    check(len(printed) == 1, f"(d) bench printed {len(printed)} lines: {printed}")
+    log(f"(d) bench: {printed[0]}")
+    line = json.loads(printed[0])
+    check(tuple(line) == BENCH_KEYS and line == res["line"], f"(d) bench line {line}")
+    check(line["metric"] == B.METRIC and line["unit"] == "s" and res["dtype"] == "float32",
+          f"(d) bench line {line}, fit + predict in {res['dtype']}")
+    for key in ("value", "nll_evals_per_sec"):
+        check(math.isfinite(line[key]) and line[key] > 0, f"(d) bench {key} {line[key]}")
+    check(line["vs_baseline"] == round(B.TARGET_SECONDS / res["elapsed_s"], 3),
+          f"(d) bench vs_baseline {line['vs_baseline']} for {res['elapsed_s']} s")
+    nll = res["nll"]
+    penalty = float(_penalty(2 * B.N_PER_PROC, torch.float64, "cpu"))
+    check(all(math.isfinite(v) and v != penalty for v in nll["values"])
+          and all(np.isfinite(g).all() and g.any() for g in nll["grads"]),
+          f"(d) bench NLL values {nll['values']} (penalty {penalty})")
+    n_evals = len(nll["values"])
+    check(nll["launches"]["matern_correlation"] == 3 * n_evals
+          and nll["launches"]["matern_block_grad"] == 3 * n_evals,
+          f"(d) bench NLL: expected 3 + 3 launches per evaluation, got {nll['launches']}")
+    log(f"(d) bench: {secs:.1f} s in all; timed month {res['elapsed_s']:.3f} s; NLL values "
+        f"{nll['values']}, seconds {nll['seconds']}, launches {nll['launches']}")
+    return res
 
 
 def check_predictions(lp, out, pc, name):
@@ -973,14 +952,15 @@ def check_predictions(lp, out, pc, name):
     p0 = dataclasses.replace(lp.params, rho=torch.eye(2, dtype=lp.params.rho.dtype,
                                                       device=lp.device))
     out0 = LocalPredictor(MultivariateMatern(params=p0), lp.mf, device=lp.device)(
-        0, pc.astype(out.pred.dtype), max_dist=1_000.0)
+        0, pc.astype(out.pred.dtype), max_dist=1_000.0, postprocess=False)
     finite0 = float(np.isfinite(out0.pred).mean())
     # the same fit projected onto the validity region (fit_wls's
     # project_validity=True), logged beside
     from cokriging_tpu_torch.cov.spectral import project_to_valid
 
     outp = LocalPredictor(MultivariateMatern(params=project_to_valid(lp.params)), lp.mf,
-                          device=lp.device)(0, pc.astype(out.pred.dtype), max_dist=1_000.0)
+                          device=lp.device)(0, pc.astype(out.pred.dtype), max_dist=1_000.0,
+                                            postprocess=False)
     finitep = float(np.isfinite(outp.pred).mean())
     log(f"(d) {name}: fitted joint covariance PD at the data: {joint_pd}; "
         f"finite predictions {finite:.4%}; with rho = 0: {finite0:.4%}; with the fit projected "
@@ -1527,7 +1507,7 @@ def phase_f(dtype, pc, results):
     jp = JointPredictor(MultivariateMatern(params=params), mf)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        out, pred_s = timed(lambda: jp(0, pc.astype(dtype)))
+        out, pred_s = timed(lambda: jp(0, pc.astype(dtype), postprocess=False))
     valid = not any("not positive definite" in str(w.message) for w in caught)
     finite = float(np.isfinite(out.pred).mean())
     log(f"(f) {name}: joint prediction at {len(pc)} cells from 2 x {fields[0].size} points: "
@@ -1542,7 +1522,8 @@ def phase_f(dtype, pc, results):
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             out, pred_s = timed(lambda: JointPredictor(MultivariateMatern(params=params),
-                                                       MultiField(fields=full))(0, pc))
+                                                       MultiField(fields=full))(
+                0, pc, postprocess=False))
         log(f"(f) {name}: joint prediction from all 2 x {N_PER_PROC} points (not gated): finite "
             f"{float(np.isfinite(out.pred).mean()):.4%}, seconds {pred_s}, "
             f"warnings {[str(w.message)[:60] for w in caught]}")
@@ -1891,11 +1872,11 @@ def phase_c_small_large_n():
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         for kind, kw in kinds.items():
-            out["cuda", kind] = LocalPredictor(mod, mf, **kw)(0, pc)
+            out["cuda", kind] = LocalPredictor(mod, mf, **kw)(0, pc, postprocess=False)
         for dev in ("cuda", "cpu"):
             for kind in ("dir", "kd"):
                 out[dev, kind, "few"] = LocalPredictor(mod, mf, device=dev, **kinds[kind])(
-                    0, few, max_dist=500.0)
+                    0, few, max_dist=500.0, postprocess=False)
     worst = 0.0
     for a, b in ((("cuda", "mat"), ("cuda", "dir")), (("cuda", "dir"), ("cuda", "kd")),
                  (("cpu", "dir", "few"), ("cuda", "dir", "few")),
@@ -1914,8 +1895,8 @@ def phase_c_small_large_n():
 
     cells = pc[:64]
     ijp = IterativeJointPredictor(mod, mf, block=128, rhs_batch=64, tol=1e-10, maxiter=1000)
-    got = ijp(0, cells)
-    want = JointPredictor(mod, mf)(0, cells)
+    got = ijp(0, cells, postprocess=False)
+    want = JointPredictor(mod, mf)(0, cells, postprocess=False)
     check(np.allclose(got.pred, want.pred, rtol=1e-6, atol=1e-8)
           and np.allclose(got.pred_err, want.pred_err, rtol=1e-6, atol=1e-8),
           "small CG vs dense joint prediction")
@@ -2100,7 +2081,7 @@ def phase_g(dtype, results):
     K.reset_launch_counts()
     with captured("matern_corr_pairs", 1) as local_calls, warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        out, local_s = timed(lambda: lp(1, gg, max_dist=120.0))
+        out, local_s = timed(lambda: lp(1, gg, max_dist=120.0, postprocess=False))
     local_launches = K.launch_counts()["matern_corr_pairs"]
     finite = float(np.isfinite(out.pred).mean())
     log(f"(g) {name}: direct local prediction, {len(gg)} cells, 120 km: seconds {local_s}, finite "
@@ -2129,7 +2110,7 @@ def phase_g(dtype, results):
     K.reset_launch_counts()
     with captured("matern_corr_pairs", 1) as cg_calls, warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        jout, cg_s = timed(lambda: ijp(1, gg[:256]))
+        jout, cg_s = timed(lambda: ijp(1, gg[:256], postprocess=False))
     cg_launches = K.launch_counts()["matern_corr_pairs"]
     log(f"(g) {name}: CG joint prediction, 2 x {N_CG} points, 256 cells: seconds {cg_s}, "
         f"(iterations, relative residual) per solve {ijp.last_diagnostics}, launches {cg_launches}, "
@@ -2174,9 +2155,11 @@ def month_frames(n=N_PER_PROC, seed=11):
     0), fresh noise each month (``seed``), a linear time trend."""
     import pandas as pd
 
+    from cokriging_tpu_torch.bench import _synthetic_month
+
     rng = np.random.default_rng(0)
-    c1, s1 = synthetic_month(rng, n)
-    c2, s2 = synthetic_month(rng, n)
+    c1, s1 = _synthetic_month(rng, n)
+    c2, s2 = _synthetic_month(rng, n)
     nrng = np.random.default_rng(seed)
     frames = []
     for name, c, s, scale in (("xco2", c1, s1, 1.0), ("sif", c2, s2, -0.6)):
@@ -2314,7 +2297,7 @@ def phase_h(dtype, results):
         return lp, lp(0, pc, postprocess=True)
 
     lp, frame = stage("predict", predict, ("matern_correlation",))
-    raw = lp(0, pc)
+    raw = lp(0, pc, postprocess=False)
     trend = mf_pred.fields[0].trend
     finite = float(np.isfinite(frame["pred"].to_numpy()).mean())
     gap = check_back_transform(frame, raw.pred, raw.pred_err, trend,
@@ -2333,7 +2316,7 @@ def phase_h(dtype, results):
 
     with captured("matern_correlation_block") as m_calls:
         lp_cv, cv = stage("local_loocv", local_cv, ("matern_correlation",))
-    cv_raw = lp_cv.cross_validation(0, max_dist=H_LOOCV_KM)
+    cv_raw = lp_cv.cross_validation(0, max_dist=H_LOOCV_KM, postprocess=False)
     f0 = mf.fields[0]
     finite_cv = float(np.isfinite(cv["pred"].to_numpy()).mean())
     check(np.array_equal(cv["residual"].to_numpy(), (cv["data"] - cv["pred"]).to_numpy(),
@@ -2953,9 +2936,10 @@ def phase_i_conditional(mod, mf, stages, launches, rows):
         name = str(dtype).replace("torch.", "")
         jp = JointPredictor(mod, small.astype(dtype))
         out, draws = i_stage("conditional", stages, launches, f"sample_{name}",
-                             lambda: jp.sample(0, cells, n_samples=I_COND_SAMPLES, seed=8),
+                             lambda: jp.sample(0, cells, n_samples=I_COND_SAMPLES, seed=8,
+                                               postprocess=False),
                              ("matern_correlation",))
-        base = jp(0, cells)
+        base = jp(0, cells, postprocess=False)
         check(draws.shape == (I_COND_SAMPLES, len(cells)) and np.isfinite(draws).all(),
               f"(i) conditional {name}: draws shape / finite")
         gap = max(float(np.max(np.abs(out.pred - base.pred) / np.abs(base.pred).clip(1e-3))),
@@ -3831,7 +3815,8 @@ def k_local(mesh, one_card, stages, launches):
                 holder["lp"] = LocalPredictor(mod, mf_d, **kw)
                 return holder["lp"]
 
-            one = k_stage(stages, launches, key, lambda: predictor()(0, pc, max_dist=K_LOCAL_KM),
+            one = k_stage(stages, launches, key,
+                          lambda: predictor()(0, pc, max_dist=K_LOCAL_KM, postprocess=False),
                           {kern: 1})
             lp = holder["lp"]
             got = k_stage(stages, launches, key + "_mesh", lambda: sharded_local_predict(
@@ -3846,7 +3831,8 @@ def k_local(mesh, one_card, stages, launches):
         key = f"local_loocv_{name}"
         lp = k_stage(stages, launches, key + "_covariance", lambda: LocalPredictor(mod, mf_full),
                      {"matern_correlation": 1})
-        one = k_stage(stages, launches, key, lambda: lp.cross_validation(0, max_dist=H_LOOCV_KM))
+        one = k_stage(stages, launches, key,
+                      lambda: lp.cross_validation(0, max_dist=H_LOOCV_KM, postprocess=False))
         got = k_stage(stages, launches, key + "_mesh", lambda: sharded_local_predict(
             lp, 0, c1, H_LOOCV_KM, mesh=mesh, cv=True))
         gap = k_same(key, [(got[0], one.pred), (got[1], one.pred_err)], rtol, norm=True)
@@ -3950,7 +3936,7 @@ def k_cg(mesh, one_card, stages, launches):
     def cg(n, on, **kw):
         mf = geo_fields(((c1[:n], v1[:n], "Z0"), (c2[:n], v2[:n], "Z1")))
         p = IterativeJointPredictor(mod, mf, block=512, rhs_batch=K_CG_CELLS, mesh=on, **kw)
-        out = p(0, pc)
+        out = p(0, pc, postprocess=False)
         return out, p.last_diagnostics
 
     kw = dict(tol=1e-10, maxiter=1000)
@@ -3976,7 +3962,7 @@ def k_cg(mesh, one_card, stages, launches):
     def big(on):
         p = IterativeJointPredictor(mod32, mf, block=512, rhs_batch=K_CG_CELLS, tol=1e-3, maxiter=40,
                                     mesh=on)
-        return p(1, cells), p.last_diagnostics
+        return p(1, cells, postprocess=False), p.last_diagnostics
 
     one, d1 = k_stage(stages, launches, "cg_float32", lambda: big(None), {"matern_corr_pairs": 1})
     got, d4 = k_stage(stages, launches, "cg_float32_mesh", lambda: big(mesh), pairs)
@@ -4155,7 +4141,8 @@ def l_cpu_job(_):
     torch.set_num_threads(2)
     pc = prediction_coords()
     t0 = time.perf_counter()
-    out = l_predictor(np.float64, device="cpu")(0, pc[l_cpu_cells(len(pc))], max_dist=K_LOCAL_KM)
+    out = l_predictor(np.float64, device="cpu")(0, pc[l_cpu_cells(len(pc))], max_dist=K_LOCAL_KM,
+                                                postprocess=False)
     return out.pred, out.pred_err, out.n_neighbors, time.perf_counter() - t0
 
 
@@ -4210,10 +4197,10 @@ def l_served(stages, rows, exported, cpu_out):
               f"{n_pad // batch} served batches")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        live = lp(0, pc, max_dist=K_LOCAL_KM)
+        live = lp(0, pc, max_dist=K_LOCAL_KM, postprocess=False)
         stages[f"live_{name}"] = time.perf_counter() - t0
         with captured("matern_corr_pairs", 1) as calls:
-            live_pad = lp(0, pc_pad, max_dist=K_LOCAL_KM)
+            live_pad = lp(0, pc_pad, max_dist=K_LOCAL_KM, postprocess=False)
         l_same(f"{name} served", got, (live_pad.pred, live_pad.pred_err, live_pad.n_neighbors))
         tail = max(float(np.nanmax(np.abs(g[:n].astype(np.float64) - w)))
                    for g, w in zip(got[:2], (live.pred, live.pred_err)))
@@ -4222,7 +4209,7 @@ def l_served(stages, rows, exported, cpu_out):
         # fresh runtime inputs through the same artifact
         f_flat, f_scale = L_FRESH
         fresh = serve(flat * f_flat, (values[0] * f_scale, *values[1:]))
-        live_fresh = l_predictor(dtype, L_FRESH)(0, pc_pad, max_dist=K_LOCAL_KM)
+        live_fresh = l_predictor(dtype, L_FRESH)(0, pc_pad, max_dist=K_LOCAL_KM, postprocess=False)
         l_same(f"{name} served on fresh inputs", fresh,
                (live_fresh.pred, live_fresh.pred_err, live_fresh.n_neighbors))
         check(not np.allclose(fresh[0][:n], got[0][:n], equal_nan=True),
@@ -4437,6 +4424,7 @@ def main(phases="abcdefghijkl"):
         import cokriging_tpu_torch.experiments.simulation_experiment  # noqa: F401
         import cokriging_tpu_torch.utils.export  # noqa: F401
         from cokriging_tpu_torch.__main__ import _parser  # noqa: F401
+        from cokriging_tpu_torch import bench as B
         from cokriging_tpu_torch.data.grids import prediction_coords
         from cokriging_tpu_torch.kernels import _build
         from cokriging_tpu_torch.kernels import cuda_ops as K
@@ -4469,19 +4457,30 @@ def main(phases="abcdefghijkl"):
                 small()
             log(f"(c) elapsed since start {time.perf_counter() - t_start:.1f} s")
 
-        # (d) the main path at bench size, float32 then float64
+        # (d) the main path at bench size: float32 is the port's ``bench``
+        # (its warm-up, its timed month and its NLL axis), float64 the same
+        # month with the fit cut to MAXITER_F64 steps
         pc = prediction_coords()
         for dtype in (np.float32, np.float64) if "d" in phases else ():
             name = np.dtype(dtype).name
-            c1, v1, c2, v2 = build_inputs(N_PER_PROC, dtype, noise_seed=1)
-            run_pipeline(c1, v1, c2, v2, pc.astype(dtype), dtype, "cuda", maxiter=WARMUP_MAXITER)
-            _, v1b, _, v2b = build_inputs(N_PER_PROC, dtype, noise_seed=2)
-            K.reset_launch_counts()
-            steps = MAXITER if name == "float32" else MAXITER_F64
-            params, result, out, times, lp = run_pipeline(c1, v1b, c2, v2b, pc.astype(dtype), dtype,
-                                                          "cuda", maxiter=steps)
+            t_d = time.perf_counter()
+            if name == "float32":
+                res = d_bench()
+                params, result, out, times, lp, launches = (
+                    res[k] for k in ("params", "result", "out", "times", "lp", "launches"))
+                steps = B.MAXITER
+            else:
+                c1, v1, c2, v2 = build_inputs(N_PER_PROC, dtype, noise_seed=1)
+                B.run_pipeline(c1, v1, c2, v2, pc.astype(dtype), dtype, "cuda",
+                               maxiter=B.WARMUP_MAXITER)
+                _, v1b, _, v2b = build_inputs(N_PER_PROC, dtype, noise_seed=2)
+                K.reset_launch_counts()
+                steps = MAXITER_F64
+                params, result, out, times, lp = B.run_pipeline(c1, v1b, c2, v2b, pc.astype(dtype),
+                                                                dtype, "cuda", maxiter=steps)
+                launches = K.launch_counts()
+            c1, v1b, c2, v2b = build_inputs(N_PER_PROC, dtype, noise_seed=2)
             times["fit_ms_per_step"] = 1e3 * times["fit_s"] / steps
-            launches = K.launch_counts()
             finite = float(np.isfinite(out.pred).mean())
             x = params.to_flat().cpu().numpy().astype(np.float64)
             lo, hi = params.spec.bounds()
@@ -4496,6 +4495,7 @@ def main(phases="abcdefghijkl"):
                   f"(d) {name}: a kernel of this path never ran: {launches}")
             check_predictions(lp, out, pc, name)
             check(bool(np.all((x >= lo - tol) & (x <= hi + tol))), f"(d) {name}: params out of bounds")
+            log(f"(d) {name}: seconds {time.perf_counter() - t_d:.1f}")
             # (e) kernel timing at the path's shapes
             r, big = phase_e(c1, v1b, c2, v2b, dtype, launches, kres)
             rows += r

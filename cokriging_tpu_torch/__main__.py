@@ -11,23 +11,20 @@ arguments, defaults, output files and printed summaries:
                (MSPE/MAPE/coverage; local or joint predictor)
     sim        the simulation experiment (recovery + coverage validation,
                ``experiments/simulation_experiment.py``)
+    bench      the north-star benchmark (``bench.py`` of this package: the
+               root bench.py's month, its fit + predict wall and exact-NLL
+               evaluations per second as one JSON line)
 
 ``fit --bootstrap N`` adds the parametric bootstrap of a WLS fit
 (``<out>.bootstrap.csv``), ``fit --std-errors`` the standard errors from
 the exact NLL's Hessian (``<out>.std_errors.csv``), ``predict --joint
 --conditional-sims N`` the conditional realizations (``<out>.samples.npz``).
 ``--device`` (default ``cuda``) picks where the work runs; ``--device cpu``
-runs on the host. ``bench`` is not ported yet and stops with an error that
-names the ROADMAP item that ports it.
+runs on the host.
 """
 
 import argparse
 import sys
-
-_NOT_YET = {
-    "bench": "the port's benchmark script is a benchmark PR's work (ROADMAP.md Queue 1, "
-             "note for a benchmark PR)",
-}
 
 
 def _add_data_args(p, with_params=False):
@@ -47,10 +44,11 @@ def _parser():
     parser = argparse.ArgumentParser(prog="cokriging_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
-    p_sim = sub.add_parser("sim", help="run the simulation validation experiment")
-    p_sim.add_argument("--device", default="cuda",
-                       help="device the work runs on (default cuda; cpu for the host)")
-    sub.add_parser("bench", help="run the north-star benchmark (not ported yet)")
+    for cmd, what in (("sim", "run the simulation validation experiment"),
+                      ("bench", "run the north-star benchmark")):
+        sub.add_parser(cmd, help=what).add_argument(
+            "--device", default="cuda",
+            help="device the work runs on (default cuda; cpu for the host)")
 
     p_fit = sub.add_parser("fit", help="fit one month of staged data by WLS")
     _add_data_args(p_fit)
@@ -216,7 +214,7 @@ def _predict(args, mf):
             jp = JointPredictor(mod, mf, device=args.device)
         if args.conditional_sims:
             out, samples = jp.sample(args.process, pgrid, n_samples=args.conditional_sims,
-                                     seed=args.seed)
+                                     seed=args.seed, postprocess=False)
             np.savez_compressed(f"{args.out}.samples.npz", samples=samples)
             print(f"{args.conditional_sims} conditional realizations -> {args.out}.samples.npz")
         else:
@@ -266,8 +264,6 @@ def _loocv(args, mf):
 def main(argv=None):
     parser = _parser()
     args = parser.parse_args(argv)
-    if args.cmd in _NOT_YET:
-        parser.error(_NOT_YET[args.cmd])
     if args.cmd == "fit" and args.bootstrap and args.method != "wls":
         parser.error("--bootstrap requires --method wls")
     if args.cmd == "predict" and args.conditional_sims:
@@ -283,6 +279,11 @@ def main(argv=None):
         from cokriging_tpu_torch.experiments import simulation_experiment
 
         simulation_experiment.main(device=args.device)
+        return
+    if args.cmd == "bench":
+        from cokriging_tpu_torch import bench
+
+        bench.main(device=args.device)
         return
     mf = _multifield(parser, args)
     {"fit": _fit, "predict": _predict, "loocv": _loocv}[args.cmd](args, mf)

@@ -155,7 +155,7 @@ def dryrun_multichip(n_devices: int, device=None, nx: int = 15, sample_size: int
     # --- matrix-free exact joint cokriging, row tiles sharded ---
     pc_it = grid.coords.values[::9]
     out = IterativeJointPredictor(mod, mf, block=cg_block, rhs_batch=16, tol=1e-8, maxiter=400,
-                                  mesh=mesh, device=dev)(0, pc_it)
+                                  mesh=mesh, device=dev)(0, pc_it, postprocess=False)
     _check(np.isfinite(out.pred).all() and np.isfinite(out.pred_err).all(),
            "matrix-free sharded joint prediction")
 

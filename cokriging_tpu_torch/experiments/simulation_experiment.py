@@ -164,7 +164,7 @@ def run(rf, samples, device=None, n_bins=12, wls_maxiter=500, nll_maxiter=150, v
 
     pcoords = rf.coords.values
     jp = JointPredictor(mod_truth, mf, device=dev)
-    pred_biv = jp(0, pcoords)
+    pred_biv = jp(0, pcoords, postprocess=False)
     figure("plot_sim_pred", "torch_sim_prediction", rf, pred_biv)
     truth_vals = rf.fields[0]["value"].values
     diff = truth_vals - pred_biv.pred
@@ -175,7 +175,7 @@ def run(rf, samples, device=None, n_bins=12, wls_maxiter=500, nll_maxiter=150, v
         torch.tensor([TRUTH[0], TRUTH[2], TRUTH[5], TRUTH[8]], dtype=dtype),
         spec=ParamSpec(n_procs=1)))
     pred_uni = JointPredictor(mod_uni, rf.to_fields(samples, i=0).astype(dtype), device=dev)(
-        0, pcoords)
+        0, pcoords, postprocess=False)
     diff_u = truth_vals - pred_uni.pred
     print(f"kriging   MSPE {np.nanmean(diff_u**2):.4f}  MAPE {np.nanmean(np.abs(diff_u)):.4f}")
     figure("plot_err_ratio", "torch_sim_err_ratio", pred_biv, pred_uni)

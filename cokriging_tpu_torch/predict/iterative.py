@@ -247,12 +247,13 @@ class IterativeJointPredictor:
                 f"{self.maxiter}); results are approximate."
             )
 
-    def __call__(self, i: int, pcoords, postprocess: bool = False,
+    def __call__(self, i: int, pcoords, postprocess: bool = True,
                  compute_err: bool = True):
         """Predict process i at the (n_pred, 2) ``pcoords`` (an array, a
-        tensor or a frame of the two coordinate columns): a
-        ``LocalPrediction`` in standardized units, or with ``postprocess``
-        the reference's frame on the data scale. ``compute_err=False`` skips
+        tensor or a frame of the two coordinate columns): with
+        ``postprocess`` (the default) the reference's frame on the data
+        scale, else a ``LocalPrediction`` in standardized units.
+        ``compute_err=False`` skips
         the per-point variance solves (one 1-column CG in all) and returns
         NaN ``pred_err``."""
         params = self.params
@@ -287,12 +288,12 @@ class IterativeJointPredictor:
                                            self.covariates)
         return out
 
-    def cross_validation(self, i: int, postprocess: bool = False):
+    def cross_validation(self, i: int, postprocess: bool = True):
         """Matrix-free LOOCV at every main-grid datum of process i, exact to
         the CG tolerance (``_loocv_chunk``; the dense ``JointPredictor``'s
-        precision identity without C^-1): a ``LocalPrediction`` in
-        standardized units, or with ``postprocess`` the LOOCV frame
-        (``predict.postprocess.loocv_frame``). ``last_diagnostics`` holds
+        precision identity without C^-1): with ``postprocess`` (the default)
+        the LOOCV frame (``predict.postprocess.loocv_frame``), else a
+        ``LocalPrediction`` in standardized units. ``last_diagnostics`` holds
         (iterations, relative residual) per chunk; a chunk ending above 10
         tol warns."""
         params = self.params

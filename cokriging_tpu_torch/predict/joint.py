@@ -21,9 +21,10 @@ so the entire LOOCV sweep costs one factorization and one inverse. The
 naive delete-row/col path is kept (``cross_validation(..., method='naive')``)
 as a cross-check.
 
-Predictions come back as ``predict.local.LocalPrediction`` in standardized
-units, or with ``postprocess=True`` as the reference's frames on the data
-scale (``predict.postprocess``). ``sample`` draws conditional simulations
+Predictions come back, as in the JAX package, as the reference's frames on
+the data scale (``postprocess=True``, the default; ``predict.postprocess``),
+or with ``postprocess=False`` as ``predict.local.LocalPrediction`` in
+standardized units. ``sample`` draws conditional simulations
 from the full posterior (mean and covariance).
 """
 
@@ -194,12 +195,12 @@ class JointPredictor:
         values = tuple(torch.as_tensor(f.values_main).to(self.device) for f in self.mf.fields)
         return coords, values
 
-    def __call__(self, i: int, pcoords, postprocess: bool = False,
+    def __call__(self, i: int, pcoords, postprocess: bool = True,
                  cv_ix=None):
         """Predict process i at the (n_pred, 2) ``pcoords`` (an array, a
-        tensor or a frame of the two coordinate columns): a
-        ``LocalPrediction`` in standardized units, or with ``postprocess``
-        the reference's frame on the data scale.
+        tensor or a frame of the two coordinate columns): with
+        ``postprocess`` (the default) the reference's frame on the data
+        scale, else a ``LocalPrediction`` in standardized units.
 
         ``cv_ix`` reproduces the reference's single-point withholding path
         (delete datum cv_ix of process i, predict at pcoords).
@@ -239,15 +240,15 @@ class JointPredictor:
             )
 
     def sample(self, i: int, pcoords, n_samples: int = 1, seed: int = 0,
-               postprocess: bool = False):
+               postprocess: bool = True):
         """Conditional simulation: ``n_samples`` realizations of process i
         at ``pcoords`` from the full joint-cokriging posterior (mean and
         covariance, not just the diagonal the reference reports), drawn on
         the predictor's device from a generator seeded with ``seed``.
 
-        Returns ``(prediction, samples)``: what ``__call__`` returns (a
-        ``LocalPrediction``, or with ``postprocess`` the frame on the data
-        scale) and an ``(n_samples, n_rows)`` numpy array of realizations
+        Returns ``(prediction, samples)``: what ``__call__`` returns (with
+        ``postprocess``, the default, the frame on the data scale, else a
+        ``LocalPrediction``) and an ``(n_samples, n_rows)`` numpy array of realizations
         aligned with its rows, in the same units: with ``postprocess`` every
         realization gets the frame's affine back-transform, its additive
         surface read off the frame itself (pred' - scale_fact * pred), so
@@ -279,12 +280,12 @@ class JointPredictor:
         additive = frame["pred"].to_numpy() - s * out.pred[keep].astype(np.float64)
         return frame.drop(columns="_row_ix"), samples[:, keep] * s + additive[None, :]
 
-    def cross_validation(self, i: int, postprocess: bool = False,
+    def cross_validation(self, i: int, postprocess: bool = True,
                          method: str = "fast"):
         """LOOCV at every data location of process i
-        (src/joint_prediction.py:207-257): a ``LocalPrediction`` in
-        standardized units, or with ``postprocess`` the LOOCV frame
-        (``predict.postprocess.loocv_frame``).
+        (src/joint_prediction.py:207-257): with ``postprocess`` (the
+        default) the LOOCV frame (``predict.postprocess.loocv_frame``), else
+        a ``LocalPrediction`` in standardized units.
 
         method='fast' uses the one-factorization precision identity;
         method='naive' replays the reference's delete-and-refactorize loop
@@ -299,7 +300,7 @@ class JointPredictor:
                 pred, pred_err = _loocv_core(self.params, coords, values, i, geo)
             pred, pred_err = pred.cpu().numpy(), pred_err.cpu().numpy()
         else:
-            outs = [self(i, data_coords[k], cv_ix=k) for k in range(n_i)]
+            outs = [self(i, data_coords[k], postprocess=False, cv_ix=k) for k in range(n_i)]
             pred = np.array([o.pred[0] for o in outs])
             pred_err = np.array([o.pred_err[0] for o in outs])
         if postprocess:

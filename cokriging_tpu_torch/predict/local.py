@@ -28,9 +28,9 @@ search, the gathered systems of the kd path). Distances below the zero snap
 within ``ZERO_SNAP_F32_KM`` of the withheld one leaves with it, as in the
 JAX package.
 
-Predictions come back as ``LocalPrediction`` in standardized units, or with
-``postprocess=True`` as the reference's frame on the data scale
-(``predict.postprocess``).
+Predictions come back, as in the JAX package, as the reference's frame on
+the data scale (``postprocess=True``, the default; ``predict.postprocess``),
+or with ``postprocess=False`` as ``LocalPrediction`` in standardized units.
 """
 
 import warnings
@@ -388,12 +388,13 @@ class LocalPredictor:
                 ))
         return parts
 
-    def __call__(self, i: int, pcoords, max_dist: float = 1e3, postprocess: bool = False):
+    def __call__(self, i: int, pcoords, max_dist: float = 1e3, postprocess: bool = True):
         """Cokrige process ``i`` at the (n_pred, 2) ``pcoords`` (an array,
-        a tensor or a frame of the two coordinate columns): a
-        ``LocalPrediction`` in standardized units, or with ``postprocess``
-        the reference's frame on the data scale (needs a field built from a
-        data frame; ``covariates`` as given to the predictor)."""
+        a tensor or a frame of the two coordinate columns): with
+        ``postprocess`` (the default) the reference's frame on the data
+        scale (``covariates`` as given to the predictor; a field without a
+        trend keeps its standardized values), else a ``LocalPrediction`` in
+        standardized units."""
         out = self._predict(i, coord_rows(pcoords), max_dist, cv=False)
         if postprocess:
             from cokriging_tpu_torch.predict.postprocess import postprocess_predictions
@@ -402,13 +403,13 @@ class LocalPredictor:
                                            self.covariates)
         return out
 
-    def cross_validation(self, i: int, max_dist: float = 1e3, postprocess: bool = False):
+    def cross_validation(self, i: int, max_dist: float = 1e3, postprocess: bool = True):
         """LOOCV at each main-grid datum of process ``i``, withholding the
-        self-datum by the d > 0 rule (src/point_prediction.py:303-346): a
-        ``LocalPrediction`` at the data locations in standardized units, or
-        with ``postprocess`` the LOOCV frame (``predict.postprocess.
-        loocv_frame``: data and predictions on the data scale, residual =
-        data - pred)."""
+        self-datum by the d > 0 rule (src/point_prediction.py:303-346):
+        with ``postprocess`` (the default) the LOOCV frame
+        (``predict.postprocess.loocv_frame``: data and predictions on the
+        data scale, residual = data - pred), else a ``LocalPrediction`` at
+        the data locations in standardized units."""
         field = self.mf.fields[i]
         out = self._predict(i, np.asarray(field.coords_main), max_dist, cv=True)
         if postprocess:

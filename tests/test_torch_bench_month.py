@@ -38,14 +38,14 @@ def card_and_reference():
 
 def test_bench_month_fit_and_predictions_follow_the_reference(card_and_reference):
     import bench
-    import chip_smoke
+    from cokriging_tpu_torch.bench import run_pipeline
     from cokriging_tpu_torch.data.grids import prediction_coords
 
     dt = np.float64
     pc = prediction_coords()
     c1, v1, c2, v2 = bench.build_inputs(dt, noise_seed=2)
     jparams, jout = bench.run_pipeline(c1, v1, c2, v2, pc, None, dt)
-    tparams, _, tout, times, _ = chip_smoke.run_pipeline(
+    tparams, _, tout, times, _ = run_pipeline(
         *(np.asarray(a) for a in (c1, v1, c2, v2)), pc, dt, "cuda")
     jx = np.asarray(jparams.to_flat())
     tx = tparams.to_flat().cpu().numpy()

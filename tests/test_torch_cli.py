@@ -5,12 +5,15 @@ of tests/test_cli.py, parameter files read across the two packages,
 ``fit --bootstrap`` and ``predict --joint --conditional-sims`` (their
 files, columns and shapes), the parser's errors (``fit --std-errors`` is
 held against the JAX package in tests/test_torch_uncertainty.py, beside the
-JAX Hessian it shares) and the dispatch of ``sim`` to the simulation
-experiment."""
+JAX Hessian it shares), the dispatch of ``sim`` to the simulation
+experiment, and ``bench``'s one JSON line at a small month (bench.py's keys,
+metric and rounding)."""
 
 import contextlib
 import io
+import json
 import re
+from pathlib import Path
 
 import numpy as np
 import pandas as pd
@@ -197,8 +200,7 @@ def test_predict_conditional_sims_writes_the_jax_packages_files(staged, fitted, 
         np.testing.assert_allclose(tt[col], jt[col], atol=1e-6, err_msg=col)
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["bench"], "benchmark"),
+PARSER_ERRORS = [
     (["fit", "--method", "nll", "--bootstrap", "4"], "--bootstrap requires --method wls"),
     (["loocv", "--params", "x.npz", "--predictor", "cg"], "invalid choice: 'cg'"),
     (["predict", "--params", "x.npz", "--conditional-sims", "4"],
@@ -206,7 +208,12 @@ def test_predict_conditional_sims_writes_the_jax_packages_files(staged, fitted, 
     (["predict", "--params", "x.npz", "--joint", "--solver", "cg", "--conditional-sims", "4"],
      "requires the dense solver"),
     (["fit", "--timedeltas", "0"], "one offset per --data table"),
-])
+]
+
+
+# the cases keep the ids they were collected under, numbered from 1
+@pytest.mark.parametrize("argv,match", PARSER_ERRORS,
+                         ids=[f"argv{k}-{m}" for k, (_, m) in enumerate(PARSER_ERRORS, 1)])
 def test_parser_errors_name_what_is_missing(staged, argv, match, capsys):
     _, paths, _ = staged
     if argv[0] in ("fit", "predict"):
@@ -243,3 +250,59 @@ def test_default_device_is_the_card(staged, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         torch_main(["fit", *_common(paths), "--out", "unused.npz"])
+
+
+def _bench_py_line_format():
+    """bench.py's JSON keys, in order, and its metric string, read from the
+    root script's source (its ``print(json.dumps({...}))``)."""
+    src = (Path(__file__).resolve().parents[1] / "bench.py").read_text()
+    block = src[src.rindex("json.dumps("):]
+    block = block[:block.index("}")]
+    return re.findall(r'"(\w+)":', block), re.search(r'"metric": "([^"]+)"', block).group(1)
+
+
+def test_bench_prints_bench_py_line(monkeypatch, capsys):
+    """``bench --device cpu`` at 2 x 100 observations, its Adam steps and
+    prediction cells cut: exactly one line on stdout, bench.py's keys in its
+    order and its metric string, ``value`` the timed run's wall rounded to
+    ms and ``vs_baseline`` = round(10 s / that wall, 3)."""
+    from cokriging_tpu_torch import bench
+    from cokriging_tpu_torch.data import grids
+
+    cells = grids.prediction_coords()[::100]
+    monkeypatch.setattr(bench, "N_PER_PROC", 100)
+    monkeypatch.setattr(bench, "MAXITER", 5)
+    monkeypatch.setattr(bench, "WARMUP_MAXITER", 2)
+    monkeypatch.setattr(bench, "NLL_REPS", 1)
+    monkeypatch.setattr(grids, "prediction_coords", lambda: cells)
+    runs, real = [], bench.main
+    monkeypatch.setattr(bench, "main", lambda device: runs.append(real(device)) or runs[-1])
+    torch_main(["bench", "--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 1 and len(runs) == 1
+    line, (run,) = json.loads(lines[0]), runs
+    keys, metric = _bench_py_line_format()
+    assert list(line) == keys == ["metric", "value", "unit", "vs_baseline", "nll_evals_per_sec"]
+    assert line["metric"] == metric and line["unit"] == "s" and line == run["line"]
+    assert line["value"] == round(run["elapsed_s"], 3) > 0
+    assert line["vs_baseline"] == round(10.0 / run["elapsed_s"], 3)
+    assert line["nll_evals_per_sec"] == round(run["nll_evals_per_sec"], 4) > 0
+    assert run["dtype"] == "float64" and run["result"].n_iter == 5
+    assert run["out"].pred.shape == (len(cells),) and np.isfinite(run["out"].pred).any()
+
+
+def test_bench_needs_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """Without ``--device`` ``bench`` asks for the card, and raises where
+    there is none instead of running on the CPU."""
+    import torch
+
+    from cokriging_tpu_torch import bench
+
+    calls, real = [], bench.main
+    monkeypatch.setattr(bench, "main", lambda **kw: calls.append(kw))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        torch_main(["bench"])
+    assert not calls
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        real()

@@ -73,8 +73,8 @@ def test_sample_moments_match_prediction(setup):
     jmod, jmf, tmod, tmf, held = setup
     pc = held[::17]
     jp = JointPredictor(tmod, tmf, device="cpu")
-    base = jp(0, pc)
-    out, draws = jp.sample(0, pc, n_samples=4000, seed=1)
+    base = jp(0, pc, postprocess=False)
+    out, draws = jp.sample(0, pc, n_samples=4000, seed=1, postprocess=False)
     j_df, _ = JJoint(jmod, jmf).sample(0, pc, n_samples=2, seed=1, postprocess=False)
     assert draws.shape == (4000, len(pc)) and draws.dtype == np.float64
     np.testing.assert_allclose(out.pred, base.pred, rtol=1e-8)
@@ -85,10 +85,10 @@ def test_sample_moments_match_prediction(setup):
     assert np.all(np.abs(draws.mean(axis=0) - base.pred) < 5 * se_mean)
     np.testing.assert_allclose(draws.std(axis=0), base.pred_err, rtol=0.12)
     # the same seed, the same draws; another seed, others
-    np.testing.assert_array_equal(jp.sample(0, pc, n_samples=5, seed=3)[1],
-                                  jp.sample(0, pc, n_samples=5, seed=3)[1])
-    assert not np.array_equal(jp.sample(0, pc, n_samples=5, seed=3)[1],
-                              jp.sample(0, pc, n_samples=5, seed=4)[1])
+    np.testing.assert_array_equal(jp.sample(0, pc, n_samples=5, seed=3, postprocess=False)[1],
+                                  jp.sample(0, pc, n_samples=5, seed=3, postprocess=False)[1])
+    assert not np.array_equal(jp.sample(0, pc, n_samples=5, seed=3, postprocess=False)[1],
+                              jp.sample(0, pc, n_samples=5, seed=4, postprocess=False)[1])
 
 
 def test_samples_interpolate_data_and_errors_are_correlated(setup):
@@ -96,11 +96,11 @@ def test_samples_interpolate_data_and_errors_are_correlated(setup):
     jp = JointPredictor(tmod, tmf, device="cpu")
     # nugget 0 and epsilon 0: the posterior at a datum is a point mass on it
     data_coords = tmf.fields[0].coords_main.numpy()[:20]
-    _, draws = jp.sample(0, data_coords, n_samples=50, seed=2)
+    _, draws = jp.sample(0, data_coords, n_samples=50, seed=2, postprocess=False)
     assert np.max(np.abs(draws - tmf.fields[0].values_main.numpy()[None, :20])) < 1e-4
     pair = held[10:12]
     assert np.linalg.norm(pair[0] - pair[1]) < 0.1
-    _, draws = jp.sample(0, pair, n_samples=3000, seed=4)
+    _, draws = jp.sample(0, pair, n_samples=3000, seed=4, postprocess=False)
     assert np.corrcoef(draws[:, 0], draws[:, 1])[0, 1] > 0.5
 
 
@@ -119,7 +119,7 @@ def test_postprocessed_samples_align_with_frame(setup):
     covariates = pd.DataFrame(cov).iloc[2:]  # the first two rows dropped
     jp = JointPredictor(tmod, mf, covariates=covariates, device="cpu")
     frame, draws = jp.sample(0, pc, n_samples=2000, seed=6, postprocess=True)
-    raw, draws_std = jp.sample(0, pc, n_samples=2000, seed=6)
+    raw, draws_std = jp.sample(0, pc, n_samples=2000, seed=6, postprocess=False)
     assert len(frame) == len(pc) - 2 and draws.shape == (2000, len(frame))
     np.testing.assert_array_equal(frame[["x", "y"]].values, pc[2:])
     surface = trend.predict_ols(pc[2:])

@@ -636,11 +636,11 @@ def test_local_loocv_on_card_matches_cpu(cuda, dtype, tol, kw):
     mod = MultivariateMatern(params=MaternParams.from_flat(torch.tensor(_CV_FLAT)))
     before = K.launch_counts()
     card = LocalPredictor(mod, mf, device=cuda, **kw)
-    got = card.cross_validation(0, max_dist=600.0)
+    got = card.cross_validation(0, max_dist=600.0, postprocess=False)
     kernel = "matern_corr_pairs" if kw else "matern_correlation"
     assert K.launch_counts()[kernel] > before[kernel]
     cpu = LocalPredictor(mod, mf, device="cpu", **kw)
-    want = cpu.cross_validation(0, max_dist=600.0)
+    want = cpu.cross_validation(0, max_dist=600.0, postprocess=False)
     np.testing.assert_array_equal(got.n_neighbors, want.n_neighbors)
     np.testing.assert_allclose(got.pred, want.pred, rtol=tol, atol=tol)
     np.testing.assert_allclose(got.pred_err, want.pred_err, rtol=tol, atol=tol)
@@ -1100,7 +1100,8 @@ def test_served_artifact_on_card_matches_live_predictor(cuda, dtype):
     got = fn(*args)
     torch.cuda.synchronize()
     assert K.launch_counts()["matern_corr_pairs"] > before
-    live = lp(0, pc.astype(np.dtype(str(dtype).replace("torch.", ""))), max_dist=600.0)
+    live = lp(0, pc.astype(np.dtype(str(dtype).replace("torch.", ""))), max_dist=600.0,
+              postprocess=False)
     for g, w in zip(got, (live.pred, live.pred_err, live.n_neighbors)):
         np.testing.assert_array_equal(g.cpu().numpy(), w)
     assert np.isfinite(live.pred).all()

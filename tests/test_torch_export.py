@@ -80,7 +80,7 @@ def test_export_roundtrip_matches_live_predictor(served):
     blob, fn, args, lp = served
     assert isinstance(blob, bytes) and len(blob) > 1000
     _, _, pc = _data()
-    live = lp(0, pc, max_dist=MAX_DIST)
+    live = lp(0, pc, max_dist=MAX_DIST, postprocess=False)
     assert np.isfinite(live.pred).mean() > 0.9
     _equal(fn(*args), (live.pred, live.pred_err, live.n_neighbors))
 
@@ -95,7 +95,7 @@ def test_exported_artifact_takes_fresh_runtime_inputs(served):
     b = fn(flat * 1.1, pc, v0 * 0.5, v1)
     ok = np.isfinite(a) & np.isfinite(b[0].numpy())
     assert ok.any() and not np.allclose(a[ok], b[0].numpy()[ok])
-    live = _predictor(FLAT * 1.1, coords, values)(0, pc_np, max_dist=MAX_DIST)
+    live = _predictor(FLAT * 1.1, coords, values)(0, pc_np, max_dist=MAX_DIST, postprocess=False)
     _equal(b, (live.pred, live.pred_err, live.n_neighbors))
     beyond = flat.clone()
     beyond[2] = 3.6  # nu_11 past the default box's 3.5
@@ -127,7 +127,7 @@ def test_cv_artifact_matches_live_loocv():
     sites = coords[0]
     fn = TE.load_program(TE.export_local_prediction(lp, 0, sites, max_dist=MAX_DIST, cv=True))
     _, args = TE.make_local_prediction_fn(lp, 0, sites, max_dist=MAX_DIST, cv=True)
-    live = lp.cross_validation(0, max_dist=MAX_DIST)
+    live = lp.cross_validation(0, max_dist=MAX_DIST, postprocess=False)
     assert np.isfinite(live.pred).all()
     _equal(fn(*args), (live.pred, live.pred_err, live.n_neighbors))
 

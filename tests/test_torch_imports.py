@@ -4,7 +4,8 @@ the grids' frame wrangling, postprocessing, table and NetCDF I/O, the
 granule readers, the CLI, the uncertainty frames, the regional statistics)
 imports pandas and h5py only inside the functions that take or return
 frames or files; the device mesh (``parallel/``), the serving export, the
-entry points and the simulation experiment's module import neither, nor
+entry points, the simulation experiment's module and the benchmark
+(``bench.py``) import neither, nor
 matplotlib (``plot/`` loads it, and nothing on the array path imports
 ``plot/``)."""
 
@@ -56,6 +57,7 @@ import cokriging_tpu_torch.data.readers
 import cokriging_tpu_torch.utils.export
 import cokriging_tpu_torch.entry
 import cokriging_tpu_torch.experiments.simulation_experiment
+import cokriging_tpu_torch.bench
 from cokriging_tpu_torch.__main__ import _parser
 _parser()
 from cokriging_tpu_torch.data.grids import prediction_coords

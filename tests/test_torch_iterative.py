@@ -77,8 +77,8 @@ def test_iterative_matches_dense_joint_and_jax(setup, i):
     mod = MultivariateMatern(params=params_from_numpy(FLAT))
     ijp = IterativeJointPredictor(mod, _mf(coords, values), block=32, rhs_batch=8, tol=1e-10,
                                   maxiter=500, device="cpu")
-    got = ijp(i, pc)
-    want = JointPredictor(mod, _mf(coords, values), device="cpu")(i, pc)
+    got = ijp(i, pc, postprocess=False)
+    want = JointPredictor(mod, _mf(coords, values), device="cpu")(i, pc, postprocess=False)
     np.testing.assert_allclose(got.pred, want.pred, rtol=1e-6, atol=1e-8)
     np.testing.assert_allclose(got.pred_err, want.pred_err, rtol=1e-6, atol=1e-8)
     iters = [k for k, _ in ijp.last_diagnostics]
@@ -94,8 +94,8 @@ def test_compute_err_false_skips_variance(setup):
     coords, values, pc = setup
     mod = MultivariateMatern(params=params_from_numpy(FLAT))
     got = IterativeJointPredictor(mod, _mf(coords, values), block=32, rhs_batch=8, tol=1e-10,
-                                  device="cpu")(0, pc, compute_err=False)
-    want = JointPredictor(mod, _mf(coords, values), device="cpu")(0, pc)
+                                  device="cpu")(0, pc, postprocess=False, compute_err=False)
+    want = JointPredictor(mod, _mf(coords, values), device="cpu")(0, pc, postprocess=False)
     np.testing.assert_allclose(got.pred, want.pred, rtol=1e-6, atol=1e-8)
     assert np.isnan(got.pred_err).all()
 
@@ -107,7 +107,7 @@ def test_non_convergence_warns_and_options_raise(setup):
                                   maxiter=2, device="cpu")
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        out = ijp(0, pc[:5])
+        out = ijp(0, pc[:5], postprocess=False)
     assert any("did not converge" in str(w.message) for w in caught)
     assert np.isfinite(out.pred).all() and [k for k, _ in ijp.last_diagnostics] == [2, 2]
     # fields built from arrays carry no trend: the data-scale frame is the

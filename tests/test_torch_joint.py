@@ -80,27 +80,27 @@ def test_predictor_surface_and_withholding():
     c1, v1, c2, v2, pc = _problem(False, n=30, n_pred=12)
     mf = _mf(c1, v1, c2, v2, False)
     jp = TJ.JointPredictor(MultivariateMatern(params=params_from_numpy(FLAT[False])), mf, device="cpu")
-    out = jp(0, pc[3:])
+    out = jp(0, pc[3:], postprocess=False)
     assert out.pred.shape == out.pred_err.shape == (9,) and not out.geodesic
     assert np.isfinite(out.pred).all() and (out.pred_err >= 0).all()
     assert (out.n_neighbors == 60).all()
     frame_cols = ("x", "y", "pred", "pred_err")
     assert tuple(out.to_dataframe().columns) == frame_cols
 
-    fast = jp.cross_validation(1, method="fast")
-    naive = jp.cross_validation(1, method="naive")
+    fast = jp.cross_validation(1, postprocess=False, method="fast")
+    naive = jp.cross_validation(1, postprocess=False, method="naive")
     np.testing.assert_allclose(naive.pred, fast.pred, rtol=0, atol=1e-8)
     np.testing.assert_allclose(naive.pred_err, fast.pred_err, rtol=0, atol=1e-8)
     np.testing.assert_allclose(fast.coords, c2)
 
-    one = jp(1, c2[4], cv_ix=4)
+    one = jp(1, c2[4], postprocess=False, cv_ix=4)
     np.testing.assert_allclose(one.pred[0], fast.pred[4], atol=1e-8)
 
     bad = FLAT[False].copy()
     bad[[8, 9, 10]] = [0.0, 0.0, 1.0]  # rho = 1 on colocated points, no nugget
     jp_bad = TJ.JointPredictor(MultivariateMatern(params=params_from_numpy(bad)), mf, device="cpu")
     with pytest.warns(UserWarning, match="not positive definite"):
-        out_bad = jp_bad(0, pc[3:])
+        out_bad = jp_bad(0, pc[3:], postprocess=False)
     assert np.isnan(out_bad.pred).all()
     # fields built from arrays carry no trend: the data-scale frame is the
     # standardized one (the JAX package's postprocess_predictions)
@@ -112,8 +112,10 @@ def test_float32_with_refinement_tracks_float64():
     mod = MultivariateMatern(params=params_from_numpy(FLAT[True]))
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        o64 = TJ.JointPredictor(mod, _mf(c1, v1, c2, v2, True), device="cpu")(0, pc[3:])
-        o32 = TJ.JointPredictor(mod, _mf(c1, v1, c2, v2, True, np.float32), device="cpu")(0, pc[3:])
+        o64 = TJ.JointPredictor(mod, _mf(c1, v1, c2, v2, True), device="cpu")(
+            0, pc[3:], postprocess=False)
+        o32 = TJ.JointPredictor(mod, _mf(c1, v1, c2, v2, True, np.float32), device="cpu")(
+            0, pc[3:], postprocess=False)
     assert o32.pred.dtype == np.float32
     np.testing.assert_allclose(o32.pred, o64.pred, rtol=0, atol=1e-4)
     np.testing.assert_allclose(o32.pred_err, o64.pred_err, rtol=0, atol=1e-4)

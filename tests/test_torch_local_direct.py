@@ -69,12 +69,12 @@ def test_direct_and_kd_match_materialized(setup, i):
     coords, values, pc = setup
     mod = MultivariateMatern(params=params_from_numpy(FLAT))
     mf = _fields(coords, values, False, Field, MultiField)
-    want = LocalPredictor(mod, mf, device="cpu")(i, pc, max_dist=MAX_DIST)
+    want = LocalPredictor(mod, mf, device="cpu")(i, pc, max_dist=MAX_DIST, postprocess=False)
     lp_dir = LocalPredictor(mod, mf, device="cpu", materialize_cov=False)
     assert lp_dir.joint_cov is None
-    _assert_same(want, lp_dir(i, pc, max_dist=MAX_DIST))
+    _assert_same(want, lp_dir(i, pc, max_dist=MAX_DIST, postprocess=False))
     lp_kd = LocalPredictor(mod, mf, device="cpu", materialize_cov=False, neighbor_method="kd")
-    got = lp_kd(i, pc, max_dist=MAX_DIST)
+    got = lp_kd(i, pc, max_dist=MAX_DIST, postprocess=False)
     _assert_same(want, got)
     np.testing.assert_array_equal(got.n_neighbors, want.n_neighbors)
 
@@ -84,7 +84,8 @@ def test_direct_paths_match_jax(setup, method, i):
     coords, values, pc = setup
     mod = MultivariateMatern(params=params_from_numpy(FLAT))
     got = LocalPredictor(mod, _fields(coords, values, False, Field, MultiField), device="cpu",
-                         materialize_cov=False, neighbor_method=method)(i, pc, max_dist=MAX_DIST)
+                         materialize_cov=False, neighbor_method=method)(
+        i, pc, max_dist=MAX_DIST, postprocess=False)
     jmod = JMod(params=JParams.from_flat(jnp.asarray(FLAT)))
     want = JLocalPredictor(jmod, _fields(coords, values, False, JField, JMultiField),
                            materialize_cov=False, neighbor_method=method)(
@@ -110,9 +111,10 @@ def test_kd_geodesic_matches_device_search_and_jax():
     jmod = JMod(1, JParams.from_flat(jnp.asarray(flat), spec=JSpec(n_procs=1)))
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        a = LocalPredictor(mod, mf, device="cpu", materialize_cov=False)(0, pc, max_dist=500.0)
+        a = LocalPredictor(mod, mf, device="cpu", materialize_cov=False)(
+            0, pc, max_dist=500.0, postprocess=False)
         b = LocalPredictor(mod, mf, device="cpu", materialize_cov=False,
-                           neighbor_method="kd")(0, pc, max_dist=500.0)
+                           neighbor_method="kd")(0, pc, max_dist=500.0, postprocess=False)
         want = JLocalPredictor(jmod, _fields(coords, values, True, JField, JMultiField),
                                materialize_cov=False, neighbor_method="kd")(
             0, pc, max_dist=500.0, postprocess=False)
@@ -132,6 +134,6 @@ def test_direct_path_runs_the_pairs_version_once_per_batch(setup, monkeypatch):
     mod = MultivariateMatern(params=params_from_numpy(FLAT))
     lp = LocalPredictor(mod, _fields(coords, values, False, Field, MultiField), device="cpu",
                         materialize_cov=False)
-    lp(0, pc, max_dist=MAX_DIST)
+    lp(0, pc, max_dist=MAX_DIST, postprocess=False)
     assert len(calls) == 1 and calls[0][0] == len(pc) and calls[0][1] == calls[0][2]
     assert lp._batch_size((384, 384), 4000) == 128

@@ -104,7 +104,7 @@ def test_local_loocv_matches_jax(month, kind, i):
             warnings.simplefilter("ignore")
             want = jlp.cross_validation(i, max_dist=MAX_DIST, postprocess=False)
             want_pp = jlp.cross_validation(i, max_dist=MAX_DIST, postprocess=True)
-        got = lp.cross_validation(i, max_dist=MAX_DIST)
+        got = lp.cross_validation(i, max_dist=MAX_DIST, postprocess=False)
         np.testing.assert_allclose(got.pred, want["pred"], rtol=1e-10, atol=1e-12)
         np.testing.assert_allclose(got.pred_err, want["pred_err"], rtol=1e-10, atol=1e-12)
         assert np.isfinite(got.pred).all()
@@ -120,8 +120,8 @@ def test_local_loocv_withholds_only_the_self_datum(month):
     coords = tmf.fields[0].coords_main.numpy()
     for kw in (LOCAL_KINDS["materialized"], LOCAL_KINDS["kd"]):
         lp = LocalPredictor(mod, tmf, device="cpu", **kw)
-        full = lp(0, coords, max_dist=MAX_DIST)
-        cv = lp.cross_validation(0, max_dist=MAX_DIST)
+        full = lp(0, coords, max_dist=MAX_DIST, postprocess=False)
+        cv = lp.cross_validation(0, max_dist=MAX_DIST, postprocess=False)
         np.testing.assert_array_equal(cv.n_neighbors, full.n_neighbors - 1)
         # at its own location the full predictor reproduces the datum up to the nugget
         assert not np.allclose(cv.pred, full.pred)
@@ -150,8 +150,8 @@ def test_local_loocv_zero_snap(dtype, offset_deg, withheld):
     lp = LocalPredictor(tmod, tmf, device="cpu")
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        cv = lp.cross_validation(0, max_dist=MAX_DIST)
-        full = lp(0, tmf.fields[0].coords_main.numpy(), max_dist=MAX_DIST)
+        cv = lp.cross_validation(0, max_dist=MAX_DIST, postprocess=False)
+        full = lp(0, tmf.fields[0].coords_main.numpy(), max_dist=MAX_DIST, postprocess=False)
     assert cv.n_neighbors[0] == full.n_neighbors[0] - withheld
     assert cv.n_neighbors[2] == full.n_neighbors[2] - 1
     assert np.isfinite(cv.pred[0])
@@ -180,7 +180,8 @@ def test_local_postprocess_and_covariates_match_jax(month):
     _assert_frames(got, want)
     with pytest.raises(ValueError, match="lacks covariate"):
         LocalPredictor(tmod, tmf, device="cpu")(1, pc, max_dist=MAX_DIST, postprocess=True)
-    assert isinstance(LocalPredictor(tmod, tmf, device="cpu")(1, pc.to_numpy()).pred, np.ndarray)
+    raw = LocalPredictor(tmod, tmf, device="cpu")(1, pc.to_numpy(), postprocess=False)
+    assert isinstance(raw.pred, np.ndarray)
 
 
 def test_joint_loocv_and_postprocess_match_jax(month):
@@ -191,7 +192,7 @@ def test_joint_loocv_and_postprocess_match_jax(month):
     jp, jjp = JointPredictor(tmod, tmf, device="cpu"), JJoint(jmod, jmf)
     got = jp.cross_validation(0, postprocess=True)
     _assert_frames(got, jjp.cross_validation(0, postprocess=True))
-    raw = jp.cross_validation(0)
+    raw = jp.cross_validation(0, postprocess=False)
     np.testing.assert_allclose(got["pred_err"], raw.pred_err * tmf.fields[0].trend.scale_fact,
                                rtol=1e-14)
     pc = pd.DataFrame(np.random.default_rng(2).uniform([32.0, -108.0], [43.0, -92.0], (9, 2)),
@@ -200,7 +201,7 @@ def test_joint_loocv_and_postprocess_match_jax(month):
     _assert_frames(JointPredictor(tmod, tmf, cov, device="cpu")(1, pc, postprocess=True),
                    JJoint(jmod, jmf, cov)(1, pc, postprocess=True))
     pp0 = jp(0, pc, postprocess=True)
-    raw0 = jp(0, pc)
+    raw0 = jp(0, pc, postprocess=False)
     trend = tmf.fields[0].trend
     np.testing.assert_allclose(
         pp0["pred"], raw0.pred * trend.scale_fact + trend.spatial_mean
@@ -236,5 +237,5 @@ def test_iterative_loocv_warns_when_cg_stops_early(small):
     ijp = IterativeJointPredictor(tmod, tmf, block=32, rhs_batch=64, tol=1e-10, maxiter=2,
                                   device="cpu")
     with pytest.warns(UserWarning, match="iterative LOOCV solves did not converge"):
-        ijp.cross_validation(0)
+        ijp.cross_validation(0, postprocess=False)
     assert ijp.last_diagnostics[0][0] == 2

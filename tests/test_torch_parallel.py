@@ -125,7 +125,8 @@ def test_sharded_local_predict_matches_jax(setup):
     for cv, pc in ((False, grid[::4]), (True, np.asarray(jmf.fields[0].coords_main))):
         want = JP.sharded_local_predict(jl, 0, pc, max_dist=0.6, cv=cv)
         got = P.sharded_local_predict(tl, 0, pc, max_dist=0.6, mesh=cpu_mesh(), cv=cv)
-        one = tl.cross_validation(0, max_dist=0.6) if cv else tl(0, pc, max_dist=0.6)
+        one = (tl.cross_validation(0, max_dist=0.6, postprocess=False) if cv
+               else tl(0, pc, max_dist=0.6, postprocess=False))
         for g, w, o, atol in zip(got, want, (one.pred, one.pred_err), (0.0, 1e-7)):
             assert g.shape == (pc.shape[0],)
             np.testing.assert_allclose(g, w, rtol=1e-10, atol=atol)
@@ -139,7 +140,7 @@ def test_sharded_direct_local_predict_matches_unsharded(setup):
     _, _, tmod, tmf, grid = setup
     lp = LocalPredictor(tmod, tmf, device="cpu", materialize_cov=False, neighbor_method="device")
     pc = grid[::9]
-    want = lp(1, pc, max_dist=0.6)
+    want = lp(1, pc, max_dist=0.6, postprocess=False)
     pred, err = P.sharded_local_predict(lp, 1, pc, max_dist=0.6, mesh=cpu_mesh(3))
     np.testing.assert_allclose(pred, want.pred, rtol=1e-10)
     np.testing.assert_allclose(err, want.pred_err, rtol=1e-10)
@@ -285,7 +286,8 @@ def test_iterative_mesh_matches_unsharded():
     kw = dict(rhs_batch=16, tol=1e-10, maxiter=500, device="cpu")
     one = IterativeJointPredictor(mod, mf, block=36, **kw)
     sharded = IterativeJointPredictor(mod, mf, block=18, mesh=cpu_mesh(2), **kw)
-    for call in (lambda p: p(0, pc), lambda p: p.cross_validation(1)):
+    for call in (lambda p: p(0, pc, postprocess=False),
+                 lambda p: p.cross_validation(1, postprocess=False)):
         want, got = call(one), call(sharded)
         np.testing.assert_allclose(got.pred, want.pred, rtol=1e-8, atol=1e-10)
         np.testing.assert_allclose(got.pred_err, want.pred_err, rtol=1e-8, atol=1e-10)

@@ -85,10 +85,10 @@ def runs():
         tp, _ = TW.fit_wls(test, init=init.with_flat(flat), method="adam",
                            maxiter=MAXITER, device="cpu")
         mf = _multifield(TF, TMF, c1, v1, c2, v2)
-        tout = TLP(TMM(params=tp), mf, device="cpu")(0, pc, max_dist=1_000.0)
+        tout = TLP(TMM(params=tp), mf, device="cpu")(0, pc, max_dist=1_000.0, postprocess=False)
         # the port's predictor from the JAX package's fitted parameters
         tout_jp = TLP(TMM(params=params_from_numpy(np.asarray(jp.to_flat()))), mf,
-                      device="cpu")(0, pc, max_dist=1_000.0)
+                      device="cpu")(0, pc, max_dist=1_000.0, postprocess=False)
     return dict(jp=np.asarray(jp.to_flat()), tp=tp.to_flat().numpy(), jout=jout,
                 tout=tout, tout_jp=tout_jp, counts=(np.asarray(counts), tcounts))
 

@@ -112,12 +112,12 @@ def test_every_figure_renders(sim_setup, frames):
                          dtype=torch.float64), spec=spec)
         _, result = fit_wls(est, init=init, maxiter=20, device="cpu")
         jp = JointPredictor(mod, mf, device="cpu")
-        pred = jp(0, grid.coords.values[::5])
+        pred = jp(0, grid.coords.values[::5], postprocess=False)
         cv = jp.cross_validation(0, postprocess=True)
         mod_uni = MultivariateMatern(1, MaternParams.from_flat(
             torch.tensor([1.0, 1.5, 0.2, 0.0], dtype=torch.float64), spec=ParamSpec(n_procs=1)))
         pred_uni = JointPredictor(mod_uni, rf.to_fields(samples, i=0), device="cpu")(
-            0, grid.coords.values[::5])
+            0, grid.coords.values[::5], postprocess=False)
         figures = {
             "plot_fields": TP.plot_fields(mf),
             "plot_variograms": TP.plot_variograms(result, names=["Z0", "Z1"]),
