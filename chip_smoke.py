@@ -21,10 +21,10 @@ Phases, in order; any failure exits nonzero without the final ok line:
     edges of one value after 0), the
     Matern kernel at the 256 x 256
     joint blocks, a 4096^2 symmetric block and nu in {0.5, 1.5, 2.7} (atol
-    5e-6 / 1e-12), and the Matern block-gradient kernel at a ragged 300 x 517
-    block and a 4096^2 symmetric block with an asymmetric cotangent, nu in
-    {0.3, 0.5, 1.5, 2.7} (each of its four sums within 1e-5 / 1e-12 of the
-    sum of |terms|; symmetric == full), and the gathered-pairs kernels at
+    5e-6 / 1e-12), and the Matern block-gradient kernel with an asymmetric
+    cotangent at a ragged 300 x 517 block, nu in {0.3, 0.5, 1.5, 2.7}, and a
+    4096^2 symmetric block at nu = 1.5 (each of its four sums within 1e-5 /
+    1e-12 of the sum of |terms|; symmetric == full), and the gathered-pairs kernels at
     ragged flat lengths with 1, 3 and 6 pairs, nu in {0.3, 0.5, 1.5, 2.7,
     1.2, 0.8} and exact zeros (forward atol 5e-6 / 1e-12; each per-pair
     gradient sum within 1e-5 / 1e-12 of its sum of |terms|, bit-equal on a
@@ -89,10 +89,11 @@ Phases, in order; any failure exits nonzero without the final ok line:
     kernels line is printed, so its rows carry its counts;
 (g) the large-n path at the size of the JAX package's example
     (examples/large_n_workflow.py: 2 x 60,000 synthetic CONUS observations),
-    float32 then float64: a Vecchia fit (m = 20, maxiter 80, chunk 4096,
-    coarse order and kd neighbors) inside its bounds, below its start and
-    with rho < 0; the Vecchia value + gradient at the fit (the least of three
-    after a warm-up; the launch counts of one equal the number of chunks);
+    float32 then float64, at ``G_FIT`` (the example's float32 Vecchia fit,
+    recorded; the host L-BFGS-B Vecchia fit runs in (m), at 1,000,000
+    points): the Vecchia value + gradient (m = 20, chunk 4096, coarse order
+    and kd neighbors) below the start's (the least of three after a warm-up;
+    the launch counts of one equal the number of chunks);
     both pairs kernels against their plain versions at the path's own
     launches (the whole window set; the gradient at one chunk's own
     cotangent and at a random one); the parsimonious validity projection;
@@ -125,9 +126,10 @@ Phases, in order; any failure exits nonzero without the final ok line:
     variogram passes at its shapes, the Matern forward at the LOOCV's three
     12,500^2 blocks, the pairs forward at one CG row tile. Last, the CLI
     (``python -m cokriging_tpu_torch fit / predict / loocv --device cuda``
-    in subprocesses) on tests/test_cli.py's staged tables against the same
-    commands with ``--device cpu``, float64: parameters rtol 1e-6, columns
-    atol 1e-6.
+    in subprocesses beside (k), checked after it; predict and loocv side by
+    side) on tests/test_cli.py's staged tables
+    against the same commands with ``--device cpu``, float64: parameters
+    rtol 1e-6, columns atol 1e-6.
 
 (i) simulation and the parametric bootstrap, float64: the dense cofield at the
     simulation experiment's size (``examples/simulation_experiment.py``: a
@@ -154,7 +156,7 @@ Phases, in order; any failure exits nonzero without the final ok line:
     standard errors, root root^T equal to the posterior covariance); and
     ``fit --maxiter 30 --bootstrap 16`` / ``predict --joint
     --conditional-sims 10 --device cuda`` on tests/test_cli.py's staged
-    tables. Each stage runs
+    tables (subprocesses beside (k), checked after it). Each stage runs
     with the launch counts set to 0 before it and read after it (the Matern
     forward in every simulation, both variogram passes and the batched form
     in the bootstrap). Its rows of the kernels line: the batched pass in both
@@ -191,7 +193,7 @@ Phases, in order; any failure exits nonzero without the final ok line:
     float64 one (1e-3 of max|H|); ``examples/uncertainty_demo.py``'s ML half
     at its own size (41 x 41 grid, seed 42, 2 x 120 samples, seed 43: the
     information at its truth, card against the CPU within 1e-9 of max|H|,
-    the CPU's computed in a worker process beside the rest of the phase,
+    the CPU's computed in a worker process started before (i), beside it,
     and ``nll_std_errors``); ``optim_lag_nd`` over lags 0..359 (tau
     30) and ``get_stats`` at ``examples/crosscov_eda.py``'s size (36 x 72 x
     1,825 daily cells, ~70% missing) on the card against the CPU on every
@@ -248,17 +250,46 @@ Phases, in order; any failure exits nonzero without the final ok line:
     card. Its rows of the kernels line: the pairs forward at one served
     batch, both dtypes.
 
-Cuts of depth against the time limit: (d)'s float64 Adam fit runs 200 of
+(m) the JAX package's million-point workflow (examples/million_point_workflow.py)
+    on the port at its TPU manifest's size, float32:
+    ``cokriging_tpu_torch.experiments.million_point_workflow.main("cuda")``
+    with the launch counts set to 0 just before and read just after: the
+    1024 x 1024 spectral cofield of [0, 100]^2 on the JAX manifest's own
+    draws (its float32 normals, reproduced), 2 x 500,000 observations, the
+    warm-start Vecchia fit on 2 x 30,000 (maxiter 100), the full fit (m =
+    20, maxiter 30), the recovery gates (rho within 0.12, sigmas within 0.3)
+    and direct local cokriging at 16,384 held-out cells within 0.8 (> 95%
+    finite, coverage in (0.90, 0.995)). It logs the stage walls (simulate,
+    each fit's host scaffold apart from its evaluations, the fits, predict),
+    the evaluations and seconds per evaluation, the pairs launches per
+    evaluation (checked: one forward and one gradient per chunk), the peak
+    device memory per stage, and the run beside the JAX manifest with the
+    differences. Its rows of the kernels line: the Matern forward at the
+    three 2048^2 lag-grid blocks (f64, atol 1e-12), the pairs forward and
+    gradient at the full fit's first 4,096-window chunk (5e-6; 1e-5 of the
+    sum of |terms|) and the pairs forward at the first direct-local batch,
+    each held against its plain version at the workflow's own call.
+
+Against the time limit, host-bound work runs beside other phases: (h)'s and
+(i)'s CLI subprocesses beside (k) (checked after it; their GPU memory is
+small, where (h)'s and (i)'s own plain checks fill the card), (j)'s CPU
+reference beside (i), (c)'s small paths' CPU halves (``c_small_cpu``) in a
+worker beside (c)'s kernel checks.
+Cuts of depth: (d)'s float64 Adam fit runs 200 of
 bench.py's 600 steps (its per-step time is logged); (f) holds the
 block-gradient kernel against its plain version at the 12,500^2 cross block
 only (it times the kernel at all three); (i) refits 4 replicates alone (2 per
 dtype, in 4 worker processes), not 16; (j) holds the Hessian sums against
 their plain version at the first of the three blocks only (the kernel's time
-at all three is logged); (k)'s bootstrap runs 8 replicates, not 16.
+at all three is logged); (k)'s bootstrap runs 8 replicates, not 16; (g)
+fits nothing (its float64 and float32 Vecchia fits, 25-49 s and ~8 s, gave way
+to (m)): it evaluates at ``G_FIT``, recorded from its float32 fit; (c) holds
+the block gradient against its plain version at the 4096^2 symmetric block at
+nu = 1.5 only (the ragged block keeps all four nu).
 
 ``python3 chip_smoke.py abcg`` runs only the phases named (a and b always)
 and prints no result line; ``python3 chip_smoke.py k`` runs (a), (b) and (k), ``python3
-chip_smoke.py l`` (a), (b) and (l). The kernels line's rows of the kernels
+chip_smoke.py l`` (a), (b) and (l), ``python3 chip_smoke.py m`` (a), (b) and (m). The kernels line's rows of the kernels
 redesigned last (the variogram passes, the block forward and the pairs
 gradient) carry their ptxas registers, static shared memory and spills from
 this run's build; a log line beside each gives the
@@ -377,6 +408,65 @@ def check(cond, msg):
 
 def log(msg):
     print(msg, flush=True)
+
+
+# cleanups of the work started ahead of its phase (worker pools, background
+# subprocesses), run when ``main`` ends however it ends
+BACKGROUND = []
+
+
+class CliChain:
+    """``python -m cokriging_tpu_torch`` commands run in the background from
+    this script's directory, in stages: a stage's commands ({name: argv})
+    run side by side, and the next stage starts once all of them exited with
+    code 0. ``wait()`` returns {name: (exit code, stdout, stderr, seconds)};
+    the processes are killed when ``main`` ends."""
+
+    def __init__(self, stages):
+        import threading
+
+        self.results, self.procs = {}, []
+        self._thread = threading.Thread(target=self._run, args=(stages,), daemon=True)
+        self._thread.start()
+        BACKGROUND.append(self.kill)
+
+    def _run(self, stages):
+        import os
+        import threading
+
+        env = {**os.environ, "PYTHONPATH": str(HERE)}
+
+        def finish(name, proc, t0):
+            try:
+                out, err = proc.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, err = proc.communicate()
+            self.results[name] = (proc.returncode, out, err, time.perf_counter() - t0)
+
+        for stage in stages:
+            waits = []
+            for name, argv in stage.items():
+                proc = subprocess.Popen([sys.executable, "-m", "cokriging_tpu_torch", *argv],
+                                        cwd=HERE, env=env, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True)
+                self.procs.append(proc)
+                waits.append(threading.Thread(target=finish, args=(name, proc, time.perf_counter())))
+                waits[-1].start()
+            for w in waits:
+                w.join()
+            if any(self.results[name][0] != 0 for name in stage):
+                return
+
+    def wait(self, timeout=900):
+        self._thread.join(timeout)
+        return self.results
+
+    def kill(self):
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+        self._thread.join(60)
 
 
 def nvidia_smi_line():
@@ -750,19 +840,134 @@ def phase_c_hess_edges(dtype, results):
         f"sum|terms| {worst:.3e} (bar {bar})")
 
 
-def phase_c_small_path():
-    """The whole path at 400 points per process on the card against the
-    same code on the CPU, float64, from nu = 1.4 (off the half-integer
-    orders, where the reference's dK/dnu jumps)."""
+C_SMALL_N = 400  # per process: (c)'s small paths
+C_SMALL_FLAT = [1.0, 1.0, 1.4, 1.3, 1.2, 500.0, 450.0, 550.0, 0.05, 0.04, -0.3]
+C_CPU_THREADS = 4  # the CPU halves' worker, beside (c)'s kernel checks
+
+
+def small_path(device):
+    """(c)'s small fit + local prediction on ``device``, float64, from nu =
+    1.4 (off the half-integer orders, where the reference's dK/dnu jumps):
+    (fitted flat, LocalPrediction)."""
     from cokriging_tpu_torch.bench import run_pipeline
     from cokriging_tpu_torch.data.grids import prediction_coords
 
-    c1, v1, c2, v2 = build_inputs(400, np.float64)
+    c1, v1, c2, v2 = build_inputs(C_SMALL_N, np.float64)
+    params, _, out, _, _ = run_pipeline(c1, v1, c2, v2, prediction_coords()[::10], np.float64, device,
+                                        maxiter=50, nu_start=1.4)
+    return params.to_flat().cpu().numpy(), out
+
+
+def small_nll(device, analytic):
+    """(c)'s small exact NLL at C_SMALL_FLAT on ``device``, float64: (value,
+    gradient)."""
+    import torch
+
+    from cokriging_tpu_torch.cov.params import MaternParams
+    from cokriging_tpu_torch.estimate.nll import joint_distance_blocks, neg_log_likelihood
+
+    c1, v1, c2, v2 = build_inputs(C_SMALL_N, np.float64)
+    coords = [torch.as_tensor(c, device=device) for c in (c1, c2)]
+    dists = joint_distance_blocks(coords, geodesic=True)
+    z = torch.as_tensor(np.concatenate([v1, v2]), device=device)
+    x = torch.tensor(C_SMALL_FLAT, dtype=torch.float64, device=device, requires_grad=True)
+    v = neg_log_likelihood(x, dists, z, MaternParams.default(2).spec, None, 1e-8, analytic_grad=analytic)
+    (g,) = torch.autograd.grad(v, x)
+    return v.item(), g.cpu().numpy()
+
+
+def small_fields():
+    """(c)'s small month as a geodesic MultiField and the model at
+    C_SMALL_FLAT."""
+    import torch
+
+    from cokriging_tpu_torch.cov.matern import MultivariateMatern
+    from cokriging_tpu_torch.cov.params import MaternParams
+
+    c1, v1, c2, v2 = build_inputs(C_SMALL_N, np.float64)
+    return (geo_fields(((c1, v1, "Z0"), (c2, v2, "Z1"))),
+            MultivariateMatern(params=MaternParams.from_flat(torch.tensor(C_SMALL_FLAT,
+                                                                          dtype=torch.float64))))
+
+
+def small_vecchia(device):
+    """(c)'s small Vecchia likelihood (m = 10, chunk 256) on ``device``,
+    float64: (ordering, value, gradient at C_SMALL_FLAT)."""
+    import torch
+
+    from cokriging_tpu_torch.cov.params import MaternParams
+    from cokriging_tpu_torch.estimate.vecchia import VecchiaLikelihood, vecchia_nll_value_and_grad
+
+    c1, v1, c2, v2 = build_inputs(C_SMALL_N, np.float64)
+    lik = VecchiaLikelihood([c1, c2], [v1, v2], m=10, geodesic=True, chunk=256, device=device)
+    v, g = vecchia_nll_value_and_grad(torch.tensor(C_SMALL_FLAT, dtype=torch.float64, device=device),
+                                      lik._win, MaternParams.default(2).spec, True, 256)
+    return lik.perm, v.item(), g.cpu().numpy()
+
+
+def small_few_cells():
+    """Every 20th of the small local prediction's cells with data within 500
+    km: where the CPU's plain K_nu runs it."""
+    import torch
+
+    from cokriging_tpu_torch.data.grids import prediction_coords
+    from cokriging_tpu_torch.kernels.distance import haversine_matrix
+
+    c1, _, c2, _ = build_inputs(C_SMALL_N, np.float64)
     pc = prediction_coords()[::10]
-    p_gpu, _, o_gpu, _, _ = run_pipeline(c1, v1, c2, v2, pc, np.float64, "cuda", maxiter=50, nu_start=1.4)
-    p_cpu, _, o_cpu, _, _ = run_pipeline(c1, v1, c2, v2, pc, np.float64, "cpu", maxiter=50, nu_start=1.4)
-    xg = p_gpu.to_flat().cpu().numpy()
-    xc = p_cpu.to_flat().numpy()
+    near = haversine_matrix(torch.as_tensor(pc), torch.as_tensor(np.concatenate([c1, c2])))
+    return pc[(near <= 500.0).any(dim=1).numpy()][::20]
+
+
+SMALL_LOCAL_KINDS = {"mat": {}, "dir": dict(materialize_cov=False),
+                     "kd": dict(materialize_cov=False, neighbor_method="kd")}
+
+
+def small_local_few(device, kind):
+    """(c)'s small local prediction of ``kind`` at ``small_few_cells`` within
+    500 km on ``device``."""
+    import warnings
+
+    from cokriging_tpu_torch.predict.local import LocalPredictor
+
+    mf, mod = small_fields()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return LocalPredictor(mod, mf, device=device, **SMALL_LOCAL_KINDS[kind])(
+            0, small_few_cells(), max_dist=500.0, postprocess=False)
+
+
+def c_small_cpu(_):
+    """The CPU halves of (c)'s small paths, float64, computed in a worker
+    process beside (c)'s kernel checks: {name: result}."""
+    import torch
+
+    from cokriging_tpu_torch.data.grids import prediction_coords
+    from cokriging_tpu_torch.predict.joint import JointPredictor
+
+    torch.set_num_threads(C_CPU_THREADS)
+    mf, mod = small_fields()
+    return {"path": small_path("cpu"), "nll": small_nll("cpu", True),
+            "joint": JointPredictor(mod, mf, device="cpu")(0, prediction_coords()[::10],
+                                                            postprocess=False),
+            "vecchia": small_vecchia("cpu"),
+            "dir": small_local_few("cpu", "dir"), "kd": small_local_few("cpu", "kd")}
+
+
+def c_small_cpu_start():
+    """``c_small_cpu`` started in a spawned worker process: (pool, pending)."""
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    BACKGROUND.append(pool.terminate)
+    return pool, pool.apply_async(c_small_cpu, (None,))
+
+
+def phase_c_small_path(cpu):
+    """The whole path at 400 points per process on the card against the
+    same code on the CPU (``cpu``: ``c_small_cpu``'s results), float64."""
+    xg, o_gpu = small_path("cuda")
+    xc, o_cpu = cpu["path"]
     rel = float(np.max(np.abs(xg - xc) / np.abs(xc)))
     check(rel <= 1e-6, f"small path: params rel err {rel}")
     ok = np.isfinite(o_cpu.pred)
@@ -793,7 +998,10 @@ def phase_c_block_grad(c1, c2, dtype, results):
     worst_abs = worst_rel = 0.0
     n_cases = 0
     for nu, ls in ((0.3, 300.0), (0.5, 300.0), (1.5, 800.0), (2.7, 1500.0)):
-        for h, sym in ((ragged, False), (big, True)):
+        # the 4096^2 symmetric block at nu = 1.5 only: its plain version is
+        # this phase's costliest check ((f) holds the kernel at its path's
+        # 12,500^2 cross block)
+        for h, sym in ((ragged, False), (big, True)) if nu == 1.5 else ((ragged, False),):
             x = math.sqrt(2 * nu) * h / ls
             check(bool((x < 2).any()) and bool((x >= 2).any()), "case must span x = 2")
             ct = torch.randn(h.shape, dtype=td, device="cuda", generator=gen)  # asymmetric
@@ -819,41 +1027,22 @@ def phase_c_block_grad(c1, c2, dtype, results):
         f"{worst_rel:.3e} (bar {tol}), worst abs {worst_abs:.3e}")
 
 
-def phase_c_small_nll():
+def phase_c_small_nll(cpu):
     """The exact-likelihood path at 2 x 400 points on the card against the
-    same code on the CPU, float64: NLL value and gradient (analytic branch
-    both sides), analytic against plain-AD branch on the card, and the joint
-    predictor."""
-    import torch
-
-    from cokriging_tpu_torch.cov.matern import MultivariateMatern
-    from cokriging_tpu_torch.cov.params import MaternParams
+    same code on the CPU (``cpu``: ``c_small_cpu``'s results), float64: NLL
+    value and gradient (analytic branch both sides), analytic against
+    plain-AD branch on the card, and the joint predictor."""
     from cokriging_tpu_torch.data.grids import prediction_coords
-    from cokriging_tpu_torch.estimate.nll import joint_distance_blocks, neg_log_likelihood
-    from cokriging_tpu_torch.fields.field import Field, MultiField
     from cokriging_tpu_torch.kernels import cuda_ops as K
     from cokriging_tpu_torch.predict.joint import JointPredictor
 
-    c1, v1, c2, v2 = build_inputs(400, np.float64)
-    flat = np.array([1.0, 1.0, 1.4, 1.3, 1.2, 500.0, 450.0, 550.0, 0.05, 0.04, -0.3])
-    spec = MaternParams.default(2).spec
-
-    def value_and_grad(device, analytic):
-        coords = [torch.as_tensor(c, device=device) for c in (c1, c2)]
-        dists = joint_distance_blocks(coords, geodesic=True)
-        z = torch.as_tensor(np.concatenate([v1, v2]), device=device)
-        x = torch.tensor(flat, device=device, requires_grad=True)
-        v = neg_log_likelihood(x, dists, z, spec, None, 1e-8, analytic_grad=analytic)
-        (g,) = torch.autograd.grad(v, x)
-        return v.item(), g.cpu().numpy()
-
     K.reset_launch_counts()
-    v_gpu, g_gpu = value_and_grad("cuda", True)
+    v_gpu, g_gpu = small_nll("cuda", True)
     counts = K.launch_counts()
     check(counts["matern_correlation"] == 3 and counts["matern_block_grad"] == 3,
           f"small NLL: launches {counts}")
-    v_ad, g_ad = value_and_grad("cuda", False)
-    v_cpu, g_cpu = value_and_grad("cpu", True)
+    v_ad, g_ad = small_nll("cuda", False)
+    v_cpu, g_cpu = cpu["nll"]
     check(abs(v_gpu - v_cpu) <= 1e-10 * abs(v_cpu), f"small NLL: value {v_gpu} vs CPU {v_cpu}")
     check(np.allclose(g_gpu, g_cpu, rtol=1e-7, atol=1e-10), f"small NLL: gradient {g_gpu} vs CPU {g_cpu}")
     check(abs(v_gpu - v_ad) <= 1e-10 * abs(v_ad) and np.allclose(g_gpu, g_ad, rtol=1e-7, atol=1e-10),
@@ -862,13 +1051,9 @@ def phase_c_small_nll():
         f"gradient max rel err {float(np.max(np.abs(g_gpu - g_cpu) / np.abs(g_cpu))):.3e}; "
         f"analytic vs plain AD on the card {float(np.max(np.abs(g_gpu - g_ad) / np.abs(g_ad))):.3e}")
 
-    fields = [Field.from_arrays(c1, v1, "Z0"), Field.from_arrays(c2, v2, "Z1")]
-    for f in fields:
-        f.geodesic = True
-    mod = MultivariateMatern(params=MaternParams.from_flat(torch.as_tensor(flat)))
+    mf, mod = small_fields()
     pc = prediction_coords()[::10]
-    out = {dev: JointPredictor(mod, MultiField(fields=fields), device=dev)(0, pc, postprocess=False)
-           for dev in ("cuda", "cpu")}
+    out = {"cuda": JointPredictor(mod, mf, device="cuda")(0, pc, postprocess=False), "cpu": cpu["joint"]}
     err = float(max(np.max(np.abs(out["cuda"].pred - out["cpu"].pred)),
                     np.max(np.abs(out["cuda"].pred_err - out["cpu"].pred_err))))
     check(np.isfinite(out["cpu"].pred).all() and err <= 1e-8, f"small joint prediction: abs err {err}")
@@ -1536,8 +1721,13 @@ def phase_f(dtype, pc, results):
 
 N_LARGE = 60_000  # per process
 N_CG = 12_500  # per process: the first observations, the bench month's n
-VECCHIA_M, VECCHIA_CHUNK, VECCHIA_MAXITER = 20, 4096, 80
+VECCHIA_M, VECCHIA_CHUNK = 20, 4096
 LARGE_INIT = [1.0, 1.0, 1.5, 1.5, 1.5, 500.0, 500.0, 500.0, 0.05, 0.05, 0.0]
+# (g)'s float32 Vecchia fit from LARGE_INIT (m = 20, maxiter 80; 30 evaluations) in
+# the proof run of the commit that added the CLI's ``bench``: (g) runs its
+# paths there; phase (m) runs the host L-BFGS-B Vecchia fit at 1,000,000 points
+G_FIT = [0.702357, 0.740288, 1.41803, 1.49567, 0.206218, 708.519, 497.217, 150.698, 0.198791,
+         0.199851, -0.440507]
 
 
 def large_n_month(dtype, n=N_LARGE):
@@ -1821,35 +2011,24 @@ def matern_stress_block(h, nu, ls, atol, what):
     return err
 
 
-def phase_c_small_large_n():
+def phase_c_small_large_n(cpu):
     """The large-n path's pieces at 2 x 400 points on the card against the
-    same code on the CPU, float64: the Vecchia value and gradient (m = 10),
-    direct-assembly against materialized local prediction and kd against the
-    device search, CG against the dense joint predictor."""
+    same code on the CPU (``cpu``: ``c_small_cpu``'s results), float64: the
+    Vecchia value and gradient (m = 10), direct-assembly against
+    materialized local prediction and kd against the device search, CG
+    against the dense joint predictor."""
     import warnings
 
-    import torch
-
-    from cokriging_tpu_torch.cov.matern import MultivariateMatern
-    from cokriging_tpu_torch.cov.params import MaternParams
     from cokriging_tpu_torch.data.grids import prediction_coords
-    from cokriging_tpu_torch.estimate.vecchia import VecchiaLikelihood, vecchia_nll_value_and_grad
     from cokriging_tpu_torch.kernels import cuda_ops as K
-    from cokriging_tpu_torch.kernels.distance import haversine_matrix
     from cokriging_tpu_torch.predict.iterative import IterativeJointPredictor
     from cokriging_tpu_torch.predict.joint import JointPredictor
     from cokriging_tpu_torch.predict.local import LocalPredictor
 
-    c1, v1, c2, v2 = build_inputs(400, np.float64)
-    flat = [1.0, 1.0, 1.4, 1.3, 1.2, 500.0, 450.0, 550.0, 0.05, 0.04, -0.3]
-    spec = MaternParams.default(2).spec
-    res = {}
-    for dev in ("cuda", "cpu"):
-        K.reset_launch_counts()
-        lik = VecchiaLikelihood([c1, c2], [v1, v2], m=10, geodesic=True, chunk=256, device=dev)
-        v, g = vecchia_nll_value_and_grad(torch.tensor(flat, device=dev), lik._win, spec, True, 256)
-        res[dev] = (lik.perm, v.item(), g.cpu().numpy(), K.launch_counts())
-    (perm_g, v_g, g_g, n_g), (perm_c, v_c, g_c, _) = res["cuda"], res["cpu"]
+    K.reset_launch_counts()
+    perm_g, v_g, g_g = small_vecchia("cuda")
+    n_g = K.launch_counts()
+    perm_c, v_c, g_c = cpu["vecchia"]
     check(np.array_equal(perm_g, perm_c), "small Vecchia: the maxmin orders differ")
     check(n_g["matern_corr_pairs"] == 4 and n_g["matern_corr_pairs_grad"] == 4,
           f"small Vecchia: launches {n_g}")
@@ -1859,24 +2038,17 @@ def phase_c_small_large_n():
         f"{abs(v_g - v_c) / abs(v_c):.3e}, gradient max rel err "
         f"{float(np.max(np.abs(g_g - g_c) / np.abs(g_c))):.3e}")
 
-    mf = geo_fields(((c1, v1, "Z0"), (c2, v2, "Z1")))
-    mod = MultivariateMatern(params=MaternParams.from_flat(torch.tensor(flat)))
+    mf, mod = small_fields()
     pc = prediction_coords()[::10]
-    # the CPU's plain K_nu is slow: there, every 20th of the cells with data
-    # within 500 km
-    near = haversine_matrix(torch.as_tensor(pc), torch.as_tensor(np.concatenate([c1, c2])))
-    few = pc[(near <= 500.0).any(dim=1).numpy()][::20]
-    kinds = {"mat": {}, "dir": dict(materialize_cov=False),
-             "kd": dict(materialize_cov=False, neighbor_method="kd")}
+    few = small_few_cells()
     out = {}
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        for kind, kw in kinds.items():
+        for kind, kw in SMALL_LOCAL_KINDS.items():
             out["cuda", kind] = LocalPredictor(mod, mf, **kw)(0, pc, postprocess=False)
-        for dev in ("cuda", "cpu"):
-            for kind in ("dir", "kd"):
-                out[dev, kind, "few"] = LocalPredictor(mod, mf, device=dev, **kinds[kind])(
-                    0, few, max_dist=500.0, postprocess=False)
+    for kind in ("dir", "kd"):
+        out["cuda", kind, "few"] = small_local_few("cuda", kind)
+        out["cpu", kind, "few"] = cpu[kind]
     worst = 0.0
     for a, b in ((("cuda", "mat"), ("cuda", "dir")), (("cuda", "dir"), ("cuda", "kd")),
                  (("cpu", "dir", "few"), ("cuda", "dir", "few")),
@@ -1956,9 +2128,7 @@ def phase_g(dtype, results):
     from cokriging_tpu_torch.cov.matern import MultivariateMatern
     from cokriging_tpu_torch.cov.params import MaternParams, ParamSpec
     from cokriging_tpu_torch.cov.spectral import params_rho_max, project_to_valid
-    from cokriging_tpu_torch.estimate.vecchia import (
-        VecchiaLikelihood, fit_vecchia, vecchia_nll_value_and_grad,
-    )
+    from cokriging_tpu_torch.estimate.vecchia import VecchiaLikelihood, vecchia_nll_value_and_grad
     from cokriging_tpu_torch.kernels import cuda_ops as K
     from cokriging_tpu_torch.predict.iterative import IterativeJointPredictor
     from cokriging_tpu_torch.predict.local import LocalPredictor
@@ -1977,30 +2147,18 @@ def phase_g(dtype, results):
     c1, z1, c2, z2 = large_n_month(dtype)
     mf = geo_fields(((c1, z1, "XCO2"), (c2, z2, "SIF")))
     spec = ParamSpec(n_procs=2)
-    init = MaternParams.default(2, spec).with_flat(torch.tensor(LARGE_INIT, dtype=torch.float64))
+    params = MaternParams.default(2, spec).with_flat(torch.tensor(G_FIT, dtype=td))
 
-    # the fit, as the example runs it ("auto": coarse order, kd-tree neighbors)
-    (params, info), fit_s = timed(lambda: fit_vecchia(
-        mf, init=init, m=VECCHIA_M, maxiter=VECCHIA_MAXITER, main=False, chunk=VECCHIA_CHUNK))
-    x = params.to_flat().cpu().numpy().astype(np.float64)
-    lo, hi = spec.bounds()
-    start = info["nll_trace"][0]
-    log(f"(g) {name}: Vecchia fit (2 x {N_LARGE}, m = {VECCHIA_M}, maxiter {VECCHIA_MAXITER}): "
-        f"seconds {fit_s}, evaluations {info['n_obj_evals']}, iterations {info['n_iter']}, "
-        f"success {info['success']}, nll {start} -> {info['nll']}, params "
-        f"{np.array2string(x, precision=5)}")
-    check(params.sigma.dtype == td, f"(g) {name}: fitted params in {params.sigma.dtype}")
-    check(bool(np.all((x >= lo - 1e-6 * (hi - lo)) & (x <= hi + 1e-6 * (hi - lo)))),
-          f"(g) {name}: Vecchia fit out of bounds")
-    check(info["nll"] < start, f"(g) {name}: the fit did not improve on its start")
-    check(float(params.rho[0, 1]) < 0.0, f"(g) {name}: fitted rho {float(params.rho[0, 1])} >= 0")
-
-    # Vecchia value + gradient at the fitted point: the least of three after
-    # a warm-up, the launch counts of the first timed one
+    # Vecchia value + gradient at G_FIT (the example's fit, recorded; the
+    # scaffold as the example's "auto" builds it: coarse order, kd-tree
+    # neighbors): the least of three after a warm-up, the launch counts of
+    # the first timed one; the start's value above it
     lik, scaffold_s = timed(lambda: VecchiaLikelihood(
         [c1, c2], [z1, z2], m=VECCHIA_M, geodesic=True, chunk=VECCHIA_CHUNK))
     n_chunks = math.ceil(lik.n / VECCHIA_CHUNK)
     xf = params.to_flat().detach()
+    start = float(vecchia_nll_value_and_grad(torch.tensor(LARGE_INIT, dtype=td), lik._win, spec,
+                                             True, VECCHIA_CHUNK)[0])
 
     def evaluate():
         return vecchia_nll_value_and_grad(xf, lik._win, spec, True, VECCHIA_CHUNK)
@@ -2012,8 +2170,9 @@ def phase_g(dtype, results):
     launches = K.launch_counts()
     secs = [s0] + [timed(evaluate)[1] for _ in range(2)]
     log(f"(g) {name}: scaffold ({lik.ordering} order, {lik.neighbor_method} neighbors) {scaffold_s} s; "
-        f"value + gradient at the fit: value {v.item()}, seconds {secs}, evals/s {1.0 / min(secs)}; "
-        f"launches {launches}, chunks {n_chunks}")
+        f"value + gradient at the fit: value {v.item()} (at the start {start}), seconds {secs}, "
+        f"evals/s {1.0 / min(secs)}; launches {launches}, chunks {n_chunks}")
+    check(v.item() < start, f"(g) {name}: the fit's value {v.item()} is not below the start's {start}")
     check(launches["matern_corr_pairs"] == n_chunks and launches["matern_corr_pairs_grad"] == n_chunks,
           f"(g) {name}: expected {n_chunks} pairs launches each, got {launches}")
     check(np.isfinite(v.item()) and bool(torch.isfinite(g).all()), f"(g) {name}: value {v}, gradient {g}")
@@ -2422,54 +2581,71 @@ def cli_table(name, rng, own_seed):
         for k, t in enumerate(CLI_TIMES)], ignore_index=True)
 
 
-def phase_h_cli():
-    """``python -m cokriging_tpu_torch fit / predict / loocv --device cuda``
-    on tests/test_cli.py's staged tables, held against the same commands with
-    ``--device cpu`` (in this process), float64: parameters rtol 1e-6,
-    predictions and LOOCV columns atol 1e-6."""
+def h_cli_start():
+    """tests/test_cli.py's staged tables in a temporary directory and the
+    ``--device cuda`` commands on them started in the background (fit, then
+    predict and loocv side by side): ``phase_h_cli`` finishes them."""
     import os
     import tempfile
 
+    from cokriging_tpu_torch.utils.io import save_table
+
+    tmp = tempfile.TemporaryDirectory()
+    BACKGROUND.append(tmp.cleanup)
+    rng = np.random.default_rng(6)
+    paths = []
+    for k, nm in enumerate(("xco2", "sif")):
+        paths.append(os.path.join(tmp.name, f"{nm}.parquet"))
+        save_table(paths[-1], cli_table(nm, rng, 600 + k))
+    common = ["--data", *paths, "--timestamp", CLI_TIMES[1], "--timedeltas", "0", "0"]
+
+    def argv(cmd, dev):
+        p = os.path.join(tmp.name, f"params_{dev}.npz")
+        extra = {"fit": ["--max-dist", "3000", "--n-bins", "8", "--maxiter", "60",
+                         "--project-validity", "--out", p],
+                 "predict": ["--params", p, "--out", os.path.join(tmp.name, f"pred_{dev}.parquet")],
+                 "loocv": ["--params", p, "--out", os.path.join(tmp.name, f"cv_{dev}.parquet")]}[cmd]
+        return [cmd, *common, *extra, "--device", dev]
+
+    chain = CliChain([{"fit": argv("fit", "cuda")},
+                      {"predict": argv("predict", "cuda"), "loocv": argv("loocv", "cuda")}])
+    return dict(tmp=tmp.name, argv=argv, chain=chain)
+
+
+def phase_h_cli(started):
+    """(h)'s CLI: ``python -m cokriging_tpu_torch fit / predict / loocv
+    --device cuda`` on tests/test_cli.py's staged tables (started by
+    ``h_cli_start``, in subprocesses beside (k)), held against the same commands with
+    ``--device cpu`` (in this process), float64: parameters rtol 1e-6,
+    predictions and LOOCV columns atol 1e-6."""
+    import contextlib as _c
+    import io as _io
+    import os
+
     from cokriging_tpu_torch.__main__ import main as cli_main
-    from cokriging_tpu_torch.utils.io import load_params, load_table, save_table
+    from cokriging_tpu_torch.utils.io import load_params, load_table
 
-    with tempfile.TemporaryDirectory() as tmp:
-        rng = np.random.default_rng(6)
-        paths = []
-        for k, nm in enumerate(("xco2", "sif")):
-            paths.append(os.path.join(tmp, f"{nm}.parquet"))
-            save_table(paths[-1], cli_table(nm, rng, 600 + k))
-        common = ["--data", *paths, "--timestamp", CLI_TIMES[1], "--timedeltas", "0", "0"]
-        out, secs = {}, {}
-        for dev in ("cuda", "cpu"):
-            p = os.path.join(tmp, f"params_{dev}.npz")
-            for cmd, extra in (("fit", ["--max-dist", "3000", "--n-bins", "8", "--maxiter", "60",
-                                        "--project-validity", "--out", p]),
-                               ("predict", ["--params", p, "--out",
-                                            os.path.join(tmp, f"pred_{dev}.parquet")]),
-                               ("loocv", ["--params", p, "--out",
-                                          os.path.join(tmp, f"cv_{dev}.parquet")])):
-                argv = [cmd, *common, *extra, "--device", dev]
-                t0 = time.perf_counter()
-                if dev == "cuda":
-                    run = subprocess.run([sys.executable, "-m", "cokriging_tpu_torch", *argv],
-                                         cwd=HERE, capture_output=True, text=True, timeout=300,
-                                         env={**os.environ, "PYTHONPATH": str(HERE)})
-                    check(run.returncode == 0, f"(h) CLI {cmd} --device cuda: exit "
-                          f"{run.returncode}: {run.stderr[-2000:]}")
-                    out[dev, cmd, "stdout"] = run.stdout
-                else:
-                    import contextlib as _c
-                    import io as _io
-
-                    buf = _io.StringIO()
-                    with _c.redirect_stdout(buf):
-                        cli_main(argv)
-                    out[dev, cmd, "stdout"] = buf.getvalue()
-                secs[dev, cmd] = time.perf_counter() - t0
-            out[dev, "params"] = load_params(p).to_flat().numpy()
-            out[dev, "pred"] = load_table(os.path.join(tmp, f"pred_{dev}.parquet"))
-            out[dev, "cv"] = load_table(os.path.join(tmp, f"cv_{dev}.parquet"))
+    tmp, argv = started["tmp"], started["argv"]
+    out, secs = {}, {}
+    for cmd in ("fit", "predict", "loocv"):
+        t0 = time.perf_counter()
+        buf = _io.StringIO()
+        with _c.redirect_stdout(buf):
+            cli_main(argv(cmd, "cpu"))
+        out["cpu", cmd, "stdout"] = buf.getvalue()
+        secs["cpu", cmd] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runs = started["chain"].wait()
+    secs["cuda", "wait"] = time.perf_counter() - t0
+    for cmd in ("fit", "predict", "loocv"):
+        check(cmd in runs and runs[cmd][0] == 0, f"(h) CLI {cmd} --device cuda: "
+              f"{runs[cmd][0] if cmd in runs else 'not run'}: {runs[cmd][2][-2000:] if cmd in runs else ''}")
+        out["cuda", cmd, "stdout"] = runs[cmd][1]
+        secs["cuda", cmd] = runs[cmd][3]
+    for dev in ("cuda", "cpu"):
+        out[dev, "params"] = load_params(os.path.join(tmp, f"params_{dev}.npz")).to_flat().numpy()
+        out[dev, "pred"] = load_table(os.path.join(tmp, f"pred_{dev}.parquet"))
+        out[dev, "cv"] = load_table(os.path.join(tmp, f"cv_{dev}.parquet"))
     pg, pc = out["cuda", "params"], out["cpu", "params"]
     check(np.allclose(pg, pc, rtol=1e-6, atol=0), f"(h) CLI params cuda {pg} vs cpu {pc}")
     worst = {}
@@ -2482,7 +2658,8 @@ def phase_h_cli():
             ok = np.isfinite(a)
             worst[f"{key}.{col}"] = float(np.max(np.abs(a[ok] - b[ok]))) if ok.any() else 0.0
             check(worst[f"{key}.{col}"] <= 1e-6, f"(h) CLI {key} {col}: cuda vs cpu {worst[key + '.' + col]}")
-    log(f"(h) CLI fit / predict / loocv, --device cuda (subprocesses) vs --device cpu: params max rel "
+    log(f"(h) CLI fit / predict / loocv, --device cuda (subprocesses beside (k); predict and loocv "
+        f"side by side) vs --device cpu: params max rel "
         f"err {float(np.max(np.abs(pg - pc) / np.abs(pc))):.3e}, columns max abs err {worst}, "
         f"predictions {len(out['cuda', 'pred'])} cells, finite "
         f"{float(np.isfinite(out['cuda', 'pred']['pred']).mean()):.4%}; seconds "
@@ -2971,77 +3148,98 @@ def _cli_multifield(paths, common):
     return _multifield(parser, parser.parse_args(["fit", *common, "--device", "cuda"]))
 
 
-def phase_i_cli(stages):
-    """5. ``fit --bootstrap 16`` and ``predict --joint --conditional-sims
-    10`` with ``--device cuda`` on tests/test_cli.py's staged tables (their
-    projected fit is positive definite), the prediction held against the
-    same command on the CPU in this process."""
-    import io
+def i_cli_start():
+    """tests/test_cli.py's staged tables and a prediction grid in a temporary
+    directory, and ``fit --bootstrap 16 --std-errors`` then ``predict --joint
+    --conditional-sims 10`` with ``--device cuda`` on them started in the
+    background: ``phase_i_cli`` finishes them."""
     import os
     import tempfile
 
     import pandas as pd
 
-    from cokriging_tpu_torch.__main__ import main as cli_main
     from cokriging_tpu_torch.data.grids import main_coords_array
-    from cokriging_tpu_torch.estimate.uncertainty import nll_std_errors
-    from cokriging_tpu_torch.utils.io import load_params, load_table, save_table
+    from cokriging_tpu_torch.utils.io import save_table
 
-    with tempfile.TemporaryDirectory() as tmp:
-        rng = np.random.default_rng(6)
-        paths = []
-        for k, nm in enumerate(("xco2", "sif")):
-            paths.append(os.path.join(tmp, f"{nm}.parquet"))
-            save_table(paths[-1], cli_table(nm, rng, 600 + k))
-        mc = main_coords_array()
-        grid = os.path.join(tmp, "grid.parquet")
-        save_table(grid, pd.DataFrame({"lat": mc[::3, 0] + 0.5, "lon": mc[::3, 1] + 0.5}))
-        common = ["--data", *paths, "--timestamp", CLI_TIMES[1], "--timedeltas", "0", "0"]
-        params = os.path.join(tmp, "params.npz")
-        out = {}
-        for cmd, argv in (
-            ("fit", ["fit", *common, "--max-dist", "3000", "--n-bins", "8", "--maxiter", "30",
-                     "--project-validity", "--bootstrap", "16", "--std-errors", "--out", params]),
-            ("predict", ["predict", *common, "--params", params, "--pred-grid", grid, "--joint",
-                         "--conditional-sims", "10", "--seed", "3",
-                         "--out", os.path.join(tmp, "pred_cuda.parquet")]),
-        ):
-            t0 = time.perf_counter()
-            run = subprocess.run([sys.executable, "-m", "cokriging_tpu_torch", *argv,
-                                  "--device", "cuda"], cwd=HERE, capture_output=True, text=True,
-                                 timeout=300, env={**os.environ, "PYTHONPATH": str(HERE)})
-            stages[f"cli_{cmd}"] = time.perf_counter() - t0
-            check(run.returncode == 0, f"(i) CLI {cmd} --device cuda: exit {run.returncode}: "
-                  f"{run.stderr[-2000:]}")
-            out[cmd] = run.stdout
-        boot = pd.read_csv(f"{params}.bootstrap.csv")
-        check(list(boot.columns) == ["name", "value", "bounds", "std_err", "bias", "q025", "q975"]
-              and boot.shape == (11, 7) and np.isfinite(boot["std_err"]).all(),
-              f"(i) CLI bootstrap table: {boot.columns.tolist()} {boot.shape}")
-        # --std-errors: its table against nll_std_errors here, on the card, at
-        # the fitted parameters file
-        sedf = pd.read_csv(f"{params}.std_errors.csv")
-        cli_mf = _cli_multifield(paths, common)
-        with contextlib.redirect_stderr(io.StringIO()):
-            ref = nll_std_errors(load_params(params), cli_mf)
-        se_gap = float(np.max(np.abs(sedf["std_err"].to_numpy() - ref["std_err"].to_numpy())
-                              / np.maximum(np.abs(ref["std_err"].to_numpy()), 1e-300)))
-        check(list(sedf.columns) == list(ref.columns) and sedf.shape == (11, 5)
-              and list(sedf["at_bound"]) == list(ref["at_bound"]) and se_gap <= 1e-6,
-              f"(i) CLI std errors against nll_std_errors: {sedf.columns.tolist()} {se_gap}")
-        pred = load_table(os.path.join(tmp, "pred_cuda.parquet"))
-        with np.load(os.path.join(tmp, "pred_cuda.parquet.samples.npz")) as f:
-            keys, sims = list(f.keys()), f["samples"]
-        check(keys == ["samples"] and sims.shape == (10, len(pred)) and np.isfinite(sims).all(),
-              f"(i) CLI samples: {keys} {sims.shape}")
-        with contextlib.redirect_stdout(io.StringIO()):
-            cli_main(["predict", *common, "--params", params, "--pred-grid", grid, "--joint",
-                      "--out", os.path.join(tmp, "pred_cpu.parquet"), "--device", "cpu"])
-        cpu = load_table(os.path.join(tmp, "pred_cpu.parquet"))
-        gap = float(np.max(np.abs(pred[["pred", "pred_err"]].to_numpy()
-                                  - cpu[["pred", "pred_err"]].to_numpy())))
-        check(gap <= 1e-6, f"(i) CLI conditional-sims prediction against the CPU: {gap}")
-    log(f"(i) CLI fit --bootstrap 16 / predict --joint --conditional-sims 10 --device cuda: "
+    tmp = tempfile.TemporaryDirectory()
+    BACKGROUND.append(tmp.cleanup)
+    rng = np.random.default_rng(6)
+    paths = []
+    for k, nm in enumerate(("xco2", "sif")):
+        paths.append(os.path.join(tmp.name, f"{nm}.parquet"))
+        save_table(paths[-1], cli_table(nm, rng, 600 + k))
+    mc = main_coords_array()
+    grid = os.path.join(tmp.name, "grid.parquet")
+    save_table(grid, pd.DataFrame({"lat": mc[::3, 0] + 0.5, "lon": mc[::3, 1] + 0.5}))
+    common = ["--data", *paths, "--timestamp", CLI_TIMES[1], "--timedeltas", "0", "0"]
+    params = os.path.join(tmp.name, "params.npz")
+    chain = CliChain([
+        {"fit": ["fit", *common, "--max-dist", "3000", "--n-bins", "8", "--maxiter", "30",
+                 "--project-validity", "--bootstrap", "16", "--std-errors", "--out", params,
+                 "--device", "cuda"]},
+        {"predict": ["predict", *common, "--params", params, "--pred-grid", grid, "--joint",
+                     "--conditional-sims", "10", "--seed", "3",
+                     "--out", os.path.join(tmp.name, "pred_cuda.parquet"), "--device", "cuda"]},
+    ])
+    return dict(tmp=tmp.name, paths=paths, grid=grid, common=common, params=params, chain=chain)
+
+
+def phase_i_cli(started):
+    """(i)'s CLI: ``fit --bootstrap 16`` and ``predict --joint
+    --conditional-sims 10`` with ``--device cuda`` on tests/test_cli.py's
+    staged tables (their projected fit is positive definite; started by
+    ``i_cli_start``, in subprocesses beside (k)), the prediction held
+    against the same command on the CPU in this process."""
+    import io
+    import os
+
+    import pandas as pd
+
+    from cokriging_tpu_torch.__main__ import main as cli_main
+    from cokriging_tpu_torch.estimate.uncertainty import nll_std_errors
+    from cokriging_tpu_torch.utils.io import load_params, load_table
+
+    tmp, paths, grid, common, params = (started[k] for k in ("tmp", "paths", "grid", "common",
+                                                              "params"))
+    stages = {}
+    t0 = time.perf_counter()
+    runs = started["chain"].wait()
+    stages["cli_wait"] = time.perf_counter() - t0
+    out = {}
+    for cmd in ("fit", "predict"):
+        check(cmd in runs and runs[cmd][0] == 0, f"(i) CLI {cmd} --device cuda: "
+              f"{runs[cmd][0] if cmd in runs else 'not run'}: {runs[cmd][2][-2000:] if cmd in runs else ''}")
+        out[cmd] = runs[cmd][1]
+        stages[f"cli_{cmd}"] = runs[cmd][3]
+    boot = pd.read_csv(f"{params}.bootstrap.csv")
+    check(list(boot.columns) == ["name", "value", "bounds", "std_err", "bias", "q025", "q975"]
+          and boot.shape == (11, 7) and np.isfinite(boot["std_err"]).all(),
+          f"(i) CLI bootstrap table: {boot.columns.tolist()} {boot.shape}")
+    # --std-errors: its table against nll_std_errors here, on the card, at
+    # the fitted parameters file
+    sedf = pd.read_csv(f"{params}.std_errors.csv")
+    cli_mf = _cli_multifield(paths, common)
+    with contextlib.redirect_stderr(io.StringIO()):
+        ref = nll_std_errors(load_params(params), cli_mf)
+    se_gap = float(np.max(np.abs(sedf["std_err"].to_numpy() - ref["std_err"].to_numpy())
+                          / np.maximum(np.abs(ref["std_err"].to_numpy()), 1e-300)))
+    check(list(sedf.columns) == list(ref.columns) and sedf.shape == (11, 5)
+          and list(sedf["at_bound"]) == list(ref["at_bound"]) and se_gap <= 1e-6,
+          f"(i) CLI std errors against nll_std_errors: {sedf.columns.tolist()} {se_gap}")
+    pred = load_table(os.path.join(tmp, "pred_cuda.parquet"))
+    with np.load(os.path.join(tmp, "pred_cuda.parquet.samples.npz")) as f:
+        keys, sims = list(f.keys()), f["samples"]
+    check(keys == ["samples"] and sims.shape == (10, len(pred)) and np.isfinite(sims).all(),
+          f"(i) CLI samples: {keys} {sims.shape}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli_main(["predict", *common, "--params", params, "--pred-grid", grid, "--joint",
+                  "--out", os.path.join(tmp, "pred_cpu.parquet"), "--device", "cpu"])
+    cpu = load_table(os.path.join(tmp, "pred_cpu.parquet"))
+    gap = float(np.max(np.abs(pred[["pred", "pred_err"]].to_numpy()
+                              - cpu[["pred", "pred_err"]].to_numpy())))
+    check(gap <= 1e-6, f"(i) CLI conditional-sims prediction against the CPU: {gap}")
+    log(f"(i) CLI fit --bootstrap 16 / predict --joint --conditional-sims 10 --device cuda (beside "
+        f"(k), waited {stages['cli_wait']:.1f} s after it): "
         f"{stages['cli_fit']:.1f} / {stages['cli_predict']:.1f} s per process; bootstrap table "
         f"{boot.shape}, std_err {np.round(boot['std_err'].to_numpy(), 4).tolist()}; samples "
         f"{sims.shape}; prediction against the CPU {gap:.3e}; std errors against "
@@ -3062,7 +3260,6 @@ def phase_i():
     params, mf = phase_i_bootstrap(mod, spec, samples, stages, launches, rows)
     phase_i_conditional(mod, mf, stages, launches, rows)
     torch.cuda.empty_cache()
-    phase_i_cli(stages)
     log(f"(i) stages (s) {json.dumps({k: round(v, 4) for k, v in stages.items()})}")
     log(f"(i) launches per stage {json.dumps(launches)}")
     log(f"(i) seconds {time.perf_counter() - t0:.1f}")
@@ -3489,6 +3686,7 @@ def j_demo_start(stages):
                                           "measurement_var") if getattr(f, k) is not None})
         for f in mf.fields])
     pool = multiprocessing.get_context("spawn").Pool(1)
+    BACKGROUND.append(pool.terminate)
     return mf, pool, pool.apply_async(j_demo_cpu_information, (on_cpu,))
 
 
@@ -3590,17 +3788,19 @@ def j_eda(stages, launches):
         log(f"(j) regional_stats by {grouper} ({len(df)} rows): {card.shape}, card against CPU {gap:.3e}")
 
 
-def phase_j():
+def phase_j(started):
     """Parameter uncertainty: the observed information of (f)'s ML fit in
-    float64 and float32, the demo's, the space-time statistics; returns its
-    rows of the kernels line."""
+    float64 and float32, the demo's (its CPU reference started ahead,
+    ``started`` = (stages, ``j_demo_start``'s three)), the space-time
+    statistics; returns its rows of the kernels line."""
     import torch
 
     from cokriging_tpu_torch.estimate.uncertainty import observed_information
 
     stages, launches, rows = {}, {}, []
     t0 = time.perf_counter()
-    demo_mf, pool, pending = j_demo_start(stages)
+    demo_stages, demo_mf, pool, pending = started
+    stages.update(demo_stages)
     try:
         t1 = time.perf_counter()
         mf, params, fit = j_problem()
@@ -4378,8 +4578,193 @@ def phase_l():
     log(f"(l) seconds {time.perf_counter() - t0:.1f}")
     return rows
 
+# --- phase (m): the million-point workflow -----------------------------------
 
-def main(phases="abcdefghijkl"):
+M_STAGES = ("simulate", "fit_warm", "fit_full", "predict")
+
+
+@contextlib.contextmanager
+def m_armed_captures(names):
+    """Spies on ``cuda_ops.<name>`` for each of ``names`` that keep the
+    argument tuple of the first call made after the spy is armed
+    (``armed[name] = tag``; the call is kept as ``kept[(name, tag)]`` and
+    the spy disarms). Yields (armed, kept)."""
+    from cokriging_tpu_torch.kernels import cuda_ops as K
+
+    armed, kept, origs = {n: None for n in names}, {}, {n: getattr(K, n) for n in names}
+
+    def spy_of(name):
+        def spy(*args, **kwargs):
+            if armed[name] is not None:
+                kept[(name, armed[name])] = args + tuple(kwargs.values())
+                armed[name] = None
+            return origs[name](*args, **kwargs)
+        return spy
+
+    for n in names:
+        setattr(K, n, spy_of(n))
+    try:
+        yield armed, kept
+    finally:
+        for n in names:
+            setattr(K, n, origs[n])
+
+
+def phase_m():
+    """The JAX package's million-point workflow on the port at its TPU run's
+    size (``cokriging_tpu_torch.experiments.million_point_workflow.main("cuda")``,
+    float32, N = 1,000,000 on the 1024^2 spectral cofield of the JAX
+    manifest's own draws, m = 20, 16,384 held-out cells) with the launch
+    counts set to 0 just before and read just after, its stage walls, peak
+    memory and the manifest comparison; then its three kernels against their
+    plain versions at the calls it made (the 2048^2 lag grid's blocks, the
+    full fit's first 4,096-window chunk forward and gradient, the first
+    direct-local batch). Returns its rows of the kernels line."""
+    import os
+    import tempfile
+
+    import torch
+
+    from cokriging_tpu_torch.experiments import Stages
+    from cokriging_tpu_torch.experiments import million_point_workflow as W
+    from cokriging_tpu_torch.kernels import cuda_ops as K
+
+    t0 = time.perf_counter()
+    for var in W.ENV.values():
+        check(var not in os.environ, f"(m) {var} is set: phase (m) runs at the script's sizes")
+
+    class ArmingStages(Stages):
+        """The workflow's stages; each stage's end arms the captures of the
+        next stage's first kernel calls."""
+
+        def __call__(self, name):
+            super().__call__(name)
+            if name == "fit_warm":
+                armed["matern_corr_pairs"] = armed["matern_corr_pairs_grad"] = "vecchia"
+            elif name == "fit_full":
+                armed["matern_corr_pairs"] = "local"
+
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["COKRIGING_RESULTS_DIR"] = tmp
+        try:
+            with captured("matern_correlation_block") as lag_calls, \
+                    m_armed_captures(("matern_corr_pairs", "matern_corr_pairs_grad")) as (armed, kept):
+                stages = ArmingStages(torch.device("cuda"))
+                torch.cuda.synchronize()
+                K.reset_launch_counts()
+                try:
+                    record = W.main("cuda", stages=stages)
+                except AssertionError as e:
+                    check(False, f"(m) the workflow's gate failed: {e}")
+                torch.cuda.synchronize()
+                launches = K.launch_counts()
+        finally:
+            os.environ.pop("COKRIGING_RESULTS_DIR")
+        written = json.loads((Path(tmp) / "torch_million_point_workflow.json").read_text())
+    check(written["fitted_flat"] == [round(v, 6) for v in record["fitted_flat"]],
+          "(m) the manifest written differs from the run's record")
+    log(f"(m) workflow: {time.perf_counter() - t0:.1f} s; launches {launches}; manifest keys "
+        f"{sorted(written)}")
+    for k in ("matern_correlation", "matern_corr_pairs", "matern_corr_pairs_grad"):
+        check(launches[k] > 0, f"(m) no {k} launch in the workflow: {launches}")
+    want = W.JAX_MANIFEST
+    check(record["n_total"] == want["n_total"] and record["grid"] == want["grid"]
+          and record["m"] == want["m"] and record["dtype"] == want["dtype"]
+          and record["predict_cells"] == want["predict_cells"],
+          f"(m) not the manifest's size: {[record[k] for k in ('n_total', 'grid', 'm', 'dtype')]}")
+    ref_path = HERE / "results" / "million_point_workflow.json"
+    if ref_path.exists():
+        ref = json.loads(ref_path.read_text())
+        check(all(ref[k] == want[k] for k in ("fitted_flat", "mspe", "coverage_95"))
+              and all(ref[f][k] == want[f][k] for f in ("warm_fit", "full_fit") for k in want[f]),
+              "(m) JAX_MANIFEST differs from results/million_point_workflow.json")
+
+    # stage walls, the scaffold of each fit apart from its evaluations
+    sec, per = record["stage_s"], record["launches"]
+    chunks = {}
+    for fit in ("warm_fit", "full_fit"):
+        info, stage = record[fit], "fit_" + fit.split("_")[0]
+        sc, evals = info["scaffold"], info["n_obj_evals"]
+        n_chunks = math.ceil(info["n"] / VECCHIA_CHUNK)
+        chunks[fit] = n_chunks
+        scaffold = sc["order_s"] + sc["neighbors_s"] + sc["windows_s"]
+        fwd, grd = (per[stage].get(k, 0) for k in ("matern_corr_pairs", "matern_corr_pairs_grad"))
+        log(f"(m) {fit} (N = {info['n']}): {sec[stage]:.3f} s, of it the host scaffold "
+            f"{scaffold:.3f} s (ordering {sc['order_s']:.3f}, kd neighbours {sc['neighbors_s']:.3f}, "
+            f"windows {sc['windows_s']:.3f}; windows on the card {sc['window_bytes'] / 2**20:.1f} MiB) "
+            f"and the evaluations {sec[stage] - scaffold:.3f} s: {evals} evaluations, "
+            f"{(sec[stage] - scaffold) / evals:.4f} s each; iterations {info['n_iter']}, success "
+            f"{info['success']}, nll {info['nll']}; pairs launches per evaluation {fwd / evals} "
+            f"forward, {grd / evals} gradient ({n_chunks} chunks); peak {record['peak_mib'][stage]:.0f} MiB")
+        check(fwd == grd == n_chunks * evals,
+              f"(m) {fit}: {fwd} / {grd} pairs launches for {evals} evaluations of {n_chunks} chunks")
+    log(f"(m) stage walls (s): simulate {sec['simulate']:.3f}, warm fit {sec['fit_warm']:.3f}, full fit "
+        f"{sec['fit_full']:.3f}, predict {sec['predict']:.3f}; total {record['wall_total_s']:.3f}; "
+        f"peak MiB per stage {json.dumps({k: round(v) for k, v in record['peak_mib'].items()})}; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; "
+        f"launches per stage {json.dumps(per)}")
+    log(f"(m) prediction: {record['predict_cells']} cells, finite {record['predict_finite_frac']:.6f}, "
+        f"mean neighbourhood {record['mean_neighbourhood']:.2f}, MSPE {record['mspe']}, coverage "
+        f"{record['coverage_95']}; fitted {np.array2string(np.asarray(record['fitted_flat']), precision=5)}")
+    log("(m) against the JAX package's TPU manifest (results/million_point_workflow.json):")
+    W.compare_manifest(record)
+
+    # the three kernels against their plain versions at the workflow's calls
+    rows = []
+    fwd_call, grad_call = kept.get(("matern_corr_pairs", "vecchia")), kept.get(("matern_corr_pairs_grad", "vecchia"))
+    local_call = kept.get(("matern_corr_pairs", "local"))
+    check(fwd_call is not None and grad_call is not None and local_call is not None,
+          f"(m) calls not captured: {sorted(kept)}")
+    n_win = fwd_call[3].shape[0]
+    check(n_win == VECCHIA_CHUNK, f"(m) the full fit's first chunk holds {n_win} windows")
+    nus, lss = fwd_call[0].tolist(), fwd_call[1].tolist()
+    f_err, f_ms, f_plain = pairs_forward_check([fwd_call], 5e-6, "(m) one Vecchia chunk")
+    g_rel, g_err, g_ms, g_plain = pairs_grad_check([grad_call], 1e-5, "(m) one Vecchia chunk", 3)
+    l_err, l_ms, l_plain = pairs_forward_check([local_call], 5e-6, "(m) one direct-local batch")
+    chunk = [(fwd_call[3], fwd_call[2])]
+    fb, gb = bound_of([pairs_bound(chunk, nus, lss)]), bound_of([pairs_bound(chunk, nus, lss, True)])
+    lb = bound_of([pairs_bound([(local_call[3], local_call[2])], local_call[0].tolist(),
+                               local_call[1].tolist())])
+    shape = f"one chunk {tuple(fwd_call[3].shape)} of {chunks['full_fit']} per evaluation"
+    vec_f = per["fit_warm"].get("matern_corr_pairs", 0) + per["fit_full"].get("matern_corr_pairs", 0)
+    vec_g = (per["fit_warm"].get("matern_corr_pairs_grad", 0)
+             + per["fit_full"].get("matern_corr_pairs_grad", 0))
+    common = dict(route="cuda", source="cokriging_tpu_torch/kernels/csrc/matern_pairs.cu",
+                  library_ms=None)
+    rows.append(dict(name="matern_corr_pairs_float32_m_vecchia", replaces="cokriging_tpu/kernels/pallas_ops.py:631",
+                     launches=vec_f, ms=f_ms, plain_ms=f_plain, bound_ms=fb[0], bound_by=fb[1],
+                     max_abs_err=f_err, max_err=f_err, path="(m) Vecchia fits at 2 x 30,000 and 1,000,000",
+                     shape=shape, **common))
+    rows.append(dict(name="matern_corr_pairs_grad_float32_m_vecchia",
+                     replaces="cokriging_tpu/kernels/pallas_ops.py:767", launches=vec_g, ms=g_ms,
+                     plain_ms=g_plain, bound_ms=gb[0], bound_by=gb[1], max_abs_err=g_err, max_err=g_rel,
+                     path="(m) Vecchia fits at 2 x 30,000 and 1,000,000", shape=shape, **common))
+    rows.append(dict(name="matern_corr_pairs_float32_m_local", replaces="cokriging_tpu/kernels/pallas_ops.py:631",
+                     launches=per["predict"].get("matern_corr_pairs", 0), ms=l_ms, plain_ms=l_plain,
+                     bound_ms=lb[0], bound_by=lb[1], max_abs_err=l_err, max_err=l_err,
+                     path="(m) direct local prediction from 1,000,000 data",
+                     shape=f"one batch {tuple(local_call[3].shape)}", **common))
+    log(f"(m) pairs at one Vecchia chunk {tuple(fwd_call[3].shape)} (nu {np.round(nus, 4).tolist()}, ls "
+        f"{np.round(lss, 3).tolist()}): forward max abs err {f_err:.3e} (bar 5e-6), {f_ms:.3f} ms, plain "
+        f"{f_plain:.1f} ms, bound {fb[0]:.4f} ms ({fb[1]}); gradient |kernel - plain| / sum|terms| "
+        f"{g_rel:.3e} (bar 1e-5), {g_ms:.3f} ms, plain {g_plain:.1f} ms, bound {gb[0]:.4f} ms ({gb[1]})")
+    log(f"(m) pairs at one direct-local batch {tuple(local_call[3].shape)}: max abs err {l_err:.3e}, "
+        f"{l_ms:.3f} ms, plain {l_plain:.1f} ms, bound {lb[0]:.4f} ms ({lb[1]})")
+    check(len(lag_calls) >= 3 and all(tuple(a[2].shape) == (2048, 2048) for a in lag_calls[-3:]),
+          f"(m) lag-grid blocks {[tuple(a[2].shape) for a in lag_calls]}")
+    rows.append(matern_row("matern_correlation_float64_m_spectral", per["simulate"].get("matern_correlation", 0),
+                           "(m) spectral cofield lag-grid blocks", f"{len(lag_calls)} x 2048 x 2048 full",
+                           matern_calls_check(lag_calls, 1e-12, "(m) Matern at the spectral lag grid", reps=3)))
+    log(f"(m) matern at the {len(lag_calls)} lag-grid blocks 2048^2 f64: max abs err "
+        f"{rows[-1]['max_abs_err']:.3e} (bar 1e-12), {rows[-1]['ms']:.3f} ms, plain {rows[-1]['plain_ms']:.1f} ms, "
+        f"bound {rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']})")
+    del lag_calls, kept
+    torch.cuda.empty_cache()
+    log(f"(m) seconds {time.perf_counter() - t0:.1f}")
+    return rows
+
+
+def main(phases="abcdefghijklm"):
     try:
         import torch
     except ImportError:
@@ -4422,6 +4807,7 @@ def main(phases="abcdefghijkl"):
         import cokriging_tpu_torch.data.readers  # noqa: F401
         import cokriging_tpu_torch.entry  # noqa: F401
         import cokriging_tpu_torch.experiments.simulation_experiment  # noqa: F401
+        import cokriging_tpu_torch.experiments.million_point_workflow  # noqa: F401
         import cokriging_tpu_torch.utils.export  # noqa: F401
         from cokriging_tpu_torch.__main__ import _parser  # noqa: F401
         from cokriging_tpu_torch import bench as B
@@ -4443,19 +4829,25 @@ def main(phases="abcdefghijkl"):
         kres = {}
         rows, bigs, large_vario = [], [], []
         if "c" in phases:
+            small_pool, small_cpu = c_small_cpu_start()
+            c_seconds = {}
             for dtype in (np.float32, np.float64):
                 c1, v1, c2, v2 = build_inputs(N_PER_PROC, dtype)
-                phase_c_variogram(c1, v1, c2, v2, dtype, kres)
-                phase_c_variogram_stress(dtype, kres)
-                phase_c_matern(c1, c2, dtype, kres)
-                phase_c_block_grad(c1, c2, dtype, kres)
-                phase_c_pairs(dtype, kres)
-                phase_c_partition(dtype, kres)
-                phase_c_hess_edges(dtype, kres)
+                for fn, args in ((phase_c_variogram, (c1, v1, c2, v2)), (phase_c_variogram_stress, ()),
+                                 (phase_c_matern, (c1, c2)), (phase_c_block_grad, (c1, c2)),
+                                 (phase_c_pairs, ()), (phase_c_partition, ()), (phase_c_hess_edges, ())):
+                    t_c = time.perf_counter()
+                    fn(*args, dtype, kres)
+                    c_seconds[f"{fn.__name__[8:]} {np.dtype(dtype).name}"] = round(time.perf_counter() - t_c, 2)
+            log(f"(c) seconds per check: {json.dumps(c_seconds)}")
+            t_c = time.perf_counter()
+            cpu = small_cpu.get(timeout=900)
+            small_pool.terminate()
+            log(f"(c) the small paths' CPU halves (a worker beside the checks above): waited "
+                f"{time.perf_counter() - t_c:.1f} s; elapsed since start {time.perf_counter() - t_start:.1f} s")
             for small in (phase_c_small_path, phase_c_small_nll, phase_c_small_large_n):
+                small(cpu)
                 log(f"(c) elapsed since start {time.perf_counter() - t_start:.1f} s")
-                small()
-            log(f"(c) elapsed since start {time.perf_counter() - t_start:.1f} s")
 
         # (d) the main path at bench size: float32 is the port's ``bench``
         # (its warm-up, its timed month and its NLL axis), float64 the same
@@ -4529,28 +4921,46 @@ def main(phases="abcdefghijkl"):
             rows += phase_h(dtype, kres)
             log(f"(h) elapsed since start {time.perf_counter() - t_start:.1f} s")
         if "h" in phases:
-            phase_h_cli()
-            log(f"(h) seconds {time.perf_counter() - t_h:.1f}; elapsed since start "
-                f"{time.perf_counter() - t_start:.1f} s")
-        # (i) simulation and the parametric bootstrap
+            log(f"(h) seconds {time.perf_counter() - t_h:.1f} (its CLI runs beside (k)); elapsed since "
+                f"start {time.perf_counter() - t_start:.1f} s")
+        # (i) simulation and the parametric bootstrap; (j)'s CPU reference
+        # starts ahead, beside it
+        if "j" in phases:
+            j_stages = {}
+            j_started = (j_stages, *j_demo_start(j_stages))
         if "i" in phases:
             rows += phase_i()
             log(f"(i) elapsed since start {time.perf_counter() - t_start:.1f} s")
         # (j) parameter uncertainty
         if "j" in phases:
-            rows += phase_j()
+            rows += phase_j(j_started)
             log(f"(j) elapsed since start {time.perf_counter() - t_start:.1f} s")
-        # (k) the sharded paths
+        # (k) the sharded paths, with (h)'s and (i)'s CLI subprocesses beside
+        # them (their GPU memory is small where (k)'s is), finished after
+        cli_h = h_cli_start() if "h" in phases else None
+        cli_i = i_cli_start() if "i" in phases else None
         if "k" in phases:
             rows += phase_k()
             log(f"(k) elapsed since start {time.perf_counter() - t_start:.1f} s")
+        if cli_h is not None:
+            phase_h_cli(cli_h)
+        if cli_i is not None:
+            phase_i_cli(cli_i)
+        log(f"(h), (i) CLI done, elapsed since start {time.perf_counter() - t_start:.1f} s")
         # (l) the serving export, the simulation experiment, the entry points
         if "l" in phases:
             rows += phase_l()
             log(f"(l) elapsed since start {time.perf_counter() - t_start:.1f} s")
+        # (m) the million-point workflow
+        if "m" in phases:
+            rows += phase_m()
+            log(f"(m) elapsed since start {time.perf_counter() - t_start:.1f} s")
     except SmokeFailure as e:
         print(f"FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        for cleanup in reversed(BACKGROUND):
+            cleanup()
     for r in rows:
         if r["name"] in REDESIGNED:
             src, kernel, recorded = REDESIGNED[r["name"]]
@@ -4565,7 +4975,7 @@ def main(phases="abcdefghijkl"):
                 f"{recorded if recorded is not None else 'none'} ms]{extra}, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}), launches {r['launches']}; ptxas {r['ptxas']}")
     print(json.dumps({"kernels": rows}))
-    if phases != "abcdefghijkl":
+    if phases != "abcdefghijklm":
         print(f"partial run of phases {phases}: no result")
         return 0
     print(smi)

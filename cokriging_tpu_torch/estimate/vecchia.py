@@ -33,6 +33,7 @@ Every evaluation runs in the windows' dtype.
 """
 
 import math
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -363,6 +364,10 @@ class VecchiaLikelihood:
             20,000, kd beyond).
         kd_exact_prefix: rows below this index take the exact search on
             the kd path.
+
+    ``scaffold`` holds the build's host seconds (``order_s``,
+    ``neighbors_s``, ``windows_s``: the gather and the copy to the device)
+    and the windows' device bytes (``window_bytes``).
     """
 
     def __init__(self, coords_list, values_list, m: int = 30, geodesic: bool = True,
@@ -384,12 +389,14 @@ class VecchiaLikelihood:
         if neighbor_method == "auto":
             neighbor_method = "device" if n <= AUTO_THRESHOLD else "kd"
         self.ordering, self.neighbor_method = ordering, neighbor_method
+        t0 = time.perf_counter()
         if ordering == "coarse":
             perm = coarse_to_fine_order(coords, geodesic)
         elif ordering == "maxmin":
             perm = maxmin_order(coords, geodesic, device=dev)
         else:
             raise ValueError(f"unknown ordering {ordering!r}")
+        t1 = time.perf_counter()
         self.perm = perm
         coords, values, procs = coords[perm], values[perm], procs[perm]
         if mvar is not None:
@@ -402,7 +409,11 @@ class VecchiaLikelihood:
             nbr, nbr_mask = nearest_previous_neighbors(coords, m, geodesic, device=dev)
         else:
             raise ValueError(f"unknown neighbor_method {neighbor_method!r}")
+        t2 = time.perf_counter()
         self._win = _term_windows(coords, values, procs, mvar, nbr, nbr_mask, dev)
+        self.scaffold = {"order_s": t1 - t0, "neighbors_s": t2 - t1,
+                         "windows_s": time.perf_counter() - t2,
+                         "window_bytes": sum(a.numel() * a.element_size() for a in self._win)}
 
     def nll(self, flat, spec: ParamSpec):
         return vecchia_nll(flat, *self._win, spec, self.geodesic, self.chunk)
@@ -483,7 +494,9 @@ def fit_vecchia(mf, init: Optional[MaternParams] = None, m: int = 30,
     downstream. ``mesh``: optional ``parallel.Mesh``; the objective and its
     gradient then evaluate term-parallel over it
     (``parallel.mesh.sharded_windows_nll``, the windows placed on the
-    shards once), with the unsharded evaluation's chunks.
+    shards once), with the unsharded evaluation's chunks. The info's
+    ``scaffold`` is the likelihood's (``VecchiaLikelihood.scaffold``): the
+    host seconds of the ordering, the neighbor search and the windows.
     """
     from scipy.optimize import minimize
 
@@ -545,4 +558,5 @@ def fit_vecchia(mf, init: Optional[MaternParams] = None, m: int = 30,
         "m": lik.m,
         "n": lik.n,
         "nll_trace": trace,
+        "scaffold": lik.scaffold,
     }

@@ -31,10 +31,11 @@ apply).
     python -m cokriging_tpu_torch sim [--device cpu]
 """
 
-import time
 
 import numpy as np
 import torch
+
+from cokriging_tpu_torch.experiments import Stages
 
 # truth parameters (research/simulation_experiment.ipynb cell 3)
 TRUTH = [1.0, 1.0, 1.5, 1.5, 1.5, 0.2, 0.2, 0.2, 0.0, 0.0, -0.6]
@@ -47,24 +48,6 @@ RHO_TOL = 0.25  # the Vecchia fit's |rho - truth| bound
 #: the script's sizes
 SIZES = dict(nx=51, sample_size=100, seed=42, sample_seed=7, n_bins=12, wls_maxiter=500,
              nll_maxiter=150, vecchia_m=15, vecchia_maxiter=40)
-
-
-class _Stages:
-    """Seconds per stage on the host clock, each after a synchronize of
-    the card (when the work runs there)."""
-
-    def __init__(self, device):
-        self.device = device
-        self.seconds = {}
-        self._t = time.perf_counter()
-
-    def __call__(self, name):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.seconds[name] = now - self._t
-        print(f"[{now - self._t:6.1f}s] {name}", flush=True)
-        self._t = now
 
 
 def simulate(nx=51, sample_size=100, seed=42, sample_seed=7, device=None):
@@ -111,7 +94,7 @@ def run(rf, samples, device=None, n_bins=12, wls_maxiter=500, nll_maxiter=150, v
     from cokriging_tpu_torch.utils.results import save_figure
 
     dev = resolve_device(device)
-    stages = stages or _Stages(dev)
+    stages = stages or Stages(dev)
     figures = importlib.util.find_spec("matplotlib") is not None
     if figures:
         import matplotlib
@@ -215,7 +198,7 @@ def main(device=None, **sizes):
         raise TypeError(f"unknown sizes {sorted(unknown)}; the sizes are {sorted(SIZES)}")
     s = {**SIZES, **sizes}
     dev = resolve_device(device)
-    stages = _Stages(dev)
+    stages = Stages(dev)
     rf, samples = simulate(s["nx"], s["sample_size"], s["seed"], s["sample_seed"], device=dev)
     stages("simulate + sample")
     stats = run(rf, samples, dev, s["n_bins"], s["wls_maxiter"], s["nll_maxiter"],

@@ -4,7 +4,8 @@ the grids' frame wrangling, postprocessing, table and NetCDF I/O, the
 granule readers, the CLI, the uncertainty frames, the regional statistics)
 imports pandas and h5py only inside the functions that take or return
 frames or files; the device mesh (``parallel/``), the serving export, the
-entry points, the simulation experiment's module and the benchmark
+entry points, the experiments' modules (the simulation experiment, the
+million-point workflow, the JAX package's draws) and the benchmark
 (``bench.py``) import neither, nor
 matplotlib (``plot/`` loads it, and nothing on the array path imports
 ``plot/``)."""
@@ -57,6 +58,8 @@ import cokriging_tpu_torch.data.readers
 import cokriging_tpu_torch.utils.export
 import cokriging_tpu_torch.entry
 import cokriging_tpu_torch.experiments.simulation_experiment
+import cokriging_tpu_torch.experiments.million_point_workflow
+import cokriging_tpu_torch.experiments.reference_draws
 import cokriging_tpu_torch.bench
 from cokriging_tpu_torch.__main__ import _parser
 _parser()
