@@ -246,13 +246,20 @@ def _lbfgs_direction(g, S, Y, rho, head, n_filled):
     return -q
 
 
+#: rounds of host reads made by ``lockstep`` since the process started (a
+#: batched fit's iterations are the difference across it)
+LOCKSTEP_ROUNDS = 0
+
+
 def lockstep(steps):
     """Drive generators that each yield the tensor they must read from
     their device and take the read back as a numpy array: every live
     generator runs up to its read, then the round's reads are made in order
     and handed back, so generators on different devices keep their devices
     busy at the same time (the shards of a device mesh). Returns each
-    generator's return value, in order."""
+    generator's return value, in order. Each round adds one to
+    ``LOCKSTEP_ROUNDS``."""
+    global LOCKSTEP_ROUNDS
     out = [None] * len(steps)
     reads = {}
 
@@ -265,6 +272,7 @@ def lockstep(steps):
     for k in range(len(steps)):
         advance(k, None)
     while reads:
+        LOCKSTEP_ROUNDS += 1
         host = [(k, t.cpu().numpy()) for k, t in reads.items()]
         reads.clear()
         for k, arr in host:

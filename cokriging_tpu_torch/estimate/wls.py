@@ -76,15 +76,22 @@ def _cs_terms(params: MaternParams, h):
     ``params`` may carry a leading batch shape (``MaternParams.from_flat``
     of a (..., n_params) stack); ``h`` is (..., n_h) then."""
     p = params.n_procs
+    cross = [(i, j) for i in range(p) for j in range(i + 1, p)]
+    if not cross:
+        return []
     sig = params.sigma[..., None]
-
-    def corr(i, j):
-        return matern_correlation(params.nu[..., i, j, None], params.len_scale[..., i, j, None], h)
-
+    # every correlation the pairs read, in one evaluation: the cross pairs,
+    # then the marginals (K_nu is elementwise, so each entry is the one a
+    # call of its own gives)
+    which = cross + [(i, i) for i in range(p)]
+    nu, ls = (torch.stack([t[..., i, j] for i, j in which], -1)[..., None]
+              for t in (params.nu, params.len_scale))
+    corr = matern_correlation(nu, ls, h[..., None, :]).unbind(-2)
+    marg = corr[len(cross):]
     return [
-        (torch.abs(params.rho[..., i, j, None] * sig[..., i, :] * sig[..., j, :] * corr(i, j)),
-         torch.sqrt(sig[..., i, :] ** 2 * corr(i, i) * (sig[..., j, :] ** 2 * corr(j, j))))
-        for i in range(p) for j in range(i + 1, p)
+        (torch.abs(params.rho[..., i, j, None] * sig[..., i, :] * sig[..., j, :] * corr[k]),
+         torch.sqrt(sig[..., i, :] ** 2 * marg[i] * (sig[..., j, :] ** 2 * marg[j])))
+        for k, (i, j) in enumerate(cross)
     ]
 
 

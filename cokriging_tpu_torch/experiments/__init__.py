@@ -12,7 +12,8 @@ class Stages:
     card (when the work runs there), the kernels' launch counts
     (``cuda_ops.LAUNCHES``; none on the CPU) and the peak device memory in
     MiB (on the card). ``stages(name)`` closes the stage that ran since the
-    last call (or since the object was made) and prints its seconds."""
+    last call (or since the object was made) and prints its seconds;
+    ``stages.skip()`` drops what ran since then (work no stage owns)."""
 
     def __init__(self, device):
         self.device = device
@@ -31,6 +32,9 @@ class Stages:
             torch.cuda.reset_peak_memory_stats(self.device)
         self._counts = cuda_ops.launch_counts()
         self._t = time.perf_counter()
+
+    def skip(self):
+        self._open()
 
     def __call__(self, name):
         from cokriging_tpu_torch.kernels import cuda_ops

@@ -7,6 +7,7 @@ the predictors' ``postprocess=True`` default on fields built from frames."""
 
 import dataclasses
 import importlib
+import importlib.util
 import inspect
 from pathlib import Path
 
@@ -139,3 +140,28 @@ def test_local_predictor_defaults_to_the_data_scale_of_the_jax_package():
         np.testing.assert_allclose(got[col], want[col], rtol=1e-10, err_msg=col)
     raw = lp(0, cells, max_dist=800.0, postprocess=False)
     assert isinstance(raw, LocalPrediction) and abs(float(np.mean(raw.pred))) < 10.0
+
+
+#: the JAX repo's example workflows with a counterpart in the port's
+#: ``experiments`` (module, function): their shared defaults must agree too
+WORKFLOWS = [("modelling_comparison", "synthesize_conus_months"),
+             ("modelling_comparison", "run_comparison")]
+
+
+@pytest.mark.parametrize("module,name", WORKFLOWS, ids=[f"{m}.{n}" for m, n in WORKFLOWS])
+def test_workflow_defaults_match_the_jax_examples(module, name):
+    """The port's workflow functions take the JAX script's defaults, and
+    every parameter of the JAX function is the port's too (the port adds
+    ``device`` and, to ``run_comparison``, ``stages``)."""
+    spec = importlib.util.spec_from_file_location(f"_jax_example_{module}",
+                                                  ROOT / "examples" / f"{module}.py")
+    jax_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jax_mod)
+    port = importlib.import_module(f"cokriging_tpu_torch.experiments.{module}")
+    jp = inspect.signature(getattr(jax_mod, name)).parameters
+    pp = inspect.signature(getattr(port, name)).parameters
+    assert list(pp)[:len(jp)] == list(jp)
+    assert set(pp) - set(jp) <= {"device", "stages"}
+    differ = {k: (p.default, pp[k].default) for k, p in jp.items()
+              if not _same(p.default, pp[k].default)}
+    assert not differ, f"{module}.{name}: (JAX, port) defaults {differ}"

@@ -5,7 +5,8 @@ granule readers, the CLI, the uncertainty frames, the regional statistics)
 imports pandas and h5py only inside the functions that take or return
 frames or files; the device mesh (``parallel/``), the serving export, the
 entry points, the experiments' modules (the simulation experiment, the
-million-point workflow, the JAX package's draws) and the benchmark
+million-point workflow, the kriging-vs-cokriging comparison, the 71-month
+record, the JAX package's draws) and the benchmark
 (``bench.py``) import neither, nor
 matplotlib (``plot/`` loads it, and nothing on the array path imports
 ``plot/``)."""
@@ -59,6 +60,8 @@ import cokriging_tpu_torch.utils.export
 import cokriging_tpu_torch.entry
 import cokriging_tpu_torch.experiments.simulation_experiment
 import cokriging_tpu_torch.experiments.million_point_workflow
+import cokriging_tpu_torch.experiments.modelling_comparison
+import cokriging_tpu_torch.experiments.full_record
 import cokriging_tpu_torch.experiments.reference_draws
 import cokriging_tpu_torch.bench
 from cokriging_tpu_torch.__main__ import _parser
@@ -67,7 +70,8 @@ from cokriging_tpu_torch.data.grids import prediction_coords
 prediction_coords()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "cokriging_tpu", "pandas",
-                                    "matplotlib", "optax", "h5py"))
+                                    "matplotlib", "optax", "h5py", "examples",
+                                    "modelling_comparison", "full_record"))
 print(",".join(bad))
 """
 
@@ -87,4 +91,5 @@ def test_package_sources_never_import_jax_or_the_jax_package():
             words = line.split()
             if words[:1] in (["import"], ["from"]):
                 mod = words[1].split(".")[0]
-                assert mod not in ("jax", "jaxlib", "cokriging_tpu", "optax"), (path, line)
+                assert mod not in ("jax", "jaxlib", "cokriging_tpu", "optax", "examples",
+                                   "modelling_comparison", "full_record"), (path, line)
