@@ -303,15 +303,64 @@ Phases, in order; any failure exits nonzero without the final ok line:
     the workflow's first calls, phase (c)'s float32 bars) and the Matern
     forward (at its first 16 calls, atol 5e-6) are held against their plain
     versions at the workflow's own calls: their rows of the kernels line.
+(p) the JAX repo's Vecchia scaling curve (examples/vecchia_scaling.py) at its
+    accelerator sizes, float32: ``cokriging_tpu_torch.experiments.
+    vecchia_scaling.main("cuda")`` with the launch counts set to 0 just
+    before and read just after: the script's CONUS draws at N = 100,000 /
+    250,000 / 500,000 / 1,000,000, per N the host scaffold (coarse order, kd
+    neighbours, windows; each step's seconds), a warm and three timed value +
+    gradient evaluations (m = 20, chunks of 4,096 windows: one forward and
+    one gradient launch per chunk and evaluation, checked), finite values and
+    gradients, the log-log slopes of every time against N, the run beside the
+    JAX package's TPU manifest, and the float32 value and gradient at N =
+    100,000 against a float64 evaluation of the same windows
+    (``P_VALUE_BAR`` per term, ``P_GRAD_BAR`` of the largest entry). Its rows:
+    both pairs kernels at the first chunk of the timed evaluations at N =
+    100,000, held against their plain versions there (5e-6; 1e-5 of the sum
+    of |terms|).
+(q) the JAX repo's trivariate demo (examples/trivariate_demo.py) at its
+    sizes with its ``TRIVARIATE_DEMO_LOCAL=1`` branch, float64:
+    ``cokriging_tpu_torch.experiments.trivariate_demo.main("cuda")`` with the
+    launch counts set to 0 just before and read just after: the 41 x 41
+    cofield of three processes on the JAX simulator's draws, six
+    (cross-)variograms per draw (one launch per pass over all six, three
+    draws pooled), the 21-parameter scipy WLS fit, the 3 x 3-block joint
+    predictor against the p = 1 baseline, the local predictor at radius 0.5,
+    then ``trivariate_demo.recovery("cuda")``, tests/test_trivariate.py's
+    recovery fit on its own 31 x 31 data;
+    every gate (cokriging's MSPE at most 1.02 times kriging's, the joint MSPE
+    below 0.3, the local predictions finite and within 0.05 of the joint
+    MSPE, the recovery fit's rho signs, rho within 0.25, sigma within 0.3,
+    diagonal length scales within 0.1), its stages and launches per stage.
+    Its rows: the variogram passes at the first draw's six variograms and the
+    Matern forward at every block the demo launched, against their plain
+    versions (rtol / atol 1e-12).
+(r) the JAX repo's exact-NLL scaling curve (examples/nll_scaling.py) at its
+    accelerator sizes, float32: ``cokriging_tpu_torch.experiments.
+    nll_scaling.main("cuda")`` with the launch counts set to 0 just before and
+    read just after: the script's point on the unit square at 2 x 2,500 /
+    5,000 / 12,500, a warm and five timed value + gradient evaluations per
+    size (three Matern and three block-gradient launches each, checked), ms
+    per evaluation and evaluations per second, positive definiteness, and the
+    float32 value and gradient at 2 x 2,500 against float64 on the same data
+    (``R_VALUE_RTOL``, ``R_GRAD_BAR``). Its rows: both kernels at the first
+    evaluation's three 2,500^2 blocks against their plain versions there
+    (5e-6; 1e-5 of the sum of |terms|).
 
 Against the time limit, host-bound work runs beside other phases: (h)'s and
 (i)'s CLI subprocesses beside (k) (checked after it; their GPU memory is
 small, where (h)'s and (i)'s own plain checks fill the card), (j)'s CPU
 reference beside (i), (c)'s small paths' CPU halves (``c_small_cpu``) in a
-worker beside (c)'s kernel checks, and (n)'s and (o)'s workflows in a spawned
-worker process on the card (``no_worker``) beside (l) and (m); their kernel
-checks run in the worker once (m) is done and the card is free, and their
-output is printed after them with the wait for them.
+worker beside (c)'s kernel checks, and (n)'s, (o)'s and (q)'s workflows in two
+spawned worker processes on the card (``no_worker``: (n) and (o) in one, (q)
+in the other, ``WORKER_GROUPS``) beside (l) and (m); their
+kernel checks run in the workers, one worker at a time, once (m), (p) and
+(r) are done and the card is free, and their output is printed after them
+with the wait for them. The two timing curves, (p) and (r), run after (m) and
+after the workers' workflows have ended (each wait is logged), with the card
+to themselves; their
+kernels are timed with a head start (``CURVE_HEAD_START_MS``), so the times are
+the card's, the times as launched logged beside them.
 Cuts of depth: (d)'s float64 Adam fit runs 200 of
 bench.py's 600 steps (its per-step time is logged); (f) holds its kernels
 against their plain versions on 1,024 x 12,500 slabs of its blocks, the
@@ -330,7 +379,7 @@ nu = 1.5 only (the ragged block keeps all four nu).
 ``python3 chip_smoke.py abcg`` runs only the phases named (a and b always)
 and prints no result line; ``python3 chip_smoke.py k`` runs (a), (b) and (k), ``python3
 chip_smoke.py l`` (a), (b) and (l), ``python3 chip_smoke.py m`` (a), (b) and (m), ``python3
-chip_smoke.py n`` / ``o`` / ``no`` (a), (b) and the workflows, in this process. The kernels line's rows of the kernels
+chip_smoke.py n`` / ``o`` / ``no`` / ``pqr`` (a), (b) and the workflows, in this process. The kernels line's rows of the kernels
 redesigned last (the variogram passes, the block forward and the pairs
 gradient) carry their ptxas registers, static shared memory and spills from
 this run's build; a log line beside each gives the
@@ -1829,16 +1878,18 @@ def captured(name, limit=None, module=None):
         setattr(K, name, orig)
 
 
-def pairs_forward_check(calls, atol, what):
+def pairs_forward_check(calls, atol, what, head_start_ms=0.0):
     """Kernel against plain version over the path's own forward launches
     (``calls``: their argument tuples, the path's table included where it
-    passed one): (max abs error, kernel ms, plain ms)."""
+    passed one): (max abs error, kernel ms, plain ms). ``head_start_ms``:
+    ``cuda_time_ms``'s, for the kernel's time."""
     import torch
 
     from cokriging_tpu_torch.kernels import cuda_ops as K
 
     kept = {}
-    ms = cuda_time_ms(keep(kept, "kernel", lambda: [K.matern_corr_pairs(*a) for a in calls]), 3)
+    ms = cuda_time_ms(keep(kept, "kernel", lambda: [K.matern_corr_pairs(*a) for a in calls]), 3,
+                      head_start_ms=head_start_ms)
     plain_ms = cuda_time_ms(keep(kept, "plain", lambda: [K.matern_corr_pairs_plain(*a[:4]) for a in calls]),
                             1, warm=False)
     err = max(float((k - p).abs().max()) for k, p in zip(kept["kernel"], kept["plain"]))
@@ -1849,12 +1900,13 @@ def pairs_forward_check(calls, atol, what):
     return err, ms, plain_ms
 
 
-def pairs_grad_check(calls, tol, what, timed_reps=0):
+def pairs_grad_check(calls, tol, what, timed_reps=0, head_start_ms=0.0):
     """Gradient kernel against plain version over ``calls`` (argument tuples
     with their cotangents, then the path's table where it passed one): every
     per-pair sum within tol * sum |terms|, the
     same sums on a second launch. Returns (max rel, max abs, kernel ms, plain
-    ms); the times only when ``timed_reps``."""
+    ms); the times only when ``timed_reps``, the kernel's with
+    ``cuda_time_ms``'s ``head_start_ms``."""
     import torch
 
     from cokriging_tpu_torch.kernels import cuda_ops as K
@@ -1864,7 +1916,7 @@ def pairs_grad_check(calls, tol, what, timed_reps=0):
     run_p = keep(kept, "plain", lambda: [K.matern_corr_pairs_grad_plain(*a[:5]) for a in calls])
     ms = plain_ms = None
     if timed_reps:
-        ms = cuda_time_ms(run_k, timed_reps)
+        ms = cuda_time_ms(run_k, timed_reps, head_start_ms=head_start_ms)
         plain_ms = cuda_time_ms(run_p, 1, warm=False)
     else:
         run_k()
@@ -2774,11 +2826,12 @@ def i_stage(name, stages, launches, key, fn, kernels=()):
     return out
 
 
-def matern_calls_check(calls, atol, what, reps=2):
+def matern_calls_check(calls, atol, what, reps=2, head_start_ms=0.0):
     """The Matern kernel against its plain version at a path's own launches
     (``calls``: the argument tuples ``captured`` kept), one at a time, every
     output finite; ``what`` names them in a failure. Returns (max abs error,
-    kernel ms, plain ms, bound ms, bound by)."""
+    kernel ms, plain ms, bound ms, bound by); the kernel timed with
+    ``cuda_time_ms``'s ``head_start_ms``."""
     import torch
 
     from cokriging_tpu_torch.kernels import cuda_ops as K
@@ -2791,7 +2844,7 @@ def matern_calls_check(calls, atol, what, reps=2):
         kept = {}
         sym, table = sym_of(a), (a[-1] if len(a) > 3 else None)
         ms += cuda_time_ms(keep(kept, "kernel", lambda: K.matern_correlation_block(
-            *a[:3], symmetric=sym, table=table)), reps)
+            *a[:3], symmetric=sym, table=table)), reps, head_start_ms=head_start_ms)
         plain_ms += cuda_time_ms(keep(kept, "plain", lambda: K.matern_correlation_block_plain(
             *a[:3], symmetric=sym)), 1, warm=False)
         err = max(err, float((kept["kernel"] - kept["plain"]).abs().max()))
@@ -4832,8 +4885,8 @@ def phase_m():
 # --- phases (n) and (o): the JAX repo's kriging-vs-cokriging comparison and
 # its 71-month record (examples/modelling_comparison.py, examples/full_record.py)
 
-NO_VARIO_RTOL = 1e-5  # phase (c)'s float32 bars: the workflows run in float32
-NO_MATERN_ATOL = 5e-6
+VARIO_RTOL = {"float32": 1e-5, "float64": 1e-12}  # phase (c)'s bars
+MATERN_ATOL = {"float32": 5e-6, "float64": 1e-12}
 NO_CAPTURES = 16  # Matern calls kept per workflow (the synthesizer's 3, then the predictors')
 HOST_PROBE_OPS = 20_000
 
@@ -4856,12 +4909,12 @@ def host_load():
 
 
 @contextlib.contextmanager
-def workflow_run(tag, manifest):
+def workflow_run(tag, manifest, matern_limit=NO_CAPTURES):
     """A workflow's run on the card with the launch counts set to 0 just
     before and read just after, its manifest written to a temporary
     directory, and its first calls of the three kernels it launches kept
     (the variogram passes as ``estimate.empirical`` calls them, the Matern
-    forward's first ``NO_CAPTURES``). Yields a dict that holds, after the
+    forward's first ``matern_limit``). Yields a dict that holds, after the
     block, the kernels' calls, the launches, the written manifest and the
     stages."""
     import os
@@ -4879,7 +4932,7 @@ def workflow_run(tag, manifest):
         try:
             with captured("variogram_minmax_pairs", 2, module=E) as mm, \
                     captured("variogram_bin_pairs", 2, module=E) as bp, \
-                    captured("matern_correlation_block", NO_CAPTURES) as mat:
+                    captured("matern_correlation_block", matern_limit) as mat:
                 torch.cuda.synchronize()
                 K.reset_launch_counts()
                 out["stages"].skip()
@@ -4897,25 +4950,26 @@ def workflow_run(tag, manifest):
         check(out["launches"][k] > 0, f"{tag} no {k} launch in the workflow: {out['launches']}")
 
 
-def workflow_kernel_rows(tag, run, vario_rows):
+def workflow_kernel_rows(tag, run, vario_rows, name="float32",
+                         matern_what="the synthesizer's and the local predictors' covariance blocks"):
     """The workflow's three kernels against their plain versions at its own
     calls: the variogram passes at each kept call named in ``vario_rows``
-    ({index: (row suffix, what)}) at phase (c)'s float32 bars, the Matern
-    forward at every kept call (atol 5e-6). Returns rows of the kernels
-    line, each with the workflow's launch counts."""
+    ({index: (row suffix, what)}) at phase (c)'s bars for the workflow's
+    dtype ``name`` (rtol 1e-5 / 1e-12), the Matern forward at every kept
+    call (atol 5e-6 / 1e-12). Returns rows of the kernels line, each with
+    the workflow's launch counts."""
     launches, rows = run["launches"], []
-    name = "float32"
     for k, (suffix, what) in vario_rows.items():
         rows += captured_vario_rows(run["minmax"][k], run["bins"][k], name, suffix,
-                                    f"{tag} {what}", launches, NO_VARIO_RTOL)
+                                    f"{tag} {what}", launches, VARIO_RTOL[name])
     calls = run["matern"]
-    check(calls and all(a[2].dtype.itemsize == 4 for a in calls),
+    check(calls and all(str(a[2].dtype) == f"torch.{name}" for a in calls),
           f"{tag} Matern calls {[(tuple(a[2].shape), a[2].dtype) for a in calls]}")
     tail = f"_{tag[1]}"
     rows.append(matern_row(f"matern_correlation_{name}{tail}", launches["matern_correlation"],
-                           f"{tag} the synthesizer's and the local predictors' covariance blocks",
+                           f"{tag} {matern_what}",
                            f"{len(calls)} blocks up to {max(tuple(a[2].shape) for a in calls)}",
-                           matern_calls_check(calls, NO_MATERN_ATOL, f"{tag} Matern", reps=5)))
+                           matern_calls_check(calls, MATERN_ATOL[name], f"{tag} Matern", reps=5)))
     for r in rows:
         log(f"{tag} {r['name']} at {r['shape']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.2f} ms, "
             f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), launches {r['launches']}, max abs "
@@ -5015,11 +5069,387 @@ def phase_o():
     return lambda: workflow_kernel_rows("(o)", run, {0: ("o_month", "the first month's variograms")})
 
 
-def no_worker(phases, gpu_free, out):
-    """Phases (n) and (o), those of ``phases``, in a spawned worker process
-    beside (l) and (m): both workflows, then, once ``gpu_free`` is set (the
-    card has no other work), their kernels against the plain versions, so
-    the kernels' times are the card's alone. Puts {"rows", "log", "failure"
+# --- phases (p), (q) and (r): the JAX repo's Vecchia scaling curve, its
+# trivariate demo and its exact-NLL scaling curve (examples/vecchia_scaling.py,
+# examples/trivariate_demo.py, examples/nll_scaling.py)
+
+# float32 against float64 on the same inputs; the bars keep 20-80x over the
+# gaps of the first card run (value 1.8e-7 per term and gradient 1.2e-7 at
+# N = 100,000; value 1.4e-6 and gradient 5.3e-6 at 2 x 2,500)
+P_REF_N = 100_000  # the size whose float32 evaluation is held against float64 on its windows
+P_VALUE_BAR = 1e-5  # |value f32 - value f64| <= P_VALUE_BAR * N (per term)
+P_GRAD_BAR = 1e-5  # |gradient f32 - gradient f64| <= P_GRAD_BAR * max |gradient f64|
+R_REF_N = 2_500  # per process: the size at which (r) holds float32 against float64
+R_VALUE_RTOL = 1e-5
+R_GRAD_BAR = 1e-4  # of max |gradient f64|
+R_BLOCK_GRAD_TOL = 1e-5  # phase (c)'s float32 bar: of each sum's sum of |terms|
+# (p)'s and (r)'s kernel times: the card first sleeps this long, so the host
+# has queued every timed launch before the card reaches them (each wrapper's
+# host work is of the order of its kernel's time at these shapes) and the time
+# is the card's; the time as launched is logged beside it
+CURVE_HEAD_START_MS = 20.0
+
+
+def f32_against_f64(tag, v32, g32, v64, g64, value_bar, grad_bar, value_scale):
+    """Log and check a float32 value and gradient against float64 ones on
+    the same inputs: |v32 - v64| <= value_bar * value_scale and every
+    |g32 - g64| <= grad_bar * max |g64|. Returns (value gap, gradient gap
+    relative to max |g64|)."""
+    g32, g64 = np.asarray(g32, np.float64), np.asarray(g64, np.float64)
+    dv = abs(float(v32) - float(v64))
+    dg = float(np.abs(g32 - g64).max() / np.abs(g64).max())
+    log(f"{tag} float32 against float64 on the same inputs: value {float(v32)!r} / {float(v64)!r}, "
+        f"|diff| {dv:.4g} ({dv / value_scale:.3e} of {value_scale:g}; bar {value_bar}); gradient "
+        f"max |diff| / max |g64| {dg:.3e} (bar {grad_bar}); g32 {np.array2string(g32, precision=6)}, "
+        f"g64 {np.array2string(g64, precision=6)}")
+    check(np.isfinite(g32).all() and dv <= value_bar * value_scale and dg <= grad_bar,
+          f"{tag} float32 against float64: value gap {dv}, gradient gap {dg}")
+    return dv, dg
+
+
+def phase_p():
+    """The JAX repo's Vecchia scaling curve on the port at the script's
+    accelerator sizes (``vecchia_scaling.main("cuda")``: N = 100,000 /
+    250,000 / 500,000 / 1,000,000, m = 20, float32, three timed evaluations
+    after a warm one) with the launch counts set to 0 just before and read
+    just after: per N the host scaffold split into ordering, kd neighbours
+    and windows, the evaluation seconds and terms per second, one forward
+    and one gradient launch per chunk and evaluation; the log-log slopes;
+    the run beside the JAX package's TPU manifest; the float32 value and
+    gradient at N = 100,000 against a float64 evaluation of the same
+    windows. Returns its rows of the kernels line: both pairs kernels at the
+    first chunk of the timed evaluations at N = 100,000, held against their
+    plain versions there."""
+    import os
+    import tempfile
+
+    import torch
+
+    from cokriging_tpu_torch.cov.params import ParamSpec
+    from cokriging_tpu_torch.estimate.vecchia import vecchia_nll_value_and_grad
+    from cokriging_tpu_torch.experiments import Stages
+    from cokriging_tpu_torch.experiments import vecchia_scaling as VS
+    from cokriging_tpu_torch.kernels import cuda_ops as K
+
+    t0 = time.perf_counter()
+    for var in VS.ENV.values():
+        check(var not in os.environ, f"(p) {var} is set: phase (p) runs at the script's sizes")
+    log(f"(p) start: {host_load()}")
+    ref, orig_evaluate = {}, VS.evaluate
+
+    def evaluate(lik, flat, spec):  # keeps the reference size's windows
+        if lik.n == P_REF_N and not ref:
+            ref.update(win=lik._win, chunk=lik.chunk)
+        return orig_evaluate(lik, flat, spec)
+
+    class ArmingStages(Stages):
+        """The curve's stages; the end of the reference size's warm
+        evaluation arms the captures of the timed evaluations' first
+        chunk."""
+
+        def __call__(self, name):
+            super().__call__(name)
+            if name == f"warm_{P_REF_N}":
+                armed["matern_corr_pairs"] = armed["matern_corr_pairs_grad"] = "p"
+
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["COKRIGING_RESULTS_DIR"] = tmp
+        VS.evaluate = evaluate
+        try:
+            with m_armed_captures(("matern_corr_pairs", "matern_corr_pairs_grad")) as (armed, kept):
+                stages = ArmingStages(torch.device("cuda"))
+                torch.cuda.synchronize()
+                K.reset_launch_counts()
+                stages.skip()
+                try:
+                    record = VS.main("cuda", stages=stages)
+                except AssertionError as e:
+                    check(False, f"(p) the script's assertion failed: {e}")
+                torch.cuda.synchronize()
+                launches = K.launch_counts()
+        finally:
+            VS.evaluate = orig_evaluate
+            os.environ.pop("COKRIGING_RESULTS_DIR")
+        written = json.loads((Path(tmp) / "torch_vecchia_scaling.json").read_text())
+    check([r["n_total"] for r in written["rows"]] == [r["n_total"] for r in record["rows"]],
+          "(p) the manifest written differs from the run's record")
+    check(record["sizes"] == VS.CARD_SIZES and record["dtype"] == "float32",
+          f"(p) not the script's accelerator run: {record['sizes']} {record['dtype']}")
+    log(f"(p) curve: {time.perf_counter() - t0:.1f} s; launches {launches}")
+    per, reps = record["launches"], VS.CARD_SIZES["reps"]
+    for row in record["rows"]:
+        n = row["n_total"]
+        n_chunks = math.ceil(n / VECCHIA_CHUNK)
+        got = {s: tuple(per[f"{s}_{n}"].get(k, 0) for k in ("matern_corr_pairs", "matern_corr_pairs_grad"))
+               for s in ("scaffold", "warm", "eval")}
+        check(got == {"scaffold": (0, 0), "warm": (n_chunks,) * 2, "eval": (n_chunks * reps,) * 2},
+              f"(p) N = {n}: pairs launches {got} for {n_chunks} chunks and {reps} timed evaluations")
+        check((row["ordering"], row["neighbor_method"]) == ("coarse", "kd"),
+              f"(p) N = {n}: scaffold {row['ordering']} / {row['neighbor_method']}")
+        check(np.isfinite(row["value"]) and row["grad_finite"], f"(p) N = {n}: value {row['value']}")
+        log(f"(p) N = {n}: scaffold {row['build_s']:.3f} s (ordering {row['order_s']:.3f}, kd neighbours "
+            f"{row['neighbors_s']:.3f}, windows {row['windows_s']:.3f}; {row['window_bytes'] / 2**20:.1f} MiB "
+            f"on the card); evaluation {row['eval_s']:.4f} s (reps {np.round(row['eval_reps_s'], 4).tolist()}, "
+            f"warm {record['stage_s'][f'warm_{n}']:.4f} s), {row['terms_per_s']:.0f} terms/s, {n_chunks} "
+            f"chunks; value {row['value']!r}; peak {record['peak_mib'].get(f'eval_{n}', math.nan):.0f} MiB")
+    log(f"(p) log-log slopes against N: {json.dumps(record['slopes'])}")
+    log("(p) beside the JAX package's TPU manifest (results/vecchia_scaling.json; its times, not targets):")
+    VS.compare_manifest(record)
+
+    # float32 against float64 on the reference size's windows, at FLAT
+    check(bool(ref), f"(p) the windows of N = {P_REF_N} were not kept")
+    spec = ParamSpec(n_procs=2)
+    win64 = tuple(a.double() if a is not None and a.is_floating_point() else a for a in ref["win"])
+    flat = torch.tensor(VS.FLAT, dtype=torch.float32, device="cuda")
+    v32, g32 = vecchia_nll_value_and_grad(flat.float(), ref["win"], spec, True, ref["chunk"])
+    v64, g64 = vecchia_nll_value_and_grad(flat.double(), win64, spec, True, ref["chunk"])
+    p_gap = f32_against_f64(f"(p) N = {P_REF_N}", v32.item(), g32.cpu().numpy(), v64.item(),
+                            g64.cpu().numpy(), P_VALUE_BAR, P_GRAD_BAR, P_REF_N)
+    del win64, ref
+
+    # both pairs kernels at the timed evaluations' first chunk at N = 100,000
+    fwd_call, grad_call = kept.get(("matern_corr_pairs", "p")), kept.get(("matern_corr_pairs_grad", "p"))
+    check(fwd_call is not None and grad_call is not None, f"(p) calls not captured: {sorted(kept)}")
+    check(fwd_call[3].shape[0] == VECCHIA_CHUNK, f"(p) the first chunk holds {fwd_call[3].shape[0]} windows")
+    nus, lss = fwd_call[0].tolist(), fwd_call[1].tolist()
+    what = f"(p) one Vecchia chunk {tuple(fwd_call[3].shape)} at N = {P_REF_N}"
+    f_err, f_ms, f_plain = pairs_forward_check([fwd_call], 5e-6, what, CURVE_HEAD_START_MS)
+    g_rel, g_err, g_ms, g_plain = pairs_grad_check([grad_call], 1e-5, what, 3, CURVE_HEAD_START_MS)
+    as_launched = (cuda_time_ms(lambda: K.matern_corr_pairs(*fwd_call), 3),
+                   cuda_time_ms(lambda: K.matern_corr_pairs_grad(*grad_call), 3))
+    chunk = [(fwd_call[3], fwd_call[2])]
+    fb, gb = bound_of([pairs_bound(chunk, nus, lss)]), bound_of([pairs_bound(chunk, nus, lss, True)])
+    shape = f"one chunk {tuple(fwd_call[3].shape)}; N = 100,000-1,000,000: 25-245 chunks per evaluation"
+    common = dict(route="cuda", source="cokriging_tpu_torch/kernels/csrc/matern_pairs.cu", library_ms=None,
+                  path="(p) the Vecchia scaling curve", shape=shape)
+    rows = [dict(name="matern_corr_pairs_float32_p_vecchia", replaces="cokriging_tpu/kernels/pallas_ops.py:631",
+                 launches=launches["matern_corr_pairs"], ms=f_ms, plain_ms=f_plain, bound_ms=fb[0],
+                 bound_by=fb[1], max_abs_err=f_err, max_err=f_err, **common),
+            dict(name="matern_corr_pairs_grad_float32_p_vecchia",
+                 replaces="cokriging_tpu/kernels/pallas_ops.py:767", launches=launches["matern_corr_pairs_grad"],
+                 ms=g_ms, plain_ms=g_plain, bound_ms=gb[0], bound_by=gb[1], max_abs_err=g_err,
+                 max_err=g_rel, f32_vs_f64=p_gap, **common)]
+    log(f"{what} (nu {np.round(nus, 4).tolist()}, ls {np.round(lss, 3).tolist()}): forward max abs err "
+        f"{f_err:.3e} (bar 5e-6), {f_ms:.4f} ms, plain {f_plain:.1f} ms, bound {fb[0]:.4f} ms ({fb[1]}); "
+        f"gradient |kernel - plain| / sum|terms| {g_rel:.3e} (bar 1e-5), {g_ms:.4f} ms, plain {g_plain:.1f} "
+        f"ms, bound {gb[0]:.4f} ms ({gb[1]}); launches {launches['matern_corr_pairs']} / "
+        f"{launches['matern_corr_pairs_grad']}; as launched (no head start) {as_launched[0]:.4f} / "
+        f"{as_launched[1]:.4f} ms")
+    del kept
+    torch.cuda.empty_cache()
+    log(f"(p) seconds {time.perf_counter() - t0:.1f}; {host_load()}")
+    return rows
+
+
+def phase_q():
+    """The JAX repo's trivariate demo on the port at the script's sizes
+    (``trivariate_demo.main("cuda")`` with the script's
+    ``TRIVARIATE_DEMO_LOCAL=1``: the 41 x 41 cofield of three processes,
+    three pooled draws of 280 samples, six variograms per draw, the moment
+    initializer and the 21-parameter scipy WLS fit, the 3 x 3-block joint
+    predictor and the p = 1 baseline, the local predictor at radius 0.5;
+    then ``trivariate_demo.recovery("cuda")``, tests/test_trivariate.py's
+    recovery fit on its 31 x 31 data; float64)
+    with the launch counts set to 0 just before and read just after: every
+    gate of the demo and of tests/test_trivariate.py, the launches per stage,
+    its stages and the host's load. Returns a thunk that holds its kernels
+    against their plain versions at its own calls (the six variograms of the
+    first draw, every Matern block) and returns its rows of the kernels
+    line."""
+    import os
+
+    from cokriging_tpu_torch.experiments import trivariate_demo as T
+
+    t0 = time.perf_counter()
+    check("TRIVARIATE_DEMO_LOCAL" not in os.environ, "(q) TRIVARIATE_DEMO_LOCAL is set already")
+    log(f"(q) start: {host_load()}")
+    os.environ["TRIVARIATE_DEMO_LOCAL"] = "1"  # the script's knob: the local branch runs
+    try:
+        with workflow_run("(q)", "torch_trivariate_demo", matern_limit=None) as run:
+            record = T.main("cuda", stages=run["stages"])
+            rec = T.recovery("cuda", stages=run["stages"])
+    finally:
+        os.environ.pop("TRIVARIATE_DEMO_LOCAL")
+    check(run["written"]["mspe_tri"] == round(record["mspe_tri"], 6),
+          "(q) the manifest written differs from the run's record")
+    check(record["sizes"] == {**T.CARD_SIZES, "local": 1} and record["dtype"] == "float64",
+          f"(q) not the script's run with its local branch: {record['sizes']} {record['dtype']}")
+    gates = {**record["gates"], **{f"recovery: {k}": v for k, v in rec["gates"].items()}}
+    log(f"(q) gates {json.dumps(gates)}")
+    check(len(gates) == 8 and all(gates.values()), f"(q) gates {gates}")
+    log(f"(q) demo: MSPE trivariate {record['mspe_tri']:.6f}, univariate {record['mspe_uni']:.6f}, mean "
+        f"pred-err ratio {record['err_ratio']:.5f}, local-vs-joint MSD {record['local_vs_joint_msd']:.3e}, "
+        f"local MSPE {record['mspe_local']:.6f}, mean neighbourhood {record['mean_neighbourhood']:.1f} at "
+        f"{record['n_pred']} cells; fitted rho {np.round(record['rho'], 4).tolist()} (truth {list(T.TRUE_RHO)}), "
+        f"sigma {np.round(record['sigma'], 4).tolist()}, diagonal l {np.round(record['len_scale_diag'], 4).tolist()}"
+        f", WLS cost {record['wls_cost']:.4f}; against tests/test_trivariate.py's bars (recorded, not held: "
+        f"the JAX package's fit of this draw misses them too) {json.dumps(record['demo_fit_against_test_bars'])}")
+    log(f"(q) recovery fit on tests/test_trivariate.py's data: rho {np.round(rec['rho'], 4).tolist()}, sigma "
+        f"{np.round(rec['sigma'], 4).tolist()}, diagonal l {np.round(rec['len_scale_diag'], 4).tolist()}, WLS "
+        f"cost {rec['wls_cost']:.4f}")
+    stages = run["stages"]
+    stage_lines("(q)", stages)
+    per = stages.launches
+    vario = {s: (per[s].get("variogram_minmax"), per[s].get("variogram_bin")) for s in ("variograms", "recovery_fit")}
+    check(vario == {"variograms": (3, 3), "recovery_fit": (4, 4)},
+          f"(q) variogram launches {vario}: one per pass and draw over all six variograms")
+    check(per["simulate"].get("matern_correlation") == 6,
+          f"(q) the cofield's launches {per['simulate']}: one per block of the 3 x 3 upper triangle")
+    sides = [len(run["minmax"][0][0]), len(run["bins"][0][0])]
+    check(sides == [6, 6], f"(q) the first variogram launches hold {sides} variograms")
+    log(f"(q) seconds {time.perf_counter() - t0:.1f}; {host_load()}")
+    return lambda: workflow_kernel_rows(
+        "(q)", run, {0: ("q_demo", "the six variograms of the first draw")}, name="float64",
+        matern_what="the cofield's, the predictors' and the recovery draws' 3 x 3-block covariances")
+
+
+def block_grad_calls_check(calls, tol, what, reps=3, head_start_ms=0.0):
+    """``matern_block_grad`` against its plain version at a path's own
+    launches (``calls``: the argument tuples ``captured`` kept: scale,
+    nugget, nu, ls, h, ct, symmetric, table), every one of the four sums
+    within ``tol`` of its sum of |terms| and the same on a second launch.
+    Returns (max relative error, max abs error, kernel ms, plain ms, bound
+    ms, bound by); the kernel timed with ``cuda_time_ms``'s
+    ``head_start_ms``."""
+    import torch
+
+    from cokriging_tpu_torch.kernels import cuda_ops as K
+
+    kept = {}
+    ms = cuda_time_ms(keep(kept, "kernel", lambda: [K.matern_block_grad(*a[:7], table=a[7]) for a in calls]),
+                      reps, head_start_ms=head_start_ms)
+    plain_ms = cuda_time_ms(keep(kept, "plain", lambda: [K.matern_block_grad_plain(*a[:7]) for a in calls]),
+                            1, warm=False)
+    rel = err = 0.0
+    for a, got, ref in zip(calls, kept["kernel"], kept["plain"]):
+        mag = K.matern_block_grad_plain(*a[:7], absolute=True)
+        diff = (got - ref).abs()
+        check(bool(torch.isfinite(got).all()) and bool((diff <= tol * mag).all()),
+              f"{what}: {got.tolist()} vs plain {ref.tolist()}, |terms| {mag.tolist()}")
+        check(torch.equal(got, K.matern_block_grad(*a[:7], table=a[7])), f"{what}: sums differ run to run")
+        rel = max(rel, float((diff / mag.clamp_min(1e-300)).max()))
+        err = max(err, float(diff.max()))
+    b = bound_of([matern_bound(a[4], float(torch.as_tensor(a[2]).detach()),
+                               float(torch.as_tensor(a[3]).detach()), a[6], grad=True) for a in calls])
+    return rel, err, ms, plain_ms, b[0], b[1]
+
+
+def phase_r():
+    """The JAX repo's exact-NLL scaling curve on the port at the script's
+    accelerator sizes (``nll_scaling.main("cuda")``: 2 x 2,500 / 5,000 /
+    12,500 on the unit square at the script's point, float32, five timed
+    value + gradient evaluations after a warm one) with the launch counts
+    set to 0 just before and read just after: ms per evaluation and
+    evaluations per second per size, positive definiteness, three forward
+    and three block-gradient launches per evaluation; the float32 value and
+    gradient at 2 x 2,500 against float64 on the same data. Returns its rows
+    of the kernels line: both kernels at the first evaluation's three
+    2,500^2 blocks, held against their plain versions there."""
+    import os
+    import tempfile
+
+    import torch
+
+    from cokriging_tpu_torch.cov.params import ParamSpec
+    from cokriging_tpu_torch.experiments import Stages
+    from cokriging_tpu_torch.experiments import nll_scaling as NS
+    from cokriging_tpu_torch.kernels import cuda_ops as K
+
+    t0 = time.perf_counter()
+    log(f"(r) start: {host_load()}")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["COKRIGING_RESULTS_DIR"] = tmp
+        try:
+            with captured("matern_correlation_block", 3) as fwd_calls, \
+                    captured("matern_block_grad", 3) as grad_calls:
+                stages = Stages(torch.device("cuda"))
+                torch.cuda.synchronize()
+                K.reset_launch_counts()
+                stages.skip()
+                record = NS.main("cuda", stages=stages)
+                torch.cuda.synchronize()
+                launches = K.launch_counts()
+        finally:
+            os.environ.pop("COKRIGING_RESULTS_DIR")
+        written = json.loads((Path(tmp) / "torch_nll_scaling.json").read_text())
+    check([r["n_per"] for r in written["rows"]] == [r["n_per"] for r in record["rows"]],
+          "(r) the manifest written differs from the run's record")
+    check(record["sizes"] == NS.CARD_SIZES and record["dtype"] == "float32",
+          f"(r) not the script's accelerator run: {record['sizes']} {record['dtype']}")
+    per, reps = record["launches"], NS.CARD_SIZES["reps"]
+    for row in record["rows"]:
+        n = row["n_per"]
+        got = {s: tuple(per[f"{s}_{n}"].get(k, 0) for k in ("matern_correlation", "matern_block_grad"))
+               for s in ("distances", "warm", "evals")}
+        check(got == {"distances": (0, 0), "warm": (3, 3), "evals": (3 * reps, 3 * reps)},
+              f"(r) 2 x {n}: launches {got} for {reps} timed evaluations of three blocks")
+        check(not row["positive_definite"] or (np.isfinite(row["nll"]) and row["grad_finite"]),
+              f"(r) 2 x {n}: nll {row['nll']}, gradient finite {row['grad_finite']}")
+        log(f"(r) n = 2 x {n}: {row['ms_per_eval']:.3f} ms per value + gradient ({row['evals_per_s']:.4f} "
+            f"evals/s; reps {np.round(np.asarray(row['reps_s']) * 1e3, 3).tolist()} ms, warm "
+            f"{record['stage_s'][f'warm_{n}'] * 1e3:.1f} ms), nll {row['nll']!r}"
+            + ("" if row["positive_definite"] else " (not positive definite in float32: the penalty)")
+            + f", distances {record['stage_s'][f'distances_{n}'] * 1e3:.1f} ms, peak "
+              f"{record['peak_mib'].get(f'evals_{n}', math.nan):.0f} MiB")
+    row = record["rows"][0]
+    check(row["n_per"] == R_REF_N and row["positive_definite"], f"(r) 2 x {R_REF_N}: {row['n_per']}")
+    coords, z = NS.draw(np.random.default_rng(NS.SEED), R_REF_N)
+    flat = torch.tensor(NS.FLAT, dtype=torch.float32)
+    flat[0] += 1e-6 * reps  # the last timed point, as the curve's float32 arithmetic made it
+    dists, z64 = NS.problem(coords, z, torch.float64, torch.device("cuda"))
+    v64, g64 = NS.evaluate(flat.double().cuda(), dists, z64, ParamSpec(2, **NS.BOUNDS))
+    gap = f32_against_f64(f"(r) 2 x {R_REF_N}", row["nll"], row["grad"], v64.item(), g64.cpu().numpy(),
+                          R_VALUE_RTOL, R_GRAD_BAR, abs(v64.item()))
+    del dists, z64
+
+    check(len(fwd_calls) == 3 and len(grad_calls) == 3
+          and all(tuple(a[2].shape) == (R_REF_N, R_REF_N) for a in fwd_calls)
+          and all(tuple(a[4].shape) == (R_REF_N, R_REF_N) for a in grad_calls),
+          f"(r) captured {[tuple(a[2].shape) for a in fwd_calls]} / {[tuple(a[4].shape) for a in grad_calls]}")
+    shape = f"three {R_REF_N}^2 blocks (sym, full, sym) of the first evaluation"
+    rows = [matern_row("matern_correlation_float32_r", launches["matern_correlation"],
+                       "(r) the exact-NLL scaling curve, 2 x 2,500 to 2 x 12,500", shape,
+                       matern_calls_check(fwd_calls, 5e-6, "(r) Matern at 2 x 2,500", reps=5,
+                                          head_start_ms=CURVE_HEAD_START_MS))]
+    rel, err, ms, plain_ms, bound_ms, bound_by = block_grad_calls_check(
+        grad_calls, R_BLOCK_GRAD_TOL, "(r) block gradient at 2 x 2,500", head_start_ms=CURVE_HEAD_START_MS)
+    as_launched = (cuda_time_ms(lambda: [K.matern_correlation_block(  # as matern_calls_check reads them
+        *a[:3], symmetric=a[3] if len(a) > 4 else False, table=a[-1] if len(a) > 3 else None)
+        for a in fwd_calls], 5),
+                   cuda_time_ms(lambda: [K.matern_block_grad(*a[:7], table=a[7]) for a in grad_calls], 3))
+    rows.append(dict(name="matern_block_grad_float32_r", route="cuda",
+                     source="cokriging_tpu_torch/kernels/csrc/matern_grad.cu",
+                     replaces="cokriging_tpu/kernels/pallas_ops.py:485", launches=launches["matern_block_grad"],
+                     ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                     max_abs_err=err, max_err=rel, path="(r) the exact-NLL scaling curve, 2 x 2,500 to 2 x 12,500",
+                     shape=shape, f32_vs_f64=gap))
+    for r, t in zip(rows, as_launched):
+        log(f"(r) {r['name']} at {r['shape']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.2f} ms, bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']}), launches {r['launches']}, max err {r['max_err']:.3e}; "
+            f"as launched (no head start) {t:.4f} ms")
+    del fwd_calls, grad_calls
+    torch.cuda.empty_cache()
+    log(f"(r) seconds {time.perf_counter() - t0:.1f}; {host_load()}")
+    return rows
+
+
+#: the launch-bound workflows that run in workers beside (l) and (m): (n)
+#: and (o) in one, (q), as long as the two, in the other, so that the workflows
+#: end with (m) and (p) and (r) do not wait for them
+WORKER_PHASES = (("n", phase_n), ("o", phase_o), ("q", phase_q))
+WORKER_GROUPS = ("no", "q")
+
+
+def _tag(phases):
+    return ", ".join(f"({p})" for p in phases)
+
+
+def no_worker(phases, workflows_done, gpu_free, out):
+    """The phases of ``phases`` among (n), (o) and (q) in a spawned worker
+    process beside (l) and (m): the workflows, then ``workflows_done`` is
+    set (also where one failed), then, once ``gpu_free`` is set (the card
+    has no other work), their kernels against the plain versions, so the
+    kernels' times are the card's alone. Puts {"rows", "log", "failure"
     (None or the message), "seconds", "workflows_s"} on the queue ``out``,
     the output kept apart from this script's."""
     import io
@@ -5033,9 +5463,12 @@ def no_worker(phases, gpu_free, out):
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         try:
-            thunks = [fn() for ph, fn in (("n", phase_n), ("o", phase_o)) if ph in phases]
+            try:
+                thunks = [fn() for ph, fn in WORKER_PHASES if ph in phases]
+            finally:
+                workflows_done.set()
             workflows_s = time.perf_counter() - t0
-            check(gpu_free.wait(1800), "(n)/(o): the card was not free within 1800 s")
+            check(gpu_free.wait(1800), f"{_tag(phases)}: the card was not free within 1800 s")
             for rows_of in thunks:
                 rows += rows_of()
         except SmokeFailure as e:
@@ -5047,41 +5480,54 @@ def no_worker(phases, gpu_free, out):
 
 
 def no_start(phases):
-    """``no_worker`` started in a spawned process: (process, event, queue)."""
+    """``no_worker`` of ``phases`` started in a spawned process: a namespace
+    of the process, its workflows-done and card-free events, its queue and
+    its phases' tag."""
     import multiprocessing
+    import types
 
     ctx = multiprocessing.get_context("spawn")
-    gpu_free, out = ctx.Event(), ctx.Queue()
-    proc = ctx.Process(target=no_worker, args=(phases, gpu_free, out), daemon=True)
-    proc.start()
-    BACKGROUND.append(lambda: proc.is_alive() and proc.terminate())
-    return proc, gpu_free, out
+    w = types.SimpleNamespace(workflows_done=ctx.Event(), gpu_free=ctx.Event(), out=ctx.Queue(),
+                              tag=_tag(phases))
+    w.proc = ctx.Process(target=no_worker, args=(phases, w.workflows_done, w.gpu_free, w.out), daemon=True)
+    w.proc.start()
+    BACKGROUND.append(lambda: w.proc.is_alive() and w.proc.terminate())
+    return w
 
 
-def no_finish(proc, gpu_free, out, t_start):
-    """Let the worker of (n) and (o) time its kernels on the free card, wait
-    for it, print its output and return its rows; its failure fails the
-    run."""
+def no_wait_workflows(w, t_start):
+    """Wait until worker ``w``'s workflows have ended, so that (p) and (r),
+    the two timing curves, have the card to themselves; log the wait."""
+    t0 = time.perf_counter()
+    while not w.workflows_done.wait(5):
+        check(w.proc.is_alive(), f"{w.tag}: the worker exited with code {w.proc.exitcode} and no result")
+    log(f"{w.tag} worker: waited {time.perf_counter() - t0:.1f} s for its workflows to end before (p) and (r); "
+        f"elapsed since start {time.perf_counter() - t_start:.1f} s")
+
+
+def no_finish(w, t_start):
+    """Let worker ``w`` time its kernels on the free card, wait for it,
+    print its output and return its rows; its failure fails the run."""
     import queue
 
     t0 = time.perf_counter()
-    gpu_free.set()
+    w.gpu_free.set()
     while True:
         try:
-            res = out.get(timeout=5)
+            res = w.out.get(timeout=5)
             break
         except queue.Empty:
-            check(proc.is_alive(), f"(n)/(o): the worker exited with code {proc.exitcode} and no result")
-    proc.join(60)
-    log(f"(n), (o) worker: its workflows {res['workflows_s'] or 0.0:.1f} s beside (l) and (m), "
-        f"{res['seconds']:.1f} s in all; waited {time.perf_counter() - t0:.1f} s for it after (m) "
+            check(w.proc.is_alive(), f"{w.tag}: the worker exited with code {w.proc.exitcode} and no result")
+    w.proc.join(60)
+    log(f"{w.tag} worker: its workflows {res['workflows_s'] or 0.0:.1f} s beside (l) and (m), "
+        f"{res['seconds']:.1f} s in all; waited {time.perf_counter() - t0:.1f} s for it after (p) and (r) "
         f"(its kernel checks); elapsed since start {time.perf_counter() - t_start:.1f} s. Its output:")
     print(res["log"], end="", flush=True)
-    check(res["failure"] is None, f"(n)/(o) in the worker: {res['failure']}")
+    check(res["failure"] is None, f"{w.tag} in the worker: {res['failure']}")
     return res["rows"]
 
 
-def main(phases="abcdefghijklmno"):
+def main(phases="abcdefghijklmnopqr"):
     try:
         import torch
     except ImportError:
@@ -5127,6 +5573,9 @@ def main(phases="abcdefghijklmno"):
         import cokriging_tpu_torch.experiments.million_point_workflow  # noqa: F401
         import cokriging_tpu_torch.experiments.modelling_comparison  # noqa: F401
         import cokriging_tpu_torch.experiments.full_record  # noqa: F401
+        import cokriging_tpu_torch.experiments.nll_scaling  # noqa: F401
+        import cokriging_tpu_torch.experiments.trivariate_demo  # noqa: F401
+        import cokriging_tpu_torch.experiments.vecchia_scaling  # noqa: F401
         import cokriging_tpu_torch.utils.export  # noqa: F401
         from cokriging_tpu_torch.__main__ import _parser  # noqa: F401
         from cokriging_tpu_torch import bench as B
@@ -5266,10 +5715,14 @@ def main(phases="abcdefghijklmno"):
         if cli_i is not None:
             phase_i_cli(cli_i)
         log(f"(h), (i) CLI done, elapsed since start {time.perf_counter() - t_start:.1f} s")
-        # (n) and (o), the two workflows, run in a worker beside (l) and (m)
-        # in a whole run, alone in this process otherwise
-        no_phases = "".join(p for p in "no" if p in phases)
-        no_pending = no_start(no_phases) if no_phases and ("l" in phases or "m" in phases) else None
+        # (n), (o) and (q), the launch-bound workflows, run in two workers
+        # (WORKER_GROUPS) beside (l) and (m) in a whole run, alone in this
+        # process otherwise
+        no_phases = "".join(p for p, _ in WORKER_PHASES if p in phases)
+        workers = []
+        if no_phases and ("l" in phases or "m" in phases):
+            groups = ("".join(p for p in group if p in no_phases) for group in WORKER_GROUPS)
+            workers = [no_start(group) for group in groups if group]
         # (l) the serving export, the simulation experiment, the entry points
         if "l" in phases:
             rows += phase_l()
@@ -5278,14 +5731,25 @@ def main(phases="abcdefghijklmno"):
         if "m" in phases:
             rows += phase_m()
             log(f"(m) elapsed since start {time.perf_counter() - t_start:.1f} s")
-        if no_pending is not None:
-            rows += no_finish(*no_pending, t_start)
-        else:
-            for ph, fn in (("n", phase_n), ("o", phase_o)):
+        # (p) and (r), the two timing curves, on the card alone: after the
+        # worker's workflows, before its kernel checks
+        if "p" in phases or "r" in phases:
+            for w in workers:
+                no_wait_workflows(w, t_start)
+        if "p" in phases:
+            rows += phase_p()
+            log(f"(p) elapsed since start {time.perf_counter() - t_start:.1f} s")
+        if "r" in phases:
+            rows += phase_r()
+            log(f"(r) elapsed since start {time.perf_counter() - t_start:.1f} s")
+        for w in workers:
+            rows += no_finish(w, t_start)
+        if not workers:
+            for ph, fn in WORKER_PHASES:
                 if ph in no_phases:
                     rows += fn()()
         if no_phases:
-            log(f"(n), (o) elapsed since start {time.perf_counter() - t_start:.1f} s")
+            log(f"({'), ('.join(no_phases)}) elapsed since start {time.perf_counter() - t_start:.1f} s")
     except SmokeFailure as e:
         print(f"FAILED: {e}", file=sys.stderr)
         return 1
@@ -5306,7 +5770,7 @@ def main(phases="abcdefghijklmno"):
                 f"{recorded if recorded is not None else 'none'} ms]{extra}, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}), launches {r['launches']}; ptxas {r['ptxas']}")
     print(json.dumps({"kernels": rows}))
-    if phases != "abcdefghijklmno":
+    if phases != "abcdefghijklmnopqr":
         print(f"partial run of phases {phases}: no result")
         return 0
     print(smi)

@@ -17,7 +17,12 @@ On the card both passes run in ``csrc/variogram.cu``
 launch per pass over all the variograms, as ``_all_pairs_program`` is one
 program over all of them; on the CPU in their blocked plain torch versions.
 The edges are computed on the host, with jnp.linspace's formula, so the two
-packages bin alike; the h ranges are read once, between the passes.
+packages bin alike, but for a pair exactly on an edge: there the edge's last
+ulp decides, and XLA's CPU code computes jnp.linspace in another order (it
+multiplies by 1 / (n - 1) and reassociates), so on a regular grid, where
+such ties are many, a few lattice offsets can fall one bin apart (on
+tests/test_trivariate.py's 31 x 31 grid, 12 bins to 0.5: 1,116 pairs of each
+marginal variogram, between bins 6 and 7). The h ranges are read once, between the passes.
 
 Conventions preserved exactly: strict-upper-triangle marginal pairs and the
 full cross rectangle (src/fields.py:196-203); values centered by their field

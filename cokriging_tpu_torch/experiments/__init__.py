@@ -2,9 +2,25 @@
 (``python -m cokriging_tpu_torch sim`` runs ``simulation_experiment``;
 ``million_point_workflow`` has no subcommand, as in the JAX package)."""
 
+import os
 import time
 
 import torch
+
+
+def resolve_sizes(device, card, cpu, sizes, env=None, parse=None):
+    """A workflow's sizes on ``device``: ``card`` on the card, ``cpu`` on
+    the CPU; over them each environment knob of ``env`` ({size: variable})
+    that is set, read by ``parse[size]`` (int by default); then ``sizes``,
+    whose keys must be the workflow's (TypeError otherwise)."""
+    unknown = set(sizes) - set(card)
+    if unknown:
+        raise TypeError(f"unknown sizes {sorted(unknown)}; the sizes are {sorted(card)}")
+    s = dict(card if device.type == "cuda" else cpu)
+    for k, var in (env or {}).items():
+        if var in os.environ:
+            s[k] = (parse or {}).get(k, int)(os.environ[var])
+    return {**s, **sizes}
 
 
 class Stages:

@@ -37,12 +37,11 @@ month count and keyword arguments of ``main`` override both. The manifest
 
 import argparse
 import importlib.util
-import os
 
 import numpy as np
 import torch
 
-from cokriging_tpu_torch.experiments import Stages
+from cokriging_tpu_torch.experiments import Stages, resolve_sizes
 
 N_MONTHS = 71  # 2014-09 .. 2020-07, the reference record's span
 RHO_BOUND = 0.95
@@ -81,14 +80,7 @@ def sizes_for(device, **sizes) -> dict:
     """The run's sizes on ``device`` (``CARD_SIZES`` on the card,
     ``CPU_SIZES`` on the CPU), ``FULL_RECORD_MONTHS`` over them, then
     ``sizes``."""
-    unknown = set(sizes) - set(CARD_SIZES)
-    if unknown:
-        raise TypeError(f"unknown sizes {sorted(unknown)}; the sizes are {sorted(CARD_SIZES)}")
-    s = dict(CARD_SIZES if device.type == "cuda" else CPU_SIZES)
-    for k, var in ENV.items():
-        if var in os.environ:
-            s[k] = int(os.environ[var])
-    return {**s, **sizes}
+    return resolve_sizes(device, CARD_SIZES, CPU_SIZES, sizes, ENV)
 
 
 def month_fields(df_xco2, df_sif, dtype, stamps=None):

@@ -39,12 +39,11 @@ arguments of ``main`` override both. The manifest
 """
 
 import argparse
-import os
 
 import numpy as np
 import torch
 
-from cokriging_tpu_torch.experiments import Stages
+from cokriging_tpu_torch.experiments import Stages, resolve_sizes
 
 # the reference simulation experiment's truth (cell 3) on a [0, 100]^2
 # domain; nonzero nuggets, so the fit must separate the scales
@@ -87,14 +86,7 @@ def sizes_for(device, **sizes) -> dict:
     """The run's sizes on ``device``: the script's (``CARD_SIZES`` on the
     card, ``CPU_SIZES`` on the CPU), its environment knobs over them, then
     ``sizes``."""
-    unknown = set(sizes) - set(CARD_SIZES)
-    if unknown:
-        raise TypeError(f"unknown sizes {sorted(unknown)}; the sizes are {sorted(CARD_SIZES)}")
-    s = dict(CARD_SIZES if device.type == "cuda" else CPU_SIZES)
-    for k, var in ENV.items():
-        if var in os.environ:
-            s[k] = int(os.environ[var])
-    return {**s, **sizes}
+    return resolve_sizes(device, CARD_SIZES, CPU_SIZES, sizes, ENV)
 
 
 def simulate(grid_n, n_per, dtype, device):

@@ -43,7 +43,7 @@ import importlib.util
 import numpy as np
 import torch
 
-from cokriging_tpu_torch.experiments import Stages
+from cokriging_tpu_torch.experiments import Stages, resolve_sizes
 
 TRUE_FLAT = [1.0, 0.8, 1.5, 1.5, 1.5, 700.0, 700.0, 700.0, 0.02, 0.02, -0.6]
 
@@ -257,10 +257,7 @@ def run_comparison(
 def sizes_for(device, **sizes) -> dict:
     """The run's sizes on ``device`` (``CARD_SIZES`` on the card,
     ``CPU_SIZES`` on the CPU), then ``sizes``."""
-    unknown = set(sizes) - set(CARD_SIZES)
-    if unknown:
-        raise TypeError(f"unknown sizes {sorted(unknown)}; the sizes are {sorted(CARD_SIZES)}")
-    return {**(CARD_SIZES if device.type == "cuda" else CPU_SIZES), **sizes}
+    return resolve_sizes(device, CARD_SIZES, CPU_SIZES, sizes)
 
 
 def _figures(out):

@@ -5,9 +5,11 @@ counters) is a counter-based hash, so its normals can be computed without
 JAX: the key of a seed is its two 32-bit halves, ``split`` hashes the
 counters 0 .. num - 1, and ``normal`` hashes the counters 0 .. n - 1 to
 64 bits, keeps 52 of them as a float in [1, 2), maps it to (-1, 1) and takes
-sqrt(2) erfinv with XLA's float64 ``erf_inv`` (Giles' polynomials). The bits,
-the uniforms and the keys are exact; the normals agree with
-``jax.random.normal`` within an ulp or two. The float32 form hashes the same
+sqrt(2) erfinv with XLA's float64 ``erf_inv`` (Giles' polynomials, their
+multiply-adds fused through long double as XLA's CPU code fuses them). The
+bits, the uniforms and the keys are exact; the normals agree with
+``jax.random.normal`` bit for bit but in about 4 of 10^4 entries, which are
+1 to 3 ulp apart. The float32 form hashes the same
 counters to 32 bits (the two words' xor), keeps 23 of them and runs XLA's
 float32 ``log1p`` and ``erf_inv`` (the polynomials of its CPU code, each
 multiply-add fused as its CPU compiler fuses them) operation by operation,
@@ -15,12 +17,14 @@ so its normals are ``jax.random.normal(key, (n,), float32)``'s bit for bit
 on an x86 host with FMA (within an ulp or two where XLA's arithmetic
 differs).
 
-``ReferenceDrawField`` is ``sim.BivariateRandomField`` with the JAX
+``ReferenceDrawField`` is ``sim.MultivariateRandomField`` (any p; the
+bivariate ``BivariateRandomField`` is its p = 2 alias) with the JAX
 simulator's draws (``cokriging_tpu/sim/cofield.py``): the cofield's
 normals from ``PRNGKey(seed)``, each process's measurement noise from a
 split of ``PRNGKey(sample seed + 1)``. With it the simulation experiment
-runs the JAX script's own realization (up to the two Cholesky factors'
-rounding), so its statistics compare with the JAX package's manifest.
+(p = 2) and the trivariate demo (p = 3) run the JAX scripts' own
+realizations (up to the two Cholesky factors' rounding), so their
+statistics compare with the JAX package's.
 
 ``ReferenceSpectralField`` is ``sim.SpectralRandomField`` with the JAX
 spectral simulator's draws (``cokriging_tpu/sim/spectral.py:182-207``): the
@@ -31,16 +35,26 @@ noise as ``ReferenceDrawField``'s.
 """
 
 import math
+import warnings
 
 import numpy as np
 import torch
 
-from cokriging_tpu_torch.sim.cofield import BivariateRandomField
+from cokriging_tpu_torch.sim.cofield import MultivariateRandomField
 from cokriging_tpu_torch.sim.spectral import SpectralRandomField
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = np.uint32(0x1BD11BDA)
 _CHUNK = 1 << 20  # counters hashed per numpy pass
+# ``_fma64`` needs a long double with at least x87's 64-bit significand
+# (IEEE quad's 113 do too); where long double is float64 the multiply-adds
+# round twice in float64, as they did before they were fused, and the float64
+# normals differ from jax.random.normal in about 7% of entries by 1-3 ulp
+_LONGDOUBLE_BITS = np.finfo(np.longdouble).nmant + 1
+if _LONGDOUBLE_BITS < 64:
+    warnings.warn(f"np.longdouble has a {_LONGDOUBLE_BITS}-bit significand here: the float64 reference "
+                  "normals are not fused as XLA fuses them (about 7% of entries 1-3 ulp off "
+                  "jax.random.normal's)", RuntimeWarning)
 _F32 = np.float32
 # XLA's log1p (CPU): log(1 + x); for |x| < sqrt(2) - 1, x - x^2/2 + x^3 P(x) / Q(x)
 # (Cephes' log1p). Its float32 log is Cephes' logf: the polynomial and ln 2 split.
@@ -162,23 +176,35 @@ def _erf_inv32(x):
         return np.where(np.abs(x) == _F32(1.0), x * _F32(np.inf), p * x)
 
 
+def _fma64(a, b, c):
+    """float64 a * b + c as XLA's CPU code fuses it: the product and sum in
+    long double (64-bit significand on x86; see ``_LONGDOUBLE_BITS``), then
+    one rounding to float64. The product of two doubles needs 106 bits, so
+    this rounds twice where a true fused multiply-add rounds once: the
+    normals differ from jax.random.normal's in about 3 of 10^4 entries, by 1
+    to 3 ulp (3 in about 1 of 10^5; tests/test_torch_trivariate.py's
+    ``test_float64_normals_ulps_at_scale`` counts them)."""
+    return (np.asarray(a, np.longdouble) * np.asarray(b, np.longdouble)
+            + np.asarray(c, np.longdouble)).astype(np.float64)
+
+
 def _log1p64(x):
-    """XLA's float64 ``log1p`` on the CPU (its log is the C library's)."""
+    """XLA's float64 ``log1p`` on the CPU (its log is the C library's), its
+    multiply-adds fused."""
     q = np.ones_like(x)
     for c in _LOG1P_Q:
-        q = q * x + c
+        q = _fma64(q, x, c)
     p = np.full_like(x, _LOG1P_P[0])
     for c in _LOG1P_P[1:]:
-        p = p * x + c
+        p = _fma64(p, x, c)
     x2 = x * x
-    small = x + (x2 * -0.5 + (x * x2) * (p / q))
+    small = x + _fma64(x2, -0.5, (x * x2) * (p / q))
     with np.errstate(invalid="ignore", divide="ignore"):
         return np.where(np.abs(x) < 0.41421356237309504880, small, np.log(1.0 + x))
 
 
 def _erf_inv64(x):
-    """XLA's float64 ``erf_inv`` (within an ulp or two: the multiply-adds
-    are not fused here)."""
+    """XLA's float64 ``erf_inv``, its multiply-adds fused (``_fma64``)."""
     w = -_log1p64(x * -x)
     a, b = w < 6.25, w < 16.0
     with np.errstate(invalid="ignore"):
@@ -186,11 +212,11 @@ def _erf_inv64(x):
     c625, c16, c_inf = _ERFINV64
     p = np.where(a, c625[0], np.where(b, c16[0], c_inf[0]))
     for i in range(1, 17):
-        p = np.where(a, c625[i], np.where(b, c16[i], c_inf[i])) + p * z
+        p = _fma64(p, z, np.where(a, c625[i], np.where(b, c16[i], c_inf[i])))
     for i in range(17, 19):
-        p = np.where(b, np.where(a, c625[i], c16[i]) + p * z, p)
+        p = np.where(b, _fma64(p, z, np.where(a, c625[i], c16[i])), p)
     for i in range(19, 23):
-        p = np.where(a, c625[i] + p * z, p)
+        p = np.where(a, _fma64(p, z, c625[i]), p)
     with np.errstate(invalid="ignore"):
         return np.where(np.abs(x) == 1.0, x * np.inf, p * x)
 
@@ -217,8 +243,10 @@ def normal(key, n: int, dtype=np.float64) -> np.ndarray:
     return out
 
 
-class ReferenceDrawField(BivariateRandomField):
-    """``BivariateRandomField`` whose normals are the JAX simulator's."""
+class ReferenceDrawField(MultivariateRandomField):
+    """``MultivariateRandomField`` (any p) whose normals are the JAX
+    simulator's: the cofield's p n from ``PRNGKey(seed)``, each process's
+    sample noise from its split of ``PRNGKey(sample seed + 1)``."""
 
     def _field_noise(self) -> torch.Tensor:
         z = normal(prng_key(self.seed), self.n_procs * self.grid.count)

@@ -78,3 +78,34 @@ def test_module_names_match_jax(module):
 
 def test_cli_entry_point_exists():
     assert callable(importlib.import_module("cokriging_tpu_torch.__main__").main)
+
+
+#: the port's ``experiments`` modules that follow the workflow layout
+#: (``main(device=None, stages=None, ...)``, ``CARD_SIZES`` / ``CPU_SIZES``
+#: with ``sizes_for``), each the counterpart of the JAX repo's
+#: ``examples/<module>.py``
+EXPERIMENTS = ["million_point_workflow", "modelling_comparison", "full_record", "trivariate_demo",
+               "vecchia_scaling", "nll_scaling"]
+
+
+@pytest.mark.parametrize("module", EXPERIMENTS)
+def test_experiment_surface(module):
+    """Each workflow module ports a JAX example script, exposes its sizes
+    per device, refuses an unknown size, and copies the JAX package's
+    manifest (with ``compare_manifest``) exactly where the JAX script
+    recorded one under ``results/``."""
+    import inspect
+    import types
+
+    assert (ROOT / "examples" / f"{module}.py").is_file()
+    port = importlib.import_module(f"cokriging_tpu_torch.experiments.{module}")
+    params = list(inspect.signature(port.main).parameters.values())
+    assert [p.name for p in params[:2]] == ["device", "stages"]
+    assert params[-1].kind is inspect.Parameter.VAR_KEYWORD
+    assert set(port.CARD_SIZES) == set(port.CPU_SIZES)
+    for kind in ("cuda", "cpu"):
+        assert set(port.sizes_for(types.SimpleNamespace(type=kind))) == set(port.CARD_SIZES)
+    with pytest.raises(TypeError):
+        port.sizes_for(types.SimpleNamespace(type="cpu"), no_such_size=1)
+    manifest = (ROOT / "results" / f"{module}.json").is_file()
+    assert hasattr(port, "JAX_MANIFEST") == manifest == callable(getattr(port, "compare_manifest", None))

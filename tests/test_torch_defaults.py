@@ -165,3 +165,18 @@ def test_workflow_defaults_match_the_jax_examples(module, name):
     differ = {k: (p.default, pp[k].default) for k, p in jp.items()
               if not _same(p.default, pp[k].default)}
     assert not differ, f"{module}.{name}: (JAX, port) defaults {differ}"
+
+
+@pytest.mark.parametrize("module", ["million_point_workflow", "modelling_comparison", "full_record",
+                                    "trivariate_demo", "vecchia_scaling", "nll_scaling"])
+def test_workflow_main_defaults(module):
+    """A workflow's ``main`` runs on the card unless asked for the CPU
+    (``device=None``, resolved by ``utils.config.resolve_device``), makes
+    its own ``Stages`` unless given one, and takes its sizes as keywords
+    over the script's."""
+    port = importlib.import_module(f"cokriging_tpu_torch.experiments.{module}")
+    params = inspect.signature(port.main).parameters
+    assert params["device"].default is None and params["stages"].default is None
+    assert list(params.values())[-1].kind is inspect.Parameter.VAR_KEYWORD
+    if module == "modelling_comparison":  # the JAX script's keywords ride along
+        assert params["timestamp"].default == "2019-05-01"

@@ -6,7 +6,8 @@ imports pandas and h5py only inside the functions that take or return
 frames or files; the device mesh (``parallel/``), the serving export, the
 entry points, the experiments' modules (the simulation experiment, the
 million-point workflow, the kriging-vs-cokriging comparison, the 71-month
-record, the JAX package's draws) and the benchmark
+record, the trivariate demo, the two scaling curves, the JAX package's
+draws) and the benchmark
 (``bench.py``) import neither, nor
 matplotlib (``plot/`` loads it, and nothing on the array path imports
 ``plot/``)."""
@@ -62,6 +63,9 @@ import cokriging_tpu_torch.experiments.simulation_experiment
 import cokriging_tpu_torch.experiments.million_point_workflow
 import cokriging_tpu_torch.experiments.modelling_comparison
 import cokriging_tpu_torch.experiments.full_record
+import cokriging_tpu_torch.experiments.trivariate_demo
+import cokriging_tpu_torch.experiments.vecchia_scaling
+import cokriging_tpu_torch.experiments.nll_scaling
 import cokriging_tpu_torch.experiments.reference_draws
 import cokriging_tpu_torch.bench
 from cokriging_tpu_torch.__main__ import _parser
@@ -71,7 +75,8 @@ prediction_coords()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "cokriging_tpu", "pandas",
                                     "matplotlib", "optax", "h5py", "examples",
-                                    "modelling_comparison", "full_record"))
+                                    "modelling_comparison", "full_record",
+                                    "trivariate_demo", "vecchia_scaling", "nll_scaling"))
 print(",".join(bad))
 """
 
@@ -92,4 +97,5 @@ def test_package_sources_never_import_jax_or_the_jax_package():
             if words[:1] in (["import"], ["from"]):
                 mod = words[1].split(".")[0]
                 assert mod not in ("jax", "jaxlib", "cokriging_tpu", "optax", "examples",
-                                   "modelling_comparison", "full_record"), (path, line)
+                                   "modelling_comparison", "full_record", "trivariate_demo",
+                                   "vecchia_scaling", "nll_scaling"), (path, line)
